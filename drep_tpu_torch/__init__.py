@@ -1,0 +1,18 @@
+"""drep_tpu_torch — dRep's compare/dereplicate pipeline on PyTorch and CUDA.
+
+The PyTorch port of the JAX package ``drep_tpu`` (which stays in the repo
+as the reference). Module names mirror ``drep_tpu/`` so each counterpart is
+easy to find. The hot kernels are CUDA C++ for Hopper (``csrc/``), built
+with nvcc at first use and loaded with ctypes (``ops/_build.py``):
+
+- ``csrc/mash_shared.cu`` — the union-bottom-s Mash shared count per pair
+  (the primary compare);
+- ``csrc/indicator.cu`` — the 0/1 int8 indicator rows the exact
+  containment matmul reads (the secondary compare).
+
+Every entry point runs on ``cuda`` unless the caller asks for
+``device="cpu"`` (CLI: ``--device cpu``); on the CPU each kernel wrapper
+runs its plain PyTorch version. Nothing here imports JAX or ``drep_tpu``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,270 @@
+"""Analyze stage: figures into `<wd>/figures/`.
+
+Reference parity: drep/d_analyze.py (SURVEY.md §2; reference mount empty)
+— primary dendrogram, per-primary-cluster secondary dendrograms, cluster
+scatterplots, scoring and winner plots. Uses matplotlib only (no seaborn
+dependency); every plot degrades gracefully when its inputs are absent
+(e.g. compare runs have no Sdb/Wdb).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+
+import numpy as np
+
+from drep_tpu_torch.utils.logger import get_logger
+from drep_tpu_torch.workdir import WorkDirectory
+
+try:  # matplotlib is expected in the image, but never required for compute
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import scipy.cluster.hierarchy as sch
+
+    HAVE_MPL = True
+except Exception:  # pragma: no cover
+    HAVE_MPL = False
+
+
+def _load_clustering(wd: WorkDirectory) -> dict | None:
+    path = os.path.join(wd.location, "data", "Clustering_files", "clustering.pickle")
+    if not os.path.exists(path):
+        return None
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _cluster_thresholds(wd: WorkDirectory) -> tuple[float | None, float | None]:
+    """(primary 1-P_ani, secondary 1-S_ani) from the stored cluster args."""
+    args = wd.get_arguments("cluster") or {}
+    p = args.get("P_ani")
+    s = args.get("S_ani")
+    return (
+        (1.0 - float(p)) if p is not None else None,
+        (1.0 - float(s)) if s is not None else None,
+    )
+
+
+def _fancy_dendrogram(ax, link, names, threshold: float | None, xlabel: str, title: str):
+    """Dendrogram with the clustering cutoff drawn in — the reference's
+    fancy_dendrogram contract (drep/d_analyze.py upstream; mount empty):
+    the reader must see WHERE the tree was cut, not just the tree.
+    `names=None` suppresses leaf labels (the large-N readable form)."""
+    sch.dendrogram(
+        link, labels=names, no_labels=names is None, orientation="left", ax=ax
+    )
+    if threshold is not None:
+        ax.axvline(threshold, color="tab:red", linestyle="--", linewidth=1)
+        ax.annotate(
+            f"cut = {threshold:.3g}",
+            xy=(threshold, 1.0),
+            xycoords=("data", "axes fraction"),
+            xytext=(3, -2),
+            textcoords="offset points",
+            color="tab:red",
+            fontsize=8,
+            va="top",
+        )
+    ax.set_xlabel(xlabel)
+    ax.set_title(title)
+
+
+# past this many leaves a labeled dendrogram is unreadable AND the figure
+# height (0.25 in/leaf) exceeds matplotlib's raster limits — draw the tree
+# shape at fixed height without labels instead
+DENDROGRAM_LABEL_MAX = 1_000
+# one PDF page per multi-genome cluster: at the 100k scale (~35k clusters)
+# an uncapped loop is hours of matplotlib and a multi-GB file — plot the
+# LARGEST clusters (the ones worth inspecting) and say what was skipped
+SECONDARY_PAGES_MAX = 300
+
+
+def plot_primary_dendrogram(wd: WorkDirectory) -> str | None:
+    cf = _load_clustering(wd)
+    if cf is None or cf.get("primary_linkage") is None or len(cf["primary_linkage"]) == 0:
+        return None
+    out = os.path.join(wd.get_loc("figures"), "Primary_clustering_dendrogram.pdf")
+    threshold, _ = _cluster_thresholds(wd)
+    names = cf["primary_names"]
+    if len(names) > DENDROGRAM_LABEL_MAX:
+        fig, ax = plt.subplots(figsize=(10, 8))
+        _fancy_dendrogram(
+            ax, cf["primary_linkage"], None, threshold,
+            "Mash distance",
+            f"Primary clustering (MinHash, {len(names)} genomes — labels omitted)",
+        )
+    else:
+        fig, ax = plt.subplots(figsize=(10, max(4, len(names) * 0.25)))
+        _fancy_dendrogram(
+            ax, cf["primary_linkage"], names, threshold,
+            "Mash distance", "Primary clustering (MinHash)",
+        )
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+    return out
+
+
+def plot_secondary_dendrograms(wd: WorkDirectory) -> str | None:
+    cf = _load_clustering(wd)
+    if cf is None or not cf.get("secondary"):
+        return None
+    out = os.path.join(wd.get_loc("figures"), "Secondary_clustering_dendrograms.pdf")
+    from matplotlib.backends.backend_pdf import PdfPages
+
+    _, threshold = _cluster_thresholds(wd)
+    entries = [
+        (pc, e) for pc, e in sorted(cf["secondary"].items())
+        if e["linkage"] is not None and len(e["linkage"])
+    ]
+    if len(entries) > SECONDARY_PAGES_MAX:
+        entries.sort(key=lambda t: -len(t[1]["names"]))
+        get_logger().warning(
+            "secondary dendrograms: plotting the %d largest of %d clusters "
+            "(one PDF page each — an uncapped loop at this scale is hours of "
+            "plotting); the full clustering is in Cdb/Ndb",
+            SECONDARY_PAGES_MAX, len(entries),
+        )
+        entries = sorted(entries[:SECONDARY_PAGES_MAX])
+    with PdfPages(out) as pdf:
+        for pc, entry in entries:
+            link, names = entry["linkage"], entry["names"]
+            if len(names) > DENDROGRAM_LABEL_MAX:
+                # same large-N treatment as the primary plot: a labeled
+                # multi-thousand-leaf page is unreadable and its 0.3 in/leaf
+                # height blows matplotlib's raster limits
+                fig, ax = plt.subplots(figsize=(8, 6))
+                _fancy_dendrogram(
+                    ax, link, None, threshold,
+                    "1 - ANI",
+                    f"Secondary clustering, primary cluster {pc} "
+                    f"({len(names)} genomes — labels omitted)",
+                )
+            else:
+                fig, ax = plt.subplots(figsize=(8, max(3, len(names) * 0.3)))
+                _fancy_dendrogram(
+                    ax, link, names, threshold,
+                    "1 - ANI", f"Secondary clustering, primary cluster {pc}",
+                )
+            fig.tight_layout()
+            pdf.savefig(fig)
+            plt.close(fig)
+    return out
+
+
+def plot_cluster_scatter(wd: WorkDirectory) -> str | None:
+    if not (wd.hasDb("Cdb") and wd.hasDb("genomeInformation")):
+        return None
+    cdb, stats = wd.get_db("Cdb"), wd.get_db("genomeInformation")
+    df = cdb.merge(stats, on="genome")
+    out = os.path.join(wd.get_loc("figures"), "Clustering_scatterplots.pdf")
+    fig, ax = plt.subplots(figsize=(8, 6))
+    clusters = df["primary_cluster"].astype(int)
+    sc = ax.scatter(df["length"], df["N50"], c=clusters, cmap="tab20", s=30)
+    ax.set_xscale("log")
+    ax.set_yscale("log")
+    ax.set_xlabel("genome length (bp)")
+    ax.set_ylabel("N50")
+    ax.set_title("Genomes by primary cluster")
+    fig.colorbar(sc, label="primary cluster")
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+    return out
+
+
+# past this many clusters the per-cluster score columns are unreadable AND
+# the per-cluster mask loop is O(clusters * genomes) — tens of minutes of
+# pandas at the 100k-dereplicate scale; summarize instead
+SCORING_CLUSTERS_MAX = 500
+
+
+def plot_scoring(wd: WorkDirectory) -> str | None:
+    if not wd.hasDb("Sdb"):
+        return None
+    sdb = wd.get_db("Sdb")
+    cdb = wd.get_db("Cdb")
+    wdb = wd.get_db("Wdb") if wd.hasDb("Wdb") else None
+    df = sdb.merge(cdb[["genome", "secondary_cluster"]], on="genome")
+    out = os.path.join(wd.get_loc("figures"), "Cluster_scoring.pdf")
+    order = sorted(df["secondary_cluster"].unique())
+    if len(order) > SCORING_CLUSTERS_MAX:
+        get_logger().warning(
+            "cluster scoring: %d clusters — drawing the score distribution "
+            "instead of per-cluster columns (the full scores are in Sdb/Wdb)",
+            len(order),
+        )
+        fig, ax = plt.subplots(figsize=(10, 5))
+        # one shared edge set: independently-binned overlays are not
+        # visually comparable (winner bars would be ~5x narrower when
+        # winner scores cluster in the top of the range)
+        edges = np.histogram_bin_edges(df["score"], bins=60)
+        ax.hist(df["score"], bins=edges, color="tab:blue", alpha=0.7, label="all genomes")
+        if wdb is not None and len(wdb):
+            ax.hist(wdb["score"], bins=edges, color="tab:red", alpha=0.6, label="winners")
+        ax.set_xlabel("score")
+        ax.set_ylabel("genomes")
+        ax.legend()
+        ax.set_title(f"Score distribution over {len(order)} secondary clusters")
+    else:
+        fig, ax = plt.subplots(figsize=(10, 5))
+        # one groupby pass, not a per-cluster mask scan over the full frame
+        pos = {cl: i for i, cl in enumerate(order)}
+        for cl, grp in df.groupby("secondary_cluster"):
+            i = pos[cl]
+            ax.scatter([i] * len(grp), grp["score"], s=20, color="tab:blue", alpha=0.6)
+        if wdb is not None and len(wdb):
+            wx = wdb["cluster"].map(pos)
+            ok = wx.notna()
+            ax.scatter(wx[ok], wdb.loc[ok, "score"], s=60, color="tab:red", marker="*")
+        ax.set_xticks(range(len(order)))
+        ax.set_xticklabels(order, rotation=90, fontsize=6)
+        ax.set_ylabel("score")
+        ax.set_title("Scores per secondary cluster (winner starred)")
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+    return out
+
+
+def plot_winners(wd: WorkDirectory) -> str | None:
+    if not (wd.hasDb("Wdb") and wd.hasDb("genomeInformation")):
+        return None
+    wdb = wd.get_db("Wdb").merge(wd.get_db("genomeInformation"), on="genome")
+    out = os.path.join(wd.get_loc("figures"), "Winning_genomes.pdf")
+    fig, axes = plt.subplots(1, 2, figsize=(10, 4))
+    axes[0].hist(wdb["length"], bins=20)
+    axes[0].set_xlabel("winner genome length")
+    axes[1].hist(np.log10(wdb["N50"].clip(lower=1)), bins=20)
+    axes[1].set_xlabel("log10 N50")
+    fig.suptitle("Winning genomes")
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+    return out
+
+
+def plot_all(wd: WorkDirectory) -> list[str]:
+    if not HAVE_MPL:  # pragma: no cover
+        get_logger().warning("matplotlib unavailable — skipping figures")
+        return []
+    made = []
+    for fn in (
+        plot_primary_dendrogram,
+        plot_secondary_dendrograms,
+        plot_cluster_scatter,
+        plot_scoring,
+        plot_winners,
+    ):
+        try:
+            out = fn(wd)
+        except Exception as e:  # plots must never kill a pipeline run
+            get_logger().warning("plotting %s failed: %s", fn.__name__, e)
+            out = None
+        if out:
+            made.append(out)
+    get_logger().info("analyze: wrote %d figures", len(made))
+    return made

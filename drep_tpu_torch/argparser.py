@@ -1,0 +1,114 @@
+"""CLI argument tree: `compare` and `dereplicate`.
+
+Counterpart of drep_tpu/argparser.py. The flag groups and names are the
+JAX package's (FILTERING, GENOME COMPARISON, CLUSTERING, SCORING,
+WARNINGS), with the same defaults, so an argv for the default engines runs
+unchanged; EXECUTION adds --device. Flags of paths not ported yet
+(streaming, multiround, greedy, tertiary, LSH pruning, --mesh_shape > 1)
+parse and then raise NotImplementedError in the cluster stage. The TPU
+execution knobs (ring, fault tolerance, durable-I/O, event tracing,
+profiling) and --run_tax are not carried over.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from drep_tpu_torch import __version__
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="drep-tpu-torch",
+        description="Genome dereplication and comparison on PyTorch/CUDA (dRep-compatible pipeline)",
+    )
+    parser.add_argument("--version", action="version", version=f"drep-tpu-torch {__version__}")
+    sub = parser.add_subparsers(dest="operation", required=True)
+
+    def add_common(p: argparse.ArgumentParser, with_filter: bool, with_scoring: bool):
+        p.add_argument("work_directory", help="directory for tables, figures, logs (the resume checkpoint)")
+        p.add_argument("-g", "--genomes", nargs="*", default=None, help="genome FASTA files")
+        p.add_argument("-p", "--processes", type=int, default=6)
+        p.add_argument("-d", "--debug", action="store_true")
+
+        comp = p.add_argument_group("GENOME COMPARISON")
+        comp.add_argument("--primary_algorithm", default="jax_mash",
+                          help="primary (coarse) comparison engine [jax_mash]")
+        comp.add_argument("--primary_estimator", default="auto",
+                          choices=["auto", "sort", "matmul"],
+                          help="jax_mash Jaccard estimator: sort=union-bottom-s "
+                               "(reference Mash; auto resolves to it); matmul is not ported yet")
+        comp.add_argument("--S_algorithm", default="jax_ani",
+                          help="secondary (ANI) comparison engine [jax_ani]")
+        comp.add_argument("-ms", "--MASH_sketch", type=int, default=1000)
+        comp.add_argument("--scale", type=int, default=200,
+                          help="FracMinHash scale for jax_ani (smaller = more precise)")
+        comp.add_argument("-k", "--kmer_size", type=int, default=21)
+        comp.add_argument("--hash", default="splitmix64",
+                          choices=["splitmix64", "murmur3"],
+                          help="k-mer hash: splitmix64 (fastest) or murmur3 "
+                               "(Mash-compatible for k>16)")
+        comp.add_argument("--SkipMash", action="store_true")
+        comp.add_argument("--SkipSecondary", action="store_true")
+        comp.add_argument("-nc", "--cov_thresh", type=float, default=0.1)
+
+        clus = p.add_argument_group("CLUSTERING")
+        clus.add_argument("-pa", "--P_ani", type=float, default=0.9)
+        clus.add_argument("-sa", "--S_ani", type=float, default=0.95)
+        clus.add_argument("--clusterAlg", default="average",
+                          choices=["average", "single", "complete", "weighted", "ward"])
+        clus.add_argument("--multiround_primary_clustering", action="store_true")
+        clus.add_argument("--primary_chunksize", type=int, default=5000)
+        clus.add_argument("--greedy_secondary_clustering", action="store_true")
+        clus.add_argument("--run_tertiary_clustering", action="store_true")
+        clus.add_argument("--streaming_primary", action="store_true")
+        clus.add_argument("--streaming_block", type=int, default=1024)
+        clus.add_argument("--streaming_threshold", type=int, default=30_000,
+                          help="genome count at which the JAX package streams the primary "
+                               "stage; the port raises there until streaming is ported")
+        clus.add_argument("--primary_prune", default="off", choices=["off", "lsh"])
+
+        warn = p.add_argument_group("WARNINGS")
+        warn.add_argument("--warn_dist", type=float, default=0.25)
+        warn.add_argument("--warn_sim", type=float, default=0.98)
+        warn.add_argument("--warn_aln", type=float, default=0.25)
+
+        ex = p.add_argument_group("EXECUTION")
+        ex.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                        help="where the kernels run (default cuda; cpu runs their plain "
+                             "PyTorch versions and must be asked for)")
+        ex.add_argument("--mesh_shape", type=int, default=None,
+                        help="devices to shard over (only 1 is ported)")
+        ex.add_argument("--skip_plots", action="store_true")
+
+        if with_filter:
+            filt = p.add_argument_group("FILTERING")
+            filt.add_argument("-l", "--length", type=int, default=50_000)
+            filt.add_argument("-comp", "--completeness", type=float, default=75.0)
+            filt.add_argument("-con", "--contamination", type=float, default=25.0)
+            filt.add_argument("--ignoreGenomeQuality", action="store_true")
+            filt.add_argument("--genomeInfo", default=None,
+                              help="CSV with genome,completeness,contamination")
+            filt.add_argument("--checkM_method", default="lineage_wf",
+                              choices=["lineage_wf", "taxonomy_wf"])
+
+        if with_scoring:
+            sc = p.add_argument_group("SCORING")
+            sc.add_argument("-comW", "--completeness_weight", type=float, default=1.0)
+            sc.add_argument("-conW", "--contamination_weight", type=float, default=5.0)
+            sc.add_argument("-strW", "--strain_heterogeneity_weight", type=float, default=1.0)
+            sc.add_argument("-N50W", "--N50_weight", type=float, default=0.5)
+            sc.add_argument("-sizeW", "--size_weight", type=float, default=0.0)
+            sc.add_argument("-centW", "--centrality_weight", type=float, default=1.0)
+            sc.add_argument("--extra_weight_table", default=None)
+
+    cmp_p = sub.add_parser("compare", help="cluster genomes without dereplicating")
+    add_common(cmp_p, with_filter=False, with_scoring=False)
+
+    der_p = sub.add_parser("dereplicate", help="filter, cluster, and pick winner genomes")
+    add_common(der_p, with_filter=True, with_scoring=True)
+    return parser
+
+
+def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
+    return build_parser().parse_args(argv)

@@ -1,0 +1,354 @@
+"""Cluster-stage orchestration: Bdb -> Mdb -> Ndb -> Cdb.
+
+Counterpart of drep_tpu/cluster/controller.py, trimmed to the dense
+single-device path:
+
+- resume: if the workdir already holds Cdb and the stored cluster
+  arguments match, skip recompute entirely;
+- PRIMARY: all-vs-all Mash distance (ops/mash.py kernel) -> hierarchical
+  clustering at 1-P_ani -> integer primary clusters (Mdb: dense for small
+  N, thresholded beyond `mdb_dense_limit`);
+- SECONDARY: per primary cluster with >1 member, containment ANI through
+  the one-shot indicator matmul (small clusters batched into one call) ->
+  coverage-gated hierarchical clustering at 1-S_ani -> "P_S" ids (Ndb);
+- Cdb assembly and ``data/Clustering_files/clustering.pickle``.
+
+The streaming primary (and its auto-switch at --streaming_threshold),
+multiround, greedy and tertiary clustering, LSH pruning and multi-device
+meshes raise NotImplementedError naming their ROADMAP item. The JAX
+package's per-cluster secondary checkpoints and device-failure retries are
+not ported either: a failure stops the run, and a rerun starts the stage
+over.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+from typing import Any
+
+import numpy as np
+import pandas as pd
+
+from drep_tpu_torch import schemas
+from drep_tpu_torch.cluster import dispatch, engines, pairs
+from drep_tpu_torch.device import resolve_device
+from drep_tpu_torch.ingest import DEFAULT_SCALE, DEFAULT_SKETCH_SIZE, GenomeSketches, sketch_genomes
+from drep_tpu_torch.ops.kmers import DEFAULT_K
+from drep_tpu_torch.ops.linkage import cluster_hierarchical, single_linkage_device
+from drep_tpu_torch.utils.durableio import atomic_write
+from drep_tpu_torch.utils.logger import get_logger
+from drep_tpu_torch.workdir import WorkDirectory
+
+CLUSTER_DEFAULTS: dict[str, Any] = {
+    "P_ani": 0.9,
+    "S_ani": 0.95,
+    "cov_thresh": 0.1,
+    "clusterAlg": "average",
+    "primary_algorithm": "jax_mash",
+    "S_algorithm": "jax_ani",
+    "MASH_sketch": DEFAULT_SKETCH_SIZE,
+    "scale": DEFAULT_SCALE,
+    "kmer_size": DEFAULT_K,
+    "hash": "splitmix64",
+    "processes": 1,
+    "SkipMash": False,
+    "SkipSecondary": False,
+    "greedy_secondary_clustering": False,
+    "run_tertiary_clustering": False,
+    "multiround_primary_clustering": False,
+    "primary_chunksize": 5000,
+    "mdb_dense_limit": 2000,
+    "mesh_shape": None,
+    "primary_estimator": "auto",
+    "streaming_primary": False,
+    "streaming_block": 1024,
+    "streaming_threshold": 30_000,
+    "primary_prune": "off",
+}
+
+_RESUME_KEYS = [
+    "P_ani",
+    "S_ani",
+    "cov_thresh",
+    "clusterAlg",
+    "primary_algorithm",
+    "primary_estimator",
+    "S_algorithm",
+    "MASH_sketch",
+    "scale",
+    "kmer_size",
+    "hash",
+    "SkipMash",
+    "SkipSecondary",
+    "greedy_secondary_clustering",
+    "run_tertiary_clustering",
+    "streaming_primary",
+    "streaming_threshold",
+    "warn_dist",
+    "genomes",
+]
+
+# the ROADMAP items that own each path this controller does not run yet
+_NOT_PORTED = {
+    "streaming_primary": "the streaming primary (ROADMAP.md queue 1, item 8)",
+    "multiround_primary_clustering": "multiround primary clustering (ROADMAP.md queue 1, item 9)",
+    "greedy_secondary_clustering": "greedy secondary clustering (ROADMAP.md queue 1, item 9)",
+    "run_tertiary_clustering": "tertiary clustering (ROADMAP.md queue 1, item 9)",
+    "primary_prune": "LSH candidate pruning (ROADMAP.md queue 1, item 8)",
+    "mesh_shape": "multi-device meshes (ROADMAP.md queue 1, item 12)",
+}
+
+# batching of small clusters: one device call replaces hundreds of
+# latency-bound round trips (most primary clusters are tiny at scale)
+SMALL_CLUSTER_MAX = 32
+BATCH_ROWS_MAX = 512
+
+# wall-clock seconds of each stage of the last d_cluster_wrapper run
+STAGE_SECONDS: dict[str, float] = {}
+
+
+def _fill_defaults(kwargs: dict[str, Any]) -> dict[str, Any]:
+    out = dict(CLUSTER_DEFAULTS)
+    out.update({k: v for k, v in kwargs.items() if v is not None})
+    return out
+
+
+def _refuse_unported(kw: dict[str, Any], n: int) -> None:
+    """Raise for every requested path this port does not run yet."""
+    for key in ("streaming_primary", "multiround_primary_clustering",
+                "greedy_secondary_clustering", "run_tertiary_clustering"):
+        if kw[key]:
+            raise NotImplementedError(f"--{key}: {_NOT_PORTED[key]} is not ported yet")
+    if kw["primary_prune"] != "off":
+        raise NotImplementedError(f"--primary_prune {kw['primary_prune']}: {_NOT_PORTED['primary_prune']} is not ported yet")
+    if kw["mesh_shape"] is not None and int(kw["mesh_shape"]) > 1:
+        raise NotImplementedError(f"--mesh_shape {kw['mesh_shape']}: {_NOT_PORTED['mesh_shape']} is not ported yet")
+    if kw["primary_algorithm"] == "jax_mash" and not kw["SkipMash"] and n >= kw["streaming_threshold"]:
+        raise NotImplementedError(
+            f"{n} genomes >= --streaming_threshold {kw['streaming_threshold']}: the JAX package "
+            f"switches to {_NOT_PORTED['streaming_primary']}, which is not ported yet"
+        )
+
+
+def _warn_dist(kw: dict[str, Any]) -> float:
+    """warn_dist for sparse-Mdb retention — the evaluate stage's default,
+    honoring an explicit 0.0 (warnings disabled)."""
+    from drep_tpu_torch.evaluate import EVALUATE_DEFAULTS
+
+    v = kw.get("warn_dist")
+    return EVALUATE_DEFAULTS["warn_dist"] if v is None else float(v)
+
+
+def _mdb_from_dist(
+    dist: np.ndarray, names: list[str], dense_limit: int, p_ani: float, warn_dist: float
+) -> pd.DataFrame:
+    """Pair table from the distance matrix. Dense (all N^2 ordered pairs,
+    reference-style) for small N; thresholded sparse beyond `dense_limit`,
+    keeping pairs up to max(1-P_ani, warn_dist) so the evaluate stage still
+    sees near-threshold winner pairs."""
+    n = len(names)
+    if n <= dense_limit:
+        ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        ii, jj = ii.ravel(), jj.ravel()
+    else:
+        keep = dist <= max(1.0 - p_ani, warn_dist)
+        np.fill_diagonal(keep, True)
+        ii, jj = np.nonzero(keep)
+    d = dist[ii, jj]
+    arr = np.array(names)
+    return pd.DataFrame(
+        {"genome1": arr[ii], "genome2": arr[jj], "dist": d, "similarity": 1.0 - d}
+    )
+
+
+def _primary_clusters(
+    gs: GenomeSketches, bdb: pd.DataFrame, kw: dict[str, Any]
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Returns (labels 1..C, dist matrix, linkage)."""
+    n = len(gs.names)
+    if kw["SkipMash"] or n == 1:
+        # reference --SkipMash: everything lands in one primary cluster
+        return np.ones(n, dtype=np.int64), np.zeros((n, n), np.float32), np.empty((0, 4))
+    engine = dispatch.get_primary(kw["primary_algorithm"])
+    t0 = time.perf_counter()
+    dist, _sim = engine(
+        gs, bdb=bdb, device=kw["device"], primary_estimator=kw["primary_estimator"]
+    )
+    t1 = time.perf_counter()
+    cutoff = 1.0 - kw["P_ani"]
+    if kw["clusterAlg"] == "single" and n > 64:
+        labels = single_linkage_device(dist, cutoff, kw["device"])
+        link = np.empty((0, 4))
+    else:
+        labels, link = cluster_hierarchical(dist, cutoff, method=kw["clusterAlg"])
+    STAGE_SECONDS.update(primary_compare=t1 - t0, primary_linkage=time.perf_counter() - t1)
+    return labels, dist, link
+
+
+def _secondary_postprocess(
+    gs: GenomeSketches,
+    indices: list[int],
+    pc: int,
+    kw: dict[str, Any],
+    ani: np.ndarray,
+    cov: np.ndarray,
+) -> tuple[pd.DataFrame, np.ndarray, np.ndarray]:
+    """(ani, cov) for one primary cluster -> (Ndb rows, labels 1.., linkage)."""
+    names = [gs.names[i] for i in indices]
+    ndb = pairs.directional_ndb(names, ani, cov, pc)
+    dist = 1.0 - pairs.gated_symmetric_ani(ani, cov, kw["cov_thresh"])
+    labels, link = cluster_hierarchical(dist, 1.0 - kw["S_ani"], method=kw["clusterAlg"])
+    return ndb, labels, link
+
+
+def _secondary_clusters(
+    gs: GenomeSketches, bdb: pd.DataFrame, primary: np.ndarray, kw: dict[str, Any]
+) -> tuple[dict[int, tuple[pd.DataFrame, np.ndarray, np.ndarray]], list[tuple[int, list[int]]], dict[str, str]]:
+    """Secondary stage over every primary cluster: (results by primary
+    cluster, multi-member clusters in order, names of singleton clusters)."""
+    n_primary = int(primary.max()) if len(primary) else 0
+    members: dict[int, list[int]] = {}
+    for i, pc in enumerate(primary):
+        members.setdefault(int(pc), []).append(i)
+    singles: dict[str, str] = {}
+    multi = []
+    for pc in range(1, n_primary + 1):
+        indices = members.get(pc, [])
+        if len(indices) == 1:
+            singles[gs.names[indices[0]]] = f"{pc}_1"
+        elif indices:
+            multi.append((pc, indices))
+
+    batched_fn = dispatch.get_secondary_batched(kw["S_algorithm"])
+    results: dict[int, tuple[pd.DataFrame, np.ndarray, np.ndarray]] = {}
+    small: list[tuple[int, list[int]]] = []
+    for pc, indices in multi:
+        if batched_fn is not None and len(indices) <= SMALL_CLUSTER_MAX:
+            small.append((pc, indices))  # one device call for many
+        else:
+            engine = dispatch.get_secondary(kw["S_algorithm"])
+            ani, cov = engine(gs, indices, bdb=bdb, device=kw["device"], processes=kw["processes"])
+            results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+
+    # flush the small clusters in row-bounded batches
+    batches: list[list[tuple[int, list[int]]]] = []
+    rows = BATCH_ROWS_MAX + 1  # force a new batch on the first item
+    for item in small:
+        if rows + len(item[1]) > BATCH_ROWS_MAX:
+            batches.append([])
+            rows = 0
+        batches[-1].append(item)
+        rows += len(item[1])
+    for batch in batches:
+        outs = batched_fn(gs, [ix for _, ix in batch], device=kw["device"])
+        for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
+            results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+    return results, multi, singles
+
+
+def d_cluster_wrapper(
+    wd: WorkDirectory, bdb: pd.DataFrame, device=None, **kwargs
+) -> pd.DataFrame:
+    """Run (or resume) the full clustering stage on `device` (default
+    cuda; a CUDA request without CUDA raises); returns Cdb."""
+    logger = get_logger()
+    kw = _fill_defaults(kwargs)
+    _refuse_unported(kw, len(bdb))
+    kw["device"] = resolve_device(device)
+    snapshot = {k: kw.get(k) for k in _RESUME_KEYS if k != "genomes"}
+    # normalize: CLI passes 0.25 explicitly, library callers omit it
+    snapshot["warn_dist"] = _warn_dist(kw)
+    snapshot["genomes"] = sorted(bdb["genome"])
+    snapshot["primary_estimator_resolved"] = (
+        "skipmash" if kw["SkipMash"] or len(bdb) == 1
+        else engines.resolve_primary_estimator(kw["primary_estimator"])
+    )
+    match_keys = [k for k in snapshot if k != "primary_estimator_resolved"]
+    if wd.hasDb("Cdb") and wd.arguments_match("cluster", snapshot, keys=match_keys):
+        logger.info("resuming: Cdb present with matching cluster arguments — skipping recompute")
+        return wd.get_db("Cdb")
+
+    STAGE_SECONDS.clear()
+    t0 = time.perf_counter()
+    gs = sketch_genomes(
+        bdb,
+        k=kw["kmer_size"],
+        sketch_size=kw["MASH_sketch"],
+        scale=kw["scale"],
+        processes=kw["processes"],
+        wd=wd,
+        hash_name=kw["hash"],
+    )
+    n = len(gs.names)
+    logger.info(
+        "clustering %d genomes on %s (primary=%s, secondary=%s)",
+        n, kw["device"], kw["primary_algorithm"], kw["S_algorithm"],
+    )
+    t1 = time.perf_counter()
+    primary, pdist, plink = _primary_clusters(gs, bdb, kw)
+    t2 = time.perf_counter()
+    n_primary = int(primary.max()) if n else 0
+    logger.info("primary clustering: %d clusters from %d genomes", n_primary, n)
+    mdb = _mdb_from_dist(pdist, gs.names, kw["mdb_dense_limit"], kw["P_ani"], warn_dist=_warn_dist(kw))
+    wd.store_db(schemas.validate(mdb, "Mdb"), "Mdb")
+
+    clustering_files: dict[str, Any] = {
+        "primary_linkage": plink,
+        "primary_names": gs.names,
+        "primary_dist": pdist if n <= kw["mdb_dense_limit"] else None,
+        "secondary": {},
+    }
+
+    ndb_parts: list[pd.DataFrame] = []
+    secondary_names: dict[str, str] = {}
+    t3 = time.perf_counter()
+    if kw["SkipSecondary"]:
+        for i, g in enumerate(gs.names):
+            secondary_names[g] = f"{primary[i]}_0"
+    else:
+        results, multi, singles = _secondary_clusters(gs, bdb, primary, kw)
+        secondary_names.update(singles)
+        for pc, indices in multi:  # assemble in cluster order (deterministic)
+            ndb, labels, link = results[pc]
+            ndb_parts.append(ndb)
+            clustering_files["secondary"][pc] = {
+                "linkage": link,
+                "names": [gs.names[i] for i in indices],
+            }
+            for idx, lab in zip(indices, labels):
+                secondary_names[gs.names[idx]] = f"{pc}_{lab}"
+    t4 = time.perf_counter()
+
+    ndb = pd.concat(ndb_parts, ignore_index=True) if ndb_parts else schemas.empty("Ndb")
+    cdb = pd.DataFrame(
+        {
+            "genome": gs.names,
+            "secondary_cluster": [secondary_names[g] for g in gs.names],
+            "threshold": 1.0 - kw["S_ani"],
+            "cluster_method": kw["clusterAlg"],
+            "comparison_algorithm": kw["S_algorithm"],
+            "primary_cluster": primary,
+        }
+    )
+    wd.store_db(schemas.validate(ndb, "Ndb"), "Ndb")
+    wd.store_db(schemas.validate(cdb, "Cdb"), "Cdb")
+    cf_dir = wd.get_dir(os.path.join("data", "Clustering_files"))
+
+    def _dump(tmp: str) -> None:
+        with open(tmp, "wb") as f:
+            pickle.dump(clustering_files, f)
+
+    atomic_write(os.path.join(cf_dir, "clustering.pickle"), _dump)
+    wd.store_arguments("cluster", snapshot)
+    STAGE_SECONDS.update(
+        ingest_or_cache=t1 - t0, primary=t2 - t1, mdb=t3 - t2, secondary=t4 - t3,
+        assembly_io=time.perf_counter() - t4,
+    )
+    logger.info(
+        "clustering done: %d primary, %d secondary clusters",
+        n_primary,
+        cdb["secondary_cluster"].nunique(),
+    )
+    return cdb

@@ -1,0 +1,116 @@
+"""Evaluate stage: warn about near-threshold cluster boundaries.
+
+Reference parity: drep/d_evaluate.py (SURVEY.md §2; reference mount empty)
+— defaults --warn_dist 0.25, --warn_sim 0.98, --warn_aln 0.25. Emits
+`<wd>/log/warnings.txt` flagging (a) winner pairs whose primary (Mash)
+distance is suspiciously close, (b) winner pairs in different secondary
+clusters with high ANI, (c) secondary comparisons with low alignment
+coverage — the clusters that might be over- or under-split.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import pandas as pd
+
+from drep_tpu_torch.utils.logger import get_logger
+from drep_tpu_torch.workdir import WorkDirectory
+
+EVALUATE_DEFAULTS: dict[str, Any] = {
+    "warn_dist": 0.25,
+    "warn_sim": 0.98,
+    "warn_aln": 0.25,
+}
+
+
+def evaluate_warnings(
+    mdb: pd.DataFrame | None,
+    ndb: pd.DataFrame | None,
+    cdb: pd.DataFrame,
+    wdb: pd.DataFrame,
+    **kwargs,
+) -> list[str]:
+    kw = dict(EVALUATE_DEFAULTS)
+    kw.update({k: v for k, v in kwargs.items() if v is not None and k in EVALUATE_DEFAULTS})
+    warnings: list[str] = []
+    winners = set(wdb["genome"])
+    cluster_of = cdb.set_index("genome")["secondary_cluster"]
+
+    # every filter below is a vectorized mask; only the (few) surviving rows
+    # are string-formatted. The itertuples loops this replaces walked the
+    # FULL sparse Mdb/Ndb — millions of Python iterations at 100k genomes.
+    if mdb is not None and len(mdb):
+        close = mdb[
+            (mdb["genome1"] < mdb["genome2"])
+            & mdb["genome1"].isin(winners)
+            & mdb["genome2"].isin(winners)
+            & (mdb["dist"] <= kw["warn_dist"])
+        ]
+        warnings += [
+            f"Primary: winners {g1} and {g2} have Mash "
+            f"distance {d:.4f} (<= warn_dist {kw['warn_dist']})"
+            for g1, g2, d in zip(close["genome1"], close["genome2"], close["dist"])
+        ]
+
+    if ndb is not None and len(ndb):
+        sub = ndb[
+            (ndb["querry"] < ndb["reference"])
+            & ndb["querry"].isin(winners)
+            & ndb["reference"].isin(winners)
+            & (ndb["ani"] >= kw["warn_sim"])
+        ]
+        split = sub["querry"].map(cluster_of).to_numpy() != sub["reference"].map(cluster_of).to_numpy()
+        sub = sub[split]
+        warnings += [
+            f"Secondary: winners {a} and {b} are in different secondary "
+            f"clusters but have ANI {ani:.4f} (>= warn_sim {kw['warn_sim']})"
+            for a, b, ani in zip(sub["querry"], sub["reference"], sub["ani"])
+        ]
+        low = ndb[
+            (ndb["querry"] < ndb["reference"])
+            & (ndb["alignment_coverage"] > 0)
+            & (ndb["alignment_coverage"] <= kw["warn_aln"])
+        ]
+        warnings += [
+            f"Coverage: {q} vs {r} aligned only "
+            f"{c:.3f} (<= warn_aln {kw['warn_aln']})"
+            for q, r, c in zip(low["querry"], low["reference"], low["alignment_coverage"])
+        ]
+    return warnings
+
+
+def make_widb(wdb: pd.DataFrame, cdb: pd.DataFrame, stats: pd.DataFrame | None, quality: pd.DataFrame | None) -> pd.DataFrame:
+    """Winner-information table (upstream d_evaluate's Widb): one row per
+    winner with its cluster and available stats/quality columns."""
+    widb = wdb.merge(cdb[["genome", "primary_cluster", "secondary_cluster"]], on="genome", how="left")
+    if stats is not None:
+        widb = widb.merge(stats[["genome", "length", "N50"]], on="genome", how="left")
+    if quality is not None:
+        cols = [c for c in ("genome", "completeness", "contamination", "strain_heterogeneity") if c in quality.columns]
+        widb = widb.merge(quality[cols], on="genome", how="left")
+    return widb
+
+
+def d_evaluate_wrapper(wd: WorkDirectory, **kwargs) -> list[str]:
+    logger = get_logger()
+    mdb = wd.get_db("Mdb") if wd.hasDb("Mdb") else None
+    ndb = wd.get_db("Ndb") if wd.hasDb("Ndb") else None
+    cdb = wd.get_db("Cdb")
+    has_wdb = wd.hasDb("Wdb")
+    wdb = wd.get_db("Wdb") if has_wdb else pd.DataFrame({"genome": cdb["genome"]})
+
+    if has_wdb:
+        stats = wd.get_db("genomeInformation") if wd.hasDb("genomeInformation") else None
+        quality = wd.get_db("genomeInfo") if wd.hasDb("genomeInfo") else None
+        wd.store_db(make_widb(wdb, cdb, stats, quality), "Widb")
+
+    warnings = evaluate_warnings(mdb, ndb, cdb, wdb, **kwargs)
+    path = wd.get_loc("warnings")
+    # atomic (utils/durableio.py): a SIGKILL mid-write must not leave a
+    # torn warnings.txt a resumed run trusts as the stage's full output
+    from drep_tpu_torch.utils.durableio import atomic_write_bytes
+
+    atomic_write_bytes(path, "".join(w + "\n" for w in warnings).encode())
+    logger.info("evaluate: %d warnings -> %s", len(warnings), path)
+    return warnings

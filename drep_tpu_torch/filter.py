@@ -1,0 +1,172 @@
+"""Filter stage: drop genomes by length and quality before clustering.
+
+Reference parity: drep/d_filter.py (SURVEY.md §2; reference mount empty) —
+defaults --length 50000, --completeness 75, --contamination 25. Quality
+comes from a user-supplied genomeInfo CSV (genome, completeness,
+contamination) or, when available on $PATH, from CheckM via subprocess
+(run_checkm_wrapper); without either, only the length filter applies and a
+`!!!` warning is emitted (the reference aborts dereplicate without quality —
+we soften this to keep the TPU pipeline runnable in binary-free
+environments, with the same loud warning).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+from typing import Any
+
+import pandas as pd
+
+from drep_tpu_torch.utils.fasta import fasta_stats
+from drep_tpu_torch.utils.logger import get_logger, user_warning
+from drep_tpu_torch.workdir import WorkDirectory
+from drep_tpu_torch.errors import UserInputError
+
+FILTER_DEFAULTS: dict[str, Any] = {
+    "length": 50_000,
+    "completeness": 75.0,
+    "contamination": 25.0,
+    "ignoreGenomeQuality": False,
+    "checkM_method": "lineage_wf",  # reference --checkM_method (or taxonomy_wf)
+}
+
+
+def load_genome_info(source) -> pd.DataFrame:
+    """genomeInfo from a CSV path or DataFrame; validates required columns."""
+    df = pd.read_csv(source) if isinstance(source, str) else source.copy()
+    # tolerate dRep's checkm-style column names
+    renames = {
+        "Completeness": "completeness",
+        "Contamination": "contamination",
+        "Bin Id": "genome",
+        "Strain heterogeneity": "strain_heterogeneity",
+    }
+    return df.rename(columns={k: v for k, v in renames.items() if k in df.columns})
+
+
+def run_checkm_wrapper(
+    bdb: pd.DataFrame,
+    out_dir: str,
+    processes: int = 1,
+    checkm_method: str = "lineage_wf",
+) -> pd.DataFrame:
+    """CheckM completeness/contamination via subprocess (reference L0 path).
+
+    Reference parity: d_filter.py::run_checkM_wrapper, including the
+    --checkM_method choice (lineage_wf default; taxonomy_wf runs the
+    domain-level workflow `checkm taxonomy_wf domain Bacteria`). Only used
+    when `checkm` exists on $PATH; otherwise callers should pass
+    --genomeInfo.
+    """
+    if shutil.which("checkm") is None:
+        raise UserInputError("checkm not found on $PATH — supply --genomeInfo instead")
+    if checkm_method not in ("lineage_wf", "taxonomy_wf"):
+        raise UserInputError(f"unknown checkM_method {checkm_method!r}")
+    genome_dir = os.path.join(out_dir, "checkm_genomes")
+    os.makedirs(genome_dir, exist_ok=True)
+    # checkm selects bins by extension (-x) and reports Bin Id without the
+    # extension — copy under a normalized unique stem + .fa and map back
+    stem_to_genome: dict[str, str] = {}
+    for i, row in enumerate(bdb.itertuples()):
+        stem = f"bin_{i}"
+        stem_to_genome[stem] = row.genome
+        dst = os.path.join(genome_dir, f"{stem}.fa")
+        if not os.path.exists(dst):
+            shutil.copy(row.location, dst)
+    res_dir = os.path.join(out_dir, "checkm_out")
+    tab = os.path.join(out_dir, "checkm.tsv")
+    method_args = (
+        ["lineage_wf", genome_dir, res_dir]
+        if checkm_method == "lineage_wf"
+        # the reference's taxonomy_wf path pins the domain-level marker set
+        else ["taxonomy_wf", "domain", "Bacteria", genome_dir, res_dir]
+    )
+    cmd = [
+        "checkm", *method_args,
+        "-x", "fa", "-t", str(processes), "--tab_table", "-f", tab,
+    ]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"checkm failed: {res.stderr[-2000:]}")
+    chdb = pd.read_csv(tab, sep="\t")
+    chdb = chdb.rename(
+        columns={
+            "Bin Id": "genome",
+            "Completeness": "completeness",
+            "Contamination": "contamination",
+            "Strain heterogeneity": "strain_heterogeneity",
+        }
+    )
+    chdb["genome"] = chdb["genome"].map(stem_to_genome)
+    if chdb["genome"].isna().any():
+        raise RuntimeError("checkm output contained unknown bin ids")
+    cols = ["genome", "completeness", "contamination"]
+    if "strain_heterogeneity" in chdb.columns:  # feeds the strW scoring term
+        cols.append("strain_heterogeneity")
+    return chdb[cols]
+
+
+def d_filter_wrapper(
+    wd: WorkDirectory,
+    bdb: pd.DataFrame,
+    genomeInfo=None,
+    **kwargs,
+) -> pd.DataFrame:
+    """Filter Bdb; stores Bdb/genomeInfo tables; returns the filtered Bdb."""
+    logger = get_logger()
+    kw = dict(FILTER_DEFAULTS)
+    kw.update({k: v for k, v in kwargs.items() if v is not None})
+
+    stats = pd.DataFrame(
+        [fasta_stats(row.location, row.genome).__dict__ for row in bdb.itertuples()]
+    )
+    wd.store_db(stats, "genomeInformation")
+
+    keep = stats["length"] >= kw["length"]
+    dropped_len = list(stats.loc[~keep, "genome"])
+    if dropped_len:
+        logger.info("filtered %d genomes below length %d: %s", len(dropped_len), kw["length"], dropped_len)
+
+    quality: pd.DataFrame | None = None
+    if genomeInfo is not None:
+        quality = load_genome_info(genomeInfo)
+        missing = [c for c in ("genome", "completeness", "contamination") if c not in quality.columns]
+        if missing:
+            raise UserInputError(f"genomeInfo missing columns {missing}")
+    elif not kw["ignoreGenomeQuality"]:
+        if shutil.which("checkm") is not None:
+            quality = run_checkm_wrapper(
+                bdb,
+                wd.get_dir(os.path.join("data", "checkM")),
+                kwargs.get("processes", 1),
+                checkm_method=kw["checkM_method"],
+            )
+        else:
+            user_warning(
+                "no --genomeInfo given and checkm not on $PATH — genome quality "
+                "filtering and quality-based scoring are DISABLED for this run"
+            )
+
+    if quality is not None:
+        q = quality.set_index("genome")
+        in_q = stats["genome"].isin(q.index)
+        if (~in_q).any():
+            raise UserInputError(f"genomes missing from genomeInfo: {list(stats.loc[~in_q, 'genome'])}")
+        comp = stats["genome"].map(q["completeness"])
+        cont = stats["genome"].map(q["contamination"])
+        qkeep = (comp >= kw["completeness"]) & (cont <= kw["contamination"])
+        dropped_q = list(stats.loc[keep & ~qkeep, "genome"])
+        if dropped_q:
+            logger.info("filtered %d genomes by quality: %s", len(dropped_q), dropped_q)
+        keep &= qkeep
+        wd.store_db(quality, "genomeInfo")
+
+    filtered = bdb[bdb["genome"].isin(stats.loc[keep, "genome"])].reset_index(drop=True)
+    if len(filtered) == 0:
+        raise RuntimeError("all genomes were filtered out — relax --length/--completeness/--contamination")
+    wd.store_db(filtered, "Bdb")
+    wd.store_arguments("filter", {k: kw[k] for k in FILTER_DEFAULTS})
+    logger.info("filter: %d/%d genomes pass", len(filtered), len(bdb))
+    return filtered

@@ -1,0 +1,144 @@
+"""Native (C++) host-ingest bindings — ctypes, no pybind11.
+
+The hot host loop (FASTA -> canonical k-mers -> sketches) has a C++
+implementation in ingest.cc (a copy of the JAX package's), built lazily
+with g++ into a content-addressed shared library under ``_build/`` next to
+the source. Ingest degrades to the numpy path (ops/kmers.py) when no
+compiler is available; the two paths are byte-equal.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+from drep_tpu_torch.ops.kmers import max_scaled_hash
+from drep_tpu_torch.utils.logger import get_logger
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_SOURCE = os.path.join(_HERE, "ingest.cc")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+_lib_failed = False
+
+
+class _DrepSketch(ctypes.Structure):
+    _fields_ = [
+        ("length", ctypes.c_int64),
+        ("n50", ctypes.c_int64),
+        ("n_contigs", ctypes.c_int32),
+        ("n_kmers", ctypes.c_int64),
+        ("bottom_len", ctypes.c_int64),
+        ("scaled_len", ctypes.c_int64),
+        ("bottom", ctypes.POINTER(ctypes.c_uint64)),
+        ("scaled", ctypes.POINTER(ctypes.c_uint64)),
+    ]
+
+
+def _build_library() -> str | None:
+    """Compile ingest.cc -> cached .so keyed on the source hash; None on
+    any failure (missing g++ or zlib, read-only package directory)."""
+    tmp = None
+    try:
+        with open(_SOURCE, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        build_dir = os.path.join(_HERE, "_build")
+        so_path = os.path.join(build_dir, f"libdrep_ingest_{digest}.so")
+        if os.path.exists(so_path):
+            return so_path
+        os.makedirs(build_dir, exist_ok=True)
+        tmp = so_path + f".tmp{os.getpid()}"
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SOURCE, "-o", tmp, "-lz"]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if res.returncode != 0:
+            get_logger().debug("native build failed: %s", res.stderr[-1000:])
+            return None
+        os.replace(tmp, so_path)  # atomic: concurrent builds race safely
+        return so_path
+    except (OSError, subprocess.SubprocessError) as e:
+        get_logger().debug("native build unavailable: %s", e)
+        return None
+    finally:
+        if tmp is not None and os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def get_library() -> ctypes.CDLL | None:
+    """The loaded native library, building it on first use; None if
+    unavailable."""
+    global _lib, _lib_failed
+    if _lib is not None or _lib_failed:
+        return _lib
+    with _lock:
+        if _lib is not None or _lib_failed:
+            return _lib
+        so_path = _build_library()
+        if so_path is None:
+            _lib_failed = True
+            get_logger().info("native ingest unavailable — using the numpy path")
+            return None
+        lib = ctypes.CDLL(so_path)
+        lib.drep_sketch_fasta.restype = ctypes.c_int
+        lib.drep_sketch_fasta.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_int,
+            ctypes.c_int64,
+            ctypes.c_uint64,
+            ctypes.c_int,  # hash_id: 0 splitmix64, 1 murmur3
+            ctypes.POINTER(_DrepSketch),
+        ]
+        lib.drep_sketch_free.restype = None
+        lib.drep_sketch_free.argtypes = [ctypes.POINTER(_DrepSketch)]
+        _lib = lib
+    return _lib
+
+
+_HASH_IDS = {"splitmix64": 0, "murmur3": 1}
+
+
+def sketch_fasta_native(
+    path: str, k: int, sketch_size: int, scale: int, hash_name: str = "splitmix64"
+) -> dict | None:
+    """Full per-genome ingest in one native call.
+
+    Returns {length, N50, contigs, n_kmers, bottom, scaled} with uint64
+    sketch arrays (copies — safe after the native buffers are freed), or
+    None when the native library is unavailable. Raises on file errors,
+    matching the numpy path.
+    """
+    lib = get_library()
+    if lib is None:
+        return None
+    out = _DrepSketch()
+    rc = lib.drep_sketch_fasta(
+        path.encode(), k, sketch_size, max_scaled_hash(scale),
+        _HASH_IDS[hash_name], ctypes.byref(out),
+    )
+    if rc == -1:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"cannot read FASTA {path!r}")
+        raise RuntimeError(f"corrupt or truncated FASTA {path!r}")
+    if rc != 0:
+        raise RuntimeError(f"native ingest failed on {path!r} (rc={rc})")
+    try:
+        bottom = np.ctypeslib.as_array(out.bottom, shape=(out.bottom_len,)).copy()
+        scaled = np.ctypeslib.as_array(out.scaled, shape=(out.scaled_len,)).copy()
+    finally:
+        lib.drep_sketch_free(ctypes.byref(out))
+    # n_kmers == -1 marks the FracMinHash fast path: report the standard
+    # cardinality estimate |scaled| * scale (ops/kmers.py::sketches_from_raw)
+    n_kmers = int(out.n_kmers) if out.n_kmers >= 0 else int(out.scaled_len) * scale
+    return {
+        "length": int(out.length),
+        "N50": int(out.n50),
+        "contigs": int(out.n_contigs),
+        "n_kmers": n_kmers,
+        "bottom": bottom.astype(np.uint64),
+        "scaled": scaled.astype(np.uint64),
+    }

@@ -1,0 +1,335 @@
+// Native host-ingest kernel: FASTA -> canonical k-mer hashes -> sketches.
+//
+// C++ implementation of the hot host-side loop (SURVEY.md §7 step 2 /
+// hard part (f): ingest throughput for 100k FASTAs). Byte-for-byte
+// equivalent to the numpy path in drep_tpu_torch/ops/kmers.py +
+// drep_tpu_torch/utils/fasta.py (verified in tests/test_torch_ingest.py):
+//
+//   - contigs: lines after a '>' header, whitespace stripped, uppercased
+//   - encoding A=0 C=1 G=2 T=3 (case-insensitive), 2 bits/base, k <= 31
+//   - canonical k-mer = min(forward, reverse-complement) of the packed value
+//   - hash = splitmix64 finalizer; k-mer set = sorted unique hashes
+//   - bottom-k sketch = first `sketch_size` unique hashes ascending
+//   - scaled sketch = all unique hashes <= scaled_max (FracMinHash)
+//   - N50 matches utils/fasta.py::n50 (descending cumsum, first >= total/2)
+//
+// Reads plain and gzip FASTA through zlib's gzopen (transparent for both).
+// Build: g++ -O3 -std=c++17 -shared -fPIC ingest.cc -o libdrep_native.so -lz
+// (driven by drep_tpu_torch/native/__init__.py; ctypes bindings, no pybind11).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <string>
+#include <vector>
+
+#include <zlib.h>
+
+extern "C" {
+
+typedef struct {
+  int64_t length;      // total assembly length (bp)
+  int64_t n50;         // assembly N50
+  int32_t n_contigs;   // number of contigs
+  int64_t n_kmers;     // DISTINCT canonical k-mer hashes, or -1 on the
+                       // FracMinHash fast path ("estimate as
+                       // scaled_len * scale" — resolved by the caller)
+  int64_t bottom_len;  // entries in `bottom`
+  int64_t scaled_len;  // entries in `scaled`
+  uint64_t* bottom;    // sorted ascending, malloc'd (free via drep_sketch_free)
+  uint64_t* scaled;    // sorted ascending, malloc'd
+} DrepSketch;
+
+static inline uint64_t splitmix64(uint64_t z) {
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBULL;
+  return z ^ (z >> 31);
+}
+
+// ---- MurmurHash3_x64_128 (Austin Appleby, public domain), h1 only ----
+// Mash's hash for k > 16: MurmurHash3_x64_128(kmer ASCII bytes, seed 42),
+// first 8 little-endian bytes. Must stay byte-equal to the numpy port in
+// ops/kmers.py::murmur3_x64_128_h1 (verified in tests/test_torch_ingest.py).
+
+static inline uint64_t rotl64_(uint64_t x, int8_t r) {
+  return (x << r) | (x >> (64 - r));
+}
+
+static inline uint64_t fmix64_(uint64_t z) {
+  z ^= z >> 33;
+  z *= 0xFF51AFD7ED558CCDULL;
+  z ^= z >> 33;
+  z *= 0xC4CEB9FE1A85EC53ULL;
+  z ^= z >> 33;
+  return z;
+}
+
+static uint64_t murmur3_x64_128_h1(const uint8_t* data, int len, uint32_t seed) {
+  const int nblocks = len / 16;
+  uint64_t h1 = seed, h2 = seed;
+  const uint64_t c1 = 0x87C37B91114253D5ULL, c2 = 0x4CF5AB172766A3B1ULL;
+  for (int i = 0; i < nblocks; ++i) {
+    uint64_t k1, k2;
+    std::memcpy(&k1, data + 16 * i, 8);  // host is little-endian (x86/arm64)
+    std::memcpy(&k2, data + 16 * i + 8, 8);
+    k1 *= c1; k1 = rotl64_(k1, 31); k1 *= c2; h1 ^= k1;
+    h1 = rotl64_(h1, 27); h1 += h2; h1 = h1 * 5 + 0x52DCE729ULL;
+    k2 *= c2; k2 = rotl64_(k2, 33); k2 *= c1; h2 ^= k2;
+    h2 = rotl64_(h2, 31); h2 += h1; h2 = h2 * 5 + 0x38495AB5ULL;
+  }
+  const uint8_t* tail = data + nblocks * 16;
+  uint64_t k1 = 0, k2 = 0;
+  switch (len & 15) {
+    case 15: k2 ^= ((uint64_t)tail[14]) << 48; [[fallthrough]];
+    case 14: k2 ^= ((uint64_t)tail[13]) << 40; [[fallthrough]];
+    case 13: k2 ^= ((uint64_t)tail[12]) << 32; [[fallthrough]];
+    case 12: k2 ^= ((uint64_t)tail[11]) << 24; [[fallthrough]];
+    case 11: k2 ^= ((uint64_t)tail[10]) << 16; [[fallthrough]];
+    case 10: k2 ^= ((uint64_t)tail[9]) << 8; [[fallthrough]];
+    case 9:
+      k2 ^= ((uint64_t)tail[8]);
+      k2 *= c2; k2 = rotl64_(k2, 33); k2 *= c1; h2 ^= k2;
+      [[fallthrough]];
+    case 8: k1 ^= ((uint64_t)tail[7]) << 56; [[fallthrough]];
+    case 7: k1 ^= ((uint64_t)tail[6]) << 48; [[fallthrough]];
+    case 6: k1 ^= ((uint64_t)tail[5]) << 40; [[fallthrough]];
+    case 5: k1 ^= ((uint64_t)tail[4]) << 32; [[fallthrough]];
+    case 4: k1 ^= ((uint64_t)tail[3]) << 24; [[fallthrough]];
+    case 3: k1 ^= ((uint64_t)tail[2]) << 16; [[fallthrough]];
+    case 2: k1 ^= ((uint64_t)tail[1]) << 8; [[fallthrough]];
+    case 1:
+      k1 ^= ((uint64_t)tail[0]);
+      k1 *= c1; k1 = rotl64_(k1, 31); k1 *= c2; h1 ^= k1;
+  }
+  h1 ^= (uint64_t)len;
+  h2 ^= (uint64_t)len;
+  h1 += h2;
+  h2 += h1;
+  h1 = fmix64_(h1);
+  h2 = fmix64_(h2);
+  h1 += h2;  // h2 += h1 would finish the 128-bit digest; only h1 is used
+  return h1;
+}
+
+static const char kBaseAscii[4] = {'A', 'C', 'G', 'T'};
+
+// canonical packed k-mer -> ASCII -> murmur3 h1 with Mash's seed
+static inline uint64_t murmur3_kmer(uint64_t canon, int k) {
+  uint8_t buf[32];
+  for (int i = 0; i < k; ++i) {
+    buf[i] = (uint8_t)kBaseAscii[(canon >> (2 * (k - 1 - i))) & 3];
+  }
+  return murmur3_x64_128_h1(buf, k, 42);
+}
+
+// LSD radix sort, four 16-bit passes. The hashes are splitmix64 outputs
+// (uniform bits), the worst case for comparison sorts' branch predictors —
+// radix is ~5x faster than std::sort at the 5M-hash scale of a real MAG.
+static void radix_sort_u64(std::vector<uint64_t>& v) {
+  const size_t n = v.size();
+  if (n < (1 << 14)) {  // small inputs: std::sort wins on constants
+    std::sort(v.begin(), v.end());
+    return;
+  }
+  std::vector<uint64_t> tmp(n);
+  uint64_t* src = v.data();
+  uint64_t* dst = tmp.data();
+  std::vector<size_t> hist(1 << 16);
+  for (int pass = 0; pass < 4; ++pass) {
+    const int shift = pass * 16;
+    std::fill(hist.begin(), hist.end(), 0);
+    for (size_t i = 0; i < n; ++i) ++hist[(src[i] >> shift) & 0xFFFF];
+    size_t sum = 0;
+    for (size_t b = 0; b < (1 << 16); ++b) {
+      size_t c = hist[b];
+      hist[b] = sum;
+      sum += c;
+    }
+    for (size_t i = 0; i < n; ++i) dst[hist[(src[i] >> shift) & 0xFFFF]++] = src[i];
+    std::swap(src, dst);
+  }
+  // four swaps: data is back in v.data()
+}
+
+// base codes: A=0 C=1 G=2 T=3, 255 = invalid (resets the rolling window).
+// Initialized once at load time — concurrent drep_sketch_fasta callers
+// (ctypes drops the GIL) must never observe a half-built table.
+struct BaseCode {
+  uint8_t code[256];
+  BaseCode() {
+    std::memset(code, 255, sizeof(code));
+    code[(unsigned)'A'] = code[(unsigned)'a'] = 0;
+    code[(unsigned)'C'] = code[(unsigned)'c'] = 1;
+    code[(unsigned)'G'] = code[(unsigned)'g'] = 2;
+    code[(unsigned)'T'] = code[(unsigned)'t'] = 3;
+  }
+};
+static const BaseCode kBase;
+
+// returns 0 on success, -1 file error, -2 bad args
+// hash_id: 0 = splitmix64 over the packed value, 1 = murmur3 (Mash-compatible)
+int drep_sketch_fasta(const char* path, int k, int64_t sketch_size,
+                      uint64_t scaled_max, int hash_id, DrepSketch* out) {
+  if (k < 1 || k > 31 || out == nullptr || hash_id < 0 || hash_id > 1) return -2;
+  std::memset(out, 0, sizeof(*out));
+
+  gzFile f = gzopen(path, "rb");
+  if (f == nullptr) return -1;
+
+  const uint8_t* code = kBase.code;
+  const uint64_t mask = (k == 32) ? ~0ULL : ((1ULL << (2 * k)) - 1);
+  const int shift = 2 * (k - 1);
+
+  std::vector<uint64_t> hashes;
+  std::vector<int64_t> contig_lengths;
+
+  uint64_t fwd = 0, rev = 0;
+  int run = 0;             // valid bases in the current window
+  int64_t contig_len = 0;  // bases in the current contig
+
+  // a contig exists only if sequence accumulated (headers with no sequence
+  // produce nothing — fasta.py::read_fasta_contigs appends only when chunks
+  // are non-empty)
+  auto end_contig = [&]() {
+    if (contig_len > 0) contig_lengths.push_back(contig_len);
+    contig_len = 0;
+    fwd = rev = 0;
+    run = 0;
+  };
+
+  // per-line processing with Python's line.strip() semantics: leading and
+  // trailing whitespace dropped, INTERNAL whitespace kept — it counts
+  // toward contig length and, being non-ACGT, breaks the k-mer window
+  // (exactly what the numpy oracle does after read_fasta_contigs)
+  auto process_line = [&](const std::string& line) {
+    if (line.empty()) return;
+    if (line[0] == '>') {
+      end_contig();
+      return;
+    }
+    size_t lo = 0, hi = line.size();
+    while (lo < hi && (unsigned char)line[lo] <= ' ') ++lo;
+    while (hi > lo && (unsigned char)line[hi - 1] <= ' ') --hi;
+    for (size_t i = lo; i < hi; ++i) {
+      ++contig_len;
+      uint8_t b = code[(unsigned char)line[i]];
+      if (b == 255) {  // non-ACGT (incl. internal whitespace): break window
+        run = 0;
+        fwd = rev = 0;
+        continue;
+      }
+      fwd = ((fwd << 2) | b) & mask;
+      rev = (rev >> 2) | ((uint64_t)(3 - b) << shift);
+      if (++run >= k) {
+        const uint64_t canon = fwd < rev ? fwd : rev;
+        hashes.push_back(hash_id == 1 ? murmur3_kmer(canon, k)
+                                      : splitmix64(canon));
+      }
+    }
+  };
+
+  std::vector<unsigned char> buf(1 << 20);
+  std::string line;
+  int nread;
+  while ((nread = gzread(f, buf.data(), (unsigned)buf.size())) > 0) {
+    // memchr-based line splitting: bulk-append slices instead of a
+    // byte-at-a-time push_back loop
+    const char* p = (const char*)buf.data();
+    const char* end = p + nread;
+    while (p < end) {
+      const char* nl = (const char*)std::memchr(p, '\n', (size_t)(end - p));
+      if (nl == nullptr) {
+        line.append(p, (size_t)(end - p));
+        break;
+      }
+      line.append(p, (size_t)(nl - p));
+      process_line(line);
+      line.clear();
+      p = nl + 1;
+    }
+  }
+  // a truncated/corrupt gzip stream surfaces as nread==0 with a non-OK
+  // error state (the numpy path raises EOFError there — so must we)
+  int errnum = Z_OK;
+  gzerror(f, &errnum);
+  bool read_error = (nread < 0) || (errnum != Z_OK && errnum != Z_STREAM_END);
+  read_error |= (gzclose(f) != Z_OK);
+  if (read_error) return -1;
+  process_line(line);
+  end_contig();
+
+  // FracMinHash-first fast path (must mirror ops/kmers.py::
+  // sketches_from_raw): when the scaled (<= scaled_max) distinct set
+  // already holds >= sketch_size hashes, the bottom-s sketch is exactly
+  // its first s entries — the full multi-million-hash sort is skipped and
+  // n_kmers is reported as -1 ("estimate as scaled_len * scale", done by
+  // the Python wrapper). Small genomes fall back to the exact full dedup.
+  std::vector<uint64_t> small;
+  small.reserve(hashes.size() / 64 + 16);
+  for (uint64_t h : hashes) {
+    if (h <= scaled_max) small.push_back(h);
+  }
+  std::sort(small.begin(), small.end());
+  small.erase(std::unique(small.begin(), small.end()), small.end());
+
+  bool fast = sketch_size > 0 && (int64_t)small.size() >= sketch_size;
+  if (fast) {
+    hashes.swap(small);  // sorted distinct scaled set IS everything needed
+  } else {
+    radix_sort_u64(hashes);
+    hashes.erase(std::unique(hashes.begin(), hashes.end()), hashes.end());
+  }
+
+  int64_t total = 0;
+  for (int64_t len : contig_lengths) total += len;
+  out->length = total;
+  out->n_contigs = (int32_t)contig_lengths.size();
+  out->n_kmers = fast ? -1 : (int64_t)hashes.size();
+
+  // N50: descending lengths, first cumulative sum >= total/2 (fasta.py::n50)
+  if (!contig_lengths.empty()) {
+    std::sort(contig_lengths.begin(), contig_lengths.end(),
+              std::greater<int64_t>());
+    const double half = (double)total / 2.0;
+    int64_t csum = 0;
+    out->n50 = contig_lengths.back();
+    for (int64_t len : contig_lengths) {
+      csum += len;
+      if ((double)csum >= half) {
+        out->n50 = len;
+        break;
+      }
+    }
+  }
+
+  const int64_t nb =
+      std::min<int64_t>(sketch_size < 0 ? 0 : sketch_size, hashes.size());
+  out->bottom = (uint64_t*)std::malloc(sizeof(uint64_t) * (nb ? nb : 1));
+  if (!out->bottom) return -2;
+  std::memcpy(out->bottom, hashes.data(), sizeof(uint64_t) * nb);
+  out->bottom_len = nb;
+
+  const int64_t ns =
+      std::upper_bound(hashes.begin(), hashes.end(), scaled_max) -
+      hashes.begin();
+  out->scaled = (uint64_t*)std::malloc(sizeof(uint64_t) * (ns ? ns : 1));
+  if (!out->scaled) {
+    std::free(out->bottom);
+    out->bottom = nullptr;
+    return -2;
+  }
+  std::memcpy(out->scaled, hashes.data(), sizeof(uint64_t) * ns);
+  out->scaled_len = ns;
+  return 0;
+}
+
+void drep_sketch_free(DrepSketch* out) {
+  if (out == nullptr) return;
+  std::free(out->bottom);
+  std::free(out->scaled);
+  out->bottom = nullptr;
+  out->scaled = nullptr;
+}
+
+}  // extern "C"

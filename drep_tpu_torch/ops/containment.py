@@ -1,0 +1,221 @@
+"""Containment ANI from FracMinHash sketches — the one-shot `jax_ani` path.
+
+Counterpart of the one-shot subset of drep_tpu/ops/containment.py (plus
+``vocab_extent`` from drep_tpu/ops/rangepart.py). Scaled sketches map to a
+dense int32 id space; the intersection sizes |A ∩ B| of all row pairs are
+one exact integer product of 0/1 indicator rows:
+
+    inter = ind @ ind.T,   ind [m, v_pad] int8 (ops/indicator.py kernel)
+
+run as the triangular schedule of the JAX package — one indicator build,
+then per row block `lo` one ``torch._int_mm(ind[lo:lo+tb], ind[lo:].T)``
+(int8 in, exact int32 out) — with the skipped lower blocks mirrored on
+the host. ANI = max(C(A,B), C(B,A))^(1/k), C = |A∩B|/|A|, derives from the
+counts on the host with the JAX package's float32 formula.
+
+Only the one-shot regime is here: a pack whose [m, v_pad] indicator
+exceeds MATMUL_BUDGET_ELEMS raises (the vocabulary-chunked matmul and the
+merge-intersect kernel are still to port).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from drep_tpu_torch.ops.indicator import indicator
+from drep_tpu_torch.ops.minhash import (
+    PAD_ID,
+    PackedSketches,
+    ids_to_device,
+    pad_packed_rows,
+    pad_sentinel,
+)
+
+# budget for the dense indicator matrix [m, V] in int8 elements (~512 MB)
+MATMUL_BUDGET_ELEMS = 1 << 29
+_VOCAB_BUCKET_MIN = 8192
+ROW_BUCKET_MIN = 64  # smallest row bucket (pow2 above; see _pow2_bucket)
+
+
+def _pow2_bucket(x: int, minimum: int) -> int:
+    """Round up to a power of two (>= minimum)."""
+    return max(minimum, 1 << (max(x, 1) - 1).bit_length())
+
+
+def pack_scaled_sketches(
+    sketches: list[np.ndarray], names: list[str], pad_multiple: int = 128
+) -> PackedSketches:
+    """Ragged uint64 scaled sketches -> padded int32 id matrix [N, S], S the
+    max sketch length rounded up to a power of two (>= `pad_multiple`)."""
+    if not sketches:
+        raise ValueError("no sketches to pack")
+    vocab = np.unique(np.concatenate(sketches))
+    if vocab.size >= np.iinfo(np.int32).max:
+        raise ValueError("id space overflow: >2^31 distinct sketch hashes")
+    width = _pow2_bucket(max(max(len(s) for s in sketches), 1), pad_multiple)
+    n = len(sketches)
+    ids = np.full((n, width), PAD_ID, dtype=np.int32)
+    lens = np.array([len(s) for s in sketches], dtype=np.int64)
+    flat = np.concatenate(sketches)
+    ranks = np.searchsorted(vocab, flat).astype(np.int32)
+    rows = np.repeat(np.arange(n), lens)
+    offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    cols = np.arange(len(flat)) - np.repeat(offs, lens)
+    ids[rows, cols] = ranks
+    return PackedSketches(ids=ids, counts=lens.astype(np.int32), names=list(names))
+
+
+def pack_scaled_sketches_clusterlocal(
+    sketch_groups: list[list[np.ndarray]],
+    names: list[str],
+    pad_multiple: int = 128,
+) -> tuple[PackedSketches, int]:
+    """Pack MANY clusters into one id matrix with per-cluster-LOCAL dense id
+    spaces: cluster c's ids are ranks into c's own vocabulary, so every
+    cluster shares the same narrow [0, v_extent) range and one one-shot
+    indicator matmul serves the whole batch. Cross-cluster blocks of the
+    result are id-collision garbage by construction — callers read the
+    diagonal blocks only.
+
+    Returns (packed, v_extent), v_extent the max cluster vocabulary size.
+    When every cluster vocabulary fits 16 bits the pack is uint16 with a
+    0xFFFF pad (half the host->device bytes; widened on the device).
+    """
+    if not sketch_groups:
+        raise ValueError("no clusters to pack")
+    rank_parts: list[np.ndarray] = []
+    lens: list[int] = []
+    v_extent = 1
+    for group in sketch_groups:
+        flat = np.concatenate(group) if group else np.array([], np.uint64)
+        vocab = np.unique(flat)
+        if vocab.size >= np.iinfo(np.int32).max:
+            raise ValueError("id space overflow: >2^31 distinct sketch hashes")
+        v_extent = max(v_extent, int(vocab.size))
+        rank_parts.append(np.searchsorted(vocab, flat).astype(np.int32))
+        lens.extend(len(s) for s in group)
+    lens_arr = np.array(lens, dtype=np.int64)
+    n = len(lens_arr)
+    width = _pow2_bucket(max(int(lens_arr.max()) if n else 1, 1), pad_multiple)
+    if v_extent < 0xFFFF:
+        ids = np.full((n, width), np.uint16(0xFFFF), dtype=np.uint16)
+    else:
+        ids = np.full((n, width), PAD_ID, dtype=np.int32)
+    flat_ranks = np.concatenate(rank_parts) if rank_parts else np.zeros(0, np.int32)
+    rows = np.repeat(np.arange(n), lens_arr)
+    offs = np.concatenate([[0], np.cumsum(lens_arr)[:-1]])
+    cols = np.arange(len(flat_ranks)) - np.repeat(offs, lens_arr)
+    ids[rows, cols] = flat_ranks  # ranks of a sorted-unique sketch are sorted
+    return (
+        PackedSketches(ids=ids, counts=lens_arr.astype(np.int32), names=list(names)),
+        v_extent,
+    )
+
+
+def vocab_extent(ids: np.ndarray) -> int:
+    """1 + the largest real id in a packed matrix (0 when all padding) —
+    drep_tpu/ops/rangepart.py::vocab_extent."""
+    valid = ids != pad_sentinel(ids.dtype)
+    return int(ids[valid].max()) + 1 if valid.any() else 0
+
+
+def matmul_vocab_pad_extent(extent: int) -> int:
+    """Bucketed indicator width for a known vocabulary extent."""
+    return _pow2_bucket(max(extent, 1), _VOCAB_BUCKET_MIN)
+
+
+def matmul_vocab_pad(packed: PackedSketches) -> int:
+    """Bucketed indicator width of a pack (one scan of packed.ids)."""
+    return matmul_vocab_pad_extent(vocab_extent(packed.ids))
+
+
+def matmul_rows_pad(n: int) -> int:
+    """Row count the indicator matmul allocates for n genomes."""
+    return _pow2_bucket(n, ROW_BUCKET_MIN)
+
+
+def one_shot_fits(n_rows: int, v_pad: int) -> bool:
+    """Whether the [rows, v_pad(+trash)] indicator fits the one-shot
+    budget — the dispatch inequality of the JAX package."""
+    return matmul_rows_pad(n_rows) * (v_pad + 1) <= MATMUL_BUDGET_ELEMS
+
+
+def tri_row_block(m_pad: int) -> int:
+    """Row-block size of the triangular matmul schedule: a power of two
+    dividing the pow2-bucketed `m_pad`, targeting 8 block rows."""
+    return max(ROW_BUCKET_MIN, m_pad // 8)
+
+
+def intersect_matmul_tri(ind: torch.Tensor, tb: int) -> torch.Tensor:
+    """Upper-block-triangle intersection counts of one indicator matrix:
+    per row block `lo` one exact int8 x int8 -> int32 product against all
+    columns from `lo` on. Lower blocks stay zero (mirror them with
+    :func:`mirror_lower_blocks`)."""
+    m = ind.shape[0]
+    out = torch.zeros((m, m), dtype=torch.int32, device=ind.device)
+    for lo in range(0, m, tb):
+        out[lo : lo + tb, lo:] = torch._int_mm(ind[lo : lo + tb], ind[lo:].T)
+    return out
+
+
+def mirror_lower_blocks(mat: np.ndarray, tb: int) -> np.ndarray:
+    """Fill the strictly-lower block triangle of a block-upper-triangular
+    symmetric matrix with the transposed upper blocks, in place."""
+    for lo in range(tb, mat.shape[0], tb):
+        mat[lo : lo + tb, :lo] = mat[:lo, lo : lo + tb].T
+    return mat
+
+
+def containment_to_ani(c: np.ndarray, k: int) -> np.ndarray:
+    """Elementwise containment -> ANI (c^(1/k); 0 stays 0), float32."""
+    return np.where(c > 0.0, np.exp(np.log(np.maximum(c, 1e-30)) / k), 0.0).astype(np.float32)
+
+
+def max_containment_ani(cov: np.ndarray, k: int) -> np.ndarray:
+    """ani[i,j] = max(cov[i,j], cov[j,i])^(1/k), diagonal pinned to 1."""
+    ani = containment_to_ani(np.maximum(cov, cov.T), k)
+    np.fill_diagonal(ani, 1.0)
+    return ani
+
+
+def ani_cov_from_intersections(
+    inter: np.ndarray, counts: np.ndarray, k: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host: (symmetric max-containment ani, directional cov) from
+    intersection counts. cov = |A∩B|/|A|; diagonals pinned to 1."""
+    na = np.maximum(counts.astype(np.float32), 1.0)
+    cov = (inter.astype(np.float32) / na[:, None]).astype(np.float32)
+    ani = max_containment_ani(cov, k)
+    np.fill_diagonal(cov, 1.0)
+    return ani, cov
+
+
+def intersections_one_shot(packed: PackedSketches, v_pad: int, device: torch.device) -> np.ndarray:
+    """[m, m] int32 exact intersection counts of a pack whose indicator
+    fits the one-shot budget: rows padded to the pow2 bucket, the indicator
+    built on the device, the triangular product, the host mirror."""
+    m = packed.n
+    m_pad = matmul_rows_pad(m)
+    if not one_shot_fits(m, v_pad):
+        raise NotImplementedError(
+            f"containment of {m} rows over a {v_pad}-wide vocabulary exceeds the one-shot "
+            "indicator budget; the vocabulary-chunked matmul and the merge-intersect kernel "
+            "are still to port (ROADMAP.md queue 2, kernels 3-4)"
+        )
+    ids, _ = pad_packed_rows(packed.ids, packed.counts, m_pad)
+    ind = indicator(ids_to_device(ids, device), v_pad)
+    tb = tri_row_block(m_pad)
+    inter = intersect_matmul_tri(ind, tb).cpu().numpy()
+    return mirror_lower_blocks(inter, tb)[:m, :m]
+
+
+def all_vs_all_containment_matmul(
+    packed: PackedSketches, k: int, device: torch.device, v_pad: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """(ani, cov) [m, m] through the one-shot indicator matmul —
+    drep_tpu/ops/containment.py::all_vs_all_containment_matmul."""
+    if v_pad is None:
+        v_pad = matmul_vocab_pad(packed)
+    inter = intersections_one_shot(packed, v_pad, device)
+    return ani_cov_from_intersections(inter, packed.counts, k)

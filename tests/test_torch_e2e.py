@@ -1,0 +1,233 @@
+"""The port's compare/dereplicate slice end to end on the CPU, against the
+JAX package on the same inputs, plus the guard that keeps the port free of
+JAX and of drep_tpu.
+
+Tables are compared as CSV bytes. Mdb is the one exception: its distances
+come from a float32 log taken on the device in the JAX package's CPU sort
+estimator and in numpy here, so they agree to the repo's atol=1e-7
+(tests/test_pallas_mash.py) rather than bit for bit.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from drep_tpu.cluster.controller import d_cluster_wrapper as jax_d_cluster_wrapper
+from drep_tpu.ingest import GenomeSketches as JaxGenomeSketches
+from drep_tpu.ingest import _save as jax_save
+from drep_tpu.ingest import sketch_args_snapshot as jax_sketch_args_snapshot
+from drep_tpu.workdir import WorkDirectory as JaxWorkDirectory
+from drep_tpu.workflows import compare_wrapper as jax_compare
+from drep_tpu.workflows import dereplicate_wrapper as jax_dereplicate
+from drep_tpu_torch.cluster.controller import d_cluster_wrapper
+from drep_tpu_torch.cluster.engines import SECONDARY_PATH_COUNTS
+from drep_tpu_torch.controller import main as torch_main
+from drep_tpu_torch.ingest import save_sketch_cache
+from drep_tpu_torch.utils.synth import planted_sketches
+from drep_tpu_torch.workdir import WorkDirectory
+from drep_tpu_torch.workflows import compare_wrapper
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+QUALITY = (
+    "genome,completeness,contamination\ngenome_A.fasta,99,0.5\ngenome_B.fasta,90,1\n"
+    "genome_C.fasta,85,2\ngenome_D.fasta,95,0.1\ngenome_E.fasta,94,0.2\n"
+)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _table(wd: str, name: str) -> bytes:
+    with open(os.path.join(wd, "data_tables", f"{name}.csv"), "rb") as f:
+        return f.read()
+
+
+def _assert_mdb_close(wd: str, jwd: str) -> None:
+    got = pd.read_csv(os.path.join(wd, "data_tables", "Mdb.csv"))
+    want = pd.read_csv(os.path.join(jwd, "data_tables", "Mdb.csv"))
+    assert got[["genome1", "genome2"]].equals(want[["genome1", "genome2"]])
+    np.testing.assert_allclose(got["dist"], want["dist"], atol=1e-7)
+    np.testing.assert_allclose(got["similarity"], want["similarity"], atol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def compared(tmp_path_factory, genome_paths):
+    root = tmp_path_factory.mktemp("compare")
+    wd, jwd = str(root / "torch"), str(root / "jax")
+    cdb = compare_wrapper(wd, genome_paths, device="cpu", skip_plots=True)
+    jax_compare(jwd, genome_paths, skip_plots=True)
+    return wd, jwd, cdb
+
+
+@pytest.fixture(scope="module")
+def dereplicated(tmp_path_factory, genome_paths):
+    root = tmp_path_factory.mktemp("dereplicate")
+    q = root / "q.csv"
+    q.write_text(QUALITY)
+    wd, jwd = str(root / "torch"), str(root / "jax")
+    torch_main(["dereplicate", wd, "-g", *genome_paths, "--genomeInfo", str(q),
+                "--skip_plots", "-p", "1", "--device", "cpu"])
+    jax_dereplicate(jwd, genome_paths, genomeInfo=str(q), skip_plots=True, processes=1)
+    return wd, jwd
+
+
+@pytest.mark.parametrize("table", ["Bdb", "Cdb", "Ndb", "Gdb", "genomeInformation"])
+def test_compare_tables_equal_jax_bytes(compared, table):
+    wd, jwd, _ = compared
+    assert _table(wd, table) == _table(jwd, table)
+
+
+def test_compare_mdb_close_to_jax(compared):
+    wd, jwd, _ = compared
+    _assert_mdb_close(wd, jwd)
+
+
+def test_compare_expected_fixture_clusters(compared):
+    _, _, cdb = compared
+    sec = dict(zip(cdb["genome"], cdb["secondary_cluster"]))
+    assert sec == {
+        "genome_A.fasta": "1_1", "genome_B.fasta": "1_1", "genome_C.fasta": "1_2",
+        "genome_D.fasta": "2_1", "genome_E.fasta": "2_1",
+    }
+    assert cdb["primary_cluster"].nunique() == 2
+    assert set(cdb["comparison_algorithm"]) == {"jax_ani"}
+
+
+def test_compare_resume_skips_recompute(compared, genome_paths, monkeypatch):
+    wd, _, cdb = compared
+    import drep_tpu_torch.cluster.controller as cc
+
+    def boom(*a, **k):
+        raise AssertionError("resume should not re-run sketching")
+
+    monkeypatch.setattr(cc, "sketch_genomes", boom)
+    again = compare_wrapper(wd, genome_paths, device="cpu", skip_plots=True)
+    pd.testing.assert_frame_equal(again, pd.read_csv(os.path.join(wd, "data_tables", "Cdb.csv")))
+    assert list(again["secondary_cluster"]) == list(cdb["secondary_cluster"])
+
+
+@pytest.mark.parametrize(
+    "table", ["Bdb", "Cdb", "Ndb", "Sdb", "Wdb", "Widb", "genomeInfo", "genomeInformation"]
+)
+def test_dereplicate_tables_equal_jax_bytes(dereplicated, table):
+    wd, jwd = dereplicated
+    assert _table(wd, table) == _table(jwd, table)
+
+
+def test_dereplicate_winners(dereplicated):
+    wd, jwd = dereplicated
+    _assert_mdb_close(wd, jwd)
+    assert sorted(os.listdir(os.path.join(wd, "dereplicated_genomes"))) == [
+        "genome_A.fasta", "genome_C.fasta", "genome_D.fasta",
+    ]
+
+
+@pytest.mark.parametrize("n,cluster_size", [(200, None), (80, 40)])
+def test_planted_set_cdb_equals_jax(tmp_path, n, cluster_size):
+    """Planted genomes through both d_cluster_wrappers from one sketch
+    cache (the JAX package stays on its sort estimator below 512 genomes,
+    the port's only estimator). ~200 genomes in small clusters take the
+    batched secondary; clusters of 40 (> SMALL_CLUSTER_MAX) the
+    per-cluster one."""
+    gs, planted = planted_sketches(n, seed=4, s_bottom=200, s_scaled=300, cluster_size=cluster_size)
+    bdb = pd.DataFrame({"genome": gs.names, "location": [f"/nonexistent/{g}" for g in gs.names]})
+    wd = WorkDirectory(str(tmp_path / "torch"))
+    save_sketch_cache(wd, gs)
+    jwd = JaxWorkDirectory(str(tmp_path / "jax"))
+    jax_save(jwd, JaxGenomeSketches(
+        names=gs.names, gdb=gs.gdb, bottom=gs.bottom, scaled=gs.scaled,
+        k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale,
+    ))
+    jwd.store_arguments("sketch", jax_sketch_args_snapshot(gs.names, gs.k, gs.sketch_size, gs.scale, "splitmix64"))
+    kw = {"MASH_sketch": gs.sketch_size, "processes": 1}
+    paths_before = dict(SECONDARY_PATH_COUNTS)
+    cdb = d_cluster_wrapper(wd, bdb, device="cpu", **kw)
+    paths = {p for p, c in SECONDARY_PATH_COUNTS.items() if c != paths_before.get(p, 0)}
+    assert paths == ({"one_shot_clusterlocal"} if cluster_size is None else {"one_shot"})
+    jax_d_cluster_wrapper(jwd, bdb, **kw)
+    for table in ("Cdb", "Ndb"):
+        assert _table(wd.location, table) == _table(jwd.location, table)
+    _assert_mdb_close(wd.location, jwd.location)
+    # every planted cluster is one secondary cluster, and no two share one
+    sec = cdb.set_index("genome").loc[gs.names, "secondary_cluster"].to_numpy()
+    assert len(set(zip(planted, sec))) == len(set(planted)) == len(set(sec))
+
+
+def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        compare_wrapper(str(tmp_path / "a"), genome_paths)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_main(["dereplicate", str(tmp_path / "b"), "-g", *genome_paths])
+    gs, _ = planted_sketches(3, seed=0, s_bottom=20, s_scaled=20)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        d_cluster_wrapper(WorkDirectory(str(tmp_path / "c")), pd.DataFrame({"genome": gs.names}))
+    assert not os.path.exists(tmp_path / "a" / "data_tables" / "Cdb.csv")
+
+
+@pytest.mark.parametrize("flag", [
+    ["--streaming_primary"], ["--greedy_secondary_clustering"], ["--run_tertiary_clustering"],
+    ["--multiround_primary_clustering"], ["--primary_prune", "lsh"], ["--mesh_shape", "2"],
+    ["--primary_estimator", "matmul"],
+])
+def test_unported_paths_raise(tmp_path, genome_paths, flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_main(["compare", str(tmp_path / "wd"), "-g", *genome_paths, "--device", "cpu",
+                    "--skip_plots", *flag])
+
+
+def _is_forbidden(module: str) -> bool:
+    return module.split(".")[0] in ("jax", "jaxlib", "drep_tpu")
+
+
+def _port_sources() -> list[str]:
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for dirpath, _, files in os.walk(os.path.join(REPO, "drep_tpu_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return out
+
+
+def test_port_sources_import_no_jax_or_drep_tpu():
+    bad = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                bad += [(path, a.name) for a in node.names if _is_forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                if _is_forbidden(node.module):
+                    bad.append((path, node.module))
+    assert len(_port_sources()) > 20
+    assert bad == []
+
+
+def test_port_compare_subprocess_loads_no_jax_or_drep_tpu(tmp_path, genome_paths):
+    code = (
+        "import sys\n"
+        "from drep_tpu_torch.controller import main\n"
+        f"main(['compare', {str(tmp_path / 'wd')!r}, '-g', *{list(genome_paths)!r}, "
+        "'--device', 'cpu', '--skip_plots', '-p', '1'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'drep_tpu'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "LOADED []" in res.stdout
+    assert os.path.exists(tmp_path / "wd" / "data_tables" / "Cdb.csv")
