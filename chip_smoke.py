@@ -11,11 +11,14 @@ Phases (any failure exits nonzero; nothing is caught):
 2. build the CUDA kernels (one nvcc per ``drep_tpu_torch/csrc/*.cu``, all
    at once) and the native ingest, with the seconds it took;
 3. hold each kernel against its plain PyTorch version on the card, exact
-   equality, at the main path's shapes — Mash shared counts (2048 planted
+   equality, at the main paths' shapes — Mash shared counts (2048 planted
    rows at width 1000, symmetric and rectangular layouts, ragged rows,
-   widths 3000 and 16384) and the indicator (m=512, width 32768, v_pad 65536,
-   from int32 and from a widened uint16 pack) — and time kernel, plain
-   version and (where one exists) the library call, beside the bound;
+   widths 3000 and 16384), the indicator (m=512, width 32768, v_pad 65536,
+   from int32 and from a widened uint16 pack), the merge-intersect kernel
+   (2048 rows at width 2048; ragged, empty, in-row-repeat and uint16 rows)
+   and its stacked form (a 256-row block of cluster A's 16 int32 buckets,
+   of cluster C's uint16 buckets), both layouts each — and time kernel,
+   plain version and (where one exists) the library call, beside the bound;
 4. the CLI main path: ``dereplicate`` on tests/genomes/*.fasta with a
    quality CSV, which must pick 3 winners (A, C, D);
 5. the real-size slice: 10 000 planted genomes (MASH_sketch 1000, scaled
@@ -24,8 +27,25 @@ Phases (any failure exits nonzero; nothing is caught):
    one secondary cluster, that every secondary batch took the one-shot
    cluster-local route, and that a random 512x512 block of shared counts
    equals the plain version;
-6. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5);
-7. the last line: ``{"ok": true, "device": {...}}``.
+6. the beyond-budget slice: three planted primary clusters past the
+   one-shot indicator budget (A: 2000 diverse genomes, ~19 000 private +
+   ~1 300 core hashes each; B: 1300 diverse genomes at width 2048; C: 1024
+   overlapping genomes at depth 20 000) through d_cluster_wrapper,
+   d_choose_wrapper and d_evaluate_wrapper; checks the routes (A and B
+   `pallas_range`, C `matmul_chunked`), that A and B split into one
+   secondary cluster per genome and C stays one, that all four kernels
+   launched, that each cluster's intersection counts are equal on the
+   other route (both routes timed on the same pack), and that the Ndb rows
+   the run wrote equal the (ani, cov) of those counts; on A and B, the
+   merge kernel is held against its plain version on the whole operand the
+   route builds (A's [16, 2048, 2048] buckets, B's [1408, 2048] rows) and
+   timed beside its bound, with the seconds of each part of the route
+   (`ops/intersect.py::STAGE_SECONDS`, then host ani/cov and Ndb rows);
+   last, the scaled pack's rank map (`ops/minhash.py::dense_ranks`) and a
+   searchsorted into the vocabulary timed on cluster B's hashes;
+7. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+   Mash and indicator kernels, from phase 6 for the merge kernels);
+8. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -58,6 +78,19 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 REAL_GENOMES = 10_000
 REAL_SCALED_DEPTH = 20_000
 
+# the kernels of the one-shot main path (phases 4 and 5)
+PRIMARY_PATH_KERNELS = ("mash_shared", "indicator")
+
+# the beyond-budget slice: (genomes, scaled depth, kept core or None for
+# the overlapping planter, route). A's vocabulary (~38 M ids -> v_pad 2^26)
+# and B's (~2.3 M -> 2^22) outgrow 47x their merge units (49.3 M, 2.3 M);
+# C's (~0.85 M -> 2^20) does not. All three are past the one-shot budget.
+BEYOND = {
+    "A": (2000, 20_300, 1_300, "pallas_range"),
+    "B": (1300, 1_950, 150, "pallas_range"),
+    "C": (1024, 20_000, None, "matmul_chunked"),
+}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -86,6 +119,20 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_timed(fn):
+    """(fn(), its milliseconds on the card by CUDA events), one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def require(cond: bool, what: str) -> None:
@@ -254,17 +301,161 @@ def phase_indicator(dev) -> dict:
     }
 
 
+def plant_beyond():
+    """(sketches, planted cluster per genome) of the beyond-budget slice:
+    one planted primary cluster per BEYOND entry, in order."""
+    from drep_tpu_torch.utils.synth import join_planted, planted_sketches
+
+    return join_planted([
+        planted_sketches(n, seed=21 + i, s_bottom=1000, s_scaled=depth, cluster_size=n, core=core)
+        for i, (n, depth, core, _) in enumerate(BEYOND.values())
+    ])
+
+
+_PACKS: dict = {}
+
+
+def beyond_pack(gs, planted, key: str):
+    """The secondary stage's pack of one BEYOND cluster, packed once for
+    the checks outside the main path (the main path packs its own)."""
+    from drep_tpu_torch.ops.containment import pack_scaled_sketches
+
+    if key not in _PACKS:
+        idx = np.flatnonzero(planted == list(BEYOND).index(key))
+        _PACKS[key] = pack_scaled_sketches([gs.scaled[i] for i in idx], [gs.names[i] for i in idx])
+    return _PACKS[key]
+
+
+def merge_cost(stacked: np.ndarray, symmetric: bool) -> tuple[int, int]:
+    """(merge steps, bytes) the merge-intersect kernel needs on stacked
+    [R, n, W] rows: every computed pair walks cnt_a + cnt_b elements in
+    every bucket; inputs read once, the int32 output written once."""
+    from drep_tpu_torch.ops.intersect import TILE_A
+    from drep_tpu_torch.ops.minhash import pad_sentinel
+
+    per_row = (stacked != pad_sentinel(stacked.dtype)).sum(axis=(0, 2)).astype(np.int64)
+    n = stacked.shape[1]
+    tiles = per_row.reshape(n // TILE_A, TILE_A).sum(axis=1)
+    t = len(tiles)
+    cells = [(i, (i + jj) % t) for i in range(t) for jj in range(t // 2 + 1)] if symmetric else \
+        [(i, j) for i in range(t) for j in range(t)]
+    steps = sum(TILE_A * (int(tiles[i]) + int(tiles[j])) for i, j in cells)
+    out_elems = n * ((t // 2 + 1) * TILE_A if symmetric else n)
+    return steps, stacked.nbytes + out_elems * 4
+
+
+def intersect_entry(name: str, replaces: str, ms: float, plain_ms: float, steps: int, nbytes: int) -> dict:
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = steps / SCALAR_OPS_PER_S * 1e3
+    log(f"{name}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={max(bound_bytes_ms, bound_ops_ms):.6f} "
+        f"(bytes {bound_bytes_ms:.6f}, ops {bound_ops_ms:.6f}; {steps} merge steps)")
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "drep_tpu_torch/csrc/intersect.cu",
+        "replaces": replaces,
+        "equal": True,
+        "max_abs_err": 0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+        "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+        "library_ms": None,
+    }
+
+
+def phase_intersect(dev, gs, planted) -> list[dict]:
+    import torch
+
+    from drep_tpu_torch.ops import intersect as ti
+    from drep_tpu_torch.ops.mash import _wrap_symmetric_plain
+    from drep_tpu_torch.ops.minhash import PAD_ID, U16_PAD, widen_ids
+    from drep_tpu_torch.ops.rangepart import stacked_range_buckets
+
+    def check(a, b, symmetric, what, stacked=False):
+        fn = ti.intersect_stacked if stacked else ti.intersect
+        plain = ti.intersect_stacked_plain if stacked else ti.intersect_plain
+        got = fn(a, a if b is None else b, symmetric=symmetric)
+        wa = widen_ids(a)
+        want = plain(wa, wa if b is None else widen_ids(b))
+        require(torch.equal(got, _wrap_symmetric_plain(want) if symmetric else want), f"{what} != plain")
+
+    # kernel 3 at [2048 rows, width 2048]: distinct ids over a 2^16 vocabulary, ragged
+    rng = np.random.default_rng(31)
+    rows, width = 2048, 2048
+    ids = np.full((rows, width), PAD_ID, np.int32)
+    for r in range(rows):
+        u = np.unique(rng.integers(0, 1 << 16, size=2300))[: int(rng.integers(1500, width + 1))]
+        ids[r, : len(u)] = u
+    d = torch.from_numpy(ids).to(dev)
+    check(d, None, True, "intersect symmetric [2048, 2048]")
+    check(d[:1024], d, False, "intersect rectangular [1024 x 2048, 2048]")
+    # ragged with empty rows, in-row repeats, and a uint16 pack of the same rows
+    small = np.full((512, 512), PAD_ID, np.int32)
+    for r in range(512):
+        n = 0 if r % 7 == 0 else int(rng.integers(1, 513))
+        small[r, :n] = np.sort(rng.integers(0, 3000 if r % 2 else 600, size=n))  # odd rows: few repeats
+    sd = torch.from_numpy(small).to(dev)
+    sd16 = torch.from_numpy(np.where(small == PAD_ID, U16_PAD, small).astype(np.uint16)).to(dev)
+    check(sd, None, True, "intersect ragged/empty/repeat rows, symmetric")
+    check(sd[:256], sd, False, "intersect ragged/empty/repeat rows, rectangular")
+    check(sd16, None, True, "intersect uint16 rows, symmetric")
+    check(sd16[:128], sd16, False, "intersect uint16 rows, rectangular")
+    # the same rows as two stacked buckets (the second in reverse row order)
+    st2 = torch.stack([sd, sd.flip(0)])
+    check(st2, None, True, "intersect_stacked ragged/empty/repeat rows, symmetric", stacked=True)
+    check(st2[:, :256], st2, False, "intersect_stacked ragged/empty/repeat rows, rectangular", stacked=True)
+    log("intersect: [2048, 2048] symmetric and rectangular, ragged/empty/repeat rows (plain and as two "
+        "stacked buckets) and uint16 rows equal the plain version")
+    k3_ms = cuda_ms(lambda: ti.intersect(d, d, symmetric=True), reps=5)
+    k3_plain_ms = cuda_ms(lambda: ti.intersect_plain(d, d), reps=1, warmup=0)
+    steps, nbytes = merge_cost(ids[None], symmetric=True)
+    k3 = intersect_entry("intersect", "drep_tpu/ops/pallas_merge.py:79", k3_ms, k3_plain_ms, steps, nbytes)
+
+    # kernel 4 on cluster A's stacked int32 buckets (a 256-row block) and
+    # cluster C's uint16 buckets
+    t0 = time.perf_counter()
+    pack_a = beyond_pack(gs, planted, "A")
+    t_pack = time.perf_counter() - t0
+    (st_a,) = stacked_range_buckets([pack_a.ids], ti.PALLAS_MAX_WIDTH)
+    t_plan = time.perf_counter() - t0 - t_pack
+    require(st_a.dtype == np.int32, f"cluster A's buckets should ship int32, got {st_a.dtype}")
+    log(f"intersect_stacked: cluster A pack {pack_a.ids.shape} in {t_pack:.2f} s, "
+        f"{st_a.shape[0]} buckets {st_a.shape} {st_a.dtype} in {t_plan:.2f} s")
+    blk = torch.from_numpy(np.ascontiguousarray(st_a[:, :256])).to(dev)
+    nxt = torch.from_numpy(np.ascontiguousarray(st_a[:, 256:512])).to(dev)
+    check(blk, None, True, "intersect_stacked cluster A block, symmetric", stacked=True)
+    check(blk, nxt, False, "intersect_stacked cluster A block, rectangular", stacked=True)
+    pack_c = beyond_pack(gs, planted, "C")
+    (st_c,) = stacked_range_buckets([pack_c.ids], ti.PALLAS_MAX_WIDTH)
+    require(st_c.dtype == np.uint16, f"cluster C's buckets should ship uint16, got {st_c.dtype}")
+    cblk = torch.from_numpy(np.ascontiguousarray(st_c[:, :256])).to(dev)
+    check(cblk, None, True, "intersect_stacked cluster C uint16 block, symmetric", stacked=True)
+    check(cblk[:, :128], cblk, False, "intersect_stacked cluster C uint16 block, rectangular", stacked=True)
+    log(f"intersect_stacked: cluster A int32 {tuple(blk.shape)} and cluster C uint16 {tuple(cblk.shape)} "
+        "blocks equal the plain version in both layouts")
+    k4_ms = cuda_ms(lambda: ti.intersect_stacked(blk, blk, symmetric=True), reps=5)
+    k4_plain_ms = cuda_ms(lambda: ti.intersect_stacked_plain(blk, blk), reps=1, warmup=0)
+    steps, nbytes = merge_cost(st_a[:, :256], symmetric=True)
+    k4 = intersect_entry("intersect_stacked", "drep_tpu/ops/pallas_merge.py:102", k4_ms, k4_plain_ms,
+                         steps, nbytes)
+    return [k3, k4]
+
+
 def reset_launches() -> None:
-    from drep_tpu_torch.ops import indicator, mash
+    from drep_tpu_torch.ops import indicator, intersect, mash
 
     mash.LAUNCHES["mash_shared"] = 0
     indicator.LAUNCHES["indicator"] = 0
+    intersect.LAUNCHES["intersect"] = 0
+    intersect.LAUNCHES["intersect_stacked"] = 0
 
 
 def read_launches() -> dict:
-    from drep_tpu_torch.ops import indicator, mash
+    from drep_tpu_torch.ops import indicator, intersect, mash
 
-    return {"mash_shared": mash.LAUNCHES["mash_shared"], "indicator": indicator.LAUNCHES["indicator"]}
+    return {"mash_shared": mash.LAUNCHES["mash_shared"], "indicator": indicator.LAUNCHES["indicator"],
+            **intersect.LAUNCHES}
 
 
 def phase_cli(tmp: str, dev) -> dict:
@@ -290,7 +481,7 @@ def phase_cli(tmp: str, dev) -> dict:
     wdb = pd.read_csv(os.path.join(wd, "data_tables", "Wdb.csv"))
     winners = sorted(wdb["genome"])
     require(winners == ["genome_A.fasta", "genome_C.fasta", "genome_D.fasta"], f"fixture winners {winners}")
-    require(all(v > 0 for v in launches.values()), f"fixture run skipped a kernel: {launches}")
+    require(all(launches[k] > 0 for k in PRIMARY_PATH_KERNELS), f"fixture run skipped a kernel: {launches}")
     log(f"cli dereplicate: winners {winners} in {dt:.2f} s, launches {launches}")
     return launches
 
@@ -347,7 +538,7 @@ def phase_real_size(tmp: str, dev) -> dict:
         f"{pairs / stages['primary_compare']:.1f} pairs/s ({pairs / stages['primary']:.1f} pairs/s "
         f"with linkage); launches {launches}; secondary paths {paths}")
 
-    require(all(v > 0 for v in launches.values()), f"real-size run skipped a kernel: {launches}")
+    require(all(launches[k] > 0 for k in PRIMARY_PATH_KERNELS), f"real-size run skipped a kernel: {launches}")
     require(set(paths) == {"one_shot_clusterlocal"}, f"secondary left the one-shot cluster-local route: {paths}")
     by_name = cdb.set_index("genome")
     prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
@@ -392,6 +583,146 @@ def phase_real_size(tmp: str, dev) -> dict:
     return {"launches": launches, "mash_ms": main_ms, "mash_rows": int(pad.shape[0])}
 
 
+def phase_beyond(tmp: str, dev, gs, planted) -> dict:
+    """The beyond-budget slice (phase 6): d_cluster -> choose -> evaluate
+    over the three BEYOND clusters, then each cluster's counts on both
+    routes."""
+    import pandas as pd
+    import torch
+
+    from drep_tpu_torch.choose import d_choose_wrapper
+    from drep_tpu_torch.cluster import controller, engines
+    from drep_tpu_torch.evaluate import d_evaluate_wrapper
+    from drep_tpu_torch.ingest import save_sketch_cache
+    from drep_tpu_torch.cluster.pairs import directional_ndb
+    from drep_tpu_torch.ops import intersect as ti
+    from drep_tpu_torch.ops.containment import (
+        ani_cov_from_intersections,
+        intersections_chunked,
+        matmul_vocab_pad,
+    )
+    from drep_tpu_torch.ops.mash import _wrap_symmetric_plain
+    from drep_tpu_torch.ops.minhash import dense_ranks, ids_to_device, widen_ids
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    t0 = time.perf_counter()
+    wd = WorkDirectory(os.path.join(tmp, "beyond_wd"))
+    gdir = os.path.join(tmp, "beyond_genomes")
+    os.makedirs(gdir)
+    for g in gs.names:
+        open(os.path.join(gdir, g), "wb").close()
+    bdb = pd.DataFrame({"genome": gs.names, "location": [os.path.join(gdir, g) for g in gs.names]})
+    wd.store_db(bdb, "Bdb")
+    save_sketch_cache(wd, gs)
+    wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
+    log(f"beyond budget: {len(gs.names)} genomes in clusters "
+        f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
+
+    paths_before = dict(engines.SECONDARY_PATH_COUNTS)
+    reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev)
+    t_cluster = time.perf_counter() - t1
+    d_choose_wrapper(wd, bdb)
+    d_evaluate_wrapper(wd)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t1
+    launches = read_launches()
+    paths = {p: c - paths_before.get(p, 0) for p, c in engines.SECONDARY_PATH_COUNTS.items()
+             if c - paths_before.get(p, 0)}
+    stages = dict(controller.STAGE_SECONDS)
+    log(f"beyond budget: d_cluster_wrapper {t_cluster:.2f} s, with choose+evaluate {t_total:.2f} s; "
+        f"stages {json.dumps({k: round(v, 3) for k, v in stages.items()})}; launches {launches}; "
+        f"secondary paths {paths}")
+    require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
+    require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
+    by_name = cdb.set_index("genome")
+    prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
+    sec = by_name.loc[gs.names, "secondary_cluster"].to_numpy()
+    for i, (key, (n, _, _, route)) in enumerate(BEYOND.items()):
+        members = planted == i
+        require(len(set(prim[members])) == 1, f"cluster {key} split across primary clusters")
+        want = n if route == "pallas_range" else 1
+        require(len(set(sec[members])) == want, f"cluster {key}: {len(set(sec[members]))} secondary clusters, "
+                f"expected {want}")
+
+    # each cluster's counts on both routes, both timed on the same pack, and
+    # the Ndb rows the run wrote held against them; where the main path ran
+    # the merge kernel (A, B), the kernel is also held against its plain
+    # version on the whole operand the route builds
+    ndb = wd.get_db("Ndb")
+    routes, parts = {}, {}
+    for key, (n, _, _, route) in BEYOND.items():
+        pack = beyond_pack(gs, planted, key)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        merged = ti.intersect_counts_self(pack.ids, dev)
+        t_merge = time.perf_counter() - t
+        merge_parts = dict(ti.STAGE_SECONDS)
+        t = time.perf_counter()
+        chunked = intersections_chunked(pack, dev)
+        t_chunk = time.perf_counter() - t
+        require(np.array_equal(merged, chunked), f"cluster {key}: pallas_range counts != matmul_chunked counts")
+        routes[key] = {"rows": pack.n, "width": int(pack.ids.shape[1]), "v_pad": matmul_vocab_pad(pack),
+                       "route": engines.beyond_budget_secondary_path(pack.sketch_size, matmul_vocab_pad(pack)),
+                       "pallas_range_s": t_merge, "matmul_chunked_s": t_chunk}
+        log(f"beyond budget: cluster {key} {routes[key]}: both routes give equal counts")
+
+        t = time.perf_counter()
+        ani, cov = ani_cov_from_intersections(merged, pack.counts, gs.k)
+        merge_parts["ani_cov"] = time.perf_counter() - t
+        t = time.perf_counter()
+        directional_ndb(pack.names, ani, cov, 1)
+        merge_parts["ndb_rows"] = time.perf_counter() - t
+        pos = pd.Series(np.arange(pack.n), index=pack.names)
+        rows = ndb[ndb["querry"].isin(pos.index)]
+        require(len(rows) == n * (n - 1), f"cluster {key}: {len(rows)} Ndb rows, expected {n * (n - 1)}")
+        qi, ri = pos[rows["querry"]].to_numpy(), pos[rows["reference"]].to_numpy()
+        require(np.array_equal(rows["ani"].to_numpy().astype(np.float32), ani[qi, ri])
+                and np.array_equal(rows["alignment_coverage"].to_numpy().astype(np.float32), cov[qi, ri]),
+                f"cluster {key}: the run's Ndb ani/coverage != the counts checked across both routes")
+        log(f"beyond budget: cluster {key}: the run's {len(rows)} Ndb rows equal (ani, cov) of those counts")
+        if route != "pallas_range":
+            continue
+
+        op = ti.self_operand(pack.ids)
+        stacked = op.ndim == 3
+        kernel = ti.intersect_stacked if stacked else ti.intersect
+        plain = ti.intersect_stacked_plain if stacked else ti.intersect_plain
+        d = ids_to_device(op, dev)
+        got = kernel(d, d, symmetric=True)
+        wide = widen_ids(d)
+        want, plain_ms = cuda_timed(lambda: plain(wide, wide))
+        require(torch.equal(got, _wrap_symmetric_plain(want)),
+                f"cluster {key}: {kernel.__name__} {tuple(op.shape)} != plain")
+        del want, wide
+        steps, nbytes = merge_cost(op if stacked else op[None], symmetric=True)
+        parts[key] = {
+            "kernel": kernel.__name__, "shape": list(op.shape), "dtype": str(op.dtype),
+            "ms": cuda_ms(lambda: kernel(d, d, symmetric=True), reps=3), "plain_ms": plain_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, steps / SCALAR_OPS_PER_S) * 1e3, "merge_steps": steps,
+            "route_parts_s": merge_parts,
+        }
+        log(f"beyond budget: cluster {key} {kernel.__name__} on the route's whole operand "
+            f"{tuple(op.shape)} {op.dtype} equals the plain version; {json.dumps(parts[key])}")
+
+    # the scaled pack's rank map (one sort with its inverse) against a
+    # searchsorted into the sorted vocabulary, on the same hashes (cluster
+    # B's), in the order searchsorted, sort, sort, searchsorted
+    flat = np.concatenate([gs.scaled[i] for i in np.flatnonzero(planted == list(BEYOND).index("B"))])
+    rank_map = {"hashes": int(flat.size), "searchsorted_s": [], "sort_inverse_s": []}
+    want = dense_ranks(flat)[1]
+    for name in ("searchsorted_s", "sort_inverse_s", "sort_inverse_s", "searchsorted_s"):
+        t = time.perf_counter()
+        ranks = (np.searchsorted(np.unique(flat), flat).astype(np.int32) if name == "searchsorted_s"
+                 else dense_ranks(flat)[1])
+        rank_map[name].append(time.perf_counter() - t)
+        require(np.array_equal(ranks, want), f"rank map {name} disagrees")
+    log(f"beyond budget: rank map on cluster B's hashes {json.dumps(rank_map)}")
+    return {"launches": launches, "routes": routes, "parts": parts, "rank_map": rank_map}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -416,17 +747,33 @@ def main() -> int:
     log(f"build: CUDA kernels {list(_build.SOURCES)} and native ingest (ok={native_ok}) "
         f"in {time.perf_counter() - t0:.2f} s")
 
-    kernels = [phase_mash(dev), phase_indicator(dev)]
+    t0 = time.perf_counter()
+    gs_beyond, planted_beyond = plant_beyond()
+    log(f"beyond budget: planted {len(gs_beyond.names)} genomes in {time.perf_counter() - t0:.1f} s")
+    kernels = [phase_mash(dev), phase_indicator(dev), *phase_intersect(dev, gs_beyond, planted_beyond)]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cli(tmp, dev)
         real = phase_real_size(tmp, dev)
+        beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in kernels:
-        k["launches"] = real["launches"][k["name"]]
+        path = real if k["name"] in PRIMARY_PATH_KERNELS else beyond
+        k["launches"] = path["launches"][k["name"]]
     kernels[0]["main_path_ms"] = real["mash_ms"]
     kernels[0]["main_path_rows"] = real["mash_rows"]
+    # the merge kernels on the operands their route built in phase 6 (B:
+    # width 2048, A: stacked buckets), and the other route on the same pack
+    # in place of a library call
+    for k, key in ((kernels[2], "B"), (kernels[3], "A")):
+        part = beyond["parts"][key]
+        require(part["kernel"] == k["name"], f"cluster {key} ran {part['kernel']}, expected {k['name']}")
+        k.update(main_path_ms=part["ms"], main_path_plain_ms=part["plain_ms"],
+                 main_path_bound_ms=part["bound_ms"], main_path_shape=part["shape"],
+                 main_path_dtype=part["dtype"],
+                 pallas_range_s=beyond["routes"][key]["pallas_range_s"],
+                 matmul_chunked_s=beyond["routes"][key]["matmul_chunked_s"])
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,8 @@ single-device path:
   clustering at 1-P_ani -> integer primary clusters (Mdb: dense for small
   N, thresholded beyond `mdb_dense_limit`);
 - SECONDARY: per primary cluster with >1 member, containment ANI through
-  the one-shot indicator matmul (small clusters batched into one call) ->
+  the one-shot indicator matmul (small clusters batched into one call),
+  or past its budget the merge kernel or the chunked matmul (engines) ->
   coverage-gated hierarchical clustering at 1-S_ani -> "P_S" ids (Ndb);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 

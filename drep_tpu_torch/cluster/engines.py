@@ -10,7 +10,11 @@ are identical to the JAX package's; here they run the CUDA kernels
   estimator), as on a TPU; the MXU-style `matmul` estimator is not ported.
 - `jax_ani`: the one-shot indicator matmul, per cluster or batched over
   many small clusters in cluster-local id spaces. A cluster past the
-  one-shot budget raises; it never falls back.
+  one-shot budget takes one of the JAX package's two single-chip routes,
+  by the same rule: the merge-intersect kernel over id-range buckets
+  (ops/intersect.py, `pallas_range`) or the vocabulary-chunked indicator
+  matmul (`matmul_chunked`). On the CPU the same routing runs the plain
+  versions; no route falls back to another.
 """
 
 from __future__ import annotations
@@ -26,24 +30,21 @@ from drep_tpu_torch.cluster.dispatch import (
 from drep_tpu_torch.ingest import GenomeSketches
 from drep_tpu_torch.ops.containment import (
     all_vs_all_containment_matmul,
+    all_vs_all_containment_matmul_chunked,
     matmul_vocab_pad,
     matmul_vocab_pad_extent,
     one_shot_fits,
     pack_scaled_sketches,
     pack_scaled_sketches_clusterlocal,
 )
+from drep_tpu_torch.ops.intersect import all_vs_all_containment_merge
 from drep_tpu_torch.ops.mash import all_vs_all_mash
-from drep_tpu_torch.ops.minhash import pack_sketches
+from drep_tpu_torch.ops.minhash import next_pow2, pack_sketches
 
 MATMUL_ESTIMATOR_TODO = (
     "--primary_estimator matmul (the common-threshold MinHash estimator, "
     "drep_tpu/ops/minhash_matmul.py) is not ported yet: ROADMAP.md queue 1, "
     "item 9 (other primary and secondary options)"
-)
-BEYOND_BUDGET_TODO = (
-    "is past the one-shot indicator budget; the vocabulary-chunked matmul and the "
-    "merge-intersect kernel (pallas_merge) are not ported yet: ROADMAP.md queue 1, "
-    "item 7 and queue 2, kernel 3"
 )
 
 
@@ -74,8 +75,31 @@ def primary_jax_mash(
     return dist, 1.0 - dist
 
 
+# Per-element cost of the merge relative to the int8 indicator matmul: a
+# beyond-budget cluster weighs merge work (2*s2*log2(2*s2) units a pair)
+# against chunked-matmul work (v_pad columns a pair), the merge side times
+# this penalty. The value is the JAX package's (drep_tpu/cluster/
+# engines.py:203), fitted on a TPU v5e; it is kept so the port routes every
+# cluster as the JAX package does on a TPU. Re-fitting it on the H100 waits
+# for the port's bench.
+MERGE_VS_MATMUL_ELEM_COST = 47.0
+
+
+def beyond_budget_secondary_path(sketch_width: int, v_pad: int) -> str:
+    """Which route owns a cluster past the one-shot budget: `pallas_range`
+    (the merge kernel, cost per pair independent of the vocabulary) when
+    the vocabulary outgrows the penalised merge work, else
+    `matmul_chunked`."""
+    s2 = max(128, next_pow2(sketch_width))
+    merge_units = 2 * s2 * ((2 * s2).bit_length() - 1)
+    if MERGE_VS_MATMUL_ELEM_COST * merge_units < v_pad:
+        return "pallas_range"
+    return "matmul_chunked"
+
+
 # how many calls each secondary path served this process (one_shot,
-# one_shot_clusterlocal) — a run diffs it to show which route it took
+# one_shot_clusterlocal, pallas_range, matmul_chunked: the JAX package's
+# names) — a run diffs it to show which route it took
 SECONDARY_PATH_COUNTS: dict[str, int] = {}
 
 
@@ -84,16 +108,18 @@ def _count_path(path: str) -> None:
 
 
 def containment_matrices(packed, k: int, device: torch.device):
-    """(symmetric max-containment ani, directional cov) through the
-    one-shot indicator matmul; a pack past its budget raises."""
+    """(symmetric max-containment ani, directional cov): the one-shot
+    indicator matmul when the pack fits its budget, else the route that
+    :func:`beyond_budget_secondary_path` picks."""
     v_pad = matmul_vocab_pad(packed)
-    if not one_shot_fits(packed.n, v_pad):
-        raise NotImplementedError(
-            f"a secondary cluster of {packed.n} genomes over a {v_pad}-id vocabulary "
-            + BEYOND_BUDGET_TODO
-        )
-    _count_path("one_shot")
-    return all_vs_all_containment_matmul(packed, k=k, device=device, v_pad=v_pad)
+    if one_shot_fits(packed.n, v_pad):
+        _count_path("one_shot")
+        return all_vs_all_containment_matmul(packed, k=k, device=device, v_pad=v_pad)
+    path = beyond_budget_secondary_path(packed.sketch_size, v_pad)
+    _count_path(path)
+    if path == "pallas_range":
+        return all_vs_all_containment_merge(packed, k=k, device=device)
+    return all_vs_all_containment_matmul_chunked(packed, k=k, device=device)
 
 
 @register_secondary("jax_ani")

@@ -1,21 +1,28 @@
-"""Containment ANI from FracMinHash sketches — the one-shot `jax_ani` path.
+"""Containment ANI from FracMinHash sketches — the indicator-matmul paths
+of the `jax_ani` secondary.
 
-Counterpart of the one-shot subset of drep_tpu/ops/containment.py (plus
-``vocab_extent`` from drep_tpu/ops/rangepart.py). Scaled sketches map to a
-dense int32 id space; the intersection sizes |A ∩ B| of all row pairs are
-one exact integer product of 0/1 indicator rows:
+Counterpart of the indicator-matmul subset of drep_tpu/ops/containment.py.
+Scaled sketches map to a dense int32 id space; the intersection sizes
+|A ∩ B| of all row pairs are one exact integer product of 0/1 indicator
+rows:
 
     inter = ind @ ind.T,   ind [m, v_pad] int8 (ops/indicator.py kernel)
 
-run as the triangular schedule of the JAX package — one indicator build,
-then per row block `lo` one ``torch._int_mm(ind[lo:lo+tb], ind[lo:].T)``
-(int8 in, exact int32 out) — with the skipped lower blocks mirrored on
-the host. ANI = max(C(A,B), C(B,A))^(1/k), C = |A∩B|/|A|, derives from the
-counts on the host with the JAX package's float32 formula.
+run as the triangular schedule of the JAX package — per row block `lo`
+one ``torch._int_mm(ind[lo:lo+tb], ind[lo:].T)`` (int8 in, exact int32
+out) — with the skipped lower blocks mirrored on the host. ANI =
+max(C(A,B), C(B,A))^(1/k), C = |A∩B|/|A|, derives from the counts on the
+host with the JAX package's float32 formula.
 
-Only the one-shot regime is here: a pack whose [m, v_pad] indicator
-exceeds MATMUL_BUDGET_ELEMS raises (the vocabulary-chunked matmul and the
-merge-intersect kernel are still to port).
+Two regimes, chosen by cluster/engines.py::containment_matrices:
+
+- one-shot: the whole [m, v_pad] indicator fits MATMUL_BUDGET_ELEMS;
+- vocabulary-chunked: past the budget the vocabulary splits into chunks
+  (ops/rangepart.py), each one indicator build and one triangle product,
+  summed on the device.
+
+The other beyond-budget route, the merge-intersect kernel, is
+ops/intersect.py.
 """
 
 from __future__ import annotations
@@ -26,11 +33,16 @@ import torch
 from drep_tpu_torch.ops.indicator import indicator
 from drep_tpu_torch.ops.minhash import (
     PAD_ID,
+    U16_PAD,
     PackedSketches,
+    dense_ranks,
     ids_to_device,
+    next_pow2,
     pad_packed_rows,
     pad_sentinel,
+    require_int32_ids,
 )
+from drep_tpu_torch.ops.rangepart import MIN_BUCKET_WIDTH, bucket_starts, repack_bucket, vocab_extent
 
 # budget for the dense indicator matrix [m, V] in int8 elements (~512 MB)
 MATMUL_BUDGET_ELEMS = 1 << 29
@@ -50,15 +62,12 @@ def pack_scaled_sketches(
     max sketch length rounded up to a power of two (>= `pad_multiple`)."""
     if not sketches:
         raise ValueError("no sketches to pack")
-    vocab = np.unique(np.concatenate(sketches))
-    if vocab.size >= np.iinfo(np.int32).max:
-        raise ValueError("id space overflow: >2^31 distinct sketch hashes")
     width = _pow2_bucket(max(max(len(s) for s in sketches), 1), pad_multiple)
     n = len(sketches)
     ids = np.full((n, width), PAD_ID, dtype=np.int32)
     lens = np.array([len(s) for s in sketches], dtype=np.int64)
     flat = np.concatenate(sketches)
-    ranks = np.searchsorted(vocab, flat).astype(np.int32)
+    _, ranks = dense_ranks(flat)
     rows = np.repeat(np.arange(n), lens)
     offs = np.concatenate([[0], np.cumsum(lens)[:-1]])
     cols = np.arange(len(flat)) - np.repeat(offs, lens)
@@ -111,13 +120,6 @@ def pack_scaled_sketches_clusterlocal(
         PackedSketches(ids=ids, counts=lens_arr.astype(np.int32), names=list(names)),
         v_extent,
     )
-
-
-def vocab_extent(ids: np.ndarray) -> int:
-    """1 + the largest real id in a packed matrix (0 when all padding) —
-    drep_tpu/ops/rangepart.py::vocab_extent."""
-    valid = ids != pad_sentinel(ids.dtype)
-    return int(ids[valid].max()) + 1 if valid.any() else 0
 
 
 def matmul_vocab_pad_extent(extent: int) -> int:
@@ -198,10 +200,9 @@ def intersections_one_shot(packed: PackedSketches, v_pad: int, device: torch.dev
     m = packed.n
     m_pad = matmul_rows_pad(m)
     if not one_shot_fits(m, v_pad):
-        raise NotImplementedError(
+        raise ValueError(
             f"containment of {m} rows over a {v_pad}-wide vocabulary exceeds the one-shot "
-            "indicator budget; the vocabulary-chunked matmul and the merge-intersect kernel "
-            "are still to port (ROADMAP.md queue 2, kernels 3-4)"
+            "indicator budget; route it through cluster/engines.py::containment_matrices"
         )
     ids, _ = pad_packed_rows(packed.ids, packed.counts, m_pad)
     ind = indicator(ids_to_device(ids, device), v_pad)
@@ -219,3 +220,80 @@ def all_vs_all_containment_matmul(
         v_pad = matmul_vocab_pad(packed)
     inter = intersections_one_shot(packed, v_pad, device)
     return ani_cov_from_intersections(inter, packed.counts, k)
+
+
+def matmul_vocab_chunk(m_pad: int) -> int:
+    """Widest pow2 vocabulary chunk whose [m_pad, chunk+1] int8 indicator
+    fits MATMUL_BUDGET_ELEMS (>= _VOCAB_BUCKET_MIN)."""
+    fit = max(MATMUL_BUDGET_ELEMS // max(m_pad, 1) - 1, 1)
+    return max(_VOCAB_BUCKET_MIN, 1 << (fit.bit_length() - 1))
+
+
+def _chunk_plan(ids: np.ndarray, v_chunk: int, extent: int):
+    """(n_chunks, starts, hist, width) of a vocabulary-chunk layout, shared
+    by the byte comparison and the materialization."""
+    n_chunks = -(-extent // v_chunk)
+    starts = bucket_starts(ids, v_chunk, n_chunks)
+    hist = np.diff(starts, axis=1)
+    width = max(MIN_BUCKET_WIDTH, next_pow2(int(hist.max())))
+    return n_chunks, starts, hist, width
+
+
+def _stacked_vocab_chunks(ids: np.ndarray, v_chunk: int, m_pad: int, plan=None) -> np.ndarray:
+    """[R, m_pad, W] stacked vocabulary chunks for one host->device copy:
+    chunk r holds each row's ids in [r*v_chunk, (r+1)*v_chunk), rebased to
+    the chunk origin and repacked to the shared pow2 width W. Below 2^16
+    (strictly: a rebased 65535 would be the sentinel) the chunks ship as
+    uint16 with a 0xFFFF pad. `plan`: a precomputed :func:`_chunk_plan`."""
+    extent = vocab_extent(ids)
+    if extent == 0:
+        return np.full((0, m_pad, MIN_BUCKET_WIDTH), PAD_ID, np.int32)
+    n_chunks, starts, hist, width = plan if plan is not None else _chunk_plan(ids, v_chunk, extent)
+    dtype = np.uint16 if v_chunk < (1 << 16) else np.int32
+    out = np.full((n_chunks, m_pad, width), pad_sentinel(dtype), dtype)
+    for r in range(n_chunks):
+        blk = repack_bucket(ids, starts[:, r], hist[:, r], width, rebase=r * v_chunk)
+        if dtype == np.uint16:
+            out[r, : ids.shape[0]] = np.where(blk == PAD_ID, U16_PAD, blk).astype(np.uint16)
+        else:
+            out[r, : ids.shape[0]] = blk
+    return out
+
+
+def intersections_chunked(packed: PackedSketches, device: torch.device) -> np.ndarray:
+    """[m, m] int32 exact intersection counts through vocabulary chunks:
+    the chunk plan (int32 chunks, or 2^15-wide uint16 chunks when those
+    ship fewer bytes), ONE stacked copy to the device, per chunk the
+    indicator kernel and the triangle product, the partial counts summed
+    on the device, one copy back and the host mirror —
+    drep_tpu/ops/containment.py::all_vs_all_containment_matmul_chunked."""
+    require_int32_ids(packed.ids, "intersections_chunked")
+    m = packed.n
+    m_pad = matmul_rows_pad(m)
+    v_chunk = matmul_vocab_chunk(m_pad)
+    extent = vocab_extent(packed.ids)
+    u16_chunk = 1 << 15
+    plan = None
+    if v_chunk > u16_chunk and extent > 0:
+        plan32 = _chunk_plan(packed.ids, v_chunk, extent)
+        plan16 = _chunk_plan(packed.ids, u16_chunk, extent)
+        if plan16[0] * plan16[3] * 2 < plan32[0] * plan32[3] * 4:
+            v_chunk, plan = u16_chunk, plan16
+        else:
+            plan = plan32
+    stacked = ids_to_device(_stacked_vocab_chunks(packed.ids, v_chunk, m_pad, plan=plan), device)
+    if stacked.shape[0] == 0:
+        return np.zeros((m, m), dtype=np.int32)
+    tb = tri_row_block(m_pad)
+    acc = intersect_matmul_tri(indicator(stacked[0], v_chunk), tb)
+    for r in range(1, stacked.shape[0]):
+        acc += intersect_matmul_tri(indicator(stacked[r], v_chunk), tb)
+    return mirror_lower_blocks(acc.cpu().numpy(), tb)[:m, :m]
+
+
+def all_vs_all_containment_matmul_chunked(
+    packed: PackedSketches, k: int, device: torch.device
+) -> tuple[np.ndarray, np.ndarray]:
+    """(ani, cov) [m, m] through the vocabulary-chunked indicator matmul,
+    for a pack past the one-shot budget."""
+    return ani_cov_from_intersections(intersections_chunked(packed, device), packed.counts, k)

@@ -50,6 +50,25 @@ def widen_ids(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def require_int32_ids(ids: np.ndarray, where: str) -> None:
+    """Raise unless a host id matrix is int32 with PAD_ID padding (the
+    callers that take a uint16 pack say so and widen it themselves)."""
+    if ids.dtype != np.int32:
+        raise TypeError(f"{where}: id rows must be int32 with PAD_ID padding, got {ids.dtype}")
+
+
+def dense_ranks(flat: np.ndarray) -> tuple[int, np.ndarray]:
+    """(vocabulary size, int32 rank of each uint64 hash among the distinct
+    hashes) — the monotone rank map, from one sort with its inverse. A
+    searchsorted of every hash into the sorted vocabulary gives the same
+    ranks, but into a vocabulary of tens of millions of hashes (a cluster
+    past the one-shot budget) its random probes miss the cache."""
+    vocab, inverse = np.unique(flat, return_inverse=True)
+    if vocab.size >= np.iinfo(np.int32).max:
+        raise ValueError("id space overflow: >2^31 distinct sketch hashes")
+    return int(vocab.size), inverse.reshape(-1).astype(np.int32)
+
+
 @dataclass
 class PackedSketches:
     """Fixed-shape device-ready sketch pack.

@@ -1,0 +1,183 @@
+"""Host-side range partitioning of sorted sketch-id rows.
+
+Counterpart of drep_tpu/ops/rangepart.py (the partitioners; its index and
+federation helpers belong to the index slice). Intersection counts are
+additive over disjoint id ranges:
+
+    |A ∩ B| = Σ_r |A ∩ [b_r, b_{r+1}) ∩ B|
+
+so a row too wide for one kernel call splits into narrow buckets whose
+counts sum. Two callers:
+
+- the merge-intersect kernel (ops/intersect.py) caps the row width at
+  PALLAS_MAX_WIDTH: :func:`stacked_range_buckets` repacks every row into
+  R shared id-range buckets of one common width, one [R, N, W] tensor;
+- the vocabulary-chunked matmul (ops/containment.py) caps the indicator
+  width: its chunks reuse :func:`bucket_starts` and :func:`repack_bucket`.
+
+Rows hold distinct sorted ids (sketches are sets), so a bucket covering
+`w` consecutive ids holds at most `w` entries a row and the adaptive
+splitter terminates. All of it is numpy on the host; the layouts (dtype,
+bucket set, width) are byte-identical to the JAX package's.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Iterator
+
+import numpy as np
+
+from drep_tpu_torch.ops.minhash import PAD_ID, U16_PAD, next_pow2, pad_sentinel
+
+MIN_BUCKET_WIDTH = 128  # never repack below one 128-wide row
+
+
+def vocab_extent(ids: np.ndarray) -> int:
+    """1 + the largest real id in a packed matrix (0 when all padding). A
+    uint16 pack uses its own pad sentinel."""
+    valid = ids != pad_sentinel(ids.dtype)
+    return int(ids[valid].max()) + 1 if valid.any() else 0
+
+
+def _vocab_extent(mats: list[np.ndarray]) -> int:
+    return max((vocab_extent(m) for m in mats), default=0)
+
+
+def bucket_starts(ids: np.ndarray, chunk: int, n_buckets: int) -> np.ndarray:
+    """int64 [N, n_buckets+1]: starts[i, r] is the index of row i's first
+    element >= r*chunk, so bucket r spans starts[:, r]..starts[:, r+1].
+    Rows are sorted with PAD_ID (>= every boundary) at the tail, so one
+    searchsorted per row over the few boundaries does it."""
+    bounds = np.minimum(np.arange(1, n_buckets + 1, dtype=np.int64) * chunk, PAD_ID)
+    starts = np.empty((ids.shape[0], n_buckets + 1), dtype=np.int64)
+    starts[:, 0] = 0
+    for i in range(ids.shape[0]):
+        starts[i, 1:] = np.searchsorted(ids[i], bounds, side="left")
+    return starts
+
+
+def bucket_histogram(ids: np.ndarray, chunk: int, n_buckets: int) -> np.ndarray:
+    """Per-row element counts for equal-width id ranges."""
+    return np.diff(bucket_starts(ids, chunk, n_buckets), axis=1)
+
+
+def repack_bucket(
+    ids: np.ndarray, starts: np.ndarray, cnt: np.ndarray, width: int, rebase: int = 0
+) -> np.ndarray:
+    """One range bucket as a fresh [N, width] PAD-padded int32 matrix:
+    row i's contiguous slice starts[i]..starts[i]+cnt[i], minus `rebase`."""
+    n = ids.shape[0]
+    out = np.full((n, width), PAD_ID, dtype=np.int32)
+    total = int(cnt.sum())
+    if total == 0:
+        return out
+    rows = np.repeat(np.arange(n), cnt)
+    offs = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    local = np.arange(total) - np.repeat(offs, cnt)
+    src_col = np.repeat(starts, cnt) + local
+    out[rows, local] = ids[rows, src_col] - rebase
+    return out
+
+
+def _check_max_count(max_count: int) -> None:
+    if max_count < MIN_BUCKET_WIDTH:
+        raise ValueError(f"max_count {max_count} below the minimum bucket width {MIN_BUCKET_WIDTH}")
+    if max_count & (max_count - 1):
+        # widths are pow2-bucketed, so a non-pow2 bound would be exceeded
+        raise ValueError(f"max_count {max_count} must be a power of two")
+
+
+def partition_by_range(
+    mats: list[np.ndarray], max_count: int, rebase: bool = False
+) -> Iterator[tuple[int, list[np.ndarray]]]:
+    """Split sorted PAD-padded id matrices into shared disjoint id-range
+    buckets, each repacked to a pow2 width <= max_count. Yields
+    (chunk_origin, [bucket matrix per input]) for every non-empty bucket."""
+    _check_max_count(max_count)
+    vocab = _vocab_extent(mats)
+    if vocab == 0:
+        return
+    chunk, starts, hists, keep, _width = _stacked_plan(mats, max_count, vocab=vocab)
+    for r in keep:
+        counts_r = [h[:, r] for h in hists]
+        width = max(MIN_BUCKET_WIDTH, next_pow2(max(int(c.max()) for c in counts_r)))
+        yield (
+            r * chunk,
+            [
+                repack_bucket(m, s[:, r], c, width, rebase=r * chunk if rebase else 0)
+                for m, s, c in zip(mats, starts, counts_r)
+            ],
+        )
+
+
+def _stacked_plan(
+    mats: list[np.ndarray],
+    max_count: int,
+    min_buckets: int = 1,
+    vocab: int | None = None,
+    longest: int | None = None,
+):
+    """Bucket plan (chunk, starts, hists, kept bucket ids, common width)
+    without materializing it, so plans can be compared by bytes. The
+    bucket count starts at longest/max_count and doubles until every
+    row's bucket count fits."""
+    if longest is None:
+        longest = max(int((m != PAD_ID).sum(axis=1).max()) for m in mats)
+    if vocab is None:
+        vocab = _vocab_extent(mats)
+    n_buckets = max(min_buckets, next_pow2(-(-longest // max_count)), 1)
+    while True:
+        chunk = -(-vocab // n_buckets)
+        starts = [bucket_starts(m, chunk, n_buckets) for m in mats]
+        hists = [np.diff(s, axis=1) for s in starts]
+        worst = max(int(h.max()) for h in hists)
+        if worst <= max_count or chunk <= max_count:
+            break
+        n_buckets *= 2
+    keep = [r for r in range(n_buckets) if any(int(h[:, r].max()) > 0 for h in hists)]
+    width = max(MIN_BUCKET_WIDTH, next_pow2(worst))
+    return chunk, starts, hists, keep, width
+
+
+def _materialize_stacked(mats, chunk, starts, hists, keep, width, dtype):
+    out = []
+    rebase = dtype == np.uint16  # uint16 holds per-bucket local values
+    pad = pad_sentinel(dtype)
+    for m, s, h in zip(mats, starts, hists):
+        stacked = np.full((len(keep), m.shape[0], width), pad, dtype)
+        for o, r in enumerate(keep):
+            b = repack_bucket(m, s[:, r], h[:, r], width, rebase=r * chunk if rebase else 0)
+            if rebase:
+                stacked[o] = np.where(b == PAD_ID, U16_PAD, b).astype(np.uint16)
+            else:
+                stacked[o] = b
+        out.append(stacked)
+    return out
+
+
+def stacked_range_buckets(mats: list[np.ndarray], max_count: int) -> list[np.ndarray]:
+    """The range partition as ONE [R, N_i, W] tensor per input at a common
+    pow2 width W <= max_count: all buckets cross to the device in one copy
+    and run in one kernel launch. Buckets empty in every input are dropped.
+
+    Two plans are compared by bytes and the smaller ships: int32 with
+    global ids, or uint16 with per-bucket rebased ids and a 0xFFFF pad
+    (chunks forced below 2^16 — more, narrower buckets). The kernel
+    wrapper widens uint16 on the device.
+    """
+    _check_max_count(max_count)
+    vocab = _vocab_extent(mats)
+    if vocab == 0:
+        return [np.full((0, m.shape[0], MIN_BUCKET_WIDTH), PAD_ID, np.int32) for m in mats]
+    longest = max(int((m != PAD_ID).sum(axis=1).max()) for m in mats)
+    plan32 = _stacked_plan(mats, max_count, vocab=vocab, longest=longest)
+    # when plan32's chunk already fits 16 bits the uint16 plan IS plan32
+    min_b = max(1, next_pow2(-(-vocab // 0xFFFF)))
+    plan16 = (
+        plan32
+        if plan32[0] <= 0xFFFF
+        else _stacked_plan(mats, max_count, min_buckets=min_b, vocab=vocab, longest=longest)
+    )
+    if plan16[0] <= 0xFFFF and len(plan16[3]) * plan16[4] * 2 < len(plan32[3]) * plan32[4] * 4:
+        return _materialize_stacked(mats, *plan16, np.uint16)
+    return _materialize_stacked(mats, *plan32, np.int32)

@@ -166,6 +166,39 @@ def test_planted_set_cdb_equals_jax(tmp_path, n, cluster_size):
     assert len(set(zip(planted, sec))) == len(set(planted)) == len(set(sec))
 
 
+@pytest.fixture(scope="module")
+def dereplicated_past_budget(tmp_path_factory, genome_paths):
+    """The JAX package's dereplicate with its one-shot budget cut to 2^12
+    elements: every secondary cluster is past the budget, and off a TPU it
+    takes its exact CPU tile walk."""
+    root = tmp_path_factory.mktemp("past_budget")
+    q = root / "q.csv"
+    q.write_text(QUALITY)
+    jwd = str(root / "jax")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("drep_tpu.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+        jax_dereplicate(jwd, genome_paths, genomeInfo=str(q), skip_plots=True, processes=1)
+    return str(q), jwd
+
+
+@pytest.mark.parametrize("route,cost", [("pallas_range", 0.0), ("matmul_chunked", 1e30)])
+def test_past_budget_routes_equal_jax_bytes(dereplicated_past_budget, genome_paths, tmp_path,
+                                            monkeypatch, route, cost):
+    """A dereplicate past the one-shot budget on each beyond-budget route
+    (the port's MERGE_VS_MATMUL_ELEM_COST pinned to force it) writes
+    Cdb/Ndb/Sdb/Wdb byte-identical to the JAX package's."""
+    q, jwd = dereplicated_past_budget
+    monkeypatch.setattr("drep_tpu_torch.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+    monkeypatch.setattr("drep_tpu_torch.cluster.engines.MERGE_VS_MATMUL_ELEM_COST", cost)
+    wd = str(tmp_path / "torch")
+    before = dict(SECONDARY_PATH_COUNTS)
+    torch_main(["dereplicate", wd, "-g", *genome_paths, "--genomeInfo", q,
+                "--skip_plots", "-p", "1", "--device", "cpu"])
+    assert {p for p, c in SECONDARY_PATH_COUNTS.items() if c != before.get(p, 0)} == {route}
+    for table in ("Cdb", "Ndb", "Sdb", "Wdb"):
+        assert _table(wd, table) == _table(jwd, table)
+
+
 def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):

@@ -115,7 +115,20 @@ def test_one_shot_ani_cov_equal_jax_clusterlocal_pack():
     assert got_cov.tobytes() == want_cov.tobytes()
 
 
-def test_past_one_shot_budget_raises():
-    packed = tc.pack_scaled_sketches([np.arange(4, dtype=np.uint64)] * 3, ["a", "b", "c"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_past_one_shot_budget_raises(monkeypatch):
+    """The one-shot product refuses a pack past its budget (routing is
+    containment_matrices' job); containment_matrices routes the same pack
+    past the budget and gives the one-shot answer."""
+    from drep_tpu_torch.cluster import engines
+
+    rng = np.random.default_rng(8)
+    packed = tc.pack_scaled_sketches(_scaled_set(rng, 12), [f"g{i}" for i in range(12)])
+    want = tc.all_vs_all_containment_matmul(packed, k=21, device=CPU)
+    with pytest.raises(ValueError, match="containment_matrices"):
         tc.intersections_one_shot(packed, tc.MATMUL_BUDGET_ELEMS, CPU)
+    monkeypatch.setattr(tc, "MATMUL_BUDGET_ELEMS", 1 << 12)
+    before = dict(engines.SECONDARY_PATH_COUNTS)
+    got = engines.containment_matrices(packed, 21, CPU)
+    assert got[0].tobytes() == want[0].tobytes() and got[1].tobytes() == want[1].tobytes()
+    routed = {p for p, c in engines.SECONDARY_PATH_COUNTS.items() if c != before.get(p, 0)}
+    assert routed == {"matmul_chunked"}
