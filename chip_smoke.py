@@ -22,7 +22,7 @@ Phases (any failure exits nonzero; nothing is caught):
 4. the CLI main path: ``dereplicate`` on tests/genomes/*.fasta with a
    quality CSV, which must pick 3 winners (A, C, D);
 5. the real-size slice: 10 000 planted genomes (MASH_sketch 1000, scaled
-   depth 20 000) through d_cluster_wrapper, d_choose_wrapper and
+   depth 10 000) through d_cluster_wrapper, d_choose_wrapper and
    d_evaluate_wrapper; checks that every planted cluster is one primary and
    one secondary cluster, that every secondary batch took the one-shot
    cluster-local route, and that a random 512x512 block of shared counts
@@ -43,9 +43,25 @@ Phases (any failure exits nonzero; nothing is caught):
    (`ops/intersect.py::STAGE_SECONDS`, then host ani/cov and Ndb rows);
    last, the scaled pack's rank map (`ops/minhash.py::dense_ranks`) and a
    searchsorted into the vocabulary timed on cluster B's hashes;
-7. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
-   Mash and indicator kernels, from phase 6 for the merge kernels);
-8. the last line: ``{"ok": true, "device": {...}}``.
+7. the dense ring over RING_POSITIONS positions of one card (as many as
+   there are cards): the fused ring-step kernel against its plain version
+   (`torch.equal` on the tile and on the copied ids and counts, and the
+   step without a copy) on phase 5's Mash [2500, 1000] blocks, cluster A's
+   containment [500, 32768] blocks, a ragged block, a block padded
+   because N is not a multiple of D, and a 512-genome cluster at width
+   65 536 (wider than a block's shared memory; Mash and containment), timed
+   beside its bound, its plain version and the unfused step (kernel, then
+   ``copy_``), with that cluster's ring bit-identical to one device's
+   route; the primary ring
+   over phase 5's 10 000 genomes, bit-identical to the single-device
+   matrix (both timed); phase 6 again with ``mesh_shape=4``, whose three
+   clusters must take ``mesh_ring``, with Cdb/Ndb/Wdb byte-identical to
+   phase 6's and Mdb within 1e-7; where there are two cards or more, the
+   kernel check with the copy landing on the second card;
+8. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+   Mash and indicator kernels, from phase 6 for the merge kernels, from
+   phase 7's ``mesh_shape=4`` run for the ring step);
+9. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -73,13 +89,20 @@ HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 INT8_TENSOR_OPS_PER_S = 1979e12
 
-# the real-size slice: genomes and scaled-sketch depth (a 4 Mb genome at
-# scale 200 keeps ~20 000 hashes); below the 30 000-genome streaming switch
+# the real-size slice: genomes and scaled-sketch depth (a 2 Mb genome at
+# scale 200 keeps ~10 000 hashes; a 4 Mb genome's 20 000 would double the
+# host's planting and leave too little of the time limit for phase 7);
+# below the 30 000-genome streaming switch
 REAL_GENOMES = 10_000
-REAL_SCALED_DEPTH = 20_000
+REAL_SCALED_DEPTH = 10_000
 
 # the kernels of the one-shot main path (phases 4 and 5)
 PRIMARY_PATH_KERNELS = ("mash_shared", "indicator")
+
+# positions of the dense ring in phase 7 (even: the middle step is split)
+RING_POSITIONS = 4
+# genomes of phase 7a's cluster at width 65 536 (blocks of 128 rows)
+WIDE_GENOMES = 512
 
 # the beyond-budget slice: (genomes, scaled depth, kept core or None for
 # the overlapping planter, route). A's vocabulary (~38 M ids -> v_pad 2^26)
@@ -443,19 +466,20 @@ def phase_intersect(dev, gs, planted) -> list[dict]:
 
 
 def reset_launches() -> None:
-    from drep_tpu_torch.ops import indicator, intersect, mash
+    from drep_tpu_torch.ops import indicator, intersect, mash, ring
 
     mash.LAUNCHES["mash_shared"] = 0
     indicator.LAUNCHES["indicator"] = 0
     intersect.LAUNCHES["intersect"] = 0
     intersect.LAUNCHES["intersect_stacked"] = 0
+    ring.LAUNCHES["ring_step"] = 0
 
 
 def read_launches() -> dict:
-    from drep_tpu_torch.ops import indicator, intersect, mash
+    from drep_tpu_torch.ops import indicator, intersect, mash, ring
 
     return {"mash_shared": mash.LAUNCHES["mash_shared"], "indicator": indicator.LAUNCHES["indicator"],
-            **intersect.LAUNCHES}
+            **intersect.LAUNCHES, **ring.LAUNCHES}
 
 
 def phase_cli(tmp: str, dev) -> dict:
@@ -521,7 +545,7 @@ def phase_real_size(tmp: str, dev) -> dict:
     reset_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev)
+    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, mesh_shape=1)
     t_cluster = time.perf_counter() - t1
     wdb = d_choose_wrapper(wd, bdb)
     d_evaluate_wrapper(wd)
@@ -580,49 +604,46 @@ def phase_real_size(tmp: str, dev) -> dict:
             "real-size 512x512 shared-count block != plain")
     log(f"real size: {n_planted} planted clusters recovered exactly; random 512x512 shared block "
         "equals the plain version")
-    return {"launches": launches, "mash_ms": main_ms, "mash_rows": int(pad.shape[0])}
+    return {"launches": launches, "mash_ms": main_ms, "mash_rows": int(pad.shape[0]), "packed": packed,
+            "k": gs.k}
 
 
-def phase_beyond(tmp: str, dev, gs, planted) -> dict:
-    """The beyond-budget slice (phase 6): d_cluster -> choose -> evaluate
-    over the three BEYOND clusters, then each cluster's counts on both
-    routes."""
+def beyond_workdir(tmp: str, name: str, gs):
+    """(WorkDirectory, Bdb) of the beyond-budget slice: placeholder genome
+    files (shared by every workdir), the sketch cache, genomeInformation."""
     import pandas as pd
+
+    from drep_tpu_torch.ingest import save_sketch_cache
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    wd = WorkDirectory(os.path.join(tmp, name))
+    gdir = os.path.join(tmp, "beyond_genomes")
+    if not os.path.isdir(gdir):
+        os.makedirs(gdir)
+        for g in gs.names:
+            open(os.path.join(gdir, g), "wb").close()
+    bdb = pd.DataFrame({"genome": gs.names, "location": [os.path.join(gdir, g) for g in gs.names]})
+    wd.store_db(bdb, "Bdb")
+    save_sketch_cache(wd, gs)
+    wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
+    return wd, bdb
+
+
+def run_beyond(wd, bdb, dev, what: str, **kw):
+    """d_cluster -> choose -> evaluate on a beyond-budget workdir with the
+    launch counts zeroed just before: (Cdb, launches, secondary paths,
+    stage seconds, d_cluster seconds)."""
     import torch
 
     from drep_tpu_torch.choose import d_choose_wrapper
     from drep_tpu_torch.cluster import controller, engines
     from drep_tpu_torch.evaluate import d_evaluate_wrapper
-    from drep_tpu_torch.ingest import save_sketch_cache
-    from drep_tpu_torch.cluster.pairs import directional_ndb
-    from drep_tpu_torch.ops import intersect as ti
-    from drep_tpu_torch.ops.containment import (
-        ani_cov_from_intersections,
-        intersections_chunked,
-        matmul_vocab_pad,
-    )
-    from drep_tpu_torch.ops.mash import _wrap_symmetric_plain
-    from drep_tpu_torch.ops.minhash import dense_ranks, ids_to_device, widen_ids
-    from drep_tpu_torch.workdir import WorkDirectory
-
-    t0 = time.perf_counter()
-    wd = WorkDirectory(os.path.join(tmp, "beyond_wd"))
-    gdir = os.path.join(tmp, "beyond_genomes")
-    os.makedirs(gdir)
-    for g in gs.names:
-        open(os.path.join(gdir, g), "wb").close()
-    bdb = pd.DataFrame({"genome": gs.names, "location": [os.path.join(gdir, g) for g in gs.names]})
-    wd.store_db(bdb, "Bdb")
-    save_sketch_cache(wd, gs)
-    wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
-    log(f"beyond budget: {len(gs.names)} genomes in clusters "
-        f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
 
     paths_before = dict(engines.SECONDARY_PATH_COUNTS)
     reset_launches()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev)
+    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, **kw)
     t_cluster = time.perf_counter() - t1
     d_choose_wrapper(wd, bdb)
     d_evaluate_wrapper(wd)
@@ -632,10 +653,37 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
     paths = {p: c - paths_before.get(p, 0) for p, c in engines.SECONDARY_PATH_COUNTS.items()
              if c - paths_before.get(p, 0)}
     stages = dict(controller.STAGE_SECONDS)
-    log(f"beyond budget: d_cluster_wrapper {t_cluster:.2f} s, with choose+evaluate {t_total:.2f} s; "
+    log(f"{what}: d_cluster_wrapper {t_cluster:.2f} s, with choose+evaluate {t_total:.2f} s; "
         f"stages {json.dumps({k: round(v, 3) for k, v in stages.items()})}; launches {launches}; "
         f"secondary paths {paths}")
+    return cdb, launches, paths, stages, t_cluster
+
+
+def phase_beyond(tmp: str, dev, gs, planted) -> dict:
+    """The beyond-budget slice (phase 6): d_cluster -> choose -> evaluate
+    over the three BEYOND clusters, then each cluster's counts on both
+    routes."""
+    import pandas as pd
+    import torch
+
+    from drep_tpu_torch.cluster import engines
+    from drep_tpu_torch.cluster.pairs import directional_ndb
+    from drep_tpu_torch.ops import intersect as ti
+    from drep_tpu_torch.ops.containment import (
+        ani_cov_from_intersections,
+        intersections_chunked,
+        matmul_vocab_pad,
+    )
+    from drep_tpu_torch.ops.mash import _wrap_symmetric_plain
+    from drep_tpu_torch.ops.minhash import dense_ranks, ids_to_device, widen_ids
+
+    t0 = time.perf_counter()
+    wd, bdb = beyond_workdir(tmp, "beyond_wd", gs)
+    log(f"beyond budget: {len(gs.names)} genomes in clusters "
+        f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
+    cdb, launches, paths, _, t_cluster = run_beyond(wd, bdb, dev, "beyond budget", mesh_shape=1)
     require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
+    launches = {k: v for k, v in launches.items() if k != "ring_step"}
     require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
     by_name = cdb.set_index("genome")
     prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
@@ -720,7 +768,207 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         rank_map[name].append(time.perf_counter() - t)
         require(np.array_equal(ranks, want), f"rank map {name} disagrees")
     log(f"beyond budget: rank map on cluster B's hashes {json.dumps(rank_map)}")
-    return {"launches": launches, "routes": routes, "parts": parts, "rank_map": rank_map}
+    return {"launches": launches, "routes": routes, "parts": parts, "rank_map": rank_map,
+            "wd": wd.location, "d_cluster_s": t_cluster}
+
+
+def ring_cost(kind: str, na: np.ndarray, nb: np.ndarray, tile: np.ndarray, width: int, copy: bool):
+    """(walk steps, bytes) of one ring step on this data: a Mash pair walks
+    s_use distinct ids plus its duplicates among them; a containment pair
+    at most the two rows (cnt_a + cnt_b). Bytes: both blocks read once,
+    the tile written once, and with the copy B's ids and counts written."""
+    if kind == "mash":
+        steps = mash_ops(tile, na, nb, width)
+    else:
+        steps = len(nb) * int(na.astype(np.int64).sum()) + len(na) * int(nb.astype(np.int64).sum())
+    block = len(na) * (width + 1) * 4
+    return steps, 2 * block + tile.size * 4 + (block if copy else 0)
+
+
+def check_ring_step(kind: str, a, na, b, nb, what: str, dst_device=None) -> dict:
+    """ring_step against ring_step_plain on the card: the tile and the
+    receive buffers (torch.equal), and the step without a copy. Returns
+    the plain tile, its milliseconds and the receive buffers."""
+    import torch
+
+    from drep_tpu_torch.ops import ring
+
+    dst_device = b.device if dst_device is None else dst_device
+    dst = (torch.full(tuple(b.shape), -7, dtype=torch.int32, device=dst_device),
+           torch.full(tuple(nb.shape), -7, dtype=torch.int32, device=dst_device))
+    got = ring.ring_step(kind, a, na, b, nb, *dst)
+    want, plain_ms = cuda_timed(lambda: ring.ring_step_plain(kind, a, na, b, nb))
+    require(torch.equal(got, want), f"ring_step {kind} {what}: tile != plain")
+    require(torch.equal(dst[0].to(b.device), b) and torch.equal(dst[1].to(b.device), nb),
+            f"ring_step {kind} {what}: copied operand != B")
+    require(torch.equal(ring.ring_step(kind, a, na, b, nb), want), f"ring_step {kind} {what} without a copy != plain")
+    return {"tile": want, "plain_ms": plain_ms, "dst": dst}
+
+
+def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
+    """Phase 7a: the fused ring step at the ring's shapes, timed beside its
+    bound, its plain version and the unfused step."""
+    import torch
+
+    from drep_tpu_torch.cluster.engines import SECONDARY_PATH_COUNTS, containment_matrices
+    from drep_tpu_torch.ops import ring
+    from drep_tpu_torch.ops.containment import pack_scaled_sketches
+    from drep_tpu_torch.ops.minhash import PAD_ID, pad_packed_rows
+    from drep_tpu_torch.parallel.allpairs import sharded_containment_allpairs
+    from drep_tpu_torch.parallel.mesh import make_mesh
+    from drep_tpu_torch.utils.synth import planted_sketches
+
+    def blocks(ids, counts, n_local, first, second):
+        out = []
+        for blk in (first, second):
+            rows = slice(blk * n_local, (blk + 1) * n_local)
+            out += [torch.from_numpy(np.ascontiguousarray(ids[rows])).to(dev),
+                    torch.from_numpy(np.ascontiguousarray(counts[rows])).to(dev)]
+        return out
+
+    def timed(kind, pk, n_local, label):
+        """Check the step on blocks 0 and 1 of `pk`, then time it beside its
+        bound, its plain version and the unfused step."""
+        a, na, b, nb = blocks(pk.ids, pk.counts, n_local, 0, 1)
+        width = pk.ids.shape[1]
+        res = check_ring_step(kind, a, na, b, nb, f"[{n_local}, {width}]")
+        dst = res["dst"]
+        ms = cuda_ms(lambda: ring.ring_step(kind, a, na, b, nb, *dst), reps=3)
+
+        def unfused():
+            ring.ring_step(kind, a, na, b, nb)
+            dst[0].copy_(b)
+            dst[1].copy_(nb)
+
+        unfused_ms = cuda_ms(unfused, reps=3)
+        steps, nbytes = ring_cost(kind, pk.counts[:n_local], pk.counts[n_local : 2 * n_local],
+                                  res["tile"].cpu().numpy(), width, copy=True)
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = steps / SCALAR_OPS_PER_S * 1e3
+        entries[label] = {"shape": [n_local, width], "ms": ms, "plain_ms": res["plain_ms"],
+                          "unfused_ms": unfused_ms, "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+                          "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+                          "walk_steps": steps, "bytes": nbytes}
+        log(f"ring_step {kind} [{n_local}, {width}]: equals the plain version (tile, copied operand, no-copy "
+            f"step); {json.dumps(entries[label])}")
+
+    entries = {}
+    # Mash: phase 5's 10 000 genomes over RING_POSITIONS positions; containment: cluster A's 2000
+    pack_a = beyond_pack(gs_beyond, planted_beyond, "A")
+    for kind, pk in (("mash", packed), ("containment", pack_a)):
+        timed(kind, pk, pk.n // RING_POSITIONS, kind)
+
+    # a ragged block (rows cut short, some empty) and a block padded because
+    # N is not a multiple of D (cluster B's 1300 genomes over 3 positions)
+    rng = np.random.default_rng(17)
+    n_local = packed.n // RING_POSITIONS
+    rag, rag_n = packed.ids[:n_local].copy(), packed.counts[:n_local].copy()
+    for r in rng.choice(n_local, size=n_local // 4, replace=False):
+        keep = 0 if r % 9 == 0 else int(rng.integers(1, rag.shape[1]))
+        rag[r, keep:] = PAD_ID
+        rag_n[r] = min(keep, rag_n[r])
+    a, na, b, nb = blocks(np.concatenate([rag, packed.ids[n_local : 2 * n_local]]),
+                          np.concatenate([rag_n, packed.counts[n_local : 2 * n_local]]), n_local, 0, 1)
+    check_ring_step("mash", a, na, b, nb, "ragged block")
+    check_ring_step("mash", b, nb, a, na, "ragged block as B")
+    pack_b = beyond_pack(gs_beyond, planted_beyond, "B")
+    ids_p, cnt_p = pad_packed_rows(pack_b.ids, pack_b.counts, 3)
+    n_local = ids_p.shape[0] // 3
+    require(n_local * 3 != pack_b.n, "cluster B should not divide over 3 positions")
+    a, na, b, nb = blocks(ids_p, cnt_p, n_local, 2, 0)
+    check_ring_step("containment", a, na, b, nb, f"padded block [{n_local}, {ids_p.shape[1]}]")
+    check_ring_step("containment", b, nb, a, na, "padded block as B")
+    log("ring_step: ragged and padded blocks equal the plain version, as A and as B")
+
+    # rows wider than a block's shared memory could stage whole (the kernel
+    # stages A in pieces): a cluster of WIDE_GENOMES genomes of ~39 000
+    # scaled hashes (an ~8 Mb genome at scale 200), width 65 536; the step
+    # checked and timed, the Mash walk checked, and the ring over the
+    # cluster held against one device's own route
+    gs_w, _ = planted_sketches(WIDE_GENOMES, seed=23, s_bottom=100, s_scaled=30_000, cluster_size=WIDE_GENOMES)
+    pack_w = pack_scaled_sketches(gs_w.scaled, gs_w.names)
+    require(pack_w.ids.shape[1] == 1 << 16, f"wide pack has width {pack_w.ids.shape[1]}, expected 65536")
+    n_local = pack_w.n // RING_POSITIONS
+    timed("containment", pack_w, n_local, "containment_wide")
+    check_ring_step("mash", *blocks(pack_w.ids, pack_w.counts, n_local, 1, 0), f"[{n_local}, 65536]")
+    mesh = make_mesh(RING_POSITIONS, dev)
+    t0 = time.perf_counter()
+    got = sharded_containment_allpairs(pack_w, k=gs_w.k, mesh=mesh)
+    t_ring = time.perf_counter() - t0
+    before = dict(SECONDARY_PATH_COUNTS)
+    t0 = time.perf_counter()
+    want = containment_matrices(pack_w, gs_w.k, dev)
+    t_one = time.perf_counter() - t0
+    route = [p for p, c in SECONDARY_PATH_COUNTS.items() if c != before.get(p, 0)]
+    require(all(x.tobytes() == y.tobytes() for x, y in zip(got, want, strict=True)),
+            f"the ring's (ani, cov) at width 65536 != one device's ({route})")
+    entries["containment_wide"].update(ring_s=t_ring, one_device_s=t_one, one_device_route=route)
+    log(f"ring_step: width 65536 equals the plain version (containment and Mash); the {RING_POSITIONS}-position "
+        f"ring over {pack_w.n} such genomes {t_ring:.2f} s, bit-identical to one device's {route} {t_one:.2f} s")
+
+    cards = torch.cuda.device_count()
+    log(f"cards: {cards}")
+    if cards >= 2:
+        other = torch.device("cuda", 1)
+        for kind, pk in (("mash", packed), ("containment", pack_a)):
+            n_loc = pk.n // RING_POSITIONS
+            a, na, b, nb = blocks(pk.ids, pk.counts, n_loc, 0, 1)
+            check_ring_step(kind, a, na, b, nb, "copy onto cuda:1", dst_device=other)
+        log("ring_step: with the receive buffers on cuda:1, tile and copied operand equal the plain version")
+    return entries
+
+
+def phase_ring_primary(dev, packed, k: int) -> dict:
+    """Phase 7b: the primary over RING_POSITIONS positions of the card,
+    bit-identical to the single-device distance matrix."""
+    import torch
+
+    from drep_tpu_torch.ops.mash import all_vs_all_mash
+    from drep_tpu_torch.parallel.allpairs import sharded_mash_allpairs
+    from drep_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(RING_POSITIONS, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = all_vs_all_mash(packed, k=k, device=dev)[0]
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ringed = sharded_mash_allpairs(packed, k=k, mesh=mesh)
+    t_ring = time.perf_counter() - t0
+    require(ringed.tobytes() == single.tobytes(),
+            f"{RING_POSITIONS}-position ring distance matrix != the single-device matrix")
+    log(f"ring primary: {packed.n} genomes over {RING_POSITIONS} positions on "
+        f"{sorted({str(d) for d in mesh.devices})}: sharded_mash_allpairs {t_ring:.2f} s, all_vs_all_mash "
+        f"{t_single:.2f} s, distance matrices bit-identical")
+    return {"ring_s": t_ring, "single_s": t_single}
+
+
+def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
+    """Phase 7c: phase 6 again with mesh_shape=RING_POSITIONS."""
+    import pandas as pd
+
+    wd, bdb = beyond_workdir(tmp, "beyond_mesh_wd", gs)
+    _, launches, paths, stages, t_cluster = run_beyond(
+        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS})", mesh_shape=RING_POSITIONS)
+    require(paths == {"mesh_ring": len(BEYOND)}, f"mesh run's secondary routes {paths}")
+    require(launches["ring_step"] > 0, f"mesh run launched no ring step: {launches}")
+
+    def table(root: str, name: str) -> str:
+        return os.path.join(root, "data_tables", f"{name}.csv")
+
+    for name in ("Cdb", "Ndb", "Wdb"):
+        with open(table(wd.location, name), "rb") as f, open(table(beyond["wd"], name), "rb") as g:
+            require(f.read() == g.read(), f"mesh run's {name} != the single-device run's")
+    with open(table(wd.location, "Mdb"), "rb") as f, open(table(beyond["wd"], "Mdb"), "rb") as g:
+        err = 0.0 if f.read() == g.read() else None
+    if err is None:  # not byte-identical: hold the distances to 1e-7
+        got, want = pd.read_csv(table(wd.location, "Mdb")), pd.read_csv(table(beyond["wd"], "Mdb"))
+        require(got[["genome1", "genome2"]].equals(want[["genome1", "genome2"]]), "mesh run's Mdb pairs differ")
+        err = float(np.abs(got["dist"].to_numpy() - want["dist"].to_numpy()).max()) if len(got) else 0.0
+    require(err <= 1e-7, f"mesh run's Mdb distances differ by {err}")
+    log(f"ring path: Cdb, Ndb and Wdb byte-identical to phase 6, Mdb max |diff| {err}; "
+        f"d_cluster_wrapper {t_cluster:.2f} s against {beyond['d_cluster_s']:.2f} s on one position")
+    return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err}
 
 
 def main() -> int:
@@ -756,10 +1004,23 @@ def main() -> int:
         phase_cli(tmp, dev)
         real = phase_real_size(tmp, dev)
         beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond)
+        ring_kernel = phase_ring_kernel(dev, real["packed"], gs_beyond, planted_beyond)
+        ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
+        ring_path = phase_ring_path(tmp, dev, gs_beyond, beyond)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    mash_entry = ring_kernel["mash"]
+    kernels.append({
+        "name": "ring_step", "route": "cuda", "source": "drep_tpu_torch/csrc/ring_step.cu",
+        "replaces": "drep_tpu/ops/pallas_ring.py:258", "equal": True, "max_abs_err": 0,
+        **{key: mash_entry[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms", "shape")},
+        "library_ms": None, "containment": ring_kernel["containment"],
+        "containment_wide": ring_kernel["containment_wide"],
+        "ring_primary": ring_primary, "ring_path_d_cluster_s": ring_path["d_cluster_s"],
+        "ring_path_mdb_max_abs_err": ring_path["mdb_max_abs_err"],
+    })
     for k in kernels:
-        path = real if k["name"] in PRIMARY_PATH_KERNELS else beyond
+        path = real if k["name"] in PRIMARY_PATH_KERNELS else ring_path if k["name"] == "ring_step" else beyond
         k["launches"] = path["launches"][k["name"]]
     kernels[0]["main_path_ms"] = real["mash_ms"]
     kernels[0]["main_path_rows"] = real["mash_rows"]

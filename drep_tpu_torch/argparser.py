@@ -3,11 +3,15 @@
 Counterpart of drep_tpu/argparser.py. The flag groups and names are the
 JAX package's (FILTERING, GENOME COMPARISON, CLUSTERING, SCORING,
 WARNINGS), with the same defaults, so an argv for the default engines runs
-unchanged; EXECUTION adds --device. Flags of paths not ported yet
-(streaming, multiround, greedy, tertiary, LSH pruning, --mesh_shape > 1)
-parse and then raise NotImplementedError in the cluster stage. The TPU
-execution knobs (ring, fault tolerance, durable-I/O, event tracing,
-profiling) and --run_tax are not carried over.
+unchanged; EXECUTION adds --device. --mesh_shape D runs the dense ring
+over D positions dealt over the visible cards (all of them on one card,
+or on the CPU); the JAX package's --ring_comm and --ring_monolithic are
+accepted and run the port's one ring.
+Flags of paths not ported yet (streaming, multiround, greedy, tertiary,
+LSH pruning) parse and then raise NotImplementedError in the cluster
+stage. The other TPU execution knobs (--ring_vmem_mb, fault tolerance,
+durable-I/O, event tracing, profiling) and --run_tax are not carried
+over.
 """
 
 from __future__ import annotations
@@ -78,7 +82,16 @@ def build_parser() -> argparse.ArgumentParser:
                         help="where the kernels run (default cuda; cpu runs their plain "
                              "PyTorch versions and must be asked for)")
         ex.add_argument("--mesh_shape", type=int, default=None,
-                        help="devices to shard over (only 1 is ported)")
+                        help="positions of the dense ring (default: one per card of the widest "
+                             "ring of cards with peer access, one on the CPU); positions are dealt "
+                             "round-robin over the cards, so several may share one")
+        # the JAX CLI's ring flags, accepted so that its argv runs unchanged;
+        # the port has one ring (step-wise, the copy fused into the kernel)
+        ex.add_argument("--ring_monolithic", action="store_true",
+                        help="accepted for the JAX CLI's argv; the port runs its one ring")
+        ex.add_argument("--ring_comm", default="auto", choices=["auto", "ppermute", "pallas_dma"],
+                        help="accepted for the JAX CLI's argv; the port's ring always writes the "
+                             "B operand into the neighbour from inside the ring-step kernel")
         ex.add_argument("--skip_plots", action="store_true")
 
         if with_filter:

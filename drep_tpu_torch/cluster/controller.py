@@ -1,25 +1,27 @@
 """Cluster-stage orchestration: Bdb -> Mdb -> Ndb -> Cdb.
 
 Counterpart of drep_tpu/cluster/controller.py, trimmed to the dense
-single-device path:
+path (one device, or a mesh ring of --mesh_shape positions):
 
 - resume: if the workdir already holds Cdb and the stored cluster
   arguments match, skip recompute entirely;
-- PRIMARY: all-vs-all Mash distance (ops/mash.py kernel) -> hierarchical
+- PRIMARY: all-vs-all Mash distance (ops/mash.py kernel, or the ring of
+  parallel/allpairs.py on a mesh) -> hierarchical
   clustering at 1-P_ani -> integer primary clusters (Mdb: dense for small
   N, thresholded beyond `mdb_dense_limit`);
 - SECONDARY: per primary cluster with >1 member, containment ANI through
   the one-shot indicator matmul (small clusters batched into one call),
-  or past its budget the merge kernel or the chunked matmul (engines) ->
+  or past its budget the mesh ring, the merge kernel or the chunked
+  matmul (engines) ->
   coverage-gated hierarchical clustering at 1-S_ani -> "P_S" ids (Ndb);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 
 The streaming primary (and its auto-switch at --streaming_threshold),
-multiround, greedy and tertiary clustering, LSH pruning and multi-device
-meshes raise NotImplementedError naming their ROADMAP item. The JAX
-package's per-cluster secondary checkpoints and device-failure retries are
-not ported either: a failure stops the run, and a rerun starts the stage
-over.
+multiround, greedy and tertiary clustering and LSH pruning raise
+NotImplementedError naming their ROADMAP item. The JAX package's
+per-cluster secondary checkpoints, the ring's block store and the
+device-failure retries are not ported either: a failure stops the run, and
+a rerun starts the stage over.
 """
 
 from __future__ import annotations
@@ -98,7 +100,6 @@ _NOT_PORTED = {
     "greedy_secondary_clustering": "greedy secondary clustering (ROADMAP.md queue 1, item 9)",
     "run_tertiary_clustering": "tertiary clustering (ROADMAP.md queue 1, item 9)",
     "primary_prune": "LSH candidate pruning (ROADMAP.md queue 1, item 8)",
-    "mesh_shape": "multi-device meshes (ROADMAP.md queue 1, item 12)",
 }
 
 # batching of small clusters: one device call replaces hundreds of
@@ -124,8 +125,6 @@ def _refuse_unported(kw: dict[str, Any], n: int) -> None:
             raise NotImplementedError(f"--{key}: {_NOT_PORTED[key]} is not ported yet")
     if kw["primary_prune"] != "off":
         raise NotImplementedError(f"--primary_prune {kw['primary_prune']}: {_NOT_PORTED['primary_prune']} is not ported yet")
-    if kw["mesh_shape"] is not None and int(kw["mesh_shape"]) > 1:
-        raise NotImplementedError(f"--mesh_shape {kw['mesh_shape']}: {_NOT_PORTED['mesh_shape']} is not ported yet")
     if kw["primary_algorithm"] == "jax_mash" and not kw["SkipMash"] and n >= kw["streaming_threshold"]:
         raise NotImplementedError(
             f"{n} genomes >= --streaming_threshold {kw['streaming_threshold']}: the JAX package "
@@ -175,7 +174,8 @@ def _primary_clusters(
     engine = dispatch.get_primary(kw["primary_algorithm"])
     t0 = time.perf_counter()
     dist, _sim = engine(
-        gs, bdb=bdb, device=kw["device"], primary_estimator=kw["primary_estimator"]
+        gs, bdb=bdb, device=kw["device"], primary_estimator=kw["primary_estimator"],
+        mesh_shape=kw["mesh_shape"],
     )
     t1 = time.perf_counter()
     cutoff = 1.0 - kw["P_ani"]
@@ -230,7 +230,8 @@ def _secondary_clusters(
             small.append((pc, indices))  # one device call for many
         else:
             engine = dispatch.get_secondary(kw["S_algorithm"])
-            ani, cov = engine(gs, indices, bdb=bdb, device=kw["device"], processes=kw["processes"])
+            ani, cov = engine(gs, indices, bdb=bdb, device=kw["device"], processes=kw["processes"],
+                              mesh_shape=kw["mesh_shape"])
             results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
 
     # flush the small clusters in row-bounded batches
@@ -243,7 +244,7 @@ def _secondary_clusters(
         batches[-1].append(item)
         rows += len(item[1])
     for batch in batches:
-        outs = batched_fn(gs, [ix for _, ix in batch], device=kw["device"])
+        outs = batched_fn(gs, [ix for _, ix in batch], device=kw["device"], mesh_shape=kw["mesh_shape"])
         for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
             results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
     return results, multi, singles
@@ -264,7 +265,9 @@ def d_cluster_wrapper(
     snapshot["genomes"] = sorted(bdb["genome"])
     snapshot["primary_estimator_resolved"] = (
         "skipmash" if kw["SkipMash"] or len(bdb) == 1
-        else engines.resolve_primary_estimator(kw["primary_estimator"])
+        else engines.resolve_primary_estimator(
+            len(bdb), kw["mesh_shape"], kw["primary_estimator"], kw["device"]
+        )
     )
     match_keys = [k for k in snapshot if k != "primary_estimator_resolved"]
     if wd.hasDb("Cdb") and wd.arguments_match("cluster", snapshot, keys=match_keys):

@@ -10,11 +10,17 @@ are identical to the JAX package's; here they run the CUDA kernels
   estimator), as on a TPU; the MXU-style `matmul` estimator is not ported.
 - `jax_ani`: the one-shot indicator matmul, per cluster or batched over
   many small clusters in cluster-local id spaces. A cluster past the
-  one-shot budget takes one of the JAX package's two single-chip routes,
-  by the same rule: the merge-intersect kernel over id-range buckets
-  (ops/intersect.py, `pallas_range`) or the vocabulary-chunked indicator
-  matmul (`matmul_chunked`). On the CPU the same routing runs the plain
+  one-shot budget takes the mesh ring when the run has one, else one of
+  the JAX package's two single-chip routes, by the same rule: the
+  merge-intersect kernel over id-range buckets (ops/intersect.py,
+  `pallas_range`) or the vocabulary-chunked indicator matmul
+  (`matmul_chunked`). On the CPU the same routing runs the plain
   versions; no route falls back to another.
+
+A run with a mesh of D > 1 positions (`--mesh_shape D`; None is one
+position per card) and at least MESH_MIN_GENOMES genomes runs the dense
+primary, and every past-budget secondary cluster of that size, over the
+ring (parallel/allpairs.py).
 """
 
 from __future__ import annotations
@@ -40,6 +46,9 @@ from drep_tpu_torch.ops.containment import (
 from drep_tpu_torch.ops.intersect import all_vs_all_containment_merge
 from drep_tpu_torch.ops.mash import all_vs_all_mash
 from drep_tpu_torch.ops.minhash import next_pow2, pack_sketches
+from drep_tpu_torch.parallel.allpairs import sharded_containment_allpairs, sharded_mash_allpairs
+from drep_tpu_torch.parallel.mesh import Mesh, make_mesh
+from drep_tpu_torch.utils.logger import get_logger
 
 MATMUL_ESTIMATOR_TODO = (
     "--primary_estimator matmul (the common-threshold MinHash estimator, "
@@ -47,15 +56,53 @@ MATMUL_ESTIMATOR_TODO = (
     "item 9 (other primary and secondary options)"
 )
 
+# below this many genomes a multi-position ring costs more in steps and
+# padding than it saves in compute
+MESH_MIN_GENOMES = 64
 
-def resolve_primary_estimator(estimator: str) -> str:
-    """The concrete estimator the dense primary runs: `auto` and `sort`
-    are the union-bottom-s sort estimator; `matmul` raises."""
+
+def _mesh_or_none(mesh_shape: int | None, n: int, device: torch.device) -> Mesh | None:
+    """The ring's mesh for `n` genomes, or None for the single-device
+    path: `mesh_shape` positions (None: one per card) when there are at
+    least two and n >= MESH_MIN_GENOMES."""
+    mesh = make_mesh(mesh_shape, device)
+    if mesh.size > 1 and n >= MESH_MIN_GENOMES:
+        return mesh
+    return None
+
+
+def resolve_primary_estimator(
+    n: int, mesh_shape: int | None, estimator: str, device: torch.device
+) -> str:
+    """The concrete estimator the dense primary runs for `n` genomes:
+    `ring_sort` on a mesh (whatever the request), else `auto` and `sort`
+    are the union-bottom-s sort estimator and `matmul` raises."""
     if estimator not in ("auto", "sort", "matmul"):
         raise ValueError(f"unknown mash estimator {estimator!r}")
+    if _mesh_or_none(mesh_shape, n, device) is not None:
+        return "ring_sort"
     if estimator == "matmul":
         raise NotImplementedError(MATMUL_ESTIMATOR_TODO)
     return "sort"
+
+
+def mash_distance_matrix(
+    packed, k: int, device: torch.device, mesh_shape: int | None = None, estimator: str = "auto"
+) -> np.ndarray:
+    """[N, N] Mash distance: over the ring on a mesh, else the wrapped
+    symmetric grid on `device`. The ring computes the sort estimator, so
+    it serves `auto` and `sort`; `matmul` on a mesh warns and rides it."""
+    if resolve_primary_estimator(packed.n, mesh_shape, estimator, device) == "ring_sort":
+        mesh = _mesh_or_none(mesh_shape, packed.n, device)
+        if estimator == "matmul":
+            get_logger().warning(
+                "primary_estimator='matmul' is single-chip only — using the "
+                "mesh ring (sort estimator) to honor the %d-position mesh",
+                mesh.size,
+            )
+        return sharded_mash_allpairs(packed, k=k, mesh=mesh)
+    dist, _jac = all_vs_all_mash(packed, k=k, device=device)
+    return dist
 
 
 @register_primary("jax_mash")
@@ -63,15 +110,15 @@ def primary_jax_mash(
     gs: GenomeSketches,
     device: torch.device,
     primary_estimator: str = "auto",
+    mesh_shape: int | None = None,
     **_,
 ) -> tuple[np.ndarray, np.ndarray]:
     """All-vs-all Mash distance from bottom-k sketches on `device`.
 
     Returns (dist [N,N], similarity [N,N]), similarity = 1 - dist.
     """
-    resolve_primary_estimator(primary_estimator)
     packed = pack_sketches(gs.bottom, gs.names, gs.sketch_size)
-    dist, _jac = all_vs_all_mash(packed, k=gs.k, device=device)
+    dist = mash_distance_matrix(packed, gs.k, device, mesh_shape=mesh_shape, estimator=primary_estimator)
     return dist, 1.0 - dist
 
 
@@ -98,8 +145,8 @@ def beyond_budget_secondary_path(sketch_width: int, v_pad: int) -> str:
 
 
 # how many calls each secondary path served this process (one_shot,
-# one_shot_clusterlocal, pallas_range, matmul_chunked: the JAX package's
-# names) — a run diffs it to show which route it took
+# one_shot_clusterlocal, mesh_ring, pallas_range, matmul_chunked: the JAX
+# package's names) — a run diffs it to show which route it took
 SECONDARY_PATH_COUNTS: dict[str, int] = {}
 
 
@@ -107,14 +154,19 @@ def _count_path(path: str) -> None:
     SECONDARY_PATH_COUNTS[path] = SECONDARY_PATH_COUNTS.get(path, 0) + 1
 
 
-def containment_matrices(packed, k: int, device: torch.device):
+def containment_matrices(packed, k: int, device: torch.device, mesh_shape: int | None = None):
     """(symmetric max-containment ani, directional cov): the one-shot
-    indicator matmul when the pack fits its budget, else the route that
+    indicator matmul when the pack fits its budget, else the mesh ring
+    when the run has one, else the route that
     :func:`beyond_budget_secondary_path` picks."""
     v_pad = matmul_vocab_pad(packed)
     if one_shot_fits(packed.n, v_pad):
         _count_path("one_shot")
         return all_vs_all_containment_matmul(packed, k=k, device=device, v_pad=v_pad)
+    mesh = _mesh_or_none(mesh_shape, packed.n, device)
+    if mesh is not None:
+        _count_path("mesh_ring")
+        return sharded_containment_allpairs(packed, k=k, mesh=mesh)
     path = beyond_budget_secondary_path(packed.sketch_size, v_pad)
     _count_path(path)
     if path == "pallas_range":
@@ -127,6 +179,7 @@ def secondary_jax_ani(
     gs: GenomeSketches,
     indices: list[int],
     device: torch.device,
+    mesh_shape: int | None = None,
     **_,
 ) -> tuple[np.ndarray, np.ndarray]:
     """(symmetric max-containment ani, directional cov) for a genome
@@ -134,7 +187,7 @@ def secondary_jax_ani(
     sketches = [gs.scaled[i] for i in indices]
     names = [gs.names[i] for i in indices]
     packed = pack_scaled_sketches(sketches, names)
-    return containment_matrices(packed, gs.k, device)
+    return containment_matrices(packed, gs.k, device, mesh_shape=mesh_shape)
 
 
 @register_secondary_batched("jax_ani")
@@ -142,6 +195,7 @@ def secondary_jax_ani_batched(
     gs: GenomeSketches,
     clusters: list[list[int]],
     device: torch.device,
+    mesh_shape: int | None = None,
     **_,
 ) -> list[tuple[np.ndarray, np.ndarray]]:
     """One device call for MANY small primary clusters: a cluster-local
@@ -162,7 +216,7 @@ def secondary_jax_ani_batched(
         )
     else:
         packed = pack_scaled_sketches([gs.scaled[i] for i in flat], names)
-        ani_all, cov_all = containment_matrices(packed, gs.k, device)
+        ani_all, cov_all = containment_matrices(packed, gs.k, device, mesh_shape=mesh_shape)
     out: list[tuple[np.ndarray, np.ndarray]] = []
     o = 0
     for cl in clusters:

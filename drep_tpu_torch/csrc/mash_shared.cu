@@ -19,9 +19,10 @@
 // Design: one block per (A tile x B tile) of TILE x TILE pairs, TILE
 // threads, thread c owns B row c of the tile. The block walks the A tile
 // one row at a time: the row is staged in shared memory (coalesced), then
-// every thread merges it against its own B row, read through L1 (each
-// thread streams its row sequentially, so the active lines are few and
-// cached). The output row of TILE counts is written coalesced.
+// every thread merges it against its own B row (merge_walk.cuh), read
+// through L1 (each thread streams its row sequentially, so the active
+// lines are few and cached). The output row of TILE counts is written
+// coalesced.
 //
 // Layouts (`symmetric`):
 //   0  rectangular: A [rows_a, W], B [rows_b, W]; block (bx, by) computes
@@ -36,8 +37,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "merge_walk.cuh"
+
 #define TILE 128
-#define PAD_ID 0x7FFFFFFF
 
 __global__ void mash_shared_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ na,
                                    const int32_t* __restrict__ b, const int32_t* __restrict__ nb,
@@ -62,34 +64,7 @@ __global__ void mash_shared_kernel(const int32_t* __restrict__ a, const int32_t*
     const int na_i = na[a_row_idx];
     int s_use = na_i < nb_j ? na_i : nb_j;
     s_use = s_use < s_orig ? s_use : s_orig;
-    int shared = 0;
-    if (s_use > 0) {
-      int i = 0, j = 0, rank = 0;
-      bool started = false;
-      int prev = 0;
-      while (true) {
-        const int va = i < width ? a_row[i] : PAD_ID;
-        const int vb = j < width ? __ldg(brow + j) : PAD_ID;
-        int v;
-        if (va <= vb) {
-          v = va;
-          ++i;
-        } else {
-          v = vb;
-          ++j;
-        }
-        if (v == PAD_ID) break;  // both rows exhausted (pads sort last)
-        if (started && v == prev) {
-          // a duplicate shares the distinct rank of its first occurrence
-          if (rank <= s_use) ++shared;
-        } else {
-          ++rank;
-          if (rank > s_use) break;  // later duplicates all rank past s_use
-          prev = v;
-          started = true;
-        }
-      }
-    }
+    const int shared = s_use > 0 ? mash_shared_walk(a_row, brow, width, s_use) : 0;
     out[a_row_idx * (int64_t)out_cols + out_col0 + tid] = shared;
   }
 }

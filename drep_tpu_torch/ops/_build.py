@@ -6,8 +6,9 @@ with
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 into ``drep_tpu_torch/_build/lib<name>_<hash>.so`` (the hash is of the
-source, so an edited kernel rebuilds). Building happens at first use,
-never at import; :func:`build_all` starts one nvcc per source at once.
+source and the shared ``csrc/*.cuh`` headers, so an edited kernel
+rebuilds). Building happens at first use, never at import;
+:func:`build_all` starts one nvcc per source at once.
 Every launch function returns ``cudaGetLastError()``; :func:`check`
 raises on anything but 0.
 """
@@ -24,7 +25,7 @@ import threading
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mash_shared", "indicator", "intersect")
+SOURCES = ("mash_shared", "indicator", "intersect", "ring_step")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -45,8 +46,12 @@ def nvcc_path() -> str:
 
 
 def _so_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    h = hashlib.sha256()
+    # the source and every shared header it may include
+    for src in [f"{name}.cu", *sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
 
 

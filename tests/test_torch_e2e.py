@@ -18,16 +18,21 @@ import pandas as pd
 import pytest
 import torch
 
+from drep_tpu.choose import d_choose_wrapper as jax_d_choose_wrapper
 from drep_tpu.cluster.controller import d_cluster_wrapper as jax_d_cluster_wrapper
+from drep_tpu.cluster.engines import SECONDARY_PATH_COUNTS as JAX_SECONDARY_PATH_COUNTS
 from drep_tpu.ingest import GenomeSketches as JaxGenomeSketches
 from drep_tpu.ingest import _save as jax_save
 from drep_tpu.ingest import sketch_args_snapshot as jax_sketch_args_snapshot
 from drep_tpu.workdir import WorkDirectory as JaxWorkDirectory
 from drep_tpu.workflows import compare_wrapper as jax_compare
 from drep_tpu.workflows import dereplicate_wrapper as jax_dereplicate
+from drep_tpu_torch.choose import d_choose_wrapper
 from drep_tpu_torch.cluster.controller import d_cluster_wrapper
 from drep_tpu_torch.cluster.engines import SECONDARY_PATH_COUNTS
 from drep_tpu_torch.controller import main as torch_main
+from drep_tpu_torch.ops import ring
+from drep_tpu_torch.ops.containment import pack_scaled_sketches
 from drep_tpu_torch.ingest import save_sketch_cache
 from drep_tpu_torch.utils.synth import planted_sketches
 from drep_tpu_torch.workdir import WorkDirectory
@@ -135,6 +140,31 @@ def test_dereplicate_winners(dereplicated):
     ]
 
 
+def _planted_workdirs(root, gs, placeholders: bool = False):
+    """(Bdb, port workdir, JAX workdir), both holding `gs` as their sketch
+    cache; with `placeholders`, empty genome files and genomeInformation
+    for the choose stage."""
+    locs = [f"/nonexistent/{g}" for g in gs.names]
+    if placeholders:
+        (root / "genomes").mkdir()
+        locs = [str(root / "genomes" / g) for g in gs.names]
+        for loc in locs:
+            open(loc, "wb").close()
+    bdb = pd.DataFrame({"genome": gs.names, "location": locs})
+    wd = WorkDirectory(str(root / "torch"))
+    save_sketch_cache(wd, gs)
+    jwd = JaxWorkDirectory(str(root / "jax"))
+    jax_save(jwd, JaxGenomeSketches(
+        names=gs.names, gdb=gs.gdb, bottom=gs.bottom, scaled=gs.scaled,
+        k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale,
+    ))
+    jwd.store_arguments("sketch", jax_sketch_args_snapshot(gs.names, gs.k, gs.sketch_size, gs.scale, "splitmix64"))
+    if placeholders:
+        for w in (wd, jwd):
+            w.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
+    return bdb, wd, jwd
+
+
 @pytest.mark.parametrize("n,cluster_size", [(200, None), (80, 40)])
 def test_planted_set_cdb_equals_jax(tmp_path, n, cluster_size):
     """Planted genomes through both d_cluster_wrappers from one sketch
@@ -143,15 +173,7 @@ def test_planted_set_cdb_equals_jax(tmp_path, n, cluster_size):
     batched secondary; clusters of 40 (> SMALL_CLUSTER_MAX) the
     per-cluster one."""
     gs, planted = planted_sketches(n, seed=4, s_bottom=200, s_scaled=300, cluster_size=cluster_size)
-    bdb = pd.DataFrame({"genome": gs.names, "location": [f"/nonexistent/{g}" for g in gs.names]})
-    wd = WorkDirectory(str(tmp_path / "torch"))
-    save_sketch_cache(wd, gs)
-    jwd = JaxWorkDirectory(str(tmp_path / "jax"))
-    jax_save(jwd, JaxGenomeSketches(
-        names=gs.names, gdb=gs.gdb, bottom=gs.bottom, scaled=gs.scaled,
-        k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale,
-    ))
-    jwd.store_arguments("sketch", jax_sketch_args_snapshot(gs.names, gs.k, gs.sketch_size, gs.scale, "splitmix64"))
+    bdb, wd, jwd = _planted_workdirs(tmp_path, gs)
     kw = {"MASH_sketch": gs.sketch_size, "processes": 1}
     paths_before = dict(SECONDARY_PATH_COUNTS)
     cdb = d_cluster_wrapper(wd, bdb, device="cpu", **kw)
@@ -199,12 +221,110 @@ def test_past_budget_routes_equal_jax_bytes(dereplicated_past_budget, genome_pat
         assert _table(wd, table) == _table(jwd, table)
 
 
-def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, monkeypatch):
+def _count_plain_steps(monkeypatch) -> list[int]:
+    """Count the port's ring steps (on the CPU each runs the plain step)."""
+    calls = [0]
+    plain = ring.ring_step_plain
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return plain(*a, **k)
+
+    monkeypatch.setattr(ring, "ring_step_plain", counted)
+    return calls
+
+
+@pytest.fixture(scope="module")
+def mesh_planted(tmp_path_factory):
+    """200 planted genomes through the JAX package's d_cluster_wrapper and
+    choose with --mesh_shape 4: the primary runs its ring on 4 of the
+    virtual CPU devices."""
+    root = tmp_path_factory.mktemp("mesh_planted")
+    gs, _ = planted_sketches(200, seed=8, s_bottom=200, s_scaled=300)
+    bdb, _, jwd = _planted_workdirs(root, gs, placeholders=True)
+    kw = {"MASH_sketch": gs.sketch_size, "processes": 1, "mesh_shape": 4}
+    jax_d_cluster_wrapper(jwd, bdb, **kw)
+    jax_d_choose_wrapper(jwd, bdb)
+    return root, gs, bdb, jwd.location, kw
+
+
+@pytest.mark.parametrize("ring_comm", ["auto", "ppermute"])
+def test_mesh_shape_4_equals_jax_bytes(mesh_planted, monkeypatch, ring_comm):
+    """--mesh_shape 4 on the CPU: the port's primary over a 4-position ring
+    writes Cdb/Ndb/Sdb/Wdb byte-identical to the JAX package's --mesh_shape
+    4 (the JAX CLI's --ring_comm values are accepted and run the one
+    ring)."""
+    root, gs, bdb, jwd, kw = mesh_planted
+    wd = WorkDirectory(str(root / f"torch_{ring_comm}"))
+    save_sketch_cache(wd, gs)
+    wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
+    steps = _count_plain_steps(monkeypatch)
+    d_cluster_wrapper(wd, bdb, device="cpu", ring_comm=ring_comm, **kw)
+    d_choose_wrapper(wd, bdb)
+    assert steps[0] == 4 + 4 + 2  # D = 4: steps 0 and 1 on every position, half of step 2
+    for table in ("Cdb", "Ndb", "Sdb", "Wdb"):
+        assert _table(wd.location, table) == _table(jwd, table)
+    _assert_mdb_close(wd.location, jwd)
+
+
+def test_past_budget_cluster_on_mesh_ring_equals_jax_bytes(tmp_path, monkeypatch):
+    """One 80-genome cluster past the one-shot budget (cut to 2^12) with
+    --mesh_shape 4: both packages take `mesh_ring` for it, and Cdb/Ndb are
+    byte-identical."""
+    gs, _ = planted_sketches(80, seed=9, s_bottom=200, s_scaled=300, cluster_size=80)
+    bdb, wd, jwd = _planted_workdirs(tmp_path, gs)
+    kw = {"MASH_sketch": gs.sketch_size, "processes": 1, "mesh_shape": 4}
+    monkeypatch.setattr("drep_tpu.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+    monkeypatch.setattr("drep_tpu_torch.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+    before, jbefore = dict(SECONDARY_PATH_COUNTS), dict(JAX_SECONDARY_PATH_COUNTS)
+    d_cluster_wrapper(wd, bdb, device="cpu", **kw)
+    jax_d_cluster_wrapper(jwd, bdb, **kw)
+    for counts, start in ((SECONDARY_PATH_COUNTS, before), (JAX_SECONDARY_PATH_COUNTS, jbefore)):
+        assert {p: c - start.get(p, 0) for p, c in counts.items() if c != start.get(p, 0)} == {"mesh_ring": 1}
+    for table in ("Cdb", "Ndb"):
+        assert _table(wd.location, table) == _table(jwd.location, table)
+    _assert_mdb_close(wd.location, jwd.location)
+
+
+def test_wide_past_budget_cluster_on_mesh_ring_equals_one_device(tmp_path, monkeypatch):
+    """A 64-genome cluster past the one-shot budget (cut to 2^12) whose
+    scaled rows pad to width 65 536, wider than a card's shared memory
+    stages: with --mesh_shape 4 it takes `mesh_ring`, and its Cdb, Ndb and
+    Mdb are byte-identical to the single-device run's."""
+    gs, _ = planted_sketches(64, seed=10, s_bottom=200, s_scaled=30_000, cluster_size=64)
+    assert pack_scaled_sketches(gs.scaled, gs.names).ids.shape[1] == 1 << 16
+    bdb = pd.DataFrame({"genome": gs.names, "location": [f"/nonexistent/{g}" for g in gs.names]})
+    monkeypatch.setattr("drep_tpu_torch.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+    kw = {"MASH_sketch": gs.sketch_size, "processes": 1}
+    tables = {}
+    for mesh_shape in (4, 1):
+        wd = WorkDirectory(str(tmp_path / f"mesh{mesh_shape}"))
+        save_sketch_cache(wd, gs)
+        before = dict(SECONDARY_PATH_COUNTS)
+        d_cluster_wrapper(wd, bdb, device="cpu", mesh_shape=mesh_shape, **kw)
+        paths = {p for p, c in SECONDARY_PATH_COUNTS.items() if c != before.get(p, 0)}
+        assert (paths == {"mesh_ring"}) == (mesh_shape == 4), paths
+        tables[mesh_shape] = [_table(wd.location, t) for t in ("Cdb", "Ndb", "Mdb")]
+    assert tables[4] == tables[1]
+
+
+def test_compare_cli_with_mesh_shape_runs(compared, genome_paths, tmp_path):
+    """The CLI takes --mesh_shape and the ring flags; five genomes are
+    below MESH_MIN_GENOMES, so the run is the single-device one."""
+    _, jwd, _ = compared
+    wd = str(tmp_path / "wd")
+    torch_main(["compare", wd, "-g", *genome_paths, "--device", "cpu", "--skip_plots",
+                "--mesh_shape", "4", "--ring_comm", "ppermute", "--ring_monolithic"])
+    assert _table(wd, "Cdb") == _table(jwd, "Cdb")
+
+
+@pytest.mark.parametrize("flags", [[], ["--mesh_shape", "4"]])
+def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, monkeypatch, flags):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         compare_wrapper(str(tmp_path / "a"), genome_paths)
     with pytest.raises(RuntimeError, match="--device cpu"):
-        torch_main(["dereplicate", str(tmp_path / "b"), "-g", *genome_paths])
+        torch_main(["dereplicate", str(tmp_path / "b"), "-g", *genome_paths, *flags])
     gs, _ = planted_sketches(3, seed=0, s_bottom=20, s_scaled=20)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         d_cluster_wrapper(WorkDirectory(str(tmp_path / "c")), pd.DataFrame({"genome": gs.names}))
@@ -213,7 +333,7 @@ def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, mon
 
 @pytest.mark.parametrize("flag", [
     ["--streaming_primary"], ["--greedy_secondary_clustering"], ["--run_tertiary_clustering"],
-    ["--multiround_primary_clustering"], ["--primary_prune", "lsh"], ["--mesh_shape", "2"],
+    ["--multiround_primary_clustering"], ["--primary_prune", "lsh"],
     ["--primary_estimator", "matmul"],
 ])
 def test_unported_paths_raise(tmp_path, genome_paths, flag):
