@@ -52,15 +52,24 @@ Phases (any failure exits nonzero; nothing is caught):
    65 536 (wider than a block's shared memory; Mash and containment), timed
    beside its bound, its plain version and the unfused step (kernel, then
    ``copy_``), with that cluster's ring bit-identical to one device's
-   route; the primary ring
-   over phase 5's 10 000 genomes, bit-identical to the single-device
-   matrix (both timed); phase 6 again with ``mesh_shape=4``, whose three
-   clusters must take ``mesh_ring``, with Cdb/Ndb/Wdb byte-identical to
-   phase 6's and Mdb within 1e-7; where there are two cards or more, the
-   kernel check with the copy landing on the second card;
+   route; the primary ring over phase 5's 10 000 genomes, bit-identical
+   to the single-device matrix (both timed); where there are two cards or
+   more, the kernel check with the copy landing on the second card;
+   7c: phase 6 again with ``mesh_shape=4``: its three clusters must take
+   ``mesh_ring``, whose rotating steps run the matmul step (each
+   cluster's v_pad is at most 2048 times its width) and whose Mash
+   primary and final steps run the merge step, with Cdb/Ndb/Wdb
+   byte-identical to phase 6's and Mdb within 1e-7;
+   7d: the matmul ring step (``csrc/ring_step_mm.cu``) against its plain
+   version (tile, copied operand, no-copy step) and the merge step on
+   cluster A's [500, 32768], B's [325, 2048], C's [256, 32768] and the
+   wide cluster's [128, 65536] blocks, timed beside its bound, its plain
+   version, the library yardstick (indicator.cu + ``torch._int_mm`` over
+   vocabulary chunks) and the merge step; the matmul ring over clusters A,
+   B and C byte-identical to the merge ring and to phase 6's one device;
 8. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and indicator kernels, from phase 6 for the merge kernels, from
-   phase 7's ``mesh_shape=4`` run for the ring step);
+   7c for both ring steps);
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
@@ -473,6 +482,7 @@ def reset_launches() -> None:
     intersect.LAUNCHES["intersect"] = 0
     intersect.LAUNCHES["intersect_stacked"] = 0
     ring.LAUNCHES["ring_step"] = 0
+    ring.LAUNCHES["ring_step_mm"] = 0
 
 
 def read_launches() -> dict:
@@ -683,7 +693,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
     cdb, launches, paths, _, t_cluster = run_beyond(wd, bdb, dev, "beyond budget", mesh_shape=1)
     require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
-    launches = {k: v for k, v in launches.items() if k != "ring_step"}
+    launches = {k: v for k, v in launches.items() if k not in ("ring_step", "ring_step_mm")}
     require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
     by_name = cdb.set_index("genome")
     prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
@@ -700,7 +710,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
     # the merge kernel (A, B), the kernel is also held against its plain
     # version on the whole operand the route builds
     ndb = wd.get_db("Ndb")
-    routes, parts = {}, {}
+    routes, parts, ani_cov = {}, {}, {}
     for key, (n, _, _, route) in BEYOND.items():
         pack = beyond_pack(gs, planted, key)
         torch.cuda.synchronize()
@@ -720,6 +730,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         t = time.perf_counter()
         ani, cov = ani_cov_from_intersections(merged, pack.counts, gs.k)
         merge_parts["ani_cov"] = time.perf_counter() - t
+        ani_cov[key] = (ani, cov)
         t = time.perf_counter()
         directional_ndb(pack.names, ani, cov, 1)
         merge_parts["ndb_rows"] = time.perf_counter() - t
@@ -769,7 +780,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         require(np.array_equal(ranks, want), f"rank map {name} disagrees")
     log(f"beyond budget: rank map on cluster B's hashes {json.dumps(rank_map)}")
     return {"launches": launches, "routes": routes, "parts": parts, "rank_map": rank_map,
-            "wd": wd.location, "d_cluster_s": t_cluster}
+            "wd": wd.location, "d_cluster_s": t_cluster, "ani_cov": ani_cov}
 
 
 def ring_cost(kind: str, na: np.ndarray, nb: np.ndarray, tile: np.ndarray, width: int, copy: bool):
@@ -805,6 +816,21 @@ def check_ring_step(kind: str, a, na, b, nb, what: str, dst_device=None) -> dict
     return {"tile": want, "plain_ms": plain_ms, "dst": dst}
 
 
+_WIDE: list = []
+
+
+def wide_pack():
+    """(sketches, pack) of phase 7a's cluster at width 65 536, planted once."""
+    from drep_tpu_torch.ops.containment import pack_scaled_sketches
+    from drep_tpu_torch.utils.synth import planted_sketches
+
+    if not _WIDE:
+        gs_w, _ = planted_sketches(WIDE_GENOMES, seed=23, s_bottom=100, s_scaled=30_000,
+                                   cluster_size=WIDE_GENOMES)
+        _WIDE.extend([gs_w, pack_scaled_sketches(gs_w.scaled, gs_w.names)])
+    return tuple(_WIDE)
+
+
 def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
     """Phase 7a: the fused ring step at the ring's shapes, timed beside its
     bound, its plain version and the unfused step."""
@@ -812,11 +838,9 @@ def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
 
     from drep_tpu_torch.cluster.engines import SECONDARY_PATH_COUNTS, containment_matrices
     from drep_tpu_torch.ops import ring
-    from drep_tpu_torch.ops.containment import pack_scaled_sketches
     from drep_tpu_torch.ops.minhash import PAD_ID, pad_packed_rows
     from drep_tpu_torch.parallel.allpairs import sharded_containment_allpairs
     from drep_tpu_torch.parallel.mesh import make_mesh
-    from drep_tpu_torch.utils.synth import planted_sketches
 
     def blocks(ids, counts, n_local, first, second):
         out = []
@@ -885,8 +909,7 @@ def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
     # scaled hashes (an ~8 Mb genome at scale 200), width 65 536; the step
     # checked and timed, the Mash walk checked, and the ring over the
     # cluster held against one device's own route
-    gs_w, _ = planted_sketches(WIDE_GENOMES, seed=23, s_bottom=100, s_scaled=30_000, cluster_size=WIDE_GENOMES)
-    pack_w = pack_scaled_sketches(gs_w.scaled, gs_w.names)
+    gs_w, pack_w = wide_pack()
     require(pack_w.ids.shape[1] == 1 << 16, f"wide pack has width {pack_w.ids.shape[1]}, expected 65536")
     n_local = pack_w.n // RING_POSITIONS
     timed("containment", pack_w, n_local, "containment_wide")
@@ -951,7 +974,8 @@ def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
     _, launches, paths, stages, t_cluster = run_beyond(
         wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS})", mesh_shape=RING_POSITIONS)
     require(paths == {"mesh_ring": len(BEYOND)}, f"mesh run's secondary routes {paths}")
-    require(launches["ring_step"] > 0, f"mesh run launched no ring step: {launches}")
+    require(launches["ring_step"] > 0 and launches["ring_step_mm"] > 0,
+            f"mesh run launched no merge or no matmul ring step: {launches}")
 
     def table(root: str, name: str) -> str:
         return os.path.join(root, "data_tables", f"{name}.csv")
@@ -969,6 +993,102 @@ def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
     log(f"ring path: Cdb, Ndb and Wdb byte-identical to phase 6, Mdb max |diff| {err}; "
         f"d_cluster_wrapper {t_cluster:.2f} s against {beyond['d_cluster_s']:.2f} s on one position")
     return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err}
+
+
+def mm_library_tile(a, b, v_pad: int):
+    """The yardstick for the matmul step: the same tile by indicator.cu
+    scatters and torch._int_mm over vocabulary chunks of 2^22 ids (rows
+    padded with PAD_ID rows to a multiple of 8, as _int_mm asks)."""
+    import torch
+
+    from drep_tpu_torch.ops.indicator import indicator
+    from drep_tpu_torch.ops.minhash import PAD_ID
+
+    n, width = a.shape
+    pad = torch.full(((-n) % 8, width), int(PAD_ID), dtype=torch.int32, device=a.device)
+    a8, b8 = torch.cat([a, pad]), torch.cat([b, pad])
+    chunk = min(v_pad, 1 << 22)
+    tile = torch.zeros((a8.shape[0], b8.shape[0]), dtype=torch.int32, device=a.device)
+    for base in range(0, v_pad, chunk):
+        ia, ib = (indicator(torch.where((x >= base) & (x < base + chunk), x - base, int(PAD_ID)), chunk)
+                  for x in (a8, b8))
+        tile += torch._int_mm(ia, ib.T)
+    return tile[:n, :n]
+
+
+def phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond: dict) -> dict:
+    """Phase 7d: the matmul ring step against its plain version and the
+    merge step at the ring's block shapes, timed beside its bound, its
+    plain version, the library yardstick and the merge step; then the
+    matmul ring over clusters A, B and C byte-identical to the merge ring
+    and to phase 6's one-device (ani, cov)."""
+    import torch
+
+    from drep_tpu_torch.ops import ring
+    from drep_tpu_torch.ops.minhash import PAD_ID
+    from drep_tpu_torch.parallel.allpairs import sharded_containment_allpairs
+    from drep_tpu_torch.parallel.mesh import make_mesh
+
+    shapes = {}
+    packs = {key: beyond_pack(gs_beyond, planted_beyond, key) for key in BEYOND}
+    packs["wide"] = wide_pack()[1]
+    for label, pk in packs.items():
+        n_local = pk.n // RING_POSITIONS
+        v_pad = ring.matmul_ring_vocab_pad(pk.ids)
+        a, na, b, nb = (torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+            pk.ids[:n_local], pk.counts[:n_local], pk.ids[n_local : 2 * n_local], pk.counts[n_local : 2 * n_local]))
+        what = f"ring_step_mm {label} [{n_local}, {pk.ids.shape[1]}] v_pad {v_pad}"
+        dst = (torch.full_like(b, -7), torch.full_like(nb, -7))
+        got = ring.ring_step_matmul(a, na, b, nb, v_pad, *dst)
+        want, plain_ms = cuda_timed(lambda: ring.ring_step_matmul_plain(a, na, b, nb, v_pad))
+        require(torch.equal(got, want), f"{what}: tile != plain")
+        require(torch.equal(dst[0], b) and torch.equal(dst[1], nb), f"{what}: copied operand != B")
+        require(torch.equal(ring.ring_step_matmul(a, na, b, nb, v_pad), want), f"{what}: step without a copy != plain")
+        require(torch.equal(ring.ring_step("containment", a, na, b, nb), want), f"{what}: tile != the merge step's")
+        lib, library_ms = cuda_timed(lambda: mm_library_tile(a, b, v_pad))
+        require(torch.equal(lib, want), f"{what}: the library yardstick's tile != plain")
+        del lib, want
+        ms = cuda_ms(lambda: ring.ring_step_matmul(a, na, b, nb, v_pad, *dst), reps=3)
+        merge_ms = cuda_ms(lambda: ring.ring_step("containment", a, na, b, nb, *dst), reps=3)
+        # the bound of the function, the same |A ∩ B| tile and copy as the
+        # merge step's (row 5a): its compare-and-advance steps at the
+        # scalar peak or its bytes at the HBM rate, whichever is longer
+        steps, nbytes = ring_cost("containment", pk.counts[:n_local], pk.counts[n_local : 2 * n_local],
+                                  got.cpu().numpy(), pk.ids.shape[1], copy=True)
+        bound_ops_ms = steps / SCALAR_OPS_PER_S * 1e3
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        # apart from it, the least time of this kernel's own formulation:
+        # 2 n^2 x extent int8 operations at the tensor-core peak, extent
+        # being the two blocks' largest real id + 1
+        real = pk.ids[: 2 * n_local][pk.ids[: 2 * n_local] != PAD_ID]
+        extent = int(real.max()) + 1 if real.size else 0
+        tc_ops = 2 * n_local * n_local * extent
+        shapes[label] = {"shape": [n_local, int(pk.ids.shape[1])], "v_pad": v_pad, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": max(bound_ops_ms, bound_bytes_ms),
+                         "bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+                         "steps": steps, "bytes": nbytes, "extent": extent, "tensor_core_ops": tc_ops,
+                         "tensor_core_bound_ms": tc_ops / INT8_TENSOR_OPS_PER_S * 1e3,
+                         "library_ms": library_ms, "merge_step_ms": merge_ms}
+        log(f"{what}: equals the plain version (tile, copied operand, no-copy step) and the merge step; "
+            f"{json.dumps(shapes[label])}")
+
+    mesh = make_mesh(RING_POSITIONS, dev)
+    rings = {}
+    for key in BEYOND:
+        pk = packs[key]
+        runs = {}
+        for variant in ("matmul", "merge"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[variant] = sharded_containment_allpairs(pk, k=gs_beyond.k, mesh=mesh, variant=variant)
+            runs[variant + "_s"] = time.perf_counter() - t0
+        require(all(x.tobytes() == y.tobytes() == z.tobytes()
+                    for x, y, z in zip(runs["matmul"], runs["merge"], beyond["ani_cov"][key], strict=True)),
+                f"ring over cluster {key}: the matmul ring's (ani, cov) != the merge ring's or phase 6's")
+        rings[key] = {"matmul_ring_s": runs["matmul_s"], "merge_ring_s": runs["merge_s"]}
+        log(f"ring_step_mm: cluster {key} ({pk.n} genomes) over {RING_POSITIONS} positions: the matmul ring's "
+            f"(ani, cov) byte-identical to the merge ring's and to phase 6's one device; {json.dumps(rings[key])}")
+    return {"shapes": shapes, "rings": rings}
 
 
 def main() -> int:
@@ -1007,6 +1127,7 @@ def main() -> int:
         ring_kernel = phase_ring_kernel(dev, real["packed"], gs_beyond, planted_beyond)
         ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
         ring_path = phase_ring_path(tmp, dev, gs_beyond, beyond)
+        ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -1019,8 +1140,17 @@ def main() -> int:
         "ring_primary": ring_primary, "ring_path_d_cluster_s": ring_path["d_cluster_s"],
         "ring_path_mdb_max_abs_err": ring_path["mdb_max_abs_err"],
     })
+    mm_main = ring_mm["shapes"]["B"]
+    kernels.append({
+        "name": "ring_step_mm", "route": "cuda", "source": "drep_tpu_torch/csrc/ring_step_mm.cu",
+        "replaces": "drep_tpu/ops/pallas_ring.py:305", "equal": True, "max_abs_err": 0,
+        **{key: mm_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "tensor_core_bound_ms",
+                                         "library_ms", "merge_step_ms", "shape", "v_pad")},
+        "shapes": ring_mm["shapes"], "rings": ring_mm["rings"],
+    })
     for k in kernels:
-        path = real if k["name"] in PRIMARY_PATH_KERNELS else ring_path if k["name"] == "ring_step" else beyond
+        path = real if k["name"] in PRIMARY_PATH_KERNELS else ring_path if k["name"].startswith("ring_step") \
+            else beyond
         k["launches"] = path["launches"][k["name"]]
     kernels[0]["main_path_ms"] = real["mash_ms"]
     kernels[0]["main_path_rows"] = real["mash_rows"]

@@ -19,9 +19,10 @@
 //
 // The TPU kernel starts the remote DMA in its first grid cell and waits for
 // it in the last, so the ICI transfer overlaps the whole tile sweep. Here
-// every block first copies a grid-stride share of B with 16-byte stores and
-// then walks its pairs: the copy's HBM (or NVLink) traffic runs while other
-// blocks walk, and the end of the launch is the wait.
+// every block first copies a grid-stride share of B with 16-byte stores
+// (ring_copy.cuh) and then walks its pairs: the copy's HBM (or NVLink)
+// traffic runs while other blocks walk, and the end of the launch is the
+// wait.
 //
 // What bounds it: operations. The walks are data-dependent compare-and-
 // advance steps with no tensor-core form (~2 s_use a Mash pair, up to
@@ -41,6 +42,7 @@
 #include <stdint.h>
 
 #include "merge_walk.cuh"
+#include "ring_copy.cuh"
 
 #define TILE 128
 #define CHUNK 4096  // A ids staged at a time (16 KB)
@@ -56,14 +58,7 @@ ring_step_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ na,
   if (dst != nullptr) {
     const int64_t n_threads = (int64_t)gridDim.x * gridDim.y * TILE;
     const int64_t gtid = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * TILE + tid;
-    const int64_t n_ids = (int64_t)n_local * width;
-    const bool aligned = ((reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0;
-    const int64_t n_vec = aligned ? n_ids / 4 : 0;
-    const int4* __restrict__ src4 = reinterpret_cast<const int4*>(b);
-    int4* __restrict__ dst4 = reinterpret_cast<int4*>(dst);
-    for (int64_t v = gtid; v < n_vec; v += n_threads) dst4[v] = src4[v];
-    for (int64_t e = n_vec * 4 + gtid; e < n_ids; e += n_threads) dst[e] = b[e];
-    for (int64_t r = gtid; r < n_local; r += n_threads) dst_n[r] = nb[r];
+    ring_copy_share(b, nb, dst, dst_n, n_local, width, gtid, n_threads);
   }
 
   const int a_idx = blockIdx.x;

@@ -17,27 +17,55 @@ stages the A row in shared memory a piece at a time):
   (drep_tpu/ops/containment.py::_pair_intersection), |A ∩ B| on a scaled
   pack's unique ranks.
 
-CUDA tensors launch the kernel, CPU tensors run :func:`ring_step_plain`;
-there is no fallback between them. The receive buffers may sit on another
-card, whose memory this one must be able to access (parallel/mesh.py
-checks it when it deals the positions).
+The indicator-matmul variant (the JAX ``variant="matmul"``, containment
+only): :func:`ring_step_matmul` computes the containment tile as the sum
+over vocabulary chunks of 0/1 indicator products below ``v_pad``
+(``csrc/ring_step_mm.cu``, int8 tensor cores), with the same copy. It
+counts set membership, as the JAX indicator does: an id repeated in a row
+counts once, where the merge step counts every copy; on a scaled pack's
+unique ranks the two tiles are equal. :func:`pick_variant` picks the
+variant a containment ring's rotating steps run from its v_pad and width.
+
+CUDA tensors launch the kernel, CPU tensors run the plain version
+(:func:`ring_step_plain`, :func:`ring_step_matmul_plain`); there is no
+fallback between them. The receive buffers may sit on another card, whose
+memory this one must be able to access (parallel/mesh.py checks it when it
+deals the positions).
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from drep_tpu_torch.ops import _build
+from drep_tpu_torch.ops.containment import _pow2_bucket
 from drep_tpu_torch.ops.mash import mash_shared_plain
 from drep_tpu_torch.ops.minhash import PAD_ID
 
 KINDS = ("mash", "containment")  # csrc/ring_step.cu `kind` 0 and 1
+VARIANTS = ("merge", "matmul")
+# kinds whose tile is the plain count-free |A ∩ B| over dense ranks — the
+# only tile the indicator product can express
+MATMUL_TILE_KINDS = ("containment",)
+LANES = 128  # v_pad's granule (the JAX package's lane width)
+MAX_V_PAD = 1 << 30  # csrc/ring_step_mm.cu keeps chunk bounds in int32
+# The largest v_pad / W at which a containment ring runs the matmul step
+# (provisional, from four block shapes on one H100; the port bench is to
+# re-fit it). Both steps cost n_local^2 times a per-pair term: a merge pair
+# walks its two rows (~W ids), a matmul pair the vocabulary chunks below
+# v_pad that its tile touches, at ~2 000x the rate. The matmul step was
+# 14-38x faster at v_pad / W of 16 and 32, and within 2x either way at
+# 2 048 (2x faster on cluster A's blocks, 1.15x slower on B's).
+MATMUL_MAX_VPAD_PER_WIDTH = 2048
 # elements of [rows, cols, width] the plain containment searches at once
 _PLAIN_BUDGET_ELEMS = 1 << 25
+# elements of one side's float32 indicator chunk in the plain matmul step
+_PLAIN_INDICATOR_ELEMS = 1 << 26
 
-LAUNCHES = {"ring_step": 0}
+LAUNCHES = {"ring_step": 0, "ring_step_mm": 0}
 
 _peers: set[tuple[int, int]] = set()
 
@@ -171,4 +199,124 @@ def ring_step(
         )
     _build.check(rc, "ring_step")
     LAUNCHES["ring_step"] += 1
+    return tile
+
+
+def matmul_ring_vocab_pad(ids: np.ndarray) -> int:
+    """The v_pad the matmul variant needs, from the host copy of the packed
+    id matrix (before the blocks are dealt): the pow2 bucket (at least
+    LANES) of max real id + 1. Packed ids are ranks into the pack's
+    vocabulary, so PAD_ID never scatters."""
+    real = ids[ids != PAD_ID]
+    extent = int(real.max()) + 1 if real.size else 1
+    return _pow2_bucket(extent, LANES)
+
+
+def check_variant(kind: str, variant: str, v_pad: int = 0) -> None:
+    """Raise ValueError where the JAX package's fused_ring_step_fn refuses
+    a (kind, variant, v_pad): an unknown variant, matmul on a kind it
+    cannot express, or a matmul v_pad that is not a positive multiple of
+    LANES (nor at most MAX_V_PAD, the kernel's own limit)."""
+    if variant not in VARIANTS:
+        raise ValueError(f"ring variant {variant!r}: expected merge|matmul")
+    if variant != "matmul":
+        return
+    if kind not in MATMUL_TILE_KINDS:
+        raise ValueError(
+            f"matmul ring variant supports {MATMUL_TILE_KINDS}, not {kind!r} "
+            "(the mash tile counts union-bottom shared ids, not plain |A∩B|)"
+        )
+    if v_pad <= 0 or v_pad % LANES or v_pad > MAX_V_PAD:
+        raise ValueError(
+            f"matmul ring variant needs a positive {LANES}-multiple v_pad of at most {MAX_V_PAD}, got {v_pad}"
+        )
+
+
+def pick_variant(kind: str, v_pad: int, width: int) -> str:
+    """The step a ring of `kind` runs on its rotating steps, from what it
+    observes: matmul for a containment ring whose v_pad is at most
+    MATMUL_MAX_VPAD_PER_WIDTH times its row width (and within the kernel's
+    MAX_V_PAD), merge otherwise."""
+    if kind in MATMUL_TILE_KINDS and v_pad <= min(MAX_V_PAD, MATMUL_MAX_VPAD_PER_WIDTH * width):
+        return "matmul"
+    return "merge"
+
+
+def _chunk_indicator(ids: torch.Tensor, base: int, size: int) -> torch.Tensor:
+    """[rows, size] float32 0/1: row r is 1 at id - base for each of its ids
+    in [base, base + size); every other id lands in a trash column."""
+    rel = ids.to(torch.int64) - base
+    cols = torch.where((rel >= 0) & (rel < size), rel, torch.full_like(rel, size))
+    out = torch.zeros((ids.shape[0], size + 1), dtype=torch.float32, device=ids.device)
+    out.scatter_(1, cols, 1.0)
+    return out[:, :size]
+
+
+def ring_step_matmul_plain(
+    a_ids: torch.Tensor,
+    a_counts: torch.Tensor,
+    b_ids: torch.Tensor,
+    b_counts: torch.Tensor,
+    v_pad: int,
+    dst_ids: torch.Tensor | None = None,
+    dst_counts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The matmul step in plain torch on the tensors' device: the int32
+    tile as the sum over vocabulary chunks of float32 0/1 indicator
+    products (exact: every chunk's count is below 2^24), then B copied into
+    the receive buffers when given. Rows need not be sorted."""
+    del a_counts
+    n = a_ids.shape[0]
+    tile = torch.zeros((n, b_ids.shape[0]), dtype=torch.int32, device=a_ids.device)
+    per_row = max(1, _PLAIN_INDICATOR_ELEMS // max(1, n))
+    chunk = min(v_pad, max(LANES, 1 << (per_row.bit_length() - 1)))
+    for base in range(0, v_pad, chunk):
+        size = min(chunk, v_pad - base)
+        prod = _chunk_indicator(a_ids, base, size) @ _chunk_indicator(b_ids, base, size).T
+        tile += prod.to(torch.int32)
+    if dst_ids is not None:
+        dst_ids.copy_(b_ids)
+        dst_counts.copy_(b_counts)
+    return tile
+
+
+def ring_step_matmul(
+    a_ids: torch.Tensor,
+    a_counts: torch.Tensor,
+    b_ids: torch.Tensor,
+    b_counts: torch.Tensor,
+    v_pad: int,
+    dst_ids: torch.Tensor | None = None,
+    dst_counts: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """[n_local, n_local] int32 containment tile of one ring step by the
+    indicator product over ids below `v_pad` (rows ascending, ids >= 0);
+    with receive buffers, B's ids and counts are written into them by the
+    same launch. CUDA tensors launch ``csrc/ring_step_mm.cu`` on the
+    blocks' card and its current stream, CPU tensors run
+    :func:`ring_step_matmul_plain`."""
+    _check("containment", a_ids, a_counts, b_ids, b_counts, dst_ids, dst_counts)
+    check_variant("containment", "matmul", v_pad)
+    dev = a_ids.device
+    if dev.type == "cpu":
+        return ring_step_matmul_plain(a_ids, a_counts, b_ids, b_counts, v_pad, dst_ids, dst_counts)
+    if dev.type != "cuda":
+        raise ValueError(f"ring_step_matmul: unsupported device {dev}")
+    n_local, width = a_ids.shape
+    lib = _build.load("ring_step_mm")
+    if dst_ids is not None and dst_ids.device != dev:
+        _enable_peer(_build.load("ring_step"), dev.index, dst_ids.device.index)
+    tile = torch.empty((n_local, n_local), dtype=torch.int32, device=dev)
+    fn = lib.ring_step_mm_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        rc = fn(
+            a_ids.data_ptr(), b_ids.data_ptr(), b_counts.data_ptr(), tile.data_ptr(),
+            None if dst_ids is None else dst_ids.data_ptr(),
+            None if dst_counts is None else dst_counts.data_ptr(),
+            n_local, width, v_pad, _build.stream_handle(dev),
+        )
+    _build.check(rc, "ring_step_matmul")
+    LAUNCHES["ring_step_mm"] += 1
     return tile

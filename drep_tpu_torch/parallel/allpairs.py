@@ -13,13 +13,18 @@ m < D/2 keep it. The host mirrors the transposed blocks into the rest.
 ``full_grid=True`` runs all D steps (the equality reference).
 
 Every step of every position is one launch of the fused kernel
-(ops/ring.py, ``csrc/ring_step.cu``), which computes the tile and writes
-the B operand into the neighbour's receive buffer. Every launch is issued
-up front; every rotation lands in a fresh buffer allocated before the
-first launch, so no step writes a buffer that another still reads. Each
-card runs its positions on its current stream; where neighbouring
-positions sit on different cards, an event orders each step after the step
-that wrote its B operand. The JAX package's one-program (monolithic) ring
+(ops/ring.py), which computes the tile and writes the B operand into the
+neighbour's receive buffer: ``csrc/ring_step.cu`` (the merge variant), or,
+for a containment ring under the matmul variant (``variant``, by default
+ops/ring.py::pick_variant on the ring's v_pad and width),
+``csrc/ring_step_mm.cu`` on every rotating step. The final, rotation-free
+step always runs the merge step, as the JAX package's step loop runs its
+plain step program there. Every launch
+is issued up front; every rotation lands in a fresh buffer allocated
+before the first launch, so no step writes a buffer that another still
+reads. Each card runs its positions on its current stream; where
+neighbouring positions sit on different cards, an event orders each step
+after the step that wrote its B operand. The JAX package's one-program (monolithic) ring
 and its rotation backends are not carried over: the port has this one
 ring, whose matrices are held against the single-device ones.
 
@@ -38,7 +43,14 @@ import torch
 from drep_tpu_torch.ops.containment import ani_cov_from_intersections
 from drep_tpu_torch.ops.mash import shared_counts_to_distance
 from drep_tpu_torch.ops.minhash import PackedSketches, ids_to_device, pad_packed_rows, require_int32_ids
-from drep_tpu_torch.ops.ring import ring_step
+from drep_tpu_torch.ops.ring import (
+    MATMUL_TILE_KINDS,
+    check_variant,
+    matmul_ring_vocab_pad,
+    pick_variant,
+    ring_step,
+    ring_step_matmul,
+)
 from drep_tpu_torch.parallel.mesh import Mesh
 
 def half_ring_steps(n_devices: int) -> int:
@@ -132,14 +144,18 @@ def _on(dev: torch.device):
     return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
 
-def _ring_matrix(packed, kind: str, mesh: Mesh, half: bool) -> np.ndarray:
+def _ring_matrix(packed, kind: str, mesh: Mesh, half: bool, variant: str | None) -> np.ndarray:
     """The ring (module docstring): the assembled, mirrored int32 [n_pad,
     n_pad] matrix."""
     D = mesh.size
+    width = packed.ids.shape[1]
+    # the matmul step's vocabulary extent, once, from the host ids
+    v_pad = matmul_ring_vocab_pad(packed.ids) if kind in MATMUL_TILE_KINDS else 0
+    variant = pick_variant(kind, v_pad, width) if variant is None else variant
+    check_variant(kind, variant, v_pad)
     blocks, n_local = _blocks(packed, mesh)
     n_steps = half_ring_steps(D) if half else D
     keep = set(ring_schedule(D, half))
-    width = packed.ids.shape[1]
     # recv[i][m]: position m's B after step i, on position m+1's device
     recv = [
         [
@@ -170,7 +186,11 @@ def _ring_matrix(packed, kind: str, mesh: Mesh, half: bool) -> np.ndarray:
                 src_dev = mesh.devices[(m - 1) % D]
                 if multi and done[(m - 1) % D] is not None and src_dev != dev:
                     torch.cuda.current_stream(dev).wait_event(done[(m - 1) % D])
-                tiles.append((m, (m - i) % D, ring_step(kind, *blocks[m], *b[m], *(dst or (None, None)))))
+                if dst is not None and variant == "matmul":
+                    tile = ring_step_matmul(*blocks[m], *b[m], v_pad, *dst)
+                else:
+                    tile = ring_step(kind, *blocks[m], *b[m], *(dst or (None, None)))
+                tiles.append((m, (m - i) % D, tile))
                 if multi:
                     ev[m] = torch.cuda.Event()
                     ev[m].record(torch.cuda.current_stream(dev))
@@ -191,14 +211,16 @@ def ring_allpairs(
     k: int,
     mesh: Mesh,
     full_grid: bool = False,
+    variant: str | None = None,
 ) -> np.ndarray:
     """The `kind` tile over every pair of rows, sharded over the mesh: the
     [N, N] float32 matrix (Mash distance, diagonal not pinned; or |A ∩ B|).
-    Half-ring schedule unless `full_grid`."""
+    Half-ring schedule unless `full_grid`. `variant` (merge|matmul) overrides
+    the step the ring picks for its rotating steps (``pick_variant``)."""
     if kind not in _TILE_KINDS:
         raise ValueError(f"ring kind {kind!r}: expected one of {tuple(_TILE_KINDS)}")
     require_int32_ids(packed.ids, "ring_allpairs")
-    mat = _ring_matrix(packed, kind, mesh, half=not full_grid)
+    mat = _ring_matrix(packed, kind, mesh, half=not full_grid, variant=variant)
     n = packed.n
     return _TILE_KINDS[kind](mat[:n, :n], packed, k)
 
@@ -221,9 +243,10 @@ def sharded_containment_allpairs(
     k: int,
     mesh: Mesh,
     full_grid: bool = False,
+    variant: str | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """([N, N] symmetric max-containment ani, [N, N] directional cov) over
     the ring: symmetric |A ∩ B| tiles, both cov directions from the counts
-    on the host."""
-    inter = ring_allpairs(packed, "containment", k, mesh, full_grid)
+    on the host. `variant`: as :func:`ring_allpairs`."""
+    inter = ring_allpairs(packed, "containment", k, mesh, full_grid, variant)
     return ani_cov_from_intersections(inter, packed.counts, k)

@@ -1,0 +1,358 @@
+"""The port's indicator-matmul ring step (plain version on the CPU) and the
+ring's choice of step, against the JAX package.
+
+The JAX fused matmul body runs only under Pallas, whose interpret path
+does not build on the installed JAX, so the step is held against the JAX
+package's own indicator-matmul intersection
+(``ops/containment.py::intersect_counts_matmul_rect``, which counts set
+membership as the TPU body does), against ``containment_inter_tile`` and
+the port's merge step on unique ranks, and the ring against the JAX
+ppermute ring. Every count is an integer and compared exactly.
+"""
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from drep_tpu.controller import main as jax_main
+from drep_tpu.ingest import GenomeSketches as JaxGenomeSketches
+from drep_tpu.ingest import _save as jax_save
+from drep_tpu.ingest import sketch_args_snapshot as jax_sketch_args_snapshot
+from drep_tpu.ops import pallas_ring as jpr
+from drep_tpu.ops.containment import containment_inter_tile, intersect_counts_matmul_rect
+from drep_tpu.ops.containment import pack_scaled_sketches as jax_pack_scaled_sketches
+from drep_tpu.parallel import allpairs as jring
+from drep_tpu.parallel.mesh import make_mesh as jax_make_mesh
+from drep_tpu_torch.cluster.engines import SECONDARY_PATH_COUNTS
+from drep_tpu_torch.controller import main as torch_main
+from drep_tpu_torch.ingest import save_sketch_cache
+from drep_tpu_torch.ops import ring
+from drep_tpu_torch.ops.containment import pack_scaled_sketches
+from drep_tpu_torch.ops.minhash import PAD_ID
+from drep_tpu_torch.parallel import allpairs
+from drep_tpu_torch.parallel.mesh import make_mesh
+from drep_tpu_torch.utils.synth import planted_sketches
+from drep_tpu_torch.workdir import WorkDirectory
+
+CPU = torch.device("cpu")
+K = 21
+PAD = int(PAD_ID)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes at
+    once, and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _hermetic(monkeypatch):
+    """The JAX package's variant knob unset, and its ring's run-wide flags
+    at their defaults."""
+    monkeypatch.delenv("DREP_TPU_RING_VARIANT", raising=False)
+    jring.configure_ring()
+    yield
+    jring.configure_ring()
+
+
+def _rows(rng, n: int, width: int, vocab: int, repeats: bool) -> np.ndarray:
+    """n ascending PAD-padded rows of up to `width` ids below `vocab`;
+    every fourth row empty; with `repeats`, even rows hold every id twice
+    (in-row repeats)."""
+    ids = np.full((n, width), PAD, np.int32)
+    for r in range(n):
+        m = 0 if r % 4 == 3 else int(rng.integers(1, width + 1))
+        if repeats and r % 2 == 0:
+            once = rng.choice(vocab, size=min((m + 1) // 2, vocab), replace=False)
+            row = np.concatenate([once, once])[:m]
+        else:
+            row = rng.choice(vocab, size=min(m, vocab), replace=False)
+        ids[r, : len(row)] = np.sort(row)
+    return ids
+
+
+def _t(x: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _counts(ids: np.ndarray) -> np.ndarray:
+    return (ids != PAD).sum(axis=1).astype(np.int32)
+
+
+def _plain_mm(a: np.ndarray, b: np.ndarray, v_pad: int) -> np.ndarray:
+    return ring.ring_step_matmul_plain(_t(a), _t(_counts(a)), _t(b), _t(_counts(b)), v_pad).numpy()
+
+
+# (n_local, W, vocab) of the JAX package's matmul-tile test: one vocabulary
+# chunk and several
+CASES = [(5, 32, 200), (8, 64, 9000), (1, 16, 100)]
+
+
+@pytest.mark.parametrize("chunk_elems", [None, 1024], ids=["one_chunk", "many_chunks"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_plain_matmul_step_equals_jax_indicator_matmul(monkeypatch, case, chunk_elems):
+    """With in-row repeats and empty rows: the plain step's tile equals the
+    JAX indicator matmul byte for byte (a repeated id counts once). The
+    plain step's own chunk budget cut down forces many vocabulary chunks
+    (128 ids each at these row counts)."""
+    if chunk_elems is not None:
+        monkeypatch.setattr(ring, "_PLAIN_INDICATOR_ELEMS", chunk_elems)
+    n_local, width, vocab = case
+    rng = np.random.default_rng(n_local * 1000 + width)
+    a = _rows(rng, n_local, width, vocab, repeats=True)
+    b = _rows(rng, n_local, width, vocab, repeats=True)
+    v_pad = ring.matmul_ring_vocab_pad(np.concatenate([a, b]))
+    got = _plain_mm(a, b, v_pad)
+    want = intersect_counts_matmul_rect(a, b)
+    assert got.dtype == np.int32 and got.tobytes() == want.tobytes()
+
+
+def test_plain_matmul_step_on_all_pad_rows_is_zero():
+    a = np.full((4, 16), PAD, np.int32)
+    b = _rows(np.random.default_rng(1), 4, 16, 50, repeats=False)
+    for x, y in ((a, a), (a, b), (b, a)):
+        v_pad = ring.matmul_ring_vocab_pad(np.concatenate([x, y]))
+        got = _plain_mm(x, y, v_pad)
+        assert got.tobytes() == intersect_counts_matmul_rect(x, y).tobytes()
+        assert not got.any()
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "x".join(map(str, c)))
+def test_plain_matmul_step_equals_merge_tiles_on_unique_ranks(case):
+    """Unique ranks (a scaled pack's rows): the matmul tile equals the JAX
+    containment_inter_tile and the port's merge step; with repeats the
+    merge step counts each copy and the two differ."""
+    n_local, width, vocab = case
+    rng = np.random.default_rng(7 + n_local)
+    a = _rows(rng, n_local, width, vocab, repeats=False)
+    b = _rows(rng, n_local, width, vocab, repeats=False)
+    v_pad = ring.matmul_ring_vocab_pad(np.concatenate([a, b]))
+    got = _plain_mm(a, b, v_pad)
+    assert got.tobytes() == np.asarray(containment_inter_tile(a, b)).tobytes()
+    merge = ring.ring_step_plain("containment", _t(a), _t(_counts(a)), _t(b), _t(_counts(b))).numpy()
+    assert got.tobytes() == merge.tobytes()
+    rep = np.array([[3, 3, 5, PAD]], np.int32)
+    one = np.array([[3, 5, PAD, PAD]], np.int32)
+    cnt = _t(_counts(rep))
+    assert _plain_mm(rep, one, 128)[0, 0] == 2
+    assert ring.ring_step_plain("containment", _t(rep), cnt, _t(one), cnt).numpy()[0, 0] == 3
+
+
+def test_matmul_step_wrapper_copies_and_checks_operands():
+    """The wrapper on CPU tensors: the plain tile, B copied into the receive
+    buffers, no launch counted; the ring step's operand checks apply."""
+    rng = np.random.default_rng(3)
+    a, b = (_rows(rng, 6, 24, 300, repeats=False) for _ in range(2))
+    ta, tb, na, nb = _t(a), _t(b), _t(_counts(a)), _t(_counts(b))
+    dst = (torch.full_like(tb, -7), torch.full_like(nb, -7))
+    got = ring.ring_step_matmul(ta, na, tb, nb, 512, *dst)
+    assert torch.equal(got, ring.ring_step_matmul_plain(ta, na, tb, nb, 512))
+    assert torch.equal(dst[0], tb) and torch.equal(dst[1], nb)
+    assert torch.equal(ring.ring_step_matmul(ta, na, tb, nb, 512), got)
+    assert ring.LAUNCHES["ring_step_mm"] == 0  # the CPU runs the plain version
+    with pytest.raises(ValueError, match="overlaps"):
+        ring.ring_step_matmul(ta, na, tb, nb, 512, tb, torch.empty_like(nb))
+    with pytest.raises(ValueError, match="both receive buffers"):
+        ring.ring_step_matmul(ta, na, tb, nb, 512, dst[0], None)
+    with pytest.raises(TypeError, match="int32"):
+        ring.ring_step_matmul(ta.long(), na, tb, nb, 512)
+    with pytest.raises(ValueError, match="v_pad"):
+        ring.ring_step_matmul(ta, na, tb, nb, 500)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ring.ring_step_matmul(ta.to("meta"), na.to("meta"), tb.to("meta"), nb.to("meta"), 512)
+
+
+@pytest.mark.parametrize("extent", [0, 1, 127, 128, 129, 9000, 1 << 20])
+def test_matmul_ring_vocab_pad_equals_jax(extent):
+    """Including the all-PAD matrix (extent 0)."""
+    rng = np.random.default_rng(extent)
+    ids = np.full((5, 8), PAD, np.int32)
+    if extent:
+        ids[:, :3] = np.sort(rng.integers(0, extent, size=(5, 3)), axis=1)
+        ids[2, 0] = extent - 1
+        ids[2].sort()
+    assert ring.matmul_ring_vocab_pad(ids) == jpr.matmul_ring_vocab_pad(ids)
+
+
+@pytest.mark.parametrize("kind,variant,v_pad", [
+    ("mash", "matmul", 256), ("containment", "matmul", 0), ("containment", "matmul", -128),
+    ("containment", "matmul", 200), ("containment", "bogus", 256), ("mash", "bogus", 0),
+])
+def test_variant_validation_raises_where_jax_raises(kind, variant, v_pad):
+    with pytest.raises(ValueError):
+        jpr.fused_ring_step_fn(kind, K, jax_make_mesh(2), interpret=True, variant=variant, v_pad=v_pad)
+    with pytest.raises(ValueError):
+        ring.check_variant(kind, variant, v_pad)
+
+
+@pytest.mark.parametrize("kind,variant,v_pad", [
+    ("containment", "matmul", 128), ("containment", "matmul", 1 << 26), ("mash", "merge", 0),
+    ("containment", "merge", 0),
+])
+def test_variant_validation_accepts_what_jax_accepts(kind, variant, v_pad):
+    jpr.fused_ring_step_fn(kind, K, jax_make_mesh(2), interpret=True, variant=variant, v_pad=v_pad)
+    ring.check_variant(kind, variant, v_pad)
+
+
+# (kind, v_pad, W, the step picked): the chip's four measured block
+# shapes (cluster A, B, C, width 65 536), each side of the crossover, and
+# each side of the kernel's v_pad limit
+PICKS = [
+    ("containment", 1 << 26, 1 << 15, "matmul"),
+    ("containment", 1 << 22, 1 << 11, "matmul"),
+    ("containment", 1 << 20, 1 << 15, "matmul"),
+    ("containment", 1 << 20, 1 << 16, "matmul"),
+    ("containment", 1 << 23, 1 << 11, "merge"),
+    ("containment", 1 << 27, 1 << 15, "merge"),
+    ("containment", 2048, 1, "matmul"),
+    ("containment", 4096, 1, "merge"),
+    ("containment", 1 << 30, 1 << 20, "matmul"),
+    ("containment", 1 << 31, 1 << 21, "merge"),
+    ("mash", 128, 1 << 11, "merge"),
+    ("mash", 1 << 20, 1 << 15, "merge"),
+]
+
+
+@pytest.mark.parametrize("kind,v_pad,width,want", PICKS, ids=lambda x: str(x))
+def test_pick_variant_follows_v_pad_per_width(kind, v_pad, width, want):
+    """matmul where v_pad <= MATMUL_MAX_VPAD_PER_WIDTH * W on a containment
+    ring, merge otherwise and on every Mash ring; what it picks is what
+    the JAX package's step builder accepts."""
+    got = ring.pick_variant(kind, v_pad, width)
+    assert got == want
+    ring.check_variant(kind, got, v_pad)
+    jpr.fused_ring_step_fn(kind, K, jax_make_mesh(2), interpret=True, variant=got, v_pad=v_pad)
+
+
+def _count_calls(monkeypatch, name: str) -> list[int]:
+    calls = [0]
+    fn = getattr(ring, name)
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return fn(*a, **k)
+
+    monkeypatch.setattr(ring, name, counted)
+    return calls
+
+
+_PACKS: dict = {}
+_JAX_RINGS: dict = {}
+
+
+def _packs():
+    """(port pack, JAX pack) of 22 scaled sketches; the id matrices agree."""
+    if not _PACKS:
+        rng = np.random.default_rng(5)
+        base = np.unique(rng.integers(0, 2**62, size=6000, dtype=np.uint64))
+        rng.shuffle(base)
+        sk = []
+        for i in range(22):
+            mix = int(100 * rng.random() * 0.8)
+            own = base[100 * (i + 1) : 100 * (i + 2)]
+            sk.append(np.sort(np.unique(np.concatenate([base[:mix], own[: 100 - mix]])))[: 100 - (i % 5) * 7])
+        names = [f"g{i}" for i in range(22)]
+        _PACKS["p"] = (pack_scaled_sketches(sk, names), jax_pack_scaled_sketches(sk, names))
+        np.testing.assert_array_equal(_PACKS["p"][0].ids, _PACKS["p"][1].ids)
+    return _PACKS["p"]
+
+
+@pytest.mark.parametrize("full_grid", [False, True], ids=["half", "full"])
+@pytest.mark.parametrize("d", [2, 3, 5, 8])
+def test_matmul_ring_equals_jax_ring_and_merge_ring(monkeypatch, d, full_grid):
+    """N = 22 genomes over D CPU positions (padded blocks at D = 3, 5, 8):
+    the matmul-variant ring's (ani, cov) byte-equal to the JAX ppermute
+    ring's and to the port's merge ring; every rotating step ran the matmul
+    step and the final step the merge step."""
+    ours, theirs = _packs()
+    mesh = make_mesh(d, CPU)
+    key = (d, full_grid)
+    if key not in _JAX_RINGS:
+        _JAX_RINGS[key] = jring.sharded_containment_allpairs(
+            theirs, k=K, mesh=jax_make_mesh(d), full_grid=full_grid, ring_comm="ppermute")
+    want = _JAX_RINGS[key]
+    mm = _count_calls(monkeypatch, "ring_step_matmul_plain")
+    merge = _count_calls(monkeypatch, "ring_step_plain")
+    got = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh, full_grid=full_grid, variant="matmul")
+    n_steps = d if full_grid else allpairs.half_ring_steps(d)
+    assert mm[0] == d * (n_steps - 1)
+    last_kept = sum(1 for a, b in allpairs.ring_schedule(d, not full_grid) if allpairs.ring_step_of(a, b, d) == n_steps - 1)
+    assert merge[0] == last_kept
+    by_merge = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh, full_grid=full_grid, variant="merge")
+    for x, y, z in zip(got, want, by_merge, strict=True):
+        assert x.tobytes() == y.tobytes() == z.tobytes()
+
+
+def test_ring_picks_the_step_from_v_pad_and_width(monkeypatch):
+    """variant=None picks the step from the ring's v_pad and width: matmul
+    on this containment ring, merge with the crossover at 0 and on a Mash
+    ring (the JAX package's rule). An explicit matmul Mash ring and an
+    unknown variant raise."""
+    ours, _ = _packs()
+    mesh = make_mesh(3, CPU)
+    assert ring.pick_variant("containment", ring.matmul_ring_vocab_pad(ours.ids), ours.ids.shape[1]) == "matmul"
+    mm = _count_calls(monkeypatch, "ring_step_matmul_plain")
+    want = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh)
+    assert mm[0] == 3
+    allpairs.ring_allpairs(ours, "mash", K, mesh)
+    assert mm[0] == 3
+    monkeypatch.setattr(ring, "MATMUL_MAX_VPAD_PER_WIDTH", 0)
+    merge = _count_calls(monkeypatch, "ring_step_plain")
+    got = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh)
+    assert mm[0] == 3 and merge[0] == 3 + 3
+    for x, y in zip(got, want, strict=True):
+        assert x.tobytes() == y.tobytes()
+    with pytest.raises(ValueError, match="matmul ring variant supports"):
+        allpairs.ring_allpairs(ours, "mash", K, mesh, variant="matmul")
+    with pytest.raises(ValueError, match="expected merge"):
+        allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh, variant="bogus")
+
+
+def _table(wd: str, name: str) -> bytes:
+    with open(f"{wd}/data_tables/{name}.csv", "rb") as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("crossover", [None, 0], ids=["picked", "merge"])
+def test_dereplicate_cli_on_mesh_with_matmul_variant_equals_jax_bytes(tmp_path, monkeypatch, crossover):
+    """`dereplicate --mesh_shape 4 --device cpu` over one 80-genome
+    cluster past the one-shot budget (cut to 2^12 in both packages): the
+    cluster takes `mesh_ring`, whose rotating steps run the matmul step
+    (its v_pad is small beside its width; with the crossover at 0, the
+    merge step), and Cdb, Ndb and Wdb are byte-identical to the JAX
+    package's on the same argv."""
+    gs, _ = planted_sketches(80, seed=9, s_bottom=200, s_scaled=300, cluster_size=80)
+    (tmp_path / "genomes").mkdir()
+    files = [str(tmp_path / "genomes" / g) for g in gs.names]
+    for f in files:
+        open(f, "wb").close()
+    q = tmp_path / "q.csv"
+    pd.DataFrame({"genome": gs.names, "completeness": 90 + np.arange(80) % 10,
+                  "contamination": np.arange(80) % 5}).to_csv(q, index=False)
+    wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    save_sketch_cache(WorkDirectory(wd), gs)
+    j = WorkDirectory(jwd)
+    jax_save(j, JaxGenomeSketches(names=gs.names, gdb=gs.gdb, bottom=gs.bottom, scaled=gs.scaled,
+                                  k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale))
+    j.store_arguments("sketch", jax_sketch_args_snapshot(gs.names, gs.k, gs.sketch_size, gs.scale, "splitmix64"))
+    argv = ["-g", *files, "--genomeInfo", str(q), "--skip_plots", "-p", "1",
+            "-ms", str(gs.sketch_size), "--mesh_shape", "4", "-l", "0"]
+    monkeypatch.setattr("drep_tpu.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+    monkeypatch.setattr("drep_tpu_torch.ops.containment.MATMUL_BUDGET_ELEMS", 1 << 12)
+    if crossover is not None:
+        monkeypatch.setattr(ring, "MATMUL_MAX_VPAD_PER_WIDTH", crossover)
+    mm = _count_calls(monkeypatch, "ring_step_matmul_plain")
+    before = dict(SECONDARY_PATH_COUNTS)
+    torch_main(["dereplicate", wd, *argv, "--device", "cpu"])
+    assert {p: c - before.get(p, 0) for p, c in SECONDARY_PATH_COUNTS.items() if c != before.get(p, 0)} == {
+        "mesh_ring": 1}
+    # D = 4, half ring: steps 0 and 1 rotate on every position
+    assert mm[0] == (4 + 4 if crossover is None else 0)
+    jax_main(["dereplicate", jwd, *argv])
+    for table in ("Cdb", "Ndb", "Wdb"):
+        assert _table(wd, table) == _table(jwd, table), table
