@@ -9,16 +9,22 @@ Phases (any failure exits nonzero; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions;
 2. build the CUDA kernels (one nvcc per ``drep_tpu_torch/csrc/*.cu``, all
-   at once) and the native ingest, with the seconds it took;
+   at once) and the native ingest, with the seconds it took, and ptxas's
+   registers, static shared memory and spills per kernel;
 3. hold each kernel against its plain PyTorch version on the card, exact
    equality, at the main paths' shapes — Mash shared counts (2048 planted
    rows at width 1000, symmetric and rectangular layouts, ragged rows,
-   widths 3000 and 16384), the indicator (m=512, width 32768, v_pad 65536,
+   widths 3000 and 16384; the merge-path edge rows — equal rows, runs
+   across lane splits, empty, one-element and all-PAD rows, counts below
+   the real ids — at widths 1000 and 4096, s_use at every value 1..1024,
+   and width 58 112), the indicator (m=512, width 32768, v_pad 65536,
    from int32 and from a widened uint16 pack), the merge-intersect kernel
-   (2048 rows at width 2048; ragged, empty, in-row-repeat and uint16 rows)
-   and its stacked form (a 256-row block of cluster A's 16 int32 buckets,
-   of cluster C's uint16 buckets), both layouts each — and time kernel,
-   plain version and (where one exists) the library call, beside the bound;
+   (2048 rows at width 2048; ragged, empty, in-row-repeat and uint16 rows;
+   the edge rows at width 2048, the widest it takes) and its
+   stacked form (a 256-row block of cluster A's 16 int32 buckets, of
+   cluster C's uint16 buckets, two buckets of edge rows), both layouts
+   each — and time kernel, plain version and (where one exists) the
+   library call, beside the bound;
 4. the CLI main path: ``dereplicate`` on tests/genomes/*.fasta with a
    quality CSV, which must pick 3 winners (A, C, D);
 5. the real-size slice: 10 000 planted genomes (MASH_sketch 1000, scaled
@@ -69,7 +75,9 @@ Phases (any failure exits nonzero; nothing is caught):
    B and C byte-identical to the merge ring and to phase 6's one device;
 8. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and indicator kernels, from phase 6 for the merge kernels, from
-   7c for both ring steps);
+   7c for both ring steps; the Mash and merge kernels also carry their
+   time and bound on the main path's own operand, ``main_path_ms`` and
+   ``main_path_bound_ms``);
 9. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
@@ -179,6 +187,53 @@ def mash_ops(shared: np.ndarray, na: np.ndarray, nb: np.ndarray, s_orig: int) ->
     return int(s_use.sum() + shared.astype(np.int64).sum())
 
 
+def mash_grid_cost(shared: np.ndarray, counts: np.ndarray, width: int) -> tuple[int, int]:
+    """(merge steps, bytes) of the symmetric Mash grid over [n, n] shared
+    counts: the steps of every pair of the tiles the wrapped grid computes
+    (rows padded to TILE multiples with count 0 need none); the ids and
+    counts read once, the wrapped output written once."""
+    from drep_tpu_torch.ops.mash import TILE
+
+    n = shared.shape[0]
+    t = -(-n // TILE)
+    steps = 0
+    for i in range(t):
+        ri = slice(i * TILE, (i + 1) * TILE)
+        for jj in range(t // 2 + 1):
+            j = (i + jj) % t
+            rj = slice(j * TILE, (j + 1) * TILE)
+            steps += mash_ops(shared[ri, rj], counts[ri], counts[rj], width)
+    rows = t * TILE
+    return steps, rows * width * 4 + rows * 4 + rows * (t // 2 + 1) * TILE * 4
+
+
+def edge_rows(rng, width: int, vocab: int) -> np.ndarray:
+    """128 ascending PAD_ID-padded int32 rows of the merge kernels' edge
+    cases: pairs of equal rows (every id tied across A and B), rows with
+    runs of one id (in-row repeats, ties that straddle every lane's share),
+    empty, one-element and full rows, and ragged rows of a small
+    vocabulary (many ties between rows)."""
+    from drep_tpu_torch.ops.minhash import PAD_ID
+
+    out = np.full((128, width), PAD_ID, np.int32)
+    base = np.sort(rng.choice(vocab, size=width, replace=False)).astype(np.int32)
+    for r in range(128):
+        kind = r % 8
+        if kind in (0, 1):  # rows 8k and 8k+1 equal
+            n = int(rng.integers(1, width + 1)) if kind == 0 else n
+            row = base[:n] if kind == 0 else out[r - 1, :n]
+        elif kind == 2:  # runs of p copies
+            row = np.repeat(base[: width // 8], rng.integers(1, 9, size=width // 8))[:width]
+        elif kind == 3:
+            row = np.zeros(0, np.int32) if r % 16 == 3 else base[int(rng.integers(0, width)) : None][:1]
+        elif kind == 4:
+            row = base
+        else:
+            row = np.sort(rng.integers(0, max(2, width // 2), size=int(rng.integers(0, width + 1))))
+        out[r, : len(row)] = row
+    return out
+
+
 def phase_mash(dev) -> dict:
     import torch
 
@@ -233,19 +288,43 @@ def phase_mash(dev) -> dict:
     )
     log("mash: symmetric, rectangular, ragged, width-3000 and width-16384 layouts equal the plain version")
 
+    def both_layouts(a, n, s_orig, what):
+        full = mash.mash_shared_plain(a, n, a, n, s_orig=s_orig)
+        require(torch.equal(mash.mash_shared(a, n, a, n, s_orig=s_orig, symmetric=True),
+                            mash._wrap_symmetric_plain(full)), f"mash {what}, symmetric != plain")
+        require(torch.equal(mash.mash_shared(a[:128], n[:128], a, n, s_orig=s_orig), full[:128]),
+                f"mash {what}, rectangular != plain")
+
+    # the merge-path schedule's edge cases (the CPU rehearsal's, on the card):
+    # equal rows, runs across lane splits, empty / one-element / full rows,
+    # counts below the real ids and all-PAD rows with a count
+    for w in (1000, 4096):  # rows staged whole; per-warp windows
+        rows = np.concatenate([edge_rows(rng, w, 4 * w), edge_rows(rng, w, 4 * w)[::-1]])
+        real = (rows != PAD_ID).sum(axis=1).astype(np.int32)
+        counts = np.maximum(real - rng.integers(0, 3, size=len(real)) * (real // 4), 0).astype(np.int32)
+        counts[(real == 0) & (np.arange(len(real)) % 32 == 3)] = 9
+        both_layouts(torch.from_numpy(rows).to(dev), torch.from_numpy(counts).to(dev), w, f"edge rows, width {w}")
+    # s_use on every lane and round boundary: two overlapping full rows,
+    # each 512 times, with counts 1..1024 (every value of min(na, nb))
+    w = 1024
+    x = np.sort(rng.choice(3 * w, size=w, replace=False)).astype(np.int32)
+    y = np.sort(np.concatenate([x[::2], rng.choice(np.arange(3 * w, 4 * w), size=w // 2, replace=False)]))
+    rows = np.stack([x, y.astype(np.int32)] * 512)
+    counts = rng.permutation(np.arange(1, w + 1)).astype(np.int32)
+    both_layouts(torch.from_numpy(rows).to(dev), torch.from_numpy(counts).to(dev), w, "s_use at every boundary")
+    # the widest rows the wrapper took before it had per-warp windows
+    w = 58_112
+    pool = rng.choice(1 << 24, size=2 * w, replace=False)
+    wide = np.stack([np.sort(rng.choice(pool, size=w, replace=False)) for _ in range(128)]).astype(np.int32)
+    wn = torch.full((128,), w, dtype=torch.int32, device=dev)
+    both_layouts(torch.from_numpy(wide).to(dev), wn, w, f"width {w}")
+    log("mash: edge rows (equal rows, runs, empty / one-element / all-PAD rows, counts below the real ids) at "
+        "widths 1000 and 4096, s_use on every lane and round boundary, and width 58112 equal the plain version")
+
     kernel_ms = cuda_ms(lambda: mash.mash_shared(ids, cnt, ids, cnt, s_orig=width, symmetric=True), reps=5)
     plain_ms = cuda_ms(lambda: mash.mash_shared_plain(ids, cnt, ids, cnt, s_orig=width), reps=1, warmup=0)
     # the bound counts the pairs the symmetric grid computes
-    counts_np = packed.counts
-    compact = sym.cpu().numpy()
-    t = packed.n // mash.TILE
-    ops = 0
-    for i in range(t):
-        for jj in range(t // 2 + 1):
-            j = (i + jj) % t
-            blk = compact[i * 128 : (i + 1) * 128, jj * 128 : (jj + 1) * 128]
-            ops += mash_ops(blk, counts_np[i * 128 : (i + 1) * 128], counts_np[j * 128 : (j + 1) * 128], width)
-    nbytes = ids.numel() * 4 + cnt.numel() * 4 + sym.numel() * 4
+    ops, nbytes = mash_grid_cost(full.cpu().numpy(), packed.counts, width)
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = ops / SCALAR_OPS_PER_S * 1e3
     log(f"mash: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} bound_ms="
@@ -396,6 +475,19 @@ def intersect_entry(name: str, replaces: str, ms: float, plain_ms: float, steps:
     }
 
 
+def intersect_rows_2048(rng) -> np.ndarray:
+    """[2048, 2048] int32 rows of 1500-2048 distinct ids of a 2^16
+    vocabulary, PAD_ID after: kernel 3 at the width of its route."""
+    from drep_tpu_torch.ops.minhash import PAD_ID
+
+    rows, width = 2048, 2048
+    ids = np.full((rows, width), PAD_ID, np.int32)
+    for r in range(rows):
+        u = np.unique(rng.integers(0, 1 << 16, size=2300))[: int(rng.integers(1500, width + 1))]
+        ids[r, : len(u)] = u
+    return ids
+
+
 def phase_intersect(dev, gs, planted) -> list[dict]:
     import torch
 
@@ -414,11 +506,7 @@ def phase_intersect(dev, gs, planted) -> list[dict]:
 
     # kernel 3 at [2048 rows, width 2048]: distinct ids over a 2^16 vocabulary, ragged
     rng = np.random.default_rng(31)
-    rows, width = 2048, 2048
-    ids = np.full((rows, width), PAD_ID, np.int32)
-    for r in range(rows):
-        u = np.unique(rng.integers(0, 1 << 16, size=2300))[: int(rng.integers(1500, width + 1))]
-        ids[r, : len(u)] = u
+    ids = intersect_rows_2048(rng)
     d = torch.from_numpy(ids).to(dev)
     check(d, None, True, "intersect symmetric [2048, 2048]")
     check(d[:1024], d, False, "intersect rectangular [1024 x 2048, 2048]")
@@ -437,8 +525,16 @@ def phase_intersect(dev, gs, planted) -> list[dict]:
     st2 = torch.stack([sd, sd.flip(0)])
     check(st2, None, True, "intersect_stacked ragged/empty/repeat rows, symmetric", stacked=True)
     check(st2[:, :256], st2, False, "intersect_stacked ragged/empty/repeat rows, rectangular", stacked=True)
+    # the merge-path schedule's edge cases (the CPU rehearsal's, on the
+    # card) at the widest rows the wrapper takes
+    w = ti.PALLAS_MAX_WIDTH
+    e = torch.from_numpy(edge_rows(rng, w, 4 * w)).to(dev)
+    check(e, None, True, f"intersect edge rows, width {w}, symmetric")
+    check(e, e.flip(0).contiguous(), False, f"intersect edge rows, width {w}, rectangular")
+    check(torch.stack([e, e.flip(0)]), None, True, "intersect_stacked edge rows, symmetric", stacked=True)
     log("intersect: [2048, 2048] symmetric and rectangular, ragged/empty/repeat rows (plain and as two "
-        "stacked buckets) and uint16 rows equal the plain version")
+        "stacked buckets), uint16 rows, and edge rows (equal rows, runs, empty / one-element / full rows) at "
+        f"width {w} equal the plain version")
     k3_ms = cuda_ms(lambda: ti.intersect(d, d, symmetric=True), reps=5)
     k3_plain_ms = cuda_ms(lambda: ti.intersect_plain(d, d), reps=1, warmup=0)
     steps, nbytes = merge_cost(ids[None], symmetric=True)
@@ -606,6 +702,9 @@ def phase_real_size(tmp: str, dev) -> dict:
     pad_d, pad_nd = torch.from_numpy(pad).to(dev), torch.from_numpy(pad_n).to(dev)
     main_ms = cuda_ms(lambda: mash.mash_shared(pad_d, pad_nd, pad_d, pad_nd, s_orig=width, symmetric=True),
                       reps=1, warmup=0)
+    steps, nbytes = mash_grid_cost(full, packed.counts, width)
+    main_bound_ms = max(steps / SCALAR_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    log(f"real size: the Mash kernel's main-path bound {main_bound_ms:.6f} ms ({steps} merge steps, {nbytes} bytes)")
     log(f"real size: primary compare parts: pack {t_pack:.2f} s, shared counts {n}x{n} "
         f"(kernel + transfer + host unwrap) {t_shared:.2f} s, host distance transform "
         f"{t_transform:.2f} s; kernel alone on [{pad.shape[0]}, {width}] {main_ms:.2f} ms")
@@ -614,8 +713,8 @@ def phase_real_size(tmp: str, dev) -> dict:
             "real-size 512x512 shared-count block != plain")
     log(f"real size: {n_planted} planted clusters recovered exactly; random 512x512 shared block "
         "equals the plain version")
-    return {"launches": launches, "mash_ms": main_ms, "mash_rows": int(pad.shape[0]), "packed": packed,
-            "k": gs.k}
+    return {"launches": launches, "mash_ms": main_ms, "mash_bound_ms": main_bound_ms, "mash_rows": int(pad.shape[0]),
+            "packed": packed, "k": gs.k}
 
 
 def beyond_workdir(tmp: str, name: str, gs):
@@ -1114,6 +1213,9 @@ def main() -> int:
     native_ok = get_library() is not None
     log(f"build: CUDA kernels {list(_build.SOURCES)} and native ingest (ok={native_ok}) "
         f"in {time.perf_counter() - t0:.2f} s")
+    for name, out in _build.BUILD_LOG.items():  # ptxas: registers, static shared memory, spills per kernel
+        log(f"build {name}: " + " | ".join(ln.strip() for ln in out.splitlines()
+                                           if "ptxas info" in ln and ("Used" in ln or "spill" in ln)))
 
     t0 = time.perf_counter()
     gs_beyond, planted_beyond = plant_beyond()
@@ -1154,6 +1256,7 @@ def main() -> int:
         k["launches"] = path["launches"][k["name"]]
     kernels[0]["main_path_ms"] = real["mash_ms"]
     kernels[0]["main_path_rows"] = real["mash_rows"]
+    kernels[0]["main_path_bound_ms"] = real["mash_bound_ms"]
     # the merge kernels on the operands their route built in phase 6 (B:
     # width 2048, A: stacked buckets), and the other route on the same pack
     # in place of a library call

@@ -1,5 +1,5 @@
-// Per-pair walks over two ascending PAD_ID-padded int32 id rows, shared by
-// csrc/mash_shared.cu and csrc/ring_step.cu. One thread walks one pair; the
+// Per-pair walks over two ascending PAD_ID-padded int32 id rows, used by
+// csrc/ring_step.cu. One thread walks one pair; the
 // A row is read from shared memory, the B row through L1 (__ldg). The A
 // row may arrive in pieces (ring_step.cu stages it a piece at a time): each
 // walk keeps its state between pieces and says when it is done.
@@ -53,14 +53,6 @@ __device__ __forceinline__ bool mash_walk_piece(MashWalk& w, const int32_t* a_pi
       w.started = true;
     }
   }
-}
-
-// The whole walk with the A row staged at once.
-__device__ __forceinline__ int mash_shared_walk(const int32_t* a_row, const int32_t* __restrict__ brow,
-                                                int width, int s_use) {
-  MashWalk w;
-  mash_walk_piece(w, a_row, 0, width, brow, width, s_use);
-  return w.shared;
 }
 
 // The non-PAD positions of the A row whose value occurs in the B row — the

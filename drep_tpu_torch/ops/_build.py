@@ -3,12 +3,14 @@
 Each ``csrc/*.cu`` file has a plain C interface and compiles on its own
 with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC -Xptxas -v
 
 into ``drep_tpu_torch/_build/lib<name>_<hash>.so`` (the hash is of the
 source and the shared ``csrc/*.cuh`` headers, so an edited kernel
 rebuilds). Building happens at first use, never at import;
-:func:`build_all` starts one nvcc per source at once.
+:func:`build_all` starts one nvcc per source at once and keeps each
+build's compiler output (ptxas's registers, shared memory and spills per
+kernel) in :data:`BUILD_LOG`.
 Every launch function returns ``cudaGetLastError()``; :func:`check`
 raises on anything but 0.
 """
@@ -28,11 +30,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("mash_shared", "indicator", "intersect", "ring_step", "ring_step_mm")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# nvcc's output of each source built by this process
+BUILD_LOG: dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -73,6 +77,7 @@ def _finish(name: str, job: tuple[subprocess.Popen, str, str]) -> None:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on csrc/{name}.cu (rc={proc.returncode}):\n{out[-4000:]}")
+    BUILD_LOG[name] = out
     os.replace(tmp, so)
 
 

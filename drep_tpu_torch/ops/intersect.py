@@ -44,11 +44,9 @@ from drep_tpu_torch.ops.rangepart import stacked_range_buckets
 
 TILE_A = TILE_B = 128  # pair-tile dims (csrc/intersect.cu TILE)
 # bucket width of the range partition: the TPU kernel's VMEM limit, kept so
-# the bucket layout and the routing equal the JAX package's
+# the bucket layout and the routing equal the JAX package's; also the
+# widest row the kernel is given (its callers range-partition wider rows)
 PALLAS_MAX_WIDTH = 2048
-# widest row the kernel stages: 8 groups x (width + 1) x 4 B within the
-# 232 448 B of shared memory a block may opt in to
-MAX_KERNEL_WIDTH = 232_448 // (8 * 4) - 1
 # elements of [rows, cols, 2 * width] the plain version sorts at once
 _PLAIN_BUDGET_ELEMS = 1 << 26
 
@@ -115,8 +113,9 @@ def _launch(a: torch.Tensor, b: torch.Tensor, symmetric: bool, what: str) -> tor
         return _wrap_symmetric_plain(full) if symmetric else full
     if a.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {a.device}")
-    if width > MAX_KERNEL_WIDTH or width % 4:
-        raise ValueError(f"{what}: width {width} must be a multiple of 4 up to {MAX_KERNEL_WIDTH}")
+    if width > PALLAS_MAX_WIDTH or width % 4:
+        raise ValueError(f"{what}: width {width} must be a multiple of 4 up to {PALLAS_MAX_WIDTH} "
+                         "(wider rows go through intersect_counts' range partition)")
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError(f"{what}: the kernel reads rows as 16-byte vectors; operands must be 16-byte aligned")
     cols = (rows_a // TILE_A // 2 + 1) * TILE_B if symmetric else rows_b

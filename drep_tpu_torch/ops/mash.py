@@ -24,8 +24,6 @@ from drep_tpu_torch.ops import _build
 from drep_tpu_torch.ops.minhash import PAD_ID, mash_distance_from_jaccard
 
 TILE = 128  # both pair-tile dims (csrc/mash_shared.cu TILE)
-# widest row the kernel stages in shared memory (227 KB a block on Hopper)
-MAX_KERNEL_WIDTH = (227 * 1024) // 4
 # elements of [rows, cols, 2 * width] the plain version merges at once
 _PLAIN_BUDGET_ELEMS = 1 << 26
 
@@ -94,7 +92,8 @@ def mash_shared(
     """Shared counts for row tiles of packed sketches (rows a multiple of
     TILE, one common width). `symmetric` (a is b) returns the wrapped
     half-grid [n, (t//2+1)*TILE] (unwrap with :func:`unwrap_symmetric`),
-    else the rectangle [rows_a, rows_b]. CUDA tensors run the kernel, CPU
+    else the rectangle [rows_a, rows_b]. CUDA tensors run the kernel (any
+    width: rows too wide to stage whole go through per-warp windows), CPU
     tensors the plain version."""
     _check_rows(a, na, "mash_shared A")
     _check_rows(b, nb, "mash_shared B")
@@ -112,8 +111,6 @@ def mash_shared(
         return _wrap_symmetric_plain(full) if symmetric else full
     if a.device.type != "cuda":
         raise ValueError(f"mash_shared: unsupported device {a.device}")
-    if width > MAX_KERNEL_WIDTH:
-        raise ValueError(f"mash_shared: width {width} exceeds the kernel's {MAX_KERNEL_WIDTH}")
     rows_a, rows_b = a.shape[0], b.shape[0]
     t = rows_a // TILE
     cols = (t // 2 + 1) * TILE if symmetric else rows_b

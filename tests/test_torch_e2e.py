@@ -347,7 +347,7 @@ def _is_forbidden(module: str) -> bool:
 
 
 def _port_sources() -> list[str]:
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "kernel_ab.py")]
     for dirpath, _, files in os.walk(os.path.join(REPO, "drep_tpu_torch")):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return out
