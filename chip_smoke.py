@@ -51,23 +51,26 @@ Phases (any failure exits nonzero; nothing is caught):
    searchsorted into the vocabulary timed on cluster B's hashes;
 7. the dense ring over RING_POSITIONS positions of one card (as many as
    there are cards): the fused ring-step kernel against its plain version
-   (`torch.equal` on the tile and on the copied ids and counts, and the
-   step without a copy) on phase 5's Mash [2500, 1000] blocks, cluster A's
-   containment [500, 32768] blocks, a ragged block, a block padded
-   because N is not a multiple of D, and a 512-genome cluster at width
-   65 536 (wider than a block's shared memory; Mash and containment), timed
-   beside its bound, its plain version and the unfused step (kernel, then
-   ``copy_``), with that cluster's ring bit-identical to one device's
-   route; the primary ring over phase 5's 10 000 genomes, bit-identical
-   to the single-device matrix (both timed); where there are two cards or
-   more, the kernel check with the copy landing on the second card;
+   (`torch.equal` on the tile and on the copied ids and counts, the step
+   without a copy, and every timed launch's tile) on phase 5's Mash [2500,
+   1000] blocks, cluster A's containment [500, 32768] blocks, a ragged
+   block, a block padded because N is not a multiple of D, a 333-row block
+   (not a multiple of 128) of rows with repeated ids in both kinds, and a
+   512-genome cluster at width 65 536 (wider than a block's shared memory;
+   Mash and containment), timed beside its bound, its plain version and
+   the unfused step (kernel, then ``copy_``), with that cluster's ring
+   bit-identical to one device's route; the primary ring over phase 5's
+   10 000 genomes, bit-identical to the single-device matrix (both timed);
+   where there are two cards or more, the kernel check with the copy
+   landing on the second card;
    7c: phase 6 again with ``mesh_shape=4``: its three clusters must take
-   ``mesh_ring``, whose rotating steps run the matmul step (each
-   cluster's v_pad is at most 2048 times its width) and whose Mash
-   primary and final steps run the merge step, with Cdb/Ndb/Wdb
-   byte-identical to phase 6's and Mdb within 1e-7;
+   ``mesh_ring``, whose steps run the matmul step where the cluster's
+   v_pad is at most MATMUL_MAX_VPAD_PER_WIDTH times its width (C) and the
+   merge step elsewhere (A, B), as the Mash primary does, with
+   Cdb/Ndb/Wdb byte-identical to phase 6's and Mdb within 1e-7;
    7d: the matmul ring step (``csrc/ring_step_mm.cu``) against its plain
-   version (tile, copied operand, no-copy step) and the merge step on
+   version (tile, copied operand, no-copy step, every timed launch's
+   tile) and the merge step on
    cluster A's [500, 32768], B's [325, 2048], C's [256, 32768] and the
    wide cluster's [128, 65536] blocks, timed beside its bound, its plain
    version, the library yardstick (indicator.cu + ``torch._int_mm`` over
@@ -956,14 +959,18 @@ def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
         width = pk.ids.shape[1]
         res = check_ring_step(kind, a, na, b, nb, f"[{n_local}, {width}]")
         dst = res["dst"]
-        ms = cuda_ms(lambda: ring.ring_step(kind, a, na, b, nb, *dst), reps=3)
+        tiles = []
+        ms = cuda_ms(lambda: tiles.append(ring.ring_step(kind, a, na, b, nb, *dst)), reps=3)
 
         def unfused():
-            ring.ring_step(kind, a, na, b, nb)
+            tiles.append(ring.ring_step(kind, a, na, b, nb))
             dst[0].copy_(b)
             dst[1].copy_(nb)
 
         unfused_ms = cuda_ms(unfused, reps=3)
+        require(all(torch.equal(t, res["tile"]) for t in tiles),
+                f"ring_step {kind} [{n_local}, {width}]: a timed launch's tile != plain")
+        del tiles
         steps, nbytes = ring_cost(kind, pk.counts[:n_local], pk.counts[n_local : 2 * n_local],
                                   res["tile"].cpu().numpy(), width, copy=True)
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1001,7 +1008,21 @@ def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
     a, na, b, nb = blocks(ids_p, cnt_p, n_local, 2, 0)
     check_ring_step("containment", a, na, b, nb, f"padded block [{n_local}, {ids_p.shape[1]}]")
     check_ring_step("containment", b, nb, a, na, "padded block as B")
-    log("ring_step: ragged and padded blocks equal the plain version, as A and as B")
+    # a block of n_local not a multiple of 128 (the kernel's rows past it
+    # read as PAD rows) whose rows repeat ids: phase 5's rows, every id of
+    # each row's first half twice (sorted), both kinds
+    n_odd = 333
+    rep_ids = np.full((2 * n_odd, packed.ids.shape[1]), PAD_ID, np.int32)
+    for r in range(2 * n_odd):
+        real = packed.ids[r][packed.ids[r] != PAD_ID]
+        half = real[: len(real) // 2]
+        rep_ids[r, : 2 * len(half)] = np.sort(np.concatenate([half, half]))
+    rep_cnt = (rep_ids != PAD_ID).sum(axis=1).astype(np.int32)
+    a, na, b, nb = blocks(rep_ids, rep_cnt, n_odd, 0, 1)
+    for kind in ring.KINDS:
+        check_ring_step(kind, a, na, b, nb, f"[{n_odd}, {rep_ids.shape[1]}] with repeated ids")
+    log("ring_step: ragged and padded blocks equal the plain version, as A and as B; so does a "
+        f"[{n_odd}, {rep_ids.shape[1]}] block of repeated ids in both kinds")
 
     # rows wider than a block's shared memory could stage whole (the kernel
     # stages A in pieces): a cluster of WIDE_GENOMES genomes of ~39 000
@@ -1147,8 +1168,13 @@ def phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond: dict) -> dict:
         lib, library_ms = cuda_timed(lambda: mm_library_tile(a, b, v_pad))
         require(torch.equal(lib, want), f"{what}: the library yardstick's tile != plain")
         del lib, want
-        ms = cuda_ms(lambda: ring.ring_step_matmul(a, na, b, nb, v_pad, *dst), reps=3)
-        merge_ms = cuda_ms(lambda: ring.ring_step("containment", a, na, b, nb, *dst), reps=3)
+        plain_tile = got.clone()
+        timed = {"matmul": [], "merge": []}
+        ms = cuda_ms(lambda: timed["matmul"].append(ring.ring_step_matmul(a, na, b, nb, v_pad, *dst)), reps=3)
+        merge_ms = cuda_ms(lambda: timed["merge"].append(ring.ring_step("containment", a, na, b, nb, *dst)), reps=3)
+        require(all(torch.equal(t, plain_tile) for ts in timed.values() for t in ts),
+                f"{what}: a timed launch's tile (matmul or merge step) != plain")
+        del timed, plain_tile
         # the bound of the function, the same |A ∩ B| tile and copy as the
         # merge step's (row 5a): its compare-and-advance steps at the
         # scalar peak or its bytes at the HBM rate, whichever is longer

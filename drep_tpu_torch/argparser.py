@@ -1,17 +1,20 @@
-"""CLI argument tree: `compare` and `dereplicate`.
+"""CLI argument tree: `compare`, `dereplicate` and `check_dependencies`.
 
-Counterpart of drep_tpu/argparser.py. The flag groups and names are the
-JAX package's (FILTERING, GENOME COMPARISON, CLUSTERING, SCORING,
-WARNINGS), with the same defaults, so an argv for the default engines runs
-unchanged; EXECUTION adds --device. --mesh_shape D runs the dense ring
-over D positions dealt over the visible cards (all of them on one card,
-or on the CPU); the JAX package's --ring_comm and --ring_monolithic are
-accepted and run the port's one ring.
+Counterpart of drep_tpu/argparser.py. The flag groups, names and defaults
+of `compare` and `dereplicate` are the JAX package's (FILTERING, GENOME
+COMPARISON, CLUSTERING, SCORING, WARNINGS, TAXONOMY), so an argv the JAX
+CLI takes parses here too; EXECUTION adds --device. --mesh_shape D runs
+the dense ring over D positions dealt over the visible cards (all of them
+on one card, or on the CPU); the JAX package's --ring_comm,
+--ring_monolithic and the TPU-only --ring_vmem_mb are accepted and run the
+port's one ring.
 Flags of paths not ported yet (streaming, multiround, greedy, tertiary,
 LSH pruning) parse and then raise NotImplementedError in the cluster
-stage. The other TPU execution knobs (--ring_vmem_mb, fault tolerance,
-durable-I/O, event tracing, profiling) and --run_tax are not carried
-over.
+stage where the JAX package would take the path. The flags in
+:data:`UNPORTED_FLAGS` (fault tolerance, durable I/O, event tracing,
+profiling, the elastic pod, the LSH knobs, taxonomy) parse with the JAX
+defaults, and a run that sets one otherwise raises NotImplementedError
+naming its ROADMAP item (workflows.py).
 """
 
 from __future__ import annotations
@@ -19,6 +22,40 @@ from __future__ import annotations
 import argparse
 
 from drep_tpu_torch import __version__
+
+
+# flag (its argparse dest) -> (the values the port runs, ROADMAP.md queue
+# 1 item that ports the others); the first value is the JAX default, and
+# --events off is what the port does anyway
+UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
+    "events": ((None, "off"), "5"),
+    "fsync": ((False,), "5"),
+    "io_retries": ((None,), "5"),
+    "profile": ((None,), "5"),
+    "fault_retries": ((2,), "5"),
+    "dispatch_timeout": ((0.0,), "5"),
+    "max_dead_processes": ((1,), "5"),
+    "overlap_ingest": ((True,), "5"),
+    "max_joins": ((0,), "12b"),
+    "drain_grace_s": ((30.0,), "12b"),
+    "prune_bands": ((0,), "8"),
+    "prune_min_shared": ((0,), "8"),
+    "prune_join_chunk": ((0,), "8"),
+    "run_tax": ((False,), "9"),
+    "cent_index": ((None,), "9"),
+}
+
+
+def refuse_unported_flags(kwargs: dict) -> None:
+    """Raise NotImplementedError for the first flag of UNPORTED_FLAGS that
+    `kwargs` sets to a value the port does not run."""
+    for key, (runs, item) in UNPORTED_FLAGS.items():
+        if key in kwargs and kwargs[key] not in runs:
+            flag = "--no_overlap_ingest" if key == "overlap_ingest" else f"--{key}"
+            raise NotImplementedError(
+                f"{flag} {kwargs[key]!r}: not ported yet (ROADMAP.md queue 1, item {item}); "
+                f"the port runs {runs[0]!r}"
+            )
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
                           help="genome count at which the JAX package streams the primary "
                                "stage; the port raises there until streaming is ported")
         clus.add_argument("--primary_prune", default="off", choices=["off", "lsh"])
+        clus.add_argument("--prune_bands", type=int, default=0)
+        clus.add_argument("--prune_min_shared", type=int, default=0)
+        clus.add_argument("--prune_join_chunk", type=int, default=0)
 
         warn = p.add_argument_group("WARNINGS")
         warn.add_argument("--warn_dist", type=float, default=0.25)
@@ -92,9 +132,27 @@ def build_parser() -> argparse.ArgumentParser:
         ex.add_argument("--ring_comm", default="auto", choices=["auto", "ppermute", "pallas_dma"],
                         help="accepted for the JAX CLI's argv; the port's ring always writes the "
                              "B operand into the neighbour from inside the ring-step kernel")
+        ex.add_argument("--ring_vmem_mb", type=int, default=None,
+                        help="accepted for the JAX CLI's argv (a TPU VMEM budget); ignored")
         ex.add_argument("--skip_plots", action="store_true")
+        # the JAX CLI's fault-tolerance, durable-I/O, tracing and elastic-pod
+        # flags: the port runs their defaults (UNPORTED_FLAGS)
+        ex.add_argument("--no_overlap_ingest", dest="overlap_ingest", action="store_false", default=True)
+        ex.add_argument("--fault_retries", type=int, default=2)
+        ex.add_argument("--dispatch_timeout", type=float, default=0.0)
+        ex.add_argument("--max_dead_processes", type=int, default=1)
+        ex.add_argument("--max_joins", type=int, default=0)
+        ex.add_argument("--drain_grace_s", type=float, default=30.0)
+        ex.add_argument("--io_retries", type=int, default=None)
+        ex.add_argument("--fsync", action="store_true")
+        ex.add_argument("--events", default=None, choices=["off", "on"])
+        ex.add_argument("--profile", nargs="?", const="auto", default=None)
 
         if with_filter:
+            tax = p.add_argument_group("TAXONOMY")
+            tax.add_argument("--run_tax", action="store_true")
+            tax.add_argument("--cent_index", default=None)
+
             filt = p.add_argument_group("FILTERING")
             filt.add_argument("-l", "--length", type=int, default=50_000)
             filt.add_argument("-comp", "--completeness", type=float, default=75.0)
@@ -120,6 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     der_p = sub.add_parser("dereplicate", help="filter, cluster, and pick winner genomes")
     add_common(der_p, with_filter=True, with_scoring=True)
+
+    sub.add_parser("check_dependencies", help="report the cards and the CUDA toolkit the port would use")
     return parser
 
 

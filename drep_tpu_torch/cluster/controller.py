@@ -16,9 +16,13 @@ path (one device, or a mesh ring of --mesh_shape positions):
   coverage-gated hierarchical clustering at 1-S_ani -> "P_S" ids (Ndb);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 
-The streaming primary (and its auto-switch at --streaming_threshold),
-multiround, greedy and tertiary clustering and LSH pruning raise
-NotImplementedError naming their ROADMAP item. The JAX package's
+Where the JAX package would take a path not ported yet (the streaming
+primary and its auto-switch at --streaming_threshold, LSH pruning,
+multiround primary clustering above --primary_chunksize, greedy and
+tertiary secondary clustering, the subprocess engines), the run raises
+NotImplementedError naming its ROADMAP item before ingest; where the JAX
+package ignores such a flag (--primary_prune on the dense path, greedy or
+tertiary under --SkipSecondary), so does the port. The JAX package's
 per-cluster secondary checkpoints, the ring's block store and the
 device-failure retries are not ported either: a failure stops the run, and
 a rerun starts the stage over.
@@ -100,7 +104,11 @@ _NOT_PORTED = {
     "greedy_secondary_clustering": "greedy secondary clustering (ROADMAP.md queue 1, item 9)",
     "run_tertiary_clustering": "tertiary clustering (ROADMAP.md queue 1, item 9)",
     "primary_prune": "LSH candidate pruning (ROADMAP.md queue 1, item 8)",
+    "engine": "the subprocess comparison engines (ROADMAP.md queue 1, item 9)",
 }
+# the JAX package's subprocess engines (drep_tpu/cluster/external.py, anim.py)
+SUBPROCESS_PRIMARY = ("mash",)
+SUBPROCESS_SECONDARY = ("fastANI", "ANImf", "ANIn", "gANI", "goANI")
 
 # batching of small clusters: one device call replaces hundreds of
 # latency-bound round trips (most primary clusters are tiny at scale)
@@ -118,18 +126,32 @@ def _fill_defaults(kwargs: dict[str, Any]) -> dict[str, Any]:
 
 
 def _refuse_unported(kw: dict[str, Any], n: int) -> None:
-    """Raise for every requested path this port does not run yet."""
-    for key in ("streaming_primary", "multiround_primary_clustering",
-                "greedy_secondary_clustering", "run_tertiary_clustering"):
-        if kw[key]:
-            raise NotImplementedError(f"--{key}: {_NOT_PORTED[key]} is not ported yet")
-    if kw["primary_prune"] != "off":
-        raise NotImplementedError(f"--primary_prune {kw['primary_prune']}: {_NOT_PORTED['primary_prune']} is not ported yet")
-    if kw["primary_algorithm"] == "jax_mash" and not kw["SkipMash"] and n >= kw["streaming_threshold"]:
-        raise NotImplementedError(
-            f"{n} genomes >= --streaming_threshold {kw['streaming_threshold']}: the JAX package "
-            f"switches to {_NOT_PORTED['streaming_primary']}, which is not ported yet"
-        )
+    """Raise for the unported path the JAX package's d_cluster_wrapper
+    would take on these arguments and `n` genomes, and only there: its
+    primary branches in order (SkipMash or one genome, multiround above
+    --primary_chunksize, streaming, the dense engine), then its secondary
+    unless --SkipSecondary."""
+    def refuse(what: str, key: str) -> None:
+        raise NotImplementedError(f"{what}: {_NOT_PORTED[key]} is not ported yet")
+
+    if not (kw["SkipMash"] or n == 1):
+        if kw["multiround_primary_clustering"] and n > kw["primary_chunksize"]:
+            refuse(f"--multiround_primary_clustering with {n} genomes > --primary_chunksize "
+                   f"{kw['primary_chunksize']}", "multiround_primary_clustering")
+        if kw["streaming_primary"] or (kw["primary_algorithm"] == "jax_mash" and n >= kw["streaming_threshold"]):
+            if kw["primary_prune"] != "off":
+                refuse(f"--primary_prune {kw['primary_prune']}", "primary_prune")
+            refuse("--streaming_primary" if kw["streaming_primary"] else
+                   f"{n} genomes >= --streaming_threshold {kw['streaming_threshold']} (the JAX "
+                   "package switches to the streaming primary there)", "streaming_primary")
+        if kw["primary_algorithm"] in SUBPROCESS_PRIMARY:
+            refuse(f"--primary_algorithm {kw['primary_algorithm']}", "engine")
+    if not kw["SkipSecondary"]:
+        if kw["S_algorithm"] in SUBPROCESS_SECONDARY:
+            refuse(f"--S_algorithm {kw['S_algorithm']}", "engine")
+        for key in ("greedy_secondary_clustering", "run_tertiary_clustering"):
+            if kw[key]:
+                refuse(f"--{key}", key)
 
 
 def _warn_dist(kw: dict[str, Any]) -> float:
@@ -171,6 +193,14 @@ def _primary_clusters(
     if kw["SkipMash"] or n == 1:
         # reference --SkipMash: everything lands in one primary cluster
         return np.ones(n, dtype=np.int64), np.zeros((n, n), np.float32), np.empty((0, 4))
+    if kw["primary_prune"] != "off":
+        # the JAX package's warning: pruning exists only on the streaming schedule
+        get_logger().warning(
+            "--primary_prune %s only applies to the streaming primary "
+            "(this run resolved to the dense path; lower "
+            "--streaming_threshold or pass --streaming_primary) — ignored",
+            kw["primary_prune"],
+        )
     engine = dispatch.get_primary(kw["primary_algorithm"])
     t0 = time.perf_counter()
     dist, _sim = engine(
@@ -311,6 +341,11 @@ def d_cluster_wrapper(
     if kw["SkipSecondary"]:
         for i, g in enumerate(gs.names):
             secondary_names[g] = f"{primary[i]}_0"
+        if kw["run_tertiary_clustering"]:
+            logger.warning(
+                "--run_tertiary_clustering ignored: requires secondary clustering "
+                "(remove --SkipSecondary)"
+            )
     else:
         results, multi, singles = _secondary_clusters(gs, bdb, primary, kw)
         secondary_names.update(singles)

@@ -2,9 +2,11 @@
 `--S_algorithm` registry, SURVEY.md §2 "algorithm dispatch"; reference mount
 empty).
 
-The TPU-native engines (`jax_mash`, `jax_ani`) are the defaults; the
-subprocess fallbacks (`mash`, `fastANI`, `ANImf`) keep the reference's
-external-binary paths available when those binaries exist on $PATH.
+The port registers only the device engines, `jax_mash` and `jax_ani`
+(the JAX package's names, so that an argv runs unchanged). The JAX
+package's subprocess engines (`mash`, `fastANI`, `ANImf`, `ANIn`, `gANI`,
+`goANI`) are not ported: cluster/controller.py refuses them before ingest
+(ROADMAP.md queue 1, item 9).
 
 A primary algorithm maps a GenomeSketches + kwargs to a full [N, N] distance
 matrix. A secondary algorithm maps a subset of genomes to directional

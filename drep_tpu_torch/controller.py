@@ -1,5 +1,5 @@
-"""Top-level controller: parsed args -> workflow (drep_tpu/controller.py,
-compare and dereplicate)."""
+"""Top-level controller: parsed args -> workflow (drep_tpu/controller.py:
+compare, dereplicate and check_dependencies)."""
 
 from __future__ import annotations
 
@@ -13,7 +13,33 @@ from drep_tpu_torch.utils.logger import get_logger, setup_logger
 from drep_tpu_torch.workflows import compare_wrapper, dereplicate_wrapper
 
 
+def check_dependencies() -> list[str]:
+    """Log (and return) the torch build, the CUDA cards it sees and the
+    nvcc that builds the kernels. The JAX package also probes the external
+    binaries of its subprocess engines, which the port does not run
+    (ROADMAP.md queue 1, item 9)."""
+    import torch
+
+    from drep_tpu_torch.ops import _build
+
+    n = torch.cuda.device_count()
+    lines = [f"torch {torch.__version__} (CUDA {torch.version.cuda}); {n} CUDA device(s)"]
+    lines += [f"  device {i}: {torch.cuda.get_device_name(i)}" for i in range(n)]
+    try:
+        lines.append(f"  nvcc {_build.nvcc_path()}")
+    except RuntimeError as e:
+        lines.append(f"  nvcc NOT FOUND ({e})")
+    lines.append("  subprocess engines (mash, fastANI, ANImf, ANIn, gANI, goANI): not ported "
+                 "(ROADMAP.md queue 1, item 9)")
+    setup_logger(None)
+    for line in lines:
+        get_logger().info("%s", line)
+    return lines
+
+
 def run(args: argparse.Namespace):
+    if args.operation == "check_dependencies":
+        return check_dependencies()
     kwargs = {k: v for k, v in vars(args).items() if k != "operation"}
     if kwargs.pop("debug", False):
         setup_logger(None, verbosity=logging.DEBUG)

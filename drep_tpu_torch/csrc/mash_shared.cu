@@ -19,23 +19,18 @@
 // serial chain of dependent loads, the warp split by its lanes' branches
 // and uneven walk lengths, and too few warps at 2048 rows.
 //
-// Design: a warp-cooperative merge-path walk (merge_path.cuh). A block
-// stages SUB A rows and SUB B rows of one output tile in shared memory
-// with 16-byte loads, with their real lengths and counts (at W = 1000,
-// SUB = 8: 64 KB; 16 warps a block, three blocks an SM), and its
-// MASH_WARPS warps take the SUB x SUB pairs, one warp a pair: each round
-// of 32 x MASH_E merged ids splits evenly over the 32 lanes by a binary
-// search on the merge path, each lane merges its share with selects from
-// shared memory (~11 instructions an id), a warp scan gives each lane its
-// starting distinct rank, and the warp stops after the round that passes
-// s_use. Each staged row serves SUB pairs. Rows too wide for SUB >=
-// MIN_SUB to fit in STAGE_BYTES are not staged whole: each warp copies,
-// per round, the 32 x MASH_E + 1 ids of each row that the round can reach
-// into its own window in shared memory (coalesced), so any width runs.
-// What bounds it now (PERF.md): instruction issue and the latency
-// of each step's dependent shared-memory load; the searches are about a
-// third of a round's instructions. MASH_E and MASH_WARPS were chosen on
-// the card: 8 or 32 ids a lane and 8 warps a block were slower (PERF.md).
+// Design: a warp-cooperative merge-path walk (merge_path.cuh) over rows
+// staged in shared memory, or per-warp windows of rows too wide to stage
+// (the block body, csrc/pair_block.cuh, shared with the ring step): each
+// round of 32 x MASH_E merged ids splits evenly over the 32 lanes by a
+// binary search on the merge path, each lane merges its share with selects
+// from shared memory (~11 instructions an id), a warp scan gives each lane
+// its starting distinct rank, and the warp stops after the round that
+// passes s_use. Each staged row serves SUB pairs. What bounds it now
+// (PERF.md): instruction issue and the latency of each step's dependent
+// shared-memory load; the searches are about a third of a round's
+// instructions. MASH_E and PAIR_WARPS were chosen on the card: 8 or 32
+// ids a lane and 8 warps a block were slower (PERF.md).
 //
 // Layouts (`symmetric`), in output tiles of TILE x TILE pairs:
 //   0  rectangular: A [rows_a, W], B [rows_b, W]; tile (i, j) of
@@ -52,17 +47,9 @@
 #include <limits.h>
 #include <stdint.h>
 
-#include "merge_path.cuh"
+#include "pair_block.cuh"
 
 #define TILE 128
-#define MASH_E 16  // merged ids a lane a round
-#define MASH_WARPS 16
-#define STAGE_BYTES (96 * 1024)  // a block's staged rows: two or more blocks an SM
-#define MAX_SUB 16  // A rows (and B rows) a block stages at most
-#define MIN_SUB 4   // fewer staged rows leave warps idle: take the windows instead
-#define WINDOW_SUB 8
-#define WINDOW (32 * MASH_E + 1)  // ids of one row a round can reach
-#define HEAD_INTS 64               // the rows' real lengths and counts, ahead of the rows
 
 struct MashArgs {
   const int32_t* a;
@@ -74,11 +61,8 @@ struct MashArgs {
 };
 
 template <bool STAGED>
-__global__ void __launch_bounds__(MASH_WARPS * 32) mash_shared_kernel(MashArgs p) {
+__global__ void __launch_bounds__(PAIR_WARPS * 32) mash_shared_kernel(MashArgs p) {
   extern __shared__ __align__(16) int32_t smem[];
-  int* lens = smem;         // [2 sub]: real ids of the block's A rows, then B rows
-  int* counts = smem + 32;  // [2 sub]: their counts
-  int32_t* rows = smem + HEAD_INTS;
   const int sub = p.sub;
   const int per_tile = TILE / sub;
   const int bx = blockIdx.x % p.grid_x, by = blockIdx.x / p.grid_x;
@@ -87,70 +71,20 @@ __global__ void __launch_bounds__(MASH_WARPS * 32) mash_shared_kernel(MashArgs p
   const int64_t a0 = (int64_t)i_tile * TILE + (by % per_tile) * sub;
   const int64_t b0 = (int64_t)b_tile * TILE + (bx % per_tile) * sub;
   const int64_t col0 = (int64_t)jj * TILE + (bx % per_tile) * sub;
-  const int width = p.width;
-  const int32_t* ga = p.a + a0 * width;
-  const int32_t* gb = p.b + b0 * width;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  if (STAGED) {
-    stage_rows(rows, ga, sub, width, p.stride, p.vec);
-    stage_rows(rows + (int64_t)sub * p.stride, gb, sub, width, p.stride, p.vec);
-    __syncthreads();
-  }
-  if (tid < 2 * sub) {
-    const bool is_a = tid < sub;
-    const int r = is_a ? tid : tid - sub;
-    counts[tid] = is_a ? p.na[a0 + r] : p.nb[b0 + r];
-    lens[tid] = real_len(STAGED ? rows + (int64_t)tid * p.stride : (is_a ? ga : gb) + (int64_t)r * width, width);
-  }
-  __syncthreads();
-
-  for (int pq = warp; pq < sub * sub; pq += MASH_WARPS) {
-    const int r = pq / sub, c = pq - (pq / sub) * sub;
-    const int s_use = min(min(counts[r], counts[sub + c]), p.s_orig);
-    int shared = 0;
-    if (s_use > 0) {
-      const int la = lens[r], lb = lens[sub + c];
-      if (STAGED) {
-        const uint32_t ar = shared_addr(rows + r * p.stride);
-        const uint32_t br = shared_addr(rows + (sub + c) * p.stride);
-        shared = warp_mash_shared<MASH_E>(la, lb, s_use, lane,
-                                          [&](int i0, int j0, int, int, uint32_t& a, uint32_t& b) {
-                                            a = ar + 4u * i0;
-                                            b = br + 4u * j0;
-                                          });
-      } else {
-        const int32_t* ar = ga + (int64_t)r * width;
-        const int32_t* br = gb + (int64_t)c * width;
-        int32_t* wa = rows + warp * 2 * WINDOW;
-        int32_t* wb = wa + WINDOW;
-        shared = warp_mash_shared<MASH_E>(la, lb, s_use, lane,
-                                          [&](int i0, int j0, int ra, int rb, uint32_t& a, uint32_t& b) {
-                                            __syncwarp();  // the last round's reads of the windows are done
-                                            for (int q = lane; q < WINDOW; q += 32) {
-                                              wa[q] = q < ra ? ar[i0 + q] : PAD_ID;
-                                              wb[q] = q < rb ? br[j0 + q] : PAD_ID;
-                                            }
-                                            __syncwarp();
-                                            a = shared_addr(wa);
-                                            b = shared_addr(wb);
-                                          });
-      }
-    }
-    if (lane == 0) p.out[(a0 + r) * p.out_cols + col0 + c] = shared;
-  }
-}
-
-// The launch plan for rows of `width` ids: the rows of A (and of B) a
-// block takes, its dynamic shared memory, and whether it stages the rows
-// whole (else per-warp windows).
-static void plan(int width, int* sub, size_t* smem, bool* staged) {
-  const int stride = staged_pitch(width);
-  int s = MAX_SUB;
-  while (s >= MIN_SUB && (size_t)2 * s * stride * 4 + HEAD_INTS * 4 > STAGE_BYTES) s >>= 1;
-  *staged = s >= MIN_SUB;
-  *sub = *staged ? s : WINDOW_SUB;
-  *smem = HEAD_INTS * 4 + (*staged ? (size_t)2 * s * stride * 4 : (size_t)MASH_WARPS * 2 * WINDOW * 4);
+  PairBlock blk;
+  blk.a = p.a + a0 * p.width;
+  blk.na = p.na + a0;
+  blk.b = p.b + b0 * p.width;
+  blk.nb = p.nb + b0;
+  blk.out = p.out + a0 * p.out_cols + col0;
+  blk.out_cols = p.out_cols;
+  blk.valid_a = blk.valid_b = sub;  // rows are padded to TILE multiples
+  blk.width = p.width;
+  blk.stride = p.stride;
+  blk.sub = sub;
+  blk.vec = p.vec;
+  blk.s_orig = p.s_orig;
+  pair_block<KIND_MASH, STAGED>(blk, smem);
 }
 
 extern "C" int mash_shared_launch(const int32_t* a, const int32_t* na, const int32_t* b,
@@ -169,7 +103,7 @@ extern "C" int mash_shared_launch(const int32_t* a, const int32_t* na, const int
   p.vec = width % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
   size_t smem;
   bool staged;
-  plan(width, &p.sub, &smem, &staged);
+  pair_block_plan(width, &p.sub, &smem, &staged);
   const void* fn = staged ? (const void*)mash_shared_kernel<true> : (const void*)mash_shared_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -183,9 +117,9 @@ extern "C" int mash_shared_launch(const int32_t* a, const int32_t* na, const int
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   if (blocks > 0) {
     if (staged) {
-      mash_shared_kernel<true><<<(int)blocks, MASH_WARPS * 32, smem, (cudaStream_t)stream>>>(p);
+      mash_shared_kernel<true><<<(int)blocks, PAIR_WARPS * 32, smem, (cudaStream_t)stream>>>(p);
     } else {
-      mash_shared_kernel<false><<<(int)blocks, MASH_WARPS * 32, smem, (cudaStream_t)stream>>>(p);
+      mash_shared_kernel<false><<<(int)blocks, PAIR_WARPS * 32, smem, (cudaStream_t)stream>>>(p);
     }
   }
   return (int)cudaGetLastError();

@@ -1,5 +1,6 @@
 // Warp-cooperative merge-path walks over two ascending PAD_ID-padded int32
-// id rows, shared by csrc/mash_shared.cu and csrc/intersect.cu.
+// id rows, shared by csrc/mash_shared.cu, csrc/intersect.cu and
+// csrc/ring_step.cu (through csrc/pair_block.cuh).
 //
 // One warp takes one pair. The merged sequence of the pair's real ids
 // (a[0, la) ++ b[0, lb), la and lb counting the non-PAD ids) is cut into
@@ -242,4 +243,91 @@ __device__ __forceinline__ int warp_mash_shared(int la, int lb, int s_use, int l
     round0 += R;
   }
   return warp_sum(shared);
+}
+
+// The first position of an ascending row of n ids (generic address, in
+// shared or global memory) holding an id >= x, found by the whole warp:
+// each pass, the 32 lanes probe 32 evenly spaced positions, so a pass
+// cuts the range 32-fold. Every lane returns it.
+__device__ __forceinline__ int warp_lower_bound(const int32_t* row, int n, int x, int lane) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int step = (hi - lo + 31) >> 5;
+    const int pos = min(lo + (lane + 1) * step - 1, hi - 1);
+    const unsigned below = __ballot_sync(FULL_MASK, row[pos] < x);
+    const int c = __popc(below);  // the lanes whose probe is below x: a prefix
+    const int new_lo = c == 0 ? lo : min(lo + c * step, hi);
+    hi = c == 32 ? hi : min(lo + (c + 1) * step - 1, hi - 1);
+    lo = new_lo;
+  }
+  return lo;
+}
+
+// Contained count of one pair by one warp: the A ids (each copy) that
+// occur in B — the JAX _pair_intersection. With A first on ties, the B
+// head when a step takes an A id va is the first B id >= va, so the step
+// counts va == vb: a test local to the step (no join across lanes), exact
+// for repeats on either side. The merge ends after A's last real id: B is
+// cut at lb, the B ids below it, and b[lb] — the real next B id or PAD —
+// is read only as a head. a[la] must be readable. Every lane returns it.
+__device__ __forceinline__ int warp_contained(uint32_t a, int la, uint32_t b, int lb, int lane) {
+  const int len = la + lb;
+  const int share = (len + 31) >> 5;
+  const int d = min(lane * share, len);
+  const int n = min(share, len - d);
+  const int i = merge_path_split(a, b, d, max(0, d - lb), min(d, la));
+  uint32_t pa = a + 4u * i;
+  uint32_t sum = pa + b + 4u * (d - i);
+  int va = lds(pa), vb = lds(sum - pa);
+  int hits = 0;
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    hits += va == vb;
+    merge_step(pa, sum, va, vb);
+    sum += 4u;
+  }
+  return warp_sum(hits);
+}
+
+// n <= E contained steps from the heads at pa and sum - pa; FULL walks
+// without a bound check on k.
+template <int E, bool FULL>
+__device__ __forceinline__ int contained_share(uint32_t& pa, uint32_t sum, int n) {
+  int va = lds(pa), vb = lds(sum - pa);
+  int hits = 0;
+#pragma unroll
+  for (int k = 0; k < E; ++k) {
+    if (FULL || k < n) {
+      hits += va == vb;
+      merge_step(pa, sum + 4u * k, va, vb);
+    }
+  }
+  return hits;
+}
+
+// warp_contained in rounds of 32 x E merged ids, for rows read through
+// per-warp windows: window(i0, j0, a, b) sets the shared addresses a and
+// b of A id i0 and B id j0, each reading 32 E + 1 ids from there (for B
+// the row's real ids past lb, then PAD; for A PAD past la).
+template <int E, typename Window>
+__device__ __forceinline__ int warp_contained_rounds(int la, int lb, int lane, Window window) {
+  constexpr int R = 32 * E;
+  const int len = la + lb;
+  int round0 = 0, i0 = 0, hits = 0;
+  while (round0 < len) {
+    const int j0 = round0 - i0;
+    const int ra = la - i0, rb = lb - j0;
+    uint32_t a, b;
+    window(i0, j0, a, b);
+    const int rlen = min(R, ra + rb);
+    const int d = min(lane * E, rlen);
+    const int n = min(E, rlen - d);
+    const int i = merge_path_split(a, b, d, max(0, d - rb), min(d, ra));
+    uint32_t pa = a + 4u * i;
+    const uint32_t sum = pa + b + 4u * (d - i);
+    hits += n == E ? contained_share<E, true>(pa, sum, n) : contained_share<E, false>(pa, sum, n);
+    i0 += __shfl_sync(FULL_MASK, (int)(pa - a) >> 2, 31);  // lane 31 ends the round unless it is the last
+    round0 += R;
+  }
+  return warp_sum(hits);
 }

@@ -10,11 +10,10 @@
 //      memory this one may access);
 //   2. writes the [n_local, n_local] int32 tile of the step:
 //      kind 0  Mash: union-bottom-s shared counts, s_use = min(n_a, n_b,
-//              width) (merge_walk.cuh::mash_walk_piece; the host turns
-//              them into distances as for the single-device matrix);
+//              width) (the host turns them into distances as for the
+//              single-device matrix);
 //      kind 1  containment: per pair, the non-PAD A elements found in B
-//              (merge_walk.cuh::contained_walk_piece, the JAX
-//              _pair_intersection).
+//              (the JAX _pair_intersection), each copy counted.
 // dst == nullptr skips the copy (the last step of a schedule).
 //
 // The TPU kernel starts the remote DMA in its first grid cell and waits for
@@ -27,77 +26,104 @@
 // What bounds it: operations. The walks are data-dependent compare-and-
 // advance steps with no tensor-core form (~2 s_use a Mash pair, up to
 // n_a + n_b a containment pair); the bytes are the two blocks, the tile and
-// the copy, read or written once. Design, as csrc/mash_shared.cu: a block
-// is one A row against a TILE-row B tile, thread c owns B row c and streams
-// it through L1. The A row is staged in shared memory (coalesced) CHUNK ids
-// at a time; every thread walks its pair over the piece, keeping its state
-// (merge_walk.cuh), and the block stages the next piece when a thread still
-// needs one. So any width runs, and a block holds at most 16 KB of shared
-// memory: many blocks share an SM, which hides the walks' L1/L2 latency.
-// One A row a block gives n_local x ceil(n_local / TILE) blocks (2000 for a
-// 500-row block). n_local need not be a multiple of TILE: rows past it are
-// masked.
+// the copy, read or written once. What held it back when one thread walked
+// one pair (one A row a block against 128 B rows): each lane streamed its
+// own B row through L1 (32 lines a load instruction) and re-read it once
+// per A row, a warp waited for its longest walk, and the A row was staged
+// 4 096 ids at a time with two barriers a piece.
+//
+// Design: the block body of csrc/mash_shared.cu (pair_block.cuh) on the
+// step's blocks, one warp a pair walked by merge_path.cuh's schedules. A
+// block takes SUB A rows against SUB B rows: the Mash tile is
+// mash_shared.cu's rectangular layout with s_orig = width, the containment
+// tile merge_path.cuh::warp_contained (each lane's step counts the A id it
+// takes when it equals the B head), whose walk ends after A's last real
+// id. Rows too wide to stage whole (32 768 and 65 536 ids) take per-warp
+// windows. n_local need not be a multiple of SUB: rows past it read as PAD
+// rows with count 0, and their outputs are not written.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
-#include "merge_walk.cuh"
+#include "pair_block.cuh"
 #include "ring_copy.cuh"
 
-#define TILE 128
-#define CHUNK 4096  // A ids staged at a time (16 KB)
+struct RingArgs {
+  const int32_t* a;
+  const int32_t* na;
+  const int32_t* b;
+  const int32_t* nb;
+  int32_t* tile;
+  int32_t* dst;
+  int32_t* dst_n;
+  int n_local, width, stride, sub, grid_x, vec;
+};
 
-__global__ void __launch_bounds__(TILE)
-ring_step_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ na,
-                 const int32_t* __restrict__ b, const int32_t* __restrict__ nb,
-                 int32_t* __restrict__ tile, int32_t* __restrict__ dst,
-                 int32_t* __restrict__ dst_n, int n_local, int width, int kind) {
-  extern __shared__ int32_t a_piece[];  // min(width, CHUNK) ids
-  const int tid = threadIdx.x;
+template <int KIND, bool STAGED>
+__global__ void __launch_bounds__(PAIR_WARPS * 32) ring_step_kernel(RingArgs p) {
+  extern __shared__ __align__(16) int32_t smem[];
+  if (p.dst != nullptr) {
+    const int64_t n_threads = (int64_t)gridDim.x * blockDim.x;
+    ring_copy_share(p.b, p.nb, p.dst, p.dst_n, p.n_local, p.width,
+                    (int64_t)blockIdx.x * blockDim.x + threadIdx.x, n_threads);
+  }
+  const int64_t a0 = (int64_t)(blockIdx.x / p.grid_x) * p.sub;
+  const int64_t b0 = (int64_t)(blockIdx.x % p.grid_x) * p.sub;
+  PairBlock blk;
+  blk.a = p.a + a0 * p.width;
+  blk.na = p.na + a0;
+  blk.b = p.b + b0 * p.width;
+  blk.nb = p.nb + b0;
+  blk.out = p.tile + a0 * p.n_local + b0;
+  blk.out_cols = p.n_local;
+  blk.valid_a = (int)min((int64_t)p.sub, p.n_local - a0);
+  blk.valid_b = (int)min((int64_t)p.sub, p.n_local - b0);
+  blk.width = p.width;
+  blk.stride = p.stride;
+  blk.sub = p.sub;
+  blk.vec = p.vec;
+  blk.s_orig = p.width;
+  pair_block<KIND, STAGED>(blk, smem);
+}
 
-  if (dst != nullptr) {
-    const int64_t n_threads = (int64_t)gridDim.x * gridDim.y * TILE;
-    const int64_t gtid = ((int64_t)blockIdx.y * gridDim.x + blockIdx.x) * TILE + tid;
-    ring_copy_share(b, nb, dst, dst_n, n_local, width, gtid, n_threads);
-  }
-
-  const int a_idx = blockIdx.x;
-  const int b_row = blockIdx.y * TILE + tid;
-  const bool b_ok = b_row < n_local;
-  const int32_t* __restrict__ arow = a + (int64_t)a_idx * width;
-  const int32_t* __restrict__ brow = b + (int64_t)(b_ok ? b_row : 0) * width;
-  int s_use = 0;
-  if (kind == 0 && b_ok) {
-    s_use = na[a_idx] < nb[b_row] ? na[a_idx] : nb[b_row];
-    s_use = s_use < width ? s_use : width;
-  }
-  MashWalk mash;
-  ContainedWalk contained;
-  if (kind != 0 && b_ok) contained_walk_start(contained, brow, width);
-  bool done = !b_ok || (kind == 0 && s_use <= 0);
-  // every thread runs every iteration: the loop's exit is block-wide
-  for (int c0 = 0; c0 < width; c0 += CHUNK) {
-    const int len = width - c0 < CHUNK ? width - c0 : CHUNK;
-    for (int c = tid; c < len; c += TILE) a_piece[c] = arow[c0 + c];
-    __syncthreads();
-    if (!done) {
-      done = kind == 0 ? mash_walk_piece(mash, a_piece, c0, len, brow, width, s_use)
-                       : contained_walk_piece(contained, a_piece, len, brow, width);
-    }
-    // also the barrier before the next piece overwrites this one
-    if (!__syncthreads_or(!done)) break;
-  }
-  if (b_ok) tile[(int64_t)a_idx * n_local + b_row] = kind == 0 ? mash.shared : contained.count;
+template <int KIND, bool STAGED>
+static cudaError_t launch(const RingArgs& p, int64_t blocks, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(ring_step_kernel<KIND, STAGED>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ring_step_kernel<KIND, STAGED><<<(int)blocks, PAIR_WARPS * 32, smem, stream>>>(p);
+  return cudaSuccess;
 }
 
 extern "C" int ring_step_launch(const int32_t* a, const int32_t* na, const int32_t* b,
                                 const int32_t* nb, int32_t* tile, int32_t* dst, int32_t* dst_n,
                                 int n_local, int width, int kind, void* stream) {
   if (n_local > 0 && width > 0) {
-    const dim3 grid(n_local, (n_local + TILE - 1) / TILE);
-    const size_t smem = (size_t)(width < CHUNK ? width : CHUNK) * sizeof(int32_t);
-    ring_step_kernel<<<grid, TILE, smem, (cudaStream_t)stream>>>(
-        a, na, b, nb, tile, dst, dst_n, n_local, width, kind);
+    RingArgs p;
+    p.a = a;
+    p.na = na;
+    p.b = b;
+    p.nb = nb;
+    p.tile = tile;
+    p.dst = dst;
+    p.dst_n = dst_n;
+    p.n_local = n_local;
+    p.width = width;
+    p.stride = staged_pitch(width);
+    p.vec = width % 4 == 0 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+    size_t smem;
+    bool staged;
+    pair_block_plan(width, &p.sub, &smem, &staged);
+    p.grid_x = (n_local + p.sub - 1) / p.sub;
+    const int64_t blocks = (int64_t)p.grid_x * p.grid_x;
+    if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const cudaError_t err = kind == 0 ? (staged ? launch<KIND_MASH, true>(p, blocks, smem, s)
+                                                : launch<KIND_MASH, false>(p, blocks, smem, s))
+                                      : (staged ? launch<KIND_CONTAINED, true>(p, blocks, smem, s)
+                                                : launch<KIND_CONTAINED, false>(p, blocks, smem, s));
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,9 @@ Counterpart of drep_tpu/ops/pallas_ring.py (the merge variant of
 B block: ``n_local`` sorted PAD_ID-padded int32 id rows of one width, with
 their counts. :func:`ring_step` returns the step's ``[n_local, n_local]``
 int32 tile and, when given receive buffers, writes B's ids and counts into
-them in the same launch (``csrc/ring_step.cu``, at any width: the kernel
-stages the A row in shared memory a piece at a time):
+them in the same launch (``csrc/ring_step.cu``: one warp a pair walks the
+merge path of ``csrc/merge_path.cuh`` over rows staged in shared memory,
+or over per-warp windows of rows too wide to stage, so any width runs):
 
 - ``"mash"``: union-bottom-s shared counts with s_use = min(n_a, n_b,
   width), as ops/mash.py counts them; the ring turns them into distances
@@ -20,7 +21,9 @@ stages the A row in shared memory a piece at a time):
 The indicator-matmul variant (the JAX ``variant="matmul"``, containment
 only): :func:`ring_step_matmul` computes the containment tile as the sum
 over vocabulary chunks of 0/1 indicator products below ``v_pad``
-(``csrc/ring_step_mm.cu``, int8 tensor cores), with the same copy. It
+(``csrc/ring_step_mm.cu``: producer warpgroups scatter each chunk into
+shared memory while consumer warpgroups multiply the one before with int8
+``wgmma``), with the same copy. It
 counts set membership, as the JAX indicator does: an id repeated in a row
 counts once, where the merge step counts every copy; on a scaled pack's
 unique ranks the two tiles are equal. :func:`pick_variant` picks the
@@ -52,14 +55,15 @@ VARIANTS = ("merge", "matmul")
 MATMUL_TILE_KINDS = ("containment",)
 LANES = 128  # v_pad's granule (the JAX package's lane width)
 MAX_V_PAD = 1 << 30  # csrc/ring_step_mm.cu keeps chunk bounds in int32
-# The largest v_pad / W at which a containment ring runs the matmul step
-# (provisional, from four block shapes on one H100; the port bench is to
-# re-fit it). Both steps cost n_local^2 times a per-pair term: a merge pair
-# walks its two rows (~W ids), a matmul pair the vocabulary chunks below
-# v_pad that its tile touches, at ~2 000x the rate. The matmul step was
-# 14-38x faster at v_pad / W of 16 and 32, and within 2x either way at
-# 2 048 (2x faster on cluster A's blocks, 1.15x slower on B's).
-MATMUL_MAX_VPAD_PER_WIDTH = 2048
+# The largest v_pad / W at which a containment ring runs the matmul step,
+# from both steps timed at the ring's four block shapes on one H100
+# (kernel_ab.py; the port bench is to re-fit it). Both steps cost n_local^2
+# times a per-pair term: a merge pair walks its two rows (~W ids), a
+# matmul pair the vocabulary chunks below v_pad that its tile touches. The
+# matmul step was 7-8x faster at v_pad / W of 16 and 32; at 2 048 it tied
+# on one cluster's blocks and was 2x slower on another's. The crossover
+# sits between them, at their geometric middle.
+MATMUL_MAX_VPAD_PER_WIDTH = 256
 # elements of [rows, cols, width] the plain containment searches at once
 _PLAIN_BUDGET_ELEMS = 1 << 25
 # elements of one side's float32 indicator chunk in the plain matmul step

@@ -17,9 +17,9 @@ Every step of every position is one launch of the fused kernel
 neighbour's receive buffer: ``csrc/ring_step.cu`` (the merge variant), or,
 for a containment ring under the matmul variant (``variant``, by default
 ops/ring.py::pick_variant on the ring's v_pad and width),
-``csrc/ring_step_mm.cu`` on every rotating step. The final, rotation-free
-step always runs the merge step, as the JAX package's step loop runs its
-plain step program there. Every launch
+``csrc/ring_step_mm.cu``. The final step has nothing to rotate and runs
+the same kernel without the copy (the JAX package runs a plain XLA
+program there; both tiles are equal on dense ranks). Every launch
 is issued up front; every rotation lands in a fresh buffer allocated
 before the first launch, so no step writes a buffer that another still
 reads. Each card runs its positions on its current stream; where
@@ -186,8 +186,8 @@ def _ring_matrix(packed, kind: str, mesh: Mesh, half: bool, variant: str | None)
                 src_dev = mesh.devices[(m - 1) % D]
                 if multi and done[(m - 1) % D] is not None and src_dev != dev:
                     torch.cuda.current_stream(dev).wait_event(done[(m - 1) % D])
-                if dst is not None and variant == "matmul":
-                    tile = ring_step_matmul(*blocks[m], *b[m], v_pad, *dst)
+                if variant == "matmul":
+                    tile = ring_step_matmul(*blocks[m], *b[m], v_pad, *(dst or (None, None)))
                 else:
                     tile = ring_step(kind, *blocks[m], *b[m], *(dst or (None, None)))
                 tiles.append((m, (m - i) % D, tile))

@@ -5,13 +5,15 @@ dereplicate = filter -> cluster -> choose -> evaluate -> analyze;
 compare = cluster -> evaluate -> analyze (no filter/choose).
 
 Both run on `device` (default cuda); a CUDA request on a machine without
-CUDA raises before any work is done.
+CUDA, or a JAX CLI flag set to a value the port does not run
+(argparser.UNPORTED_FLAGS), raises before any work is done.
 """
 
 from __future__ import annotations
 
 import pandas as pd
 
+from drep_tpu_torch.argparser import refuse_unported_flags
 from drep_tpu_torch.choose import d_choose_wrapper
 from drep_tpu_torch.cluster.controller import d_cluster_wrapper
 from drep_tpu_torch.device import resolve_device
@@ -40,6 +42,7 @@ def compare_wrapper(
     wd_loc: str, genomes: list[str] | None = None, device=None, **kwargs
 ) -> pd.DataFrame:
     """`compare`: cluster + evaluate + analyze. Returns Cdb."""
+    refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     wd, bdb = _init(wd_loc, genomes or [])
     cdb = d_cluster_wrapper(wd, bdb, device=dev, **kwargs)
@@ -60,6 +63,7 @@ def dereplicate_wrapper(
 ) -> pd.DataFrame:
     """`dereplicate`: filter + cluster + choose + evaluate + analyze.
     Returns Wdb (the winners)."""
+    refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     wd, bdb = _init(wd_loc, genomes or [])
     filtered = d_filter_wrapper(wd, bdb, genomeInfo=kwargs.pop("genomeInfo", None), **kwargs)

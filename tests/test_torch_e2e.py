@@ -30,6 +30,7 @@ from drep_tpu.workflows import dereplicate_wrapper as jax_dereplicate
 from drep_tpu_torch.choose import d_choose_wrapper
 from drep_tpu_torch.cluster.controller import d_cluster_wrapper
 from drep_tpu_torch.cluster.engines import SECONDARY_PATH_COUNTS
+from drep_tpu_torch.controller import check_dependencies
 from drep_tpu_torch.controller import main as torch_main
 from drep_tpu_torch.ops import ring
 from drep_tpu_torch.ops.containment import pack_scaled_sketches
@@ -331,15 +332,110 @@ def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, mon
     assert not os.path.exists(tmp_path / "a" / "data_tables" / "Cdb.csv")
 
 
-@pytest.mark.parametrize("flag", [
-    ["--streaming_primary"], ["--greedy_secondary_clustering"], ["--run_tertiary_clustering"],
-    ["--multiround_primary_clustering"], ["--primary_prune", "lsh"],
-    ["--primary_estimator", "matmul"],
+@pytest.mark.parametrize("flag,item", [
+    (["--streaming_primary"], "item 8"),
+    (["--greedy_secondary_clustering"], "item 9"),
+    (["--run_tertiary_clustering"], "item 9"),
+    # the JAX package takes multiround only above --primary_chunksize
+    (["--multiround_primary_clustering", "--primary_chunksize", "2"], "item 9"),
+    # ... and pruning only on the streaming primary
+    (["--streaming_primary", "--primary_prune", "lsh"], "item 8"),
+    (["--primary_estimator", "matmul"], "item 9"),
+    (["--primary_algorithm", "mash"], "item 9"),
+    (["--S_algorithm", "fastANI"], "item 9"),
+    (["--S_algorithm", "ANImf"], "item 9"),
+    (["--S_algorithm", "ANIn"], "item 9"),
+    (["--S_algorithm", "gANI"], "item 9"),
+    (["--S_algorithm", "goANI"], "item 9"),
 ])
-def test_unported_paths_raise(tmp_path, genome_paths, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["compare", str(tmp_path / "wd"), "-g", *genome_paths, "--device", "cpu",
+def test_unported_paths_raise(tmp_path, genome_paths, flag, item):
+    """A path not ported raises NotImplementedError naming its ROADMAP
+    item before ingest: no table but the input list (Bdb) is written."""
+    wd = tmp_path / "wd"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        torch_main(["compare", str(wd), "-g", *genome_paths, "--device", "cpu",
                     "--skip_plots", *flag])
+    assert sorted(os.listdir(wd / "data_tables")) == ["Bdb.csv"]
+
+
+@pytest.mark.parametrize("flags,kwargs", [
+    (["--multiround_primary_clustering"], {"multiround_primary_clustering": True}),
+    (["--primary_prune", "lsh"], {"primary_prune": "lsh"}),
+    (["--greedy_secondary_clustering", "--SkipSecondary"],
+     {"greedy_secondary_clustering": True, "SkipSecondary": True}),
+    (["--run_tertiary_clustering", "--SkipSecondary"],
+     {"run_tertiary_clustering": True, "SkipSecondary": True}),
+    (["--S_algorithm", "ANImf", "--SkipSecondary"], {"S_algorithm": "ANImf", "SkipSecondary": True}),
+    (["--primary_algorithm", "mash", "--SkipMash"], {"primary_algorithm": "mash", "SkipMash": True}),
+])
+def test_flags_jax_ignores_here_equal_jax_bytes(tmp_path, genome_paths, flags, kwargs):
+    """Flags of unported paths on argvs where the JAX package does not take
+    the path (multiround at or below --primary_chunksize, pruning on the
+    dense primary, greedy/tertiary/an external S engine under
+    --SkipSecondary, an external primary engine under --SkipMash) run, and
+    the dereplicate tables are byte-identical to the JAX package's."""
+    q = tmp_path / "q.csv"
+    q.write_text(QUALITY)
+    wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    torch_main(["dereplicate", wd, "-g", *genome_paths, "--genomeInfo", str(q),
+                "--skip_plots", "-p", "1", "--device", "cpu", *flags])
+    jax_dereplicate(jwd, genome_paths, genomeInfo=str(q), skip_plots=True, processes=1, **kwargs)
+    for table in ("Cdb", "Ndb", "Sdb", "Wdb"):
+        assert _table(wd, table) == _table(jwd, table)
+
+
+# the JAX CLI's flags that the port parses and runs only at their JAX
+# defaults: a value to refuse, and the ROADMAP item that ports it
+_UNPORTED_FLAG_VALUES = [
+    (["--events", "on"], "item 5"),
+    (["--fsync"], "item 5"),
+    (["--io_retries", "5"], "item 5"),
+    (["--profile"], "item 5"),
+    (["--fault_retries", "0"], "item 5"),
+    (["--dispatch_timeout", "10"], "item 5"),
+    (["--max_dead_processes", "0"], "item 5"),
+    (["--no_overlap_ingest"], "item 5"),
+    (["--max_joins", "1"], "item 12b"),
+    (["--drain_grace_s", "5"], "item 12b"),
+    (["--prune_bands", "4"], "item 8"),
+    (["--prune_min_shared", "1"], "item 8"),
+    (["--prune_join_chunk", "1000"], "item 8"),
+    (["--run_tax"], "item 9"),
+    (["--cent_index", "idx"], "item 9"),
+]
+
+
+@pytest.mark.parametrize("flag,item", _UNPORTED_FLAG_VALUES)
+def test_jax_cli_flags_off_default_raise(tmp_path, genome_paths, flag, item):
+    """A JAX CLI flag set to a value the port does not run raises naming
+    its ROADMAP item before any work: the workdir is not even made."""
+    wd = tmp_path / "wd"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+        torch_main(["dereplicate", str(wd), "-g", *genome_paths, "--device", "cpu", "--skip_plots", *flag])
+    assert not wd.exists()
+
+
+def test_jax_cli_flags_at_defaults_run(dereplicated, genome_paths, tmp_path):
+    """dereplicate with every JAX CLI flag of _UNPORTED_FLAG_VALUES given
+    at its JAX default (where argparse can spell it), --events off and the
+    TPU-only --ring_vmem_mb runs and writes the JAX package's tables."""
+    _, jwd = dereplicated
+    q = tmp_path / "q.csv"
+    q.write_text(QUALITY)
+    wd = str(tmp_path / "wd")
+    torch_main(["dereplicate", wd, "-g", *genome_paths, "--genomeInfo", str(q), "--skip_plots", "-p", "1",
+                "--device", "cpu", "--events", "off", "--fault_retries", "2", "--dispatch_timeout", "0",
+                "--max_dead_processes", "1", "--max_joins", "0", "--drain_grace_s", "30",
+                "--prune_bands", "0", "--prune_min_shared", "0", "--prune_join_chunk", "0",
+                "--ring_vmem_mb", "12"])
+    for table in ("Cdb", "Ndb", "Sdb", "Wdb"):
+        assert _table(wd, table) == _table(jwd, table)
+
+
+def test_check_dependencies_runs():
+    """The check_dependencies subcommand exists and reports the cards."""
+    torch_main(["check_dependencies"])
+    assert "CUDA device(s)" in check_dependencies()[0]
 
 
 def _is_forbidden(module: str) -> bool:

@@ -1,6 +1,6 @@
 """A numpy rehearsal of the lane schedules of the port's merge-path kernels
-(drep_tpu_torch/csrc/merge_path.cuh, mash_shared.cu, intersect.cu), which
-run only on the card.
+(drep_tpu_torch/csrc/merge_path.cuh, pair_block.cuh, mash_shared.cu,
+intersect.cu, ring_step.cu), which run only on the card.
 
 The emulation below is written here, not in the package: it follows the
 device code step by step — each lane's binary search on its diagonal of
@@ -10,17 +10,23 @@ real lengths by binary search, the warp scan of distinct counts, the Mash
 rounds and their early exit, the per-warp windows of wide rows, and the
 blocks' cut of the output tiles — and every read goes through a bounds
 check, so an index the kernel must not touch fails here.
-It is held against ops/mash.py::mash_shared_plain and
-ops/intersect.py::intersect_stacked_plain, and through them against the
-JAX references drep_tpu/ops/minhash.py::_pair_shared and
-drep_tpu/ops/pallas_merge.py::_intersect_tile_jnp. Counts are integers:
+The ring step's containment walk (warp_contained, its rounds over
+per-warp windows, the warp search that cuts B after A's last id) and the
+ring's block cut of n_local rows (rows past it masked) are emulated too.
+It is held against ops/mash.py::mash_shared_plain,
+ops/intersect.py::intersect_stacked_plain and
+ops/ring.py::contained_counts_plain, and through them against the JAX
+references drep_tpu/ops/minhash.py::_pair_shared,
+drep_tpu/ops/pallas_merge.py::_intersect_tile_jnp and
+drep_tpu/ops/containment.py::_pair_intersection. Counts are integers:
 every comparison is exact.
 
-Only MASH_E is read from the CUDA sources. A change to the schedule in
-merge_path.cuh, mash_shared.cu or intersect.cu (the tie rule, the share
-and window sizes, the round carry, the block cut) must be made in this
-emulation too: no test here can see the device code drift from it, only
-chip_smoke.py's edge cases on the card can.
+Only the tuning constants (MASH_E and the staging plan's) are read from
+the CUDA sources. A change to the schedule in merge_path.cuh,
+pair_block.cuh, mash_shared.cu, intersect.cu or ring_step.cu (the tie
+rule, the share and window sizes, the round carry, the block cut) must be
+made in this emulation too: no test here can see the device code drift
+from it, only chip_smoke.py's edge cases on the card can.
 """
 
 import os
@@ -32,10 +38,11 @@ import numpy as np
 import pytest
 import torch
 
+from drep_tpu.ops.containment import _pair_intersection as jax_pair_intersection
 from drep_tpu.ops.minhash import _pair_shared as jax_pair_shared
 from drep_tpu.ops.pallas_merge import _intersect_tile_jnp
 from drep_tpu_torch.ops import intersect as ti
-from drep_tpu_torch.ops import mash
+from drep_tpu_torch.ops import mash, ring
 from drep_tpu_torch.ops.minhash import PAD_ID, U16_PAD, widen_ids
 
 PAD = int(PAD_ID)
@@ -47,7 +54,7 @@ def _kernel_define(name: str, source: str) -> int:
         return int(re.search(rf"#define {name} (\d+)", f.read()).group(1))
 
 
-KERNEL_E = _kernel_define("MASH_E", "mash_shared.cu")  # merged ids a lane a round
+KERNEL_E = _kernel_define("MASH_E", "pair_block.cuh")  # merged ids a lane a round
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -454,3 +461,246 @@ def test_block_grid_writes_each_layout(sub, tiles):
         got = np.full_like(want, -1)
         got[rows, cols] = i * n_b + j
         np.testing.assert_array_equal(got, want)
+
+
+def emulate_warp_lower_bound(row: Row, n: int, x: int) -> int:
+    """warp_lower_bound: 32 evenly spaced probes a pass; the lanes below x
+    must be a prefix (the ballot's count)."""
+    lo, hi = 0, n
+    while lo < hi:
+        step = (hi - lo + 31) >> 5
+        below = [row[min(lo + (lane + 1) * step - 1, hi - 1)] < x for lane in range(32)]
+        c = sum(below)
+        assert below == [True] * c + [False] * (32 - c)
+        new_lo = lo if c == 0 else min(lo + c * step, hi)
+        hi = hi if c == 32 else min(lo + (c + 1) * step - 1, hi - 1)
+        lo = new_lo
+    return lo
+
+
+def contained_steps(a: Row, b: Row, i: int, j: int, n: int) -> tuple[int, int]:
+    """n contained steps from (i, j), A first on ties: (hits, A position)."""
+    va, vb = a[i], b[j]
+    hits = 0
+    for _ in range(n):
+        hits += va == vb
+        ta = va <= vb
+        i, j = i + ta, j + (not ta)
+        nx = a[i] if ta else b[j]
+        va, vb = (nx, vb) if ta else (va, nx)
+    return hits, i
+
+
+def emulate_warp_contained(a: Row, la: int, b: Row, lb: int) -> int:
+    total = la + lb
+    share = (total + 31) >> 5
+    hits = 0
+    for lane in range(32):
+        d = min(lane * share, total)
+        n = min(share, total - d)
+        i = split(a, b, d, max(0, d - lb), min(d, la))
+        hits += contained_steps(a, b, i, d - i, n)[0]
+    return hits
+
+
+def emulate_warp_contained_rounds(la: int, lb: int, window, e: int) -> int:
+    r = 32 * e
+    total = la + lb
+    round0 = i0 = hits = 0
+    while round0 < total:
+        j0 = round0 - i0
+        ra, rb = la - i0, lb - j0
+        a, b = window(i0, j0)
+        rlen = min(r, ra + rb)
+        ends = []
+        for lane in range(32):
+            d = min(lane * e, rlen)
+            n = min(e, rlen - d)
+            i = split(a, b, d, max(0, d - rb), min(d, ra))
+            h, i_end = contained_steps(a, b, i, d - i, n)
+            hits += h
+            ends.append(i_end)
+        i0 += ends[31]
+        round0 += r
+    return hits
+
+
+def contained_window(a_row: np.ndarray, la: int, b_row: np.ndarray, lb: int, e: int):
+    """The wide rows' windows: A's ids PAD past la; B's real ids past the
+    walk's cut (the heads it reads), PAD past lb."""
+    win = 32 * e + 1
+    ga, gb = Row([int(v) for v in a_row]), Row([int(v) for v in b_row])
+
+    def window(i0, j0):
+        wa = [ga[i0 + q] if q < la - i0 else PAD for q in range(win)]
+        wb = [gb[j0 + q] if q < lb - j0 else PAD for q in range(win)]
+        return Row(wa), Row(wb)
+
+    return window
+
+
+def emulate_contained(a: np.ndarray, b: np.ndarray, e: int, windowed: bool) -> np.ndarray:
+    """pair_block's KIND_CONTAINED over every pair: real lengths, the cut
+    of B at its first id >= A's last, then the walk."""
+    width = a.shape[1]
+    out = np.zeros((a.shape[0], b.shape[0]), np.int32)
+    for r in range(a.shape[0]):
+        a_st = staged(a[r])
+        la = real_len(Row(a_st), width)
+        for c in range(b.shape[0]):
+            b_st = staged(b[c])
+            lb = real_len(Row(b_st), width)
+            if la == 0 or lb == 0:
+                continue
+            brow = Row([int(v) for v in b[c]]) if windowed else Row(b_st)
+            cut = emulate_warp_lower_bound(brow, lb, a_st[la - 1])
+            if windowed:
+                out[r, c] = emulate_warp_contained_rounds(la, cut, contained_window(a[r], la, b[c], lb, e), e)
+            else:
+                out[r, c] = emulate_warp_contained(Row(a_st), la, Row(b_st), cut)
+    return out
+
+
+_jax_contained = jax.jit(jax.vmap(jax.vmap(jax_pair_intersection, in_axes=(None, 0)), in_axes=(0, None)))
+
+
+def jax_contained(a, b):
+    return np.asarray(_jax_contained(jnp.asarray(_pad_rows(a, PAD)), jnp.asarray(_pad_rows(b, PAD))))[
+        : a.shape[0], : b.shape[0]]
+
+
+def contained_case(name: str, rng: np.random.Generator) -> tuple[np.ndarray, np.ndarray]:
+    """(A, B) of one named case, width 64: ids may repeat in either row."""
+    w = 64
+    if name == "distinct":
+        rows = [rng.choice(120, size=int(rng.integers(1, w + 1)), replace=False) for _ in range(7)]
+    elif name == "repeats_in_a":
+        rows = [np.repeat(rng.choice(40, size=16, replace=False), rng.integers(1, 5, size=16))[:w]
+                for _ in range(5)]
+        return rows_of(rows, w), rows_of([rng.choice(40, size=25, replace=False) for _ in range(5)], w)
+    elif name == "repeats_in_b":
+        rows = [np.repeat(rng.choice(40, size=16, replace=False), rng.integers(1, 5, size=16))[:w]
+                for _ in range(5)]
+        return rows_of([rng.choice(40, size=25, replace=False) for _ in range(5)], w), rows_of(rows, w)
+    elif name == "repeats_both":
+        rows = [np.repeat(rng.choice(30, size=16, replace=False), rng.integers(1, 5, size=16))[:w]
+                for _ in range(6)]
+    elif name == "empty_one_allpad":
+        rows = [[], [5], [5], list(range(64)), [], list(range(3, 40, 3))]
+    elif name == "ties_across_splits":
+        rows = [np.repeat([4, 8], [31, 33]), np.repeat([4, 8, 9], [1, 32, 31]), np.repeat([8], [64]),
+                np.repeat([1, 8, 90], [2, 2, 60])]
+    elif name == "b_past_a":  # B's tail past A's last id, and A past B's last
+        rows = [np.arange(0, 20), np.arange(10, 74), np.arange(60, 64), np.arange(0, 128, 2)]
+    else:
+        raise ValueError(name)
+    ids = rows_of(rows, w)
+    return ids, ids[::-1].copy()
+
+
+CONTAINED_CASES = ["distinct", "repeats_in_a", "repeats_in_b", "repeats_both", "empty_one_allpad",
+                   "ties_across_splits", "b_past_a"]
+
+
+@pytest.mark.parametrize("e", sorted({KERNEL_E, 3, 2}))
+@pytest.mark.parametrize("windowed", [False, True], ids=["staged", "windowed"])
+@pytest.mark.parametrize("case", CONTAINED_CASES)
+def test_contained_schedule_equals_plain_and_jax(case, windowed, e):
+    """The ring step's containment walk, each copy of an A id found in B
+    counted, against contained_counts_plain and the JAX _pair_intersection."""
+    rng = np.random.default_rng(80 + CONTAINED_CASES.index(case))
+    a, b = contained_case(case, rng)
+    got = emulate_contained(a, b, e, windowed)
+    np.testing.assert_array_equal(got, ring.contained_counts_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy())
+    np.testing.assert_array_equal(got, jax_contained(a, b))
+
+
+def test_contained_every_share_length():
+    """Merged lengths over every share size and lane boundary, with ties
+    across A and B and B running past A's last id."""
+    a_full = np.arange(0, 128, 2)
+    b_full = np.arange(0, 192, 3)
+    for la in range(1, 65, 3):
+        for lb in range(1, 65, 4):
+            a, b = rows_of([a_full[:la]], 64), rows_of([b_full[:lb]], 64)
+            want = ring.contained_counts_plain(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+            np.testing.assert_array_equal(emulate_contained(a, b, KERNEL_E, windowed=False), want)
+
+
+def test_warp_lower_bound_every_position():
+    """The warp search against searchsorted at every x over rows of every
+    length up to 3 passes, with repeated ids."""
+    rng = np.random.default_rng(5)
+    for n in (1, 2, 31, 32, 33, 100, 1023, 1024, 1025, 2000):
+        row = np.sort(rng.integers(0, 3 * n, size=n))
+        for x in range(-1, 3 * n + 2, max(1, n // 50)):
+            assert emulate_warp_lower_bound(Row([int(v) for v in row]), n, x) == np.searchsorted(row, x)
+
+
+def _header_define(name: str) -> int:
+    return _kernel_define(name, "pair_block.cuh")
+
+
+def pair_block_plan(width: int) -> tuple[int, bool]:
+    """pair_block.cuh::pair_block_plan: (rows a block takes, staged whole)."""
+    stage, head = 96 * 1024, _header_define("HEAD_INTS")
+    with open(os.path.join(CSRC, "pair_block.cuh")) as f:
+        assert re.search(r"#define STAGE_BYTES \(96 \* 1024\)", f.read())
+    stride = (width + 4) & ~3
+    s = _header_define("MAX_SUB")
+    while s >= _header_define("MIN_SUB") and 2 * s * stride * 4 + head * 4 > stage:
+        s >>= 1
+    staged_whole = s >= _header_define("MIN_SUB")
+    return (s if staged_whole else _header_define("WINDOW_SUB")), staged_whole
+
+
+@pytest.mark.parametrize("width,sub,staged_whole", [
+    (1000, 8, True), (2048, 4, True), (3000, 4, True), (4096, 8, False), (32768, 8, False), (65536, 8, False),
+])
+def test_ring_widths_take_windows_past_shared_memory(width, sub, staged_whole):
+    """The plan stages phase 7's Mash and cluster B rows whole and takes
+    per-warp windows at cluster A's and the wide cluster's widths."""
+    assert pair_block_plan(width) == (sub, staged_whole)
+
+
+def ring_block_writes(n_local: int, sub: int) -> np.ndarray:
+    """ring_step.cu's cut of the [n_local, n_local] tile into blocks of sub
+    x sub pairs with rows past n_local masked: the (row, col) of every
+    write over every block id."""
+    grid_x = (n_local + sub - 1) // sub
+    bid = np.arange(grid_x * grid_x)
+    a0, b0 = (bid // grid_x) * sub, (bid % grid_x) * sub
+    valid_a, valid_b = np.minimum(sub, n_local - a0), np.minimum(sub, n_local - b0)
+    out = []
+    for x0, y0, va, vb in zip(a0, b0, valid_a, valid_b):
+        r, c = np.meshgrid(np.arange(sub), np.arange(sub), indexing="ij")
+        keep = (r < va) & (c < vb)
+        out.append(np.stack([x0 + r[keep], y0 + c[keep]], axis=1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("n_local", [1, 7, 8, 128, 325, 500])
+@pytest.mark.parametrize("sub", [4, 8, 16])
+def test_ring_block_cut_writes_each_pair_once(n_local, sub):
+    writes = ring_block_writes(n_local, sub)
+    assert writes.min() >= 0 and writes.max() < n_local
+    assert len(writes) == n_local * n_local
+    assert len(np.unique(writes[:, 0] * n_local + writes[:, 1])) == n_local * n_local
+
+
+def test_ring_block_rows_past_n_local_read_as_pad():
+    """A block at the end of a 13-row block (sub 8): its staged rows past
+    n_local are PAD with count 0, so both kinds give the plain counts on
+    the rows that exist."""
+    rng = np.random.default_rng(12)
+    rows = [np.repeat(rng.choice(50, size=10, replace=False), rng.integers(1, 3, size=10)) for _ in range(13)]
+    ids = rows_of(rows, 64)
+    counts = (ids != PAD).sum(axis=1).astype(np.int32)
+    sub = 8
+    padded = np.concatenate([ids, np.full((16 - 13, 64), PAD, np.int32)])
+    got = emulate_contained(padded[8:], padded[8:], KERNEL_E, windowed=False)[:5, :5]
+    want = ring.contained_counts_plain(torch.from_numpy(ids), torch.from_numpy(ids)).numpy()[8:, 8:]
+    np.testing.assert_array_equal(got, want)
+    cpad = np.concatenate([counts, np.zeros(3, np.int32)])
+    got = emulate_mash(padded[sub:], cpad[sub:], padded[sub:], cpad[sub:], 64, KERNEL_E, windowed=False)[:5, :5]
+    np.testing.assert_array_equal(got, plain_mash(ids, counts, ids, counts, 64)[8:, 8:])

@@ -10,6 +10,9 @@ the port's merge step on unique ranks, and the ring against the JAX
 ppermute ring. Every count is an integer and compared exactly.
 """
 
+import os
+import re
+
 import numpy as np
 import pandas as pd
 import pytest
@@ -202,17 +205,18 @@ def test_variant_validation_accepts_what_jax_accepts(kind, variant, v_pad):
 # (kind, v_pad, W, the step picked): the chip's four measured block
 # shapes (cluster A, B, C, width 65 536), each side of the crossover, and
 # each side of the kernel's v_pad limit
+M = ring.MATMUL_MAX_VPAD_PER_WIDTH
 PICKS = [
-    ("containment", 1 << 26, 1 << 15, "matmul"),
-    ("containment", 1 << 22, 1 << 11, "matmul"),
-    ("containment", 1 << 20, 1 << 15, "matmul"),
-    ("containment", 1 << 20, 1 << 16, "matmul"),
-    ("containment", 1 << 23, 1 << 11, "merge"),
-    ("containment", 1 << 27, 1 << 15, "merge"),
-    ("containment", 2048, 1, "matmul"),
-    ("containment", 4096, 1, "merge"),
-    ("containment", 1 << 30, 1 << 20, "matmul"),
-    ("containment", 1 << 31, 1 << 21, "merge"),
+    ("containment", M << 15, 1 << 15, "matmul"),  # at the crossover
+    ("containment", M << 11, 1 << 11, "matmul"),
+    ("containment", (M >> 3) << 15, 1 << 15, "matmul"),  # below it
+    ("containment", (M >> 4) << 16, 1 << 16, "matmul"),
+    ("containment", (2 * M) << 11, 1 << 11, "merge"),  # past it
+    ("containment", (2 * M) << 15, 1 << 15, "merge"),
+    ("containment", M * ring.LANES, ring.LANES, "matmul"),
+    ("containment", 2 * M * ring.LANES, ring.LANES, "merge"),
+    ("containment", ring.MAX_V_PAD, ring.MAX_V_PAD // M, "matmul"),  # the kernel's largest v_pad
+    ("containment", 2 * ring.MAX_V_PAD, 2 * ring.MAX_V_PAD // M, "merge"),  # past it
     ("mash", 128, 1 << 11, "merge"),
     ("mash", 1 << 20, 1 << 15, "merge"),
 ]
@@ -267,8 +271,8 @@ def _packs():
 def test_matmul_ring_equals_jax_ring_and_merge_ring(monkeypatch, d, full_grid):
     """N = 22 genomes over D CPU positions (padded blocks at D = 3, 5, 8):
     the matmul-variant ring's (ani, cov) byte-equal to the JAX ppermute
-    ring's and to the port's merge ring; every rotating step ran the matmul
-    step and the final step the merge step."""
+    ring's and to the port's merge ring; every step ran the matmul step,
+    the final copy-free one too."""
     ours, theirs = _packs()
     mesh = make_mesh(d, CPU)
     key = (d, full_grid)
@@ -280,9 +284,9 @@ def test_matmul_ring_equals_jax_ring_and_merge_ring(monkeypatch, d, full_grid):
     merge = _count_calls(monkeypatch, "ring_step_plain")
     got = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh, full_grid=full_grid, variant="matmul")
     n_steps = d if full_grid else allpairs.half_ring_steps(d)
-    assert mm[0] == d * (n_steps - 1)
     last_kept = sum(1 for a, b in allpairs.ring_schedule(d, not full_grid) if allpairs.ring_step_of(a, b, d) == n_steps - 1)
-    assert merge[0] == last_kept
+    assert mm[0] == d * (n_steps - 1) + last_kept
+    assert merge[0] == 0
     by_merge = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh, full_grid=full_grid, variant="merge")
     for x, y, z in zip(got, want, by_merge, strict=True):
         assert x.tobytes() == y.tobytes() == z.tobytes()
@@ -298,13 +302,13 @@ def test_ring_picks_the_step_from_v_pad_and_width(monkeypatch):
     assert ring.pick_variant("containment", ring.matmul_ring_vocab_pad(ours.ids), ours.ids.shape[1]) == "matmul"
     mm = _count_calls(monkeypatch, "ring_step_matmul_plain")
     want = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh)
-    assert mm[0] == 3
+    assert mm[0] == 3 + 3  # D = 3: both steps of the half ring on every position
     allpairs.ring_allpairs(ours, "mash", K, mesh)
-    assert mm[0] == 3
+    assert mm[0] == 3 + 3
     monkeypatch.setattr(ring, "MATMUL_MAX_VPAD_PER_WIDTH", 0)
     merge = _count_calls(monkeypatch, "ring_step_plain")
     got = allpairs.sharded_containment_allpairs(ours, k=K, mesh=mesh)
-    assert mm[0] == 3 and merge[0] == 3 + 3
+    assert mm[0] == 3 + 3 and merge[0] == 3 + 3
     for x, y in zip(got, want, strict=True):
         assert x.tobytes() == y.tobytes()
     with pytest.raises(ValueError, match="matmul ring variant supports"):
@@ -322,10 +326,10 @@ def _table(wd: str, name: str) -> bytes:
 def test_dereplicate_cli_on_mesh_with_matmul_variant_equals_jax_bytes(tmp_path, monkeypatch, crossover):
     """`dereplicate --mesh_shape 4 --device cpu` over one 80-genome
     cluster past the one-shot budget (cut to 2^12 in both packages): the
-    cluster takes `mesh_ring`, whose rotating steps run the matmul step
-    (its v_pad is small beside its width; with the crossover at 0, the
-    merge step), and Cdb, Ndb and Wdb are byte-identical to the JAX
-    package's on the same argv."""
+    cluster takes `mesh_ring`, whose steps run the matmul step (its v_pad
+    is small beside its width; with the crossover at 0, the merge step),
+    and Cdb, Ndb and Wdb are byte-identical to the JAX package's on the
+    same argv."""
     gs, _ = planted_sketches(80, seed=9, s_bottom=200, s_scaled=300, cluster_size=80)
     (tmp_path / "genomes").mkdir()
     files = [str(tmp_path / "genomes" / g) for g in gs.names]
@@ -351,8 +355,238 @@ def test_dereplicate_cli_on_mesh_with_matmul_variant_equals_jax_bytes(tmp_path, 
     torch_main(["dereplicate", wd, *argv, "--device", "cpu"])
     assert {p: c - before.get(p, 0) for p, c in SECONDARY_PATH_COUNTS.items() if c != before.get(p, 0)} == {
         "mesh_ring": 1}
-    # D = 4, half ring: steps 0 and 1 rotate on every position
-    assert mm[0] == (4 + 4 if crossover is None else 0)
+    # D = 4, half ring: steps 0 and 1 on every position, the middle step on two
+    assert mm[0] == (4 + 4 + 2 if crossover is None else 0)
     jax_main(["dereplicate", jwd, *argv])
     for table in ("Cdb", "Ndb", "Wdb"):
         assert _table(wd, table) == _table(jwd, table), table
+
+
+# --- a numpy emulation of csrc/ring_step_mm.cu's stages, which run only on
+# the card: the producer's chunk walk, its clear and its scatter into the
+# 128-byte-swizzled K-major layout, the consumers' wgmma descriptors read
+# as the hardware reads them, and the accumulator fragments' map to the
+# tile. The tuning constants are read from the source; a change to the
+# kernel's schedule or layout must be made here too.
+
+_MM_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "drep_tpu_torch", "csrc", "ring_step_mm.cu")
+
+
+def _mm_define(name: str) -> int:
+    with open(_MM_SRC) as f:
+        return int(re.search(rf"#define {name} (\d+)", f.read()).group(1))
+
+
+TM, KC, STAGES, CONSUMERS, LOG_IDS = (_mm_define(n) for n in ("TM", "KC", "STAGES", "CONSUMERS", "LOG_IDS"))
+ATOM = TM * 128
+SIDE = TM * KC
+STAGE_SIZE = 2 * SIDE
+
+
+def mm_swizzled(row, k):
+    """ring_step_mm.cu::swizzled: the byte of (row, k) in one side of a stage."""
+    return (k >> 7) * ATOM + (row >> 3) * 1024 + (row & 7) * 128 + ((((k >> 4) & 7) ^ (row & 7)) << 4) + (k & 15)
+
+
+def gmma_desc(addr: int) -> int:
+    """ring_step_mm.cu::gmma_desc."""
+    return ((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32) | (1 << 62)
+
+
+def gmma_read(smem: np.ndarray, desc: int, rows: int) -> np.ndarray:
+    """The [rows, 32] int8 operand wgmma reads through a K-major descriptor
+    (CUTLASS's canonical form ((8, m), (T, 2)) : ((8T, SBO), (1, T)) in
+    16-byte units under Swizzle<3,4,3>): row m at start + (m / 8) SBO +
+    (m % 8) 128 bytes, then bits [4, 7) of the address XOR bits [7, 10)."""
+    assert desc >> 62 == 1, "layout type B128"
+    start = (desc & 0x3FFF) << 4
+    sbo = ((desc >> 32) & 0x3FFF) << 4
+    m = np.arange(rows)[:, None]
+    lin = start + (m >> 3) * sbo + (m & 7) * 128 + np.arange(32)[None, :]
+    return smem[lin ^ (((lin >> 7) & 7) << 4)].astype(np.int64)
+
+
+def fragment_map(v: np.ndarray, lane: np.ndarray, w: np.ndarray):
+    """(row, column) in a consumer's 64 x 128 sums of value v of a thread."""
+    return 16 * w + (lane >> 2) + 8 * ((v >> 1) & 1), 8 * (v >> 2) + 2 * (lane & 3) + (v & 1)
+
+
+def emulate_mm_block(a: np.ndarray, b: np.ndarray, v_pad: int, by: int, bx: int, z: int, per_split: int,
+                     tile: np.ndarray, stats: dict) -> None:
+    """One block of ring_step_mm_kernel: its partial sums added into `tile`."""
+    n_local, width = a.shape
+    lo_id = z * per_split * KC
+    hi_id = min(lo_id + per_split * KC, v_pad)
+    rows = [[], []]
+    for side, (m, blk) in enumerate(((a, by), (b, bx))):
+        for t in range(TM):
+            r = blk * TM + t
+            rows[side].append([int(x) for x in m[r]] if r < n_local else [])
+    cur = [[int(np.searchsorted(np.asarray(rw, np.int64), lo_id)) for rw in rows[side]] for side in (0, 1)]
+
+    def id_at(side, t):
+        c = cur[side][t]
+        return rows[side][t][c] if c < len(rows[side][t]) else (1 << 31) - 1
+
+    smem = np.zeros(STAGES * STAGE_SIZE, np.uint8)
+    log = np.zeros((STAGES, 2, TM, LOG_IDS), np.int64)
+    n_set = np.zeros((STAGES, 2, TM), np.int64)  # LOG_IDS + 1: more than the log holds
+    acc = np.zeros((CONSUMERS, 64, 128), np.int64)
+    stage, base = 0, lo_id
+    while True:
+        # produce<stage>: the chunk the walk stands at if both sides touch it, else a jump
+        live = False
+        while base < hi_id:
+            end = min(base + KC, hi_id)
+            if min(id_at(0, t) for t in range(TM)) < end and min(id_at(1, t) for t in range(TM)) < end:
+                live = True
+                break
+            stats["jumps"] += 1
+            lo = max(min(id_at(side, t) for t in range(TM)) for side in (0, 1))
+            if lo >= hi_id:
+                break
+            base = lo - lo % KC
+            for side in (0, 1):
+                for t in range(TM):
+                    while id_at(side, t) < base:
+                        cur[side][t] += 1
+        st = stage * STAGE_SIZE
+        for side in (0, 1):
+            side_base = st + side * SIDE
+            for t in range(TM):
+                if n_set[stage, side, t] > LOG_IDS:  # the row's two 128-byte lines
+                    stats["line_clears"] += 1
+                    for h in range(KC // 128):
+                        line = side_base + h * ATOM + (t >> 3) * 1024 + (t & 7) * 128
+                        smem[line : line + 128] = 0
+                else:
+                    for k in log[stage, side, t, : n_set[stage, side, t]]:
+                        smem[side_base + mm_swizzled(t, k)] = 0
+                n = 0
+                while live and id_at(side, t) < end:
+                    k = id_at(side, t) - base
+                    smem[side_base + mm_swizzled(t, k)] = 1
+                    if n < LOG_IDS:
+                        log[stage, side, t, n] = k
+                    n += 1
+                    cur[side][t] += 1
+                n_set[stage, side, t] = min(n, LOG_IDS + 1)
+        # the stage holds exactly this chunk's bytes (none, when no chunk is
+        # left): the clear left nothing behind
+        held = np.zeros(STAGE_SIZE, np.uint8)
+        for side in (0, 1):
+            for t in range(TM):
+                ks = [x - base for x in rows[side][t] if live and base <= x < end]
+                held[side * SIDE + mm_swizzled(t, np.asarray(ks, np.int64))] = 1
+        np.testing.assert_array_equal(smem[st : st + STAGE_SIZE], held)
+        # the consumers multiply every stage handed to them, the last (all 0) too
+        for g in range(CONSUMERS):
+            for s in range(KC // 32):
+                k_off = (s >> 2) * ATOM + (s & 3) * 32
+                acc[g] += gmma_read(smem, gmma_desc(st + g * 8 * 1024 + k_off), 64) @ gmma_read(
+                    smem, gmma_desc(st + SIDE + k_off), 128).T
+        if not live:
+            break
+        base += KC
+        stats["chunks"] += 1
+        stage = (stage + 1) % STAGES
+    v, lane, w = np.meshgrid(np.arange(64), np.arange(32), np.arange(4), indexing="ij")
+    row, col = fragment_map(v, lane, w)
+    for g in range(CONSUMERS):
+        ri = by * TM + 64 * g + row
+        cj = bx * TM + col
+        keep = (ri < n_local) & (cj < n_local)
+        np.add.at(tile, (ri[keep], cj[keep]), acc[g][row[keep], col[keep]])
+
+
+def mm_splits(n_local: int, v_pad: int, target: int) -> tuple[int, int]:
+    """ring_step_mm_launch's vocabulary splits: (splits, chunks a split)."""
+    tiles = -(-n_local // TM)
+    n_chunks = -(-v_pad // KC)
+    splits = min(-(-target // (tiles * tiles)), max(1, n_chunks // _mm_define("MIN_CHUNKS")))
+    per_split = -(-n_chunks // splits)
+    return -(-n_chunks // per_split), per_split
+
+
+def emulate_ring_step_mm(a: np.ndarray, b: np.ndarray, v_pad: int, per_split: int, stats: dict) -> np.ndarray:
+    n_local = a.shape[0]
+    tiles = -(-n_local // TM)
+    splits = -(-(-(-v_pad // KC)) // per_split)
+    tile = np.zeros((n_local, n_local), np.int64)
+    for z in range(splits):
+        for by in range(tiles):
+            for bx in range(tiles):
+                emulate_mm_block(a, b, v_pad, by, bx, z, per_split, tile, stats)
+    return tile.astype(np.int32)
+
+
+def test_mm_fragment_map_is_cutlass_accumulator_layout():
+    """The epilogue's (row, column) of each of a warpgroup's 128 x 64 int32
+    sums is CUTLASS's CLayout_64xN for N = 128 (thread (4, 8, 4) : (128, 1,
+    16), value (2, 2, 16) : (64, 8, 512) into a column-major 64 x 128 tile),
+    and covers the tile once."""
+    v, lane, w = np.meshgrid(np.arange(64), np.arange(32), np.arange(4), indexing="ij")
+    row, col = fragment_map(v, lane, w)
+    idx = 128 * (lane & 3) + (lane >> 2) + 16 * w + 64 * (v & 1) + 8 * ((v >> 1) & 1) + 512 * (v >> 2)
+    np.testing.assert_array_equal(row, idx % 64)
+    np.testing.assert_array_equal(col, idx // 64)
+    assert len(np.unique(row * 128 + col)) == 64 * 128
+
+
+def test_mm_swizzle_and_descriptors_read_back_the_staged_rows():
+    """Bytes scattered at mm_swizzled(row, k) come back, through every
+    k-step's descriptor of both operands, as the logical [rows, 32] slices;
+    the layout is a bijection onto one side of a stage."""
+    rows, k = np.meshgrid(np.arange(TM), np.arange(KC), indexing="ij")
+    addr = mm_swizzled(rows, k)
+    assert sorted(addr.ravel().tolist()) == list(range(SIDE))
+    rng = np.random.default_rng(3)
+    logical = rng.integers(-128, 128, size=(2, TM, KC)).astype(np.int8)
+    for stage in range(STAGES):
+        st = stage * STAGE_SIZE
+        smem = np.zeros(STAGES * STAGE_SIZE, np.uint8)
+        for side in (0, 1):
+            smem[st + side * SIDE + addr] = logical[side].view(np.uint8)
+        for s in range(KC // 32):
+            k_off = (s >> 2) * ATOM + (s & 3) * 32
+            for g in range(CONSUMERS):
+                got = gmma_read(smem, gmma_desc(st + g * 8 * 1024 + k_off), 64).astype(np.uint8).view(np.int8)
+                np.testing.assert_array_equal(got, logical[0, 64 * g : 64 * g + 64, 32 * s : 32 * s + 32])
+            got = gmma_read(smem, gmma_desc(st + SIDE + k_off), 128).astype(np.uint8).view(np.int8)
+            np.testing.assert_array_equal(got, logical[1, :, 32 * s : 32 * s + 32])
+
+
+@pytest.mark.parametrize("n_local,width,v_pad,per_split", [
+    (150, 24, 1152, 1), (150, 24, 1152, 2), (150, 24, 1152, 5), (129, 24, 2048, 8), (40, 24, 640, 3),
+    (130, 160, 1152, 5),
+])
+def test_mm_schedule_equals_plain(n_local, width, v_pad, per_split):
+    """The emulated kernel over every block (rows past n_local masked, in-
+    row repeats counted once, empty rows, chunks skipped where one side of
+    a tile has no id, a stage reused after its clear: of the logged bytes,
+    or of whole row lines where a row set more than LOG_IDS) equals
+    ring_step_matmul_plain."""
+    rng = np.random.default_rng(n_local + per_split)
+    a = _rows(rng, n_local, width, v_pad, repeats=True)
+    b = _rows(rng, n_local, width, v_pad, repeats=False)
+    # a chunk of the vocabulary that only A touches, so a walk over it jumps
+    b = np.where((b >= KC) & (b < 2 * KC), PAD, b)
+    b = np.sort(b, axis=1).astype(np.int32)
+    stats = {"chunks": 0, "jumps": 0, "line_clears": 0}
+    got = emulate_ring_step_mm(a, b, v_pad, per_split, stats)
+    np.testing.assert_array_equal(got, _plain_mm(a, b, v_pad))
+    assert stats["chunks"] > 0
+    assert stats["jumps"] > 0
+    if width > 100:  # rows that set more than LOG_IDS bytes of a chunk
+        assert stats["line_clears"] > 0
+
+
+@pytest.mark.parametrize("n_local,v_pad", [(500, 1 << 26), (325, 1 << 22), (256, 1 << 20), (128, 1 << 20),
+                                           (1, 128), (129, 128 * 3)])
+def test_mm_splits_cover_the_vocabulary_once(n_local, v_pad):
+    """The launcher's splits tile [0, v_pad) in whole chunks, every split
+    non-empty."""
+    splits, per = mm_splits(n_local, v_pad, _mm_define("TARGET_BLOCKS"))
+    n_chunks = -(-v_pad // KC)
+    assert (splits - 1) * per < n_chunks <= splits * per
