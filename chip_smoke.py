@@ -17,8 +17,10 @@ Phases (any failure exits nonzero; nothing is caught):
    widths 3000 and 16384; the merge-path edge rows — equal rows, runs
    across lane splits, empty, one-element and all-PAD rows, counts below
    the real ids — at widths 1000 and 4096, s_use at every value 1..1024,
-   and width 58 112), the indicator (m=512, width 32768, v_pad 65536,
-   from int32 and from a widened uint16 pack), the merge-intersect kernel
+   and width 58 112), the fused indicator product (``indicator_mm.cu``:
+   m=512, width 32768, v_pad 65536 from int32 and from a uint16 pack, its
+   first 64 rows, and cluster C's first vocabulary chunk; both producer
+   walks forced and timed on both densities), the merge-intersect kernel
    (2048 rows at width 2048; ragged, empty, in-row-repeat and uint16 rows;
    the edge rows at width 2048, the widest it takes) and its
    stacked form (a 256-row block of cluster A's 16 int32 buckets, of
@@ -31,8 +33,10 @@ Phases (any failure exits nonzero; nothing is caught):
    depth 10 000) through d_cluster_wrapper, d_choose_wrapper and
    d_evaluate_wrapper; checks that every planted cluster is one primary and
    one secondary cluster, that every secondary batch took the one-shot
-   cluster-local route, and that a random 512x512 block of shared counts
-   equals the plain version;
+   cluster-local route with one ``indicator_mm`` launch each (each batch's
+   m_pad, W, v_pad and ids a row a chunk logged; the kernel on the
+   largest held against its plain version and timed), and that a random
+   512x512 block of shared counts equals the plain version;
 6. the beyond-budget slice: three planted primary clusters past the
    one-shot indicator budget (A: 2000 diverse genomes, ~19 000 private +
    ~1 300 core hashes each; B: 1300 diverse genomes at width 2048; C: 1024
@@ -40,9 +44,10 @@ Phases (any failure exits nonzero; nothing is caught):
    d_choose_wrapper and d_evaluate_wrapper; checks the routes (A and B
    `pallas_range`, C `matmul_chunked`), that A and B split into one
    secondary cluster per genome and C stays one, that all four kernels
-   launched, that each cluster's intersection counts are equal on the
-   other route (both routes timed on the same pack), and that the Ndb rows
-   the run wrote equal the (ani, cov) of those counts; on A and B, the
+   launched (``indicator_mm`` once per vocabulary chunk of C), that each
+   cluster's intersection counts are equal on the other route (both
+   routes timed on the same pack), and that the Ndb rows the run wrote
+   equal the (ani, cov) of those counts; on A and B, the
    merge kernel is held against its plain version on the whole operand the
    route builds (A's [16, 2048, 2048] buckets, B's [1408, 2048] rows) and
    timed beside its bound, with the seconds of each part of the route
@@ -73,11 +78,11 @@ Phases (any failure exits nonzero; nothing is caught):
    tile) and the merge step on
    cluster A's [500, 32768], B's [325, 2048], C's [256, 32768] and the
    wide cluster's [128, 65536] blocks, timed beside its bound, its plain
-   version, the library yardstick (indicator.cu + ``torch._int_mm`` over
-   vocabulary chunks) and the merge step; the matmul ring over clusters A,
+   version, the library yardstick (the scatter_ of ``indicator_plain`` +
+   ``torch._int_mm`` over vocabulary chunks) and the merge step; the matmul ring over clusters A,
    B and C byte-identical to the merge ring and to phase 6's one device;
 8. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
-   Mash and indicator kernels, from phase 6 for the merge kernels, from
+   Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps; the Mash and merge kernels also carry their
    time and bound on the main path's own operand, ``main_path_ms`` and
    ``main_path_bound_ms``);
@@ -117,7 +122,7 @@ REAL_GENOMES = 10_000
 REAL_SCALED_DEPTH = 10_000
 
 # the kernels of the one-shot main path (phases 4 and 5)
-PRIMARY_PATH_KERNELS = ("mash_shared", "indicator")
+PRIMARY_PATH_KERNELS = ("mash_shared", "indicator_mm")
 
 # positions of the dense ring in phase 7 (even: the middle step is split)
 RING_POSITIONS = 4
@@ -348,11 +353,72 @@ def phase_mash(dev) -> dict:
     }
 
 
-def phase_indicator(dev) -> dict:
+_C_CHUNKS: list = []
+
+
+def c_chunks(gs, planted):
+    """(stacked vocabulary chunks, chunk width) of cluster C's pack: the
+    operand of the matmul_chunked route in phase 6, made once."""
+    from drep_tpu_torch.ops.containment import vocab_chunks
+
+    if not _C_CHUNKS:
+        _C_CHUNKS.extend(vocab_chunks(beyond_pack(gs, planted, "C")))
+    return tuple(_C_CHUNKS)
+
+
+def mm_bounds(ids, v_pad: int) -> dict:
+    """indicator_mm's two bounds on [n, W] ids: the function's (the ids
+    read once, the [n, n] int32 counts written once, at the HBM rate) and
+    its tensor-core formulation's (2 x 128^2 x v_pad int8 operations a
+    computed upper tile, at the int8 peak)."""
+    n = ids.shape[0]
+    tiles = -(-n // 128)
+    bytes_ms = (ids.numel() * ids.element_size() + 4 * n * n) / HBM_BYTES_PER_S * 1e3
+    tc_ms = tiles * (tiles + 1) // 2 * 2 * 128 * 128 * v_pad / INT8_TENSOR_OPS_PER_S * 1e3
+    return {"bound_ms": bytes_ms, "bound_by": "bytes", "tensor_core_bound_ms": tc_ms}
+
+
+def ids_per_row_chunk(ids, v_pad: int) -> float:
+    """Mean ids below v_pad a row holds per 256-id chunk."""
+    from drep_tpu_torch.ops.minhash import widen_ids
+
+    return float((widen_ids(ids) < v_pad).sum().item()) / ids.shape[0] / (v_pad / 256)
+
+
+def time_walks(ids, v_pad: int, want, what: str) -> dict:
+    """Both producer walks of indicator_mm forced on int32 ids: each equal
+    to `want`, then each timed (ms), in turns dense, sparse, sparse, dense."""
     import torch
 
     from drep_tpu_torch.ops import indicator as ind_mod
-    from drep_tpu_torch.ops.minhash import PAD_ID, U16_PAD, ids_to_device
+
+    n = ids.shape[0]
+    out = torch.zeros((n, n), dtype=torch.int32, device=ids.device)
+
+    def run(dense):
+        out.zero_()
+        ind_mod._launch(ids, v_pad, out, dense)
+
+    ms = {"dense": [], "sparse": []}
+    for dense in (True, False):
+        run(dense)
+        require(torch.equal(out, want), f"indicator_mm {what}, {'dense' if dense else 'sparse'} walk != plain")
+    for walk in ("dense", "sparse", "sparse", "dense"):
+        ms[walk].append(cuda_ms(lambda: run(walk == "dense"), reps=5))
+    return {k: sum(v) / len(v) for k, v in ms.items()}
+
+
+def phase_indicator(dev, gs_beyond, planted_beyond) -> dict:
+    """The fused indicator product (csrc/indicator_mm.cu) against its plain
+    version: phase 3's dense pack [512, 32768] at v_pad 65 536 as int32 and
+    as a uint16 pack, its first 64 rows, and cluster C's first vocabulary
+    chunk (the matmul_chunked route's uint16 operand); timed beside both
+    bounds, the plain version and the library yardstick, with both
+    producer walks timed on both densities."""
+    import torch
+
+    from drep_tpu_torch.ops import indicator as ind_mod
+    from drep_tpu_torch.ops.minhash import PAD_ID, U16_PAD, ids_to_device, widen_ids
 
     m, width, v_pad = 512, 32768, 65536
     rng = np.random.default_rng(7)
@@ -363,20 +429,25 @@ def phase_indicator(dev) -> dict:
     ids16 = np.where(ids == PAD_ID, U16_PAD, ids).astype(np.uint16)
     d32 = ids_to_device(ids, dev)
     d16 = ids_to_device(ids16, dev)
-    got32 = ind_mod.indicator(d32, v_pad)
-    got16 = ind_mod.indicator(d16, v_pad)
-    want = ind_mod.indicator_plain(d32, v_pad)
-    require(torch.equal(got32, want), "indicator (int32) != plain")
-    require(torch.equal(got16, want), "indicator (widened uint16) != plain")
-    # the int8 triangle product after it, mirrored, against a float64 product (exact here)
-    from drep_tpu_torch.ops import containment
-
-    tb = containment.tri_row_block(m)
-    inter = containment.mirror_lower_blocks(containment.intersect_matmul_tri(got32, tb).cpu().numpy(), tb)
-    exact = (want.double() @ want.double().T).round().to(torch.int32).cpu().numpy()
-    require(np.array_equal(inter, exact), "int8 triangle product != exact intersection counts")
-    log(f"indicator: m={m} width={width} v_pad={v_pad}, int32 and uint16 packs equal the plain "
-        "version; the torch._int_mm triangle gives the exact intersection counts")
+    want, plain_ms = cuda_timed(lambda: ind_mod.indicator_intersections_plain(d32, v_pad))
+    require(torch.equal(ind_mod.indicator_intersections(d32, v_pad), want), "indicator_mm (int32) != plain")
+    require(torch.equal(ind_mod.indicator_intersections(d16, v_pad), want), "indicator_mm (uint16 pack) != plain")
+    ind = ind_mod.indicator_plain(d32, v_pad).double()
+    require(torch.equal(want, (ind @ ind.T).round().to(torch.int32)), "plain counts != a float64 product of the indicator")
+    del ind
+    d64 = d32[:64].contiguous()
+    require(torch.equal(ind_mod.indicator_intersections(d64, v_pad), want[:64, :64]), "indicator_mm (64 rows) != plain")
+    chunks, v_chunk = c_chunks(gs_beyond, planted_beyond)
+    c16 = ids_to_device(chunks[0], dev)
+    c32 = widen_ids(c16)
+    c_want, c_plain_ms = cuda_timed(lambda: ind_mod.indicator_intersections_plain(c16, v_chunk))
+    require(torch.equal(ind_mod.indicator_intersections(c16, v_chunk), c_want),
+            "indicator_mm (cluster C's uint16 chunk) != plain")
+    dense_ids, c_ids = ids_per_row_chunk(d32, v_pad), ids_per_row_chunk(c16, v_chunk)
+    log(f"indicator_mm: [{m}, {width}] v_pad {v_pad} ({dense_ids:.1f} ids a row a chunk) as int32, as a uint16 "
+        f"pack and its first 64 rows, and cluster C's chunk {tuple(c16.shape)} {c16.dtype} v_pad {v_chunk} "
+        f"({c_ids:.2f} ids a row a chunk, walk {'dense' if ind_mod.dense_walk(c16.shape[1], v_chunk) else 'sparse'})"
+        " equal the plain version")
 
     # the per-cluster secondary route (a primary cluster past the batching
     # size) on the card against the same call on the CPU
@@ -388,31 +459,34 @@ def phase_indicator(dev) -> dict:
     on_cpu = engines.secondary_jax_ani(gs, list(range(40)), device=torch.device("cpu"))
     require(all(np.array_equal(x, y) for x, y in zip(on_card, on_cpu)),
             "per-cluster secondary (ani, cov) on the card != on the CPU")
-    log("indicator: a 40-genome cluster's per-cluster secondary (ani, cov) equals the CPU plain path")
+    log("indicator_mm: a 40-genome cluster's per-cluster secondary (ani, cov) equals the CPU plain path")
 
-    kernel_ms = cuda_ms(lambda: ind_mod.indicator(d32, v_pad), reps=20)
-    plain_ms = cuda_ms(lambda: ind_mod.indicator_plain(d32, v_pad), reps=5)
-    int_mm_ms = cuda_ms(lambda: torch._int_mm(got32, got32.T), reps=10)
-    nbytes = d32.numel() * 4 + m * v_pad
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    gemm_bound_ms = max(2 * m * m * v_pad / INT8_TENSOR_OPS_PER_S, (2 * m * v_pad + 4 * m * m) / HBM_BYTES_PER_S) * 1e3
-    log(f"indicator: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f}; "
-        f"torch._int_mm [{m}x{v_pad}]x[{v_pad}x{m}] ms={int_mm_ms:.4f} (bound {gemm_bound_ms:.6f})")
-    return {
-        "name": "indicator",
+    kernel_ms = cuda_ms(lambda: ind_mod.indicator_intersections(d32, v_pad), reps=20)
+    # the library yardstick: the plain version, which is library calls (the
+    # scatter_, torch._int_mm over the upper block triangle, the mirror), warm
+    library_ms = cuda_ms(lambda: ind_mod.indicator_intersections_plain(d32, v_pad), reps=10)
+    c_ms = cuda_ms(lambda: ind_mod.indicator_intersections(c16, v_chunk), reps=20)
+    c_library_ms = cuda_ms(lambda: ind_mod.indicator_intersections_plain(c16, v_chunk), reps=10)
+    walks = {"dense_pack": {"ids_per_row_chunk": dense_ids, **time_walks(d32, v_pad, want, "dense pack")},
+             "cluster_C_chunk": {"ids_per_row_chunk": c_ids, **time_walks(c32, v_chunk, c_want, "C's chunk")}}
+    entry = {
+        "name": "indicator_mm",
         "route": "cuda",
-        "source": "drep_tpu_torch/csrc/indicator.cu",
+        "source": "drep_tpu_torch/csrc/indicator_mm.cu",
         "replaces": "drep_tpu/ops/pallas_indicator.py:50",
         "equal": True,
         "max_abs_err": 0,
+        "shape": [m, width, v_pad],
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": None,
-        "int_mm_ms": int_mm_ms,
-        "int_mm_bound_ms": gemm_bound_ms,
+        **mm_bounds(d32, v_pad),
+        "library_ms": library_ms,
+        "cluster_C_chunk": {"shape": [*c16.shape, v_chunk], "dtype": str(c16.dtype), "ms": c_ms,
+                            "plain_ms": c_plain_ms, **mm_bounds(c16, v_chunk), "library_ms": c_library_ms},
+        "walks_ms": walks,
     }
+    log(f"indicator_mm: {json.dumps(entry)}")
+    return entry
 
 
 def plant_beyond():
@@ -577,7 +651,7 @@ def reset_launches() -> None:
     from drep_tpu_torch.ops import indicator, intersect, mash, ring
 
     mash.LAUNCHES["mash_shared"] = 0
-    indicator.LAUNCHES["indicator"] = 0
+    indicator.LAUNCHES["indicator_mm"] = 0
     intersect.LAUNCHES["intersect"] = 0
     intersect.LAUNCHES["intersect_stacked"] = 0
     ring.LAUNCHES["ring_step"] = 0
@@ -587,7 +661,7 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     from drep_tpu_torch.ops import indicator, intersect, mash, ring
 
-    return {"mash_shared": mash.LAUNCHES["mash_shared"], "indicator": indicator.LAUNCHES["indicator"],
+    return {"mash_shared": mash.LAUNCHES["mash_shared"], "indicator_mm": indicator.LAUNCHES["indicator_mm"],
             **intersect.LAUNCHES, **ring.LAUNCHES}
 
 
@@ -627,7 +701,7 @@ def phase_real_size(tmp: str, dev) -> dict:
     from drep_tpu_torch.cluster import controller, engines
     from drep_tpu_torch.evaluate import d_evaluate_wrapper
     from drep_tpu_torch.ingest import save_sketch_cache
-    from drep_tpu_torch.ops import mash
+    from drep_tpu_torch.ops import containment, mash
     from drep_tpu_torch.ops.minhash import pack_sketches
     from drep_tpu_torch.utils.synth import planted_sketches
     from drep_tpu_torch.workdir import WorkDirectory
@@ -650,17 +724,30 @@ def phase_real_size(tmp: str, dev) -> dict:
         f"{max(len(s) for s in gs.scaled)}): planting {t_plant:.1f} s, placeholder files "
         f"{t_files:.1f} s, sketch cache {time.perf_counter() - t0 - t_plant - t_files:.1f} s")
 
+    # each one-shot secondary batch's operand, as the main path hands it to
+    # the fused indicator product (the spy calls the real function)
+    batches = []
+    real_fn = containment.indicator_intersections
+
+    def spy(ids, v_pad, out=None):
+        batches.append((ids, v_pad))
+        return real_fn(ids, v_pad, out=out)
+
     paths_before = dict(engines.SECONDARY_PATH_COUNTS)
-    reset_launches()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, mesh_shape=1)
-    t_cluster = time.perf_counter() - t1
-    wdb = d_choose_wrapper(wd, bdb)
-    d_evaluate_wrapper(wd)
-    torch.cuda.synchronize()
-    t_total = time.perf_counter() - t1
-    launches = read_launches()
+    containment.indicator_intersections = spy
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, mesh_shape=1)
+        t_cluster = time.perf_counter() - t1
+        wdb = d_choose_wrapper(wd, bdb)
+        d_evaluate_wrapper(wd)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t1
+        launches = read_launches()
+    finally:
+        containment.indicator_intersections = real_fn
     paths = {p: c - paths_before.get(p, 0) for p, c in engines.SECONDARY_PATH_COUNTS.items()
              if c - paths_before.get(p, 0)}
     stages = dict(controller.STAGE_SECONDS)
@@ -673,6 +760,9 @@ def phase_real_size(tmp: str, dev) -> dict:
 
     require(all(launches[k] > 0 for k in PRIMARY_PATH_KERNELS), f"real-size run skipped a kernel: {launches}")
     require(set(paths) == {"one_shot_clusterlocal"}, f"secondary left the one-shot cluster-local route: {paths}")
+    require(launches["indicator_mm"] == len(batches) == paths["one_shot_clusterlocal"],
+            f"{launches['indicator_mm']} indicator_mm launches for {len(batches)} one-shot batches")
+    secondary = phase_real_batches(batches)
     by_name = cdb.set_index("genome")
     prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
     sec = by_name.loc[gs.names, "secondary_cluster"].to_numpy()
@@ -717,7 +807,34 @@ def phase_real_size(tmp: str, dev) -> dict:
     log(f"real size: {n_planted} planted clusters recovered exactly; random 512x512 shared block "
         "equals the plain version")
     return {"launches": launches, "mash_ms": main_ms, "mash_bound_ms": main_bound_ms, "mash_rows": int(pad.shape[0]),
-            "packed": packed, "k": gs.k}
+            "packed": packed, "k": gs.k, "secondary": secondary}
+
+
+def phase_real_batches(batches) -> dict:
+    """Phase 5's one-shot secondary batches: each one's (m_pad, W, v_pad,
+    mean ids a row a chunk), and the fused kernel on the largest held
+    against its plain version and timed beside both bounds, the plain
+    version and both walks."""
+    import torch
+
+    from drep_tpu_torch.ops import indicator as ind_mod
+    from drep_tpu_torch.ops.minhash import widen_ids
+
+    shapes = [[int(ids.shape[0]), int(ids.shape[1]), v_pad, ids_per_row_chunk(ids, v_pad)] for ids, v_pad in batches]
+    log(f"real size: one-shot secondary batches [m_pad, W, v_pad, ids a row a chunk]: {json.dumps(shapes)}")
+    ids, v_pad = max(batches, key=lambda b: b[0].shape[0] * b[1])
+    got = ind_mod.indicator_intersections(ids, v_pad)
+    want, plain_ms = cuda_timed(lambda: ind_mod.indicator_intersections_plain(ids, v_pad))
+    require(torch.equal(got, want), f"indicator_mm on the largest batch {tuple(ids.shape)} != plain")
+    largest = {"shape": [int(ids.shape[0]), int(ids.shape[1]), v_pad], "dtype": str(ids.dtype),
+               "ids_per_row_chunk": ids_per_row_chunk(ids, v_pad),
+               "walk": "dense" if ind_mod.dense_walk(ids.shape[1], v_pad) else "sparse",
+               "ms": cuda_ms(lambda: ind_mod.indicator_intersections(ids, v_pad), reps=20), "plain_ms": plain_ms,
+               **mm_bounds(ids, v_pad),
+               "library_ms": cuda_ms(lambda: ind_mod.indicator_intersections_plain(ids, v_pad), reps=10),
+               "walks_ms": time_walks(widen_ids(ids), v_pad, want, "largest batch")}
+    log(f"real size: indicator_mm on the largest batch equals the plain version; {json.dumps(largest)}")
+    return {"batches": shapes, "largest": largest}
 
 
 def beyond_workdir(tmp: str, name: str, gs):
@@ -797,6 +914,9 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
     require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
     launches = {k: v for k, v in launches.items() if k not in ("ring_step", "ring_step_mm")}
     require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
+    n_chunks = c_chunks(gs, planted)[0].shape[0]
+    require(launches["indicator_mm"] == n_chunks,
+            f"cluster C's {n_chunks} vocabulary chunks took {launches['indicator_mm']} indicator_mm launches")
     by_name = cdb.set_index("genome")
     prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
     sec = by_name.loc[gs.names, "secondary_cluster"].to_numpy()
@@ -1116,12 +1236,13 @@ def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
 
 
 def mm_library_tile(a, b, v_pad: int):
-    """The yardstick for the matmul step: the same tile by indicator.cu
-    scatters and torch._int_mm over vocabulary chunks of 2^22 ids (rows
-    padded with PAD_ID rows to a multiple of 8, as _int_mm asks)."""
+    """The yardstick for the matmul step: the same tile by library calls,
+    the scatter_ of indicator_plain and torch._int_mm, over vocabulary
+    chunks of 2^22 ids (rows padded with PAD_ID rows to a multiple of 8,
+    as _int_mm asks)."""
     import torch
 
-    from drep_tpu_torch.ops.indicator import indicator
+    from drep_tpu_torch.ops.indicator import indicator_plain
     from drep_tpu_torch.ops.minhash import PAD_ID
 
     n, width = a.shape
@@ -1130,7 +1251,7 @@ def mm_library_tile(a, b, v_pad: int):
     chunk = min(v_pad, 1 << 22)
     tile = torch.zeros((a8.shape[0], b8.shape[0]), dtype=torch.int32, device=a.device)
     for base in range(0, v_pad, chunk):
-        ia, ib = (indicator(torch.where((x >= base) & (x < base + chunk), x - base, int(PAD_ID)), chunk)
+        ia, ib = (indicator_plain(torch.where((x >= base) & (x < base + chunk), x - base, int(PAD_ID)), chunk)
                   for x in (a8, b8))
         tile += torch._int_mm(ia, ib.T)
     return tile[:n, :n]
@@ -1246,7 +1367,8 @@ def main() -> int:
     t0 = time.perf_counter()
     gs_beyond, planted_beyond = plant_beyond()
     log(f"beyond budget: planted {len(gs_beyond.names)} genomes in {time.perf_counter() - t0:.1f} s")
-    kernels = [phase_mash(dev), phase_indicator(dev), *phase_intersect(dev, gs_beyond, planted_beyond)]
+    kernels = [phase_mash(dev), phase_indicator(dev, gs_beyond, planted_beyond),
+               *phase_intersect(dev, gs_beyond, planted_beyond)]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         phase_cli(tmp, dev)
@@ -1280,6 +1402,8 @@ def main() -> int:
         path = real if k["name"] in PRIMARY_PATH_KERNELS else ring_path if k["name"].startswith("ring_step") \
             else beyond
         k["launches"] = path["launches"][k["name"]]
+    kernels[1]["main_path"] = real["secondary"]
+    kernels[1]["chunked_launches"] = beyond["launches"]["indicator_mm"]
     kernels[0]["main_path_ms"] = real["mash_ms"]
     kernels[0]["main_path_rows"] = real["mash_rows"]
     kernels[0]["main_path_bound_ms"] = real["mash_bound_ms"]

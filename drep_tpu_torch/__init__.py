@@ -7,12 +7,15 @@ with nvcc at first use and loaded with ctypes (``ops/_build.py``):
 
 - ``csrc/mash_shared.cu`` — the union-bottom-s Mash shared count per pair
   (the primary compare);
-- ``csrc/indicator.cu`` — the 0/1 int8 indicator rows the exact
-  containment matmul reads (the secondary compare);
+- ``csrc/indicator_mm.cu`` — the exact containment intersection counts,
+  0/1 indicator rows multiplied on the int8 tensor cores without the
+  indicator reaching device memory (the secondary compare);
 - ``csrc/intersect.cu`` — merge-intersect counts of sorted id rows over
   id-range buckets (secondary clusters past the one-shot budget);
-- ``csrc/ring_step.cu`` — one step of the dense mesh ring: the step's
-  tile and the B operand's copy into the neighbour (``parallel/``).
+- ``csrc/ring_step.cu``, ``csrc/ring_step_mm.cu`` — one step of the
+  dense mesh ring, by merge walks or by the indicator product: the
+  step's tile and the B operand's copy into the neighbour
+  (``parallel/``).
 
 Every entry point runs on ``cuda`` unless the caller asks for
 ``device="cpu"`` (CLI: ``--device cpu``); on the CPU each kernel wrapper

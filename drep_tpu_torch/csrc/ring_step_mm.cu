@@ -25,282 +25,18 @@
 // Design. The TPU body scatters a whole vocabulary chunk of every row of a
 // grid cell into VMEM, then runs one bf16 dot_general on the MXU, chunk
 // after chunk in a sequential loop. Here a block owns a TM x TM output tile
-// (TM A rows against TM B rows) and a contiguous range of vocabulary
-// chunks; the blocks of one tile split the vocabulary between them and add
-// their partial counts into the tile with integer atomics (exact, in any
-// order), so even one tile fills the card. Its warpgroups specialise:
-//   - two producer warpgroups, thread t of the first owning A row t of the
-//     tile and of the second B row t, each with a cursor into its sorted
-//     row (read through L1, the line ahead prefetched), so a row's ids are
-//     read once per tile. The walk stands at one chunk at a time: where
-//     both sides have ids in it (an OR over the producers, one barrier a
-//     side) each thread clears in the next free stage the bytes it set
-//     there STAGES chunks ago (up to LOG_IDS logged in a register, else
-//     its row's whole lines) and scatters the chunk's ids as 1 bytes at
-//     their place in wgmma's canonical 128-byte-swizzled K-major layout
-//     (each 16-byte piece of a 128-byte row segment stored at its index
-//     XOR the row's index mod 8); where a side has none, the walk jumps to
-//     the chunk of the larger of the two sides' next ids, past the other
-//     side's ids in between (they meet nothing). The stages are handed over
-//     by mbarriers: full (each producer thread's fence.proxy.async, then
-//     one arrival a warp) and empty (one arrival a consumer warp);
-//   - two consumer warpgroups each multiply 64 A rows by the 128 B rows
-//     over the chunk with KC / 32 wgmma.mma_async m64n128k32 s32.s8.s8
-//     from shared memory (the staged 0/1 rows are K-major on both sides,
-//     the one layout 8-bit wgmma takes: tile = A * B^T), keeping 64 int32
-//     sums a thread in registers across all the block's chunks; they issue
-//     a stage's products before reading whether it holds a chunk (the
-//     stage that says none is left is all 0).
-// So the scatter of the next chunk overlaps the product of this one. What
-// bounds it now (PERF.md): the producers' walk, ~1.5 times the products'
-// time a chunk on cluster A's rows: each cursor step is a dependent load,
-// and a warp waits on it for all its lanes.
+// and a contiguous range of vocabulary chunks, so even one tile fills the
+// card: mm_block.cuh's block body, its producers on the sparse walk (one
+// row a thread, a jump past the chunks one side of the tile does not
+// touch; the ring's rows hold 0.1 to 10 ids a chunk), its consumers on
+// int8 wgmma. What bounds it now (PERF.md): the producers' walk, ~1.5
+// times the products' time a chunk on cluster A's rows.
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
-
+#include "mm_block.cuh"
 #include "ring_copy.cuh"
 
-#define TM 128           // A rows and B rows of a block's output tile
-#define KC 256           // vocabulary ids a chunk: two 128-byte swizzle atoms
-#define STAGES 2         // 128 KB: the rest of the SM's 256 KB is L1, which holds the producers' rows
-#define PRODUCERS 2      // warpgroups scattering: the A rows, then the B rows
-#define CONSUMERS 2      // warpgroups multiplying, 64 A rows each
-#define THREADS ((PRODUCERS + CONSUMERS) * 128)
-#define ATOM_BYTES (TM * 128)  // one side's 128-byte-wide column of a chunk
-#define SIDE_BYTES (TM * KC)
-#define STAGE_SIZE (2 * SIDE_BYTES)              // A rows, then B rows
-#define SMEM_BYTES (1024 + STAGES * STAGE_SIZE)  // 1024: room to align the stages
 #define TARGET_BLOCKS 2048
-#define MIN_CHUNKS 32    // chunks a block takes at least: its start (a search a row) is not free
-#define LOG_IDS 4        // ids a producer logs a row and stage (in a register), to clear just their bytes
-
-// the byte of (row, k) in one side of a stage: K-major, 128-byte swizzle
-__device__ __forceinline__ uint32_t swizzled(int row, int k) {
-  return (uint32_t)((k >> 7) * ATOM_BYTES + (row >> 3) * 1024 + (row & 7) * 128 +
-                    ((((k >> 4) & 7) ^ (row & 7)) << 4) + (k & 15));
-}
-
-// wgmma's shared-memory descriptor of a K-major 128-byte-swizzled operand
-// at shared address `addr`: 8-row groups 1024 bytes apart (the stride
-// byte offset), the leading byte offset unused (1) for this layout
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// the first position of an ascending row holding an id >= x (width if none)
-__device__ __forceinline__ int lower_bound(const int32_t* __restrict__ row, int width, int x) {
-  int lo = 0, hi = width;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (row[mid] < x) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ void st_shared_u8(uint32_t addr, int v) {
-  asm volatile("st.shared.u8 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
-}
-
-// wait for the phase of parity `parity` of the barrier to complete
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// A producer thread's row, read at its cursor through L1: each load is a
-// dependent one (the cursor moves on what it reads), so the line 32 ids
-// ahead is prefetched into L1 when the cursor enters a new 32 ids.
-struct RowStream {
-  const int32_t* row;
-  int cur;  // the cursor
-  int nxt;  // the id at the cursor, INT_MAX past the row's end
-};
-
-__device__ __forceinline__ void prefetch_l1(const int32_t* p) {
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
-}
-
-__device__ __forceinline__ void stream_start(RowStream& s, const int32_t* __restrict__ row, int cur, int width) {
-  s.row = row;
-  s.cur = cur;
-  if (cur + 32 < width) prefetch_l1(row + cur + 32);
-  s.nxt = cur < width ? __ldg(row + cur) : INT_MAX;
-}
-
-__device__ __forceinline__ void stream_advance(RowStream& s, int width) {
-  const int c = ++s.cur;
-  if ((c & 31) == 0 && c + 32 < width) prefetch_l1(s.row + c + 32);
-  s.nxt = c < width ? __ldg(s.row + c) : INT_MAX;
-}
-
-// the generic-proxy writes of this thread, visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
-
-// (bar.sync and bar.red are .aligned: each warp must reach them
-// converged, which its lanes' walks may have undone)
-__device__ __forceinline__ void producer_sync() {
-  __syncwarp();
-  asm volatile("bar.sync 1, 256;" ::: "memory");
-}
-
-// whether v holds on any producer thread (a barrier of the producers' 256 threads)
-__device__ __forceinline__ bool producer_any(bool v) {
-  uint32_t r;
-  __syncwarp();
-  asm volatile(
-      "{\n"
-      ".reg .pred p, q;\n"
-      "setp.ne.u32 q, %1, 0;\n"
-      "bar.red.or.pred p, 1, 256, q;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(r)
-      : "r"((uint32_t)v)
-      : "memory");
-  return r != 0;
-}
-
-#define ACC8(i) "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), \
-                "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-
-// d[64] += A (64 x 32, desc_a) * B (128 x 32, desc_b)^T, int8 in, int32 sums
-__device__ __forceinline__ void wgmma_m64n128k32(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"  // scale-d: add to the sums
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n"
-      "}\n"
-      : ACC8(0), ACC8(8), ACC8(16), ACC8(24), ACC8(32), ACC8(40), ACC8(48), ACC8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-}
-
-// keep the compiler from moving register accesses across the async products
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// The producer thread's state: its row (A row t, or B row t, of the tile),
-// the chunk the walk stands at (the same on every producer thread), and
-// what it set in each stage: up to LOG_IDS byte offsets, or a count past
-// them (then it clears the row's whole lines).
-struct Producer {
-  RowStream rs;
-  uint32_t log[STAGES];
-  int n_set[STAGES];
-  int base, phase, jumps;
-  int side, t, lane, warp, width, hi_id;
-  uint32_t stages;
-};
-
-// the smallest next id of the A rows and of the B rows: one barrier
-__device__ __forceinline__ void producer_min(const Producer& p, int (&slot)[2][4], int& next_a, int& next_b) {
-  const int m = __reduce_min_sync(0xffffffffu, p.rs.nxt);
-  if (p.lane == 0) slot[p.side][p.warp & 3] = m;
-  producer_sync();
-  next_a = min(min(slot[0][0], slot[0][1]), min(slot[0][2], slot[0][3]));
-  next_b = min(min(slot[1][0], slot[1][1]), min(slot[1][2], slot[1][3]));
-}
-
-// clear the bytes this thread set in stage S's last chunk
-template <int S>
-__device__ __forceinline__ void clear_stage(const Producer& p, uint32_t rows) {
-  const int n = p.n_set[S];
-  if (n > LOG_IDS) {
-#pragma unroll
-    for (int h = 0; h < KC / 128; ++h) {
-      const uint32_t line = rows + h * ATOM_BYTES + (p.t >> 3) * 1024 + (p.t & 7) * 128;
-#pragma unroll
-      for (int q = 0; q < 8; ++q)
-        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(line + 16 * q), "r"(0) : "memory");
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < LOG_IDS; ++k)
-      if (k < n) st_shared_u8(rows + swizzled(p.t, (p.log[S] >> (8 * k)) & 255), 0);
-  }
-}
-
-// Produce the next chunk both sides of the tile touch into stage S; false
-// (after handing the consumers stage S, cleared, marked empty) when none
-// is left.
-template <int S>
-__device__ __forceinline__ bool produce(Producer& p, uint64_t* full_bar, uint64_t* empty_bar, int* chunk_live,
-                                        int (&warp_min)[2][2][4]) {
-  const uint32_t full = (uint32_t)__cvta_generic_to_shared(&full_bar[S]);
-  const uint32_t empty = (uint32_t)__cvta_generic_to_shared(&empty_bar[S]);
-  const uint32_t rows = p.stages + S * STAGE_SIZE + p.side * SIDE_BYTES;
-  int end = 0;
-  bool live = false;
-  while (p.base < p.hi_id) {
-    end = min(p.base + KC, p.hi_id);
-    // the common case: both sides have ids in the chunk the walk stands at
-    const bool here = p.rs.nxt < end;
-    if (producer_any(here && p.side == 0) && producer_any(here && p.side == 1)) {
-      live = true;
-      break;
-    }
-    // else jump to the chunk of the larger of the two sides' next ids: the
-    // ids of the other side below it meet nothing
-    int next_a, next_b;
-    producer_min(p, warp_min[p.jumps++ & 1], next_a, next_b);
-    const int lo = max(next_a, next_b);
-    if (lo >= p.hi_id) break;
-    p.base = lo - lo % KC;
-    while (p.rs.nxt < p.base) stream_advance(p.rs, p.width);
-  }
-  mbar_wait(empty, p.phase ^ 1);
-  clear_stage<S>(p, rows);
-  int n = 0;
-  uint32_t log = 0;
-  if (live) {
-    while (p.rs.nxt < end) {
-      const int k = p.rs.nxt - p.base;
-      st_shared_u8(rows + swizzled(p.t, k), 1);
-      if (n < LOG_IDS) log |= (uint32_t)k << (8 * n);
-      ++n;
-      stream_advance(p.rs, p.width);
-    }
-    p.base += KC;
-  }
-  p.n_set[S] = min(n, LOG_IDS + 1);
-  p.log[S] = log;
-  if (p.side == 0 && p.t == 0) chunk_live[S] = live;
-  // each thread's writes made visible to wgmma, then one arrival a warp
-  // (the arrivals on one barrier are serialised)
-  fence_async_shared();
-  __syncwarp();
-  if (p.lane == 0) mbar_arrive(full);
-  return live;
-}
+#define MIN_CHUNKS 32  // chunks a block takes at least: its start (a search a row) is not free
 
 // grid (B tiles, A tiles, vocabulary splits); `tile` zeroed before launch
 __global__ void __launch_bounds__(THREADS, 1)
@@ -308,13 +44,9 @@ ring_step_mm_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b
                     const int32_t* __restrict__ nb, int32_t* __restrict__ tile,
                     int32_t* __restrict__ dst, int32_t* __restrict__ dst_n,
                     int n_local, int width, int v_pad, int chunks_per_split) {
-  static_assert(STAGES == 2, "the producers' loop below names each stage");
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full_bar[STAGES], empty_bar[STAGES];
-  __shared__ int chunk_live[STAGES];  // 1: the stage holds a chunk; 0: none is left (the stage is all 0)
-  __shared__ int warp_min[2][2][4];   // [jump parity][side][producer warp]
+  __shared__ MmShared sh;
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
 
   if (dst != nullptr) {
     const int64_t block = ((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
@@ -322,90 +54,17 @@ ring_step_mm_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b
     ring_copy_share(b, nb, dst, dst_n, n_local, width, block * THREADS + tid, n_threads);
   }
 
-  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(smem_raw);
-  const uint32_t stages = (raw + 1023) & ~1023u;  // the swizzle pattern repeats every 1024 bytes
-  int4* zero16 = reinterpret_cast<int4*>(smem_raw + (stages - raw));
-  for (int i = tid; i < STAGES * STAGE_SIZE / 16; i += THREADS) zero16[i] = make_int4(0, 0, 0, 0);
-  if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init((uint32_t)__cvta_generic_to_shared(&full_bar[s]), 4 * PRODUCERS);
-      mbar_init((uint32_t)__cvta_generic_to_shared(&empty_bar[s]), 4 * CONSUMERS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  fence_async_shared();
-  __syncthreads();
+  const uint32_t stages = mm_setup(smem_raw, sh);
 
   const int lo_id = blockIdx.z * chunks_per_split * KC;
   const int hi_id = min(lo_id + chunks_per_split * KC, v_pad);
 
-  if (warp < 4 * PRODUCERS) {
-    // a producer: thread t of the first warpgroup owns A row t of the
-    // tile, thread t of the second B row t
-    Producer p;
-    p.side = warp >> 2;
-    p.t = tid & 127;
-    p.lane = lane;
-    p.warp = warp;
-    p.width = width;
-    p.hi_id = hi_id;
-    p.stages = stages;
-    p.base = lo_id;
-    p.phase = 0;
-    p.jumps = 0;
-#pragma unroll
-    for (int s = 0; s < STAGES; ++s) {
-      p.log[s] = 0;
-      p.n_set[s] = 0;
-    }
-    const int r = (p.side == 0 ? blockIdx.y : blockIdx.x) * TM + p.t;
-    const int32_t* row = (p.side == 0 ? a : b) + (int64_t)(r < n_local ? r : 0) * width;
-    stream_start(p.rs, row, r < n_local ? lower_bound(row, width, lo_id) : width, width);
-    while (produce<0>(p, full_bar, empty_bar, chunk_live, warp_min) &&
-           produce<1>(p, full_bar, empty_bar, chunk_live, warp_min)) {
-      p.phase ^= 1;
-    }
+  if (tid < 128 * PRODUCERS) {
+    mm_sparse_producer(sh, stages, a, blockIdx.y * TM, b, blockIdx.x * TM, n_local, width, lo_id, hi_id);
   } else {
-    // a consumer: A rows 64 g .. 64 g + 63 of the tile against its 128 B rows
-    const int g = warp / 4 - PRODUCERS;
     int d[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0;
-    int stage = 0, phase = 0;
-    while (true) {
-      mbar_wait((uint32_t)__cvta_generic_to_shared(&full_bar[stage]), phase);
-      const uint32_t st = stages + stage * STAGE_SIZE;
-      // the products start before the stage's flag is read (the stage that
-      // says no chunk is left is all 0, so its products add nothing)
-      fence_acc(d);
-      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-#pragma unroll
-      for (int s = 0; s < KC / 32; ++s) {
-        // k = 32 s: the swizzle atom s / 4, 32 (s % 4) bytes into its rows
-        const uint32_t k_off = (s >> 2) * ATOM_BYTES + (s & 3) * 32;
-        wgmma_m64n128k32(d, gmma_desc(st + g * 8 * 1024 + k_off), gmma_desc(st + SIDE_BYTES + k_off));
-      }
-      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      const int live = chunk_live[stage];
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-      fence_acc(d);
-      if (lane == 0) mbar_arrive((uint32_t)__cvta_generic_to_shared(&empty_bar[stage]));
-      if (!live) break;
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-    // the sums into the tile, added over the vocabulary splits: value v of
-    // this thread is row 16 w + lane / 4 + 8 ((v >> 1) & 1) of its 64, column
-    // 8 (v >> 2) + 2 (lane % 4) + (v & 1)
-    const int w = warp & 3;
-#pragma unroll
-    for (int v = 0; v < 64; ++v) {
-      const int ri = blockIdx.y * TM + 64 * g + 16 * w + (lane >> 2) + 8 * ((v >> 1) & 1);
-      const int cj = blockIdx.x * TM + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
-      if (ri < n_local && cj < n_local && d[v] != 0) atomicAdd(tile + (int64_t)ri * n_local + cj, d[v]);
-    }
+    mm_consumer(sh, stages, SIDE_BYTES, d);
+    mm_epilogue(d, tile, n_local, blockIdx.y * TM, blockIdx.x * TM, false);
   }
 }
 
@@ -420,12 +79,9 @@ extern "C" int ring_step_mm_launch(const int32_t* a, const int32_t* b, const int
     err = cudaFuncSetAttribute(ring_step_mm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     const int tiles = (n_local + TM - 1) / TM;
-    const int n_chunks = (v_pad + KC - 1) / KC;
-    int splits = (TARGET_BLOCKS + tiles * tiles - 1) / (tiles * tiles);
-    const int most = n_chunks / MIN_CHUNKS > 1 ? n_chunks / MIN_CHUNKS : 1;
-    splits = splits < most ? splits : most;
-    const int chunks_per_split = (n_chunks + splits - 1) / splits;
-    splits = (n_chunks + chunks_per_split - 1) / chunks_per_split;
+    int chunks_per_split;
+    const int splits = mm_splits((TARGET_BLOCKS + tiles * tiles - 1) / (tiles * tiles), (v_pad + KC - 1) / KC,
+                                 MIN_CHUNKS, &chunks_per_split);
     const dim3 grid(tiles, tiles, splits);
     ring_step_mm_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(a, b, nb, tile, dst, dst_n, n_local, width, v_pad,
                                                           chunks_per_split);

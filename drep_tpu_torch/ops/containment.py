@@ -6,20 +6,20 @@ Scaled sketches map to a dense int32 id space; the intersection sizes
 |A ∩ B| of all row pairs are one exact integer product of 0/1 indicator
 rows:
 
-    inter = ind @ ind.T,   ind [m, v_pad] int8 (ops/indicator.py kernel)
+    inter = ind @ ind.T,   ind [m, v_pad] int8
 
-run as the triangular schedule of the JAX package — per row block `lo`
-one ``torch._int_mm(ind[lo:lo+tb], ind[lo:].T)`` (int8 in, exact int32
-out) — with the skipped lower blocks mirrored on the host. ANI =
-max(C(A,B), C(B,A))^(1/k), C = |A∩B|/|A|, derives from the counts on the
-host with the JAX package's float32 formula.
+which ops/indicator.py::indicator_intersections computes whole on the
+device (one fused kernel; the JAX package's triangular product and host
+mirror in its plain version). ANI = max(C(A,B), C(B,A))^(1/k), C =
+|A∩B|/|A|, derives from the counts on the host with the JAX package's
+float32 formula.
 
 Two regimes, chosen by cluster/engines.py::containment_matrices:
 
 - one-shot: the whole [m, v_pad] indicator fits MATMUL_BUDGET_ELEMS;
 - vocabulary-chunked: past the budget the vocabulary splits into chunks
-  (ops/rangepart.py), each one indicator build and one triangle product,
-  summed on the device.
+  (ops/rangepart.py), each one launch adding its counts into one
+  accumulator on the device.
 
 The other beyond-budget route, the merge-intersect kernel, is
 ops/intersect.py.
@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from drep_tpu_torch.ops.indicator import indicator
+from drep_tpu_torch.ops.indicator import ROW_BUCKET_MIN, indicator_intersections
 from drep_tpu_torch.ops.minhash import (
     PAD_ID,
     U16_PAD,
@@ -47,7 +47,6 @@ from drep_tpu_torch.ops.rangepart import MIN_BUCKET_WIDTH, bucket_starts, repack
 # budget for the dense indicator matrix [m, V] in int8 elements (~512 MB)
 MATMUL_BUDGET_ELEMS = 1 << 29
 _VOCAB_BUCKET_MIN = 8192
-ROW_BUCKET_MIN = 64  # smallest row bucket (pow2 above; see _pow2_bucket)
 
 
 def _pow2_bucket(x: int, minimum: int) -> int:
@@ -143,32 +142,6 @@ def one_shot_fits(n_rows: int, v_pad: int) -> bool:
     return matmul_rows_pad(n_rows) * (v_pad + 1) <= MATMUL_BUDGET_ELEMS
 
 
-def tri_row_block(m_pad: int) -> int:
-    """Row-block size of the triangular matmul schedule: a power of two
-    dividing the pow2-bucketed `m_pad`, targeting 8 block rows."""
-    return max(ROW_BUCKET_MIN, m_pad // 8)
-
-
-def intersect_matmul_tri(ind: torch.Tensor, tb: int) -> torch.Tensor:
-    """Upper-block-triangle intersection counts of one indicator matrix:
-    per row block `lo` one exact int8 x int8 -> int32 product against all
-    columns from `lo` on. Lower blocks stay zero (mirror them with
-    :func:`mirror_lower_blocks`)."""
-    m = ind.shape[0]
-    out = torch.zeros((m, m), dtype=torch.int32, device=ind.device)
-    for lo in range(0, m, tb):
-        out[lo : lo + tb, lo:] = torch._int_mm(ind[lo : lo + tb], ind[lo:].T)
-    return out
-
-
-def mirror_lower_blocks(mat: np.ndarray, tb: int) -> np.ndarray:
-    """Fill the strictly-lower block triangle of a block-upper-triangular
-    symmetric matrix with the transposed upper blocks, in place."""
-    for lo in range(tb, mat.shape[0], tb):
-        mat[lo : lo + tb, :lo] = mat[:lo, lo : lo + tb].T
-    return mat
-
-
 def containment_to_ani(c: np.ndarray, k: int) -> np.ndarray:
     """Elementwise containment -> ANI (c^(1/k); 0 stays 0), float32."""
     return np.where(c > 0.0, np.exp(np.log(np.maximum(c, 1e-30)) / k), 0.0).astype(np.float32)
@@ -195,8 +168,8 @@ def ani_cov_from_intersections(
 
 def intersections_one_shot(packed: PackedSketches, v_pad: int, device: torch.device) -> np.ndarray:
     """[m, m] int32 exact intersection counts of a pack whose indicator
-    fits the one-shot budget: rows padded to the pow2 bucket, the indicator
-    built on the device, the triangular product, the host mirror."""
+    fits the one-shot budget: rows padded to the pow2 bucket, the counts
+    computed on the device."""
     m = packed.n
     m_pad = matmul_rows_pad(m)
     if not one_shot_fits(m, v_pad):
@@ -205,10 +178,7 @@ def intersections_one_shot(packed: PackedSketches, v_pad: int, device: torch.dev
             "indicator budget; route it through cluster/engines.py::containment_matrices"
         )
     ids, _ = pad_packed_rows(packed.ids, packed.counts, m_pad)
-    ind = indicator(ids_to_device(ids, device), v_pad)
-    tb = tri_row_block(m_pad)
-    inter = intersect_matmul_tri(ind, tb).cpu().numpy()
-    return mirror_lower_blocks(inter, tb)[:m, :m]
+    return indicator_intersections(ids_to_device(ids, device), v_pad).cpu().numpy()[:m, :m]
 
 
 def all_vs_all_containment_matmul(
@@ -260,16 +230,12 @@ def _stacked_vocab_chunks(ids: np.ndarray, v_chunk: int, m_pad: int, plan=None) 
     return out
 
 
-def intersections_chunked(packed: PackedSketches, device: torch.device) -> np.ndarray:
-    """[m, m] int32 exact intersection counts through vocabulary chunks:
-    the chunk plan (int32 chunks, or 2^15-wide uint16 chunks when those
-    ship fewer bytes), ONE stacked copy to the device, per chunk the
-    indicator kernel and the triangle product, the partial counts summed
-    on the device, one copy back and the host mirror —
-    drep_tpu/ops/containment.py::all_vs_all_containment_matmul_chunked."""
+def vocab_chunks(packed: PackedSketches) -> tuple[np.ndarray, int]:
+    """(stacked [R, m_pad, W] vocabulary chunks, chunk width) of the
+    chunked route: the chunk plan (int32 chunks, or 2^15-wide uint16
+    chunks when those ship fewer bytes)."""
     require_int32_ids(packed.ids, "intersections_chunked")
-    m = packed.n
-    m_pad = matmul_rows_pad(m)
+    m_pad = matmul_rows_pad(packed.n)
     v_chunk = matmul_vocab_chunk(m_pad)
     extent = vocab_extent(packed.ids)
     u16_chunk = 1 << 15
@@ -281,14 +247,22 @@ def intersections_chunked(packed: PackedSketches, device: torch.device) -> np.nd
             v_chunk, plan = u16_chunk, plan16
         else:
             plan = plan32
-    stacked = ids_to_device(_stacked_vocab_chunks(packed.ids, v_chunk, m_pad, plan=plan), device)
-    if stacked.shape[0] == 0:
-        return np.zeros((m, m), dtype=np.int32)
-    tb = tri_row_block(m_pad)
-    acc = intersect_matmul_tri(indicator(stacked[0], v_chunk), tb)
-    for r in range(1, stacked.shape[0]):
-        acc += intersect_matmul_tri(indicator(stacked[r], v_chunk), tb)
-    return mirror_lower_blocks(acc.cpu().numpy(), tb)[:m, :m]
+    return _stacked_vocab_chunks(packed.ids, v_chunk, m_pad, plan=plan), v_chunk
+
+
+def intersections_chunked(packed: PackedSketches, device: torch.device) -> np.ndarray:
+    """[m, m] int32 exact intersection counts through vocabulary chunks
+    (:func:`vocab_chunks`): ONE stacked copy to the device, per chunk one
+    launch adding its counts into one accumulator on the device, one copy
+    back —
+    drep_tpu/ops/containment.py::all_vs_all_containment_matmul_chunked."""
+    chunks, v_chunk = vocab_chunks(packed)
+    m, m_pad = packed.n, chunks.shape[1]
+    stacked = ids_to_device(chunks, device)
+    acc = torch.zeros((m_pad, m_pad), dtype=torch.int32, device=stacked.device)
+    for r in range(stacked.shape[0]):
+        indicator_intersections(stacked[r], v_chunk, out=acc)
+    return acc.cpu().numpy()[:m, :m]
 
 
 def all_vs_all_containment_matmul_chunked(

@@ -59,13 +59,15 @@ def test_indicator_equals_xla_scatter_and_pallas(dtype):
 
 
 def test_indicator_wrapper_counts_no_launch_on_cpu():
-    ids = torch.tensor([[0, 5, int(PAD_ID)]], dtype=torch.int32)
-    before = ti.LAUNCHES["indicator"]
-    out = ti.indicator(ids, 16)
-    assert ti.LAUNCHES["indicator"] == before
-    assert out[0].nonzero().flatten().tolist() == [0, 5]
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ti.indicator(ids, 100)
+    ids = torch.tensor([[0, 5, int(PAD_ID)], [5, 9, 20]], dtype=torch.int32)
+    before = ti.LAUNCHES["indicator_mm"]
+    out = ti.indicator_intersections(ids, 16)
+    assert ti.LAUNCHES["indicator_mm"] == before
+    assert out.tolist() == [[2, 1], [1, 2]]
+    assert ti.indicator(ids, 16)[0].nonzero().flatten().tolist() == [0, 5]
+    for fn in (ti.indicator, ti.indicator_intersections):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            fn(ids, 100)
 
 
 def _scaled_set(rng, n, base_len=300):
@@ -88,7 +90,7 @@ def test_one_shot_counts_and_ani_cov_equal_jax_shared_pack():
     v_pad = tc.matmul_vocab_pad(packed)
     assert v_pad == jc.matmul_vocab_pad(jpacked)
     m_pad = tc.matmul_rows_pad(packed.n)
-    assert m_pad == 128 and tc.tri_row_block(m_pad) < m_pad  # several row blocks
+    assert m_pad == 128 and ti.tri_row_block(m_pad) < m_pad  # several row blocks
     ids_pad, _ = tc.pad_packed_rows(packed.ids, packed.counts, m_pad)
     want_inter = np.asarray(jc._intersect_matmul(jnp.asarray(ids_pad), v_pad=v_pad))[:70, :70]
     got_inter = tc.intersections_one_shot(packed, v_pad, CPU)

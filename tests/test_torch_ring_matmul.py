@@ -362,20 +362,25 @@ def test_dereplicate_cli_on_mesh_with_matmul_variant_equals_jax_bytes(tmp_path, 
         assert _table(wd, table) == _table(jwd, table), table
 
 
-# --- a numpy emulation of csrc/ring_step_mm.cu's stages, which run only on
-# the card: the producer's chunk walk, its clear and its scatter into the
-# 128-byte-swizzled K-major layout, the consumers' wgmma descriptors read
-# as the hardware reads them, and the accumulator fragments' map to the
-# tile. The tuning constants are read from the source; a change to the
-# kernel's schedule or layout must be made here too.
+# --- a numpy emulation of csrc/ring_step_mm.cu's stages (the block body of
+# csrc/mm_block.cuh, which runs only on the card): the sparse producer's
+# chunk walk, its clear and its scatter into the 128-byte-swizzled K-major
+# layout, the consumers' wgmma descriptors read as the hardware reads
+# them, and the accumulator fragments' map to the tile. The tuning
+# constants are read from the header; a change to the block body's
+# schedule or layout must be made here too.
 
-_MM_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                       "drep_tpu_torch", "csrc", "ring_step_mm.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "drep_tpu_torch", "csrc")
 
 
 def _mm_define(name: str) -> int:
-    with open(_MM_SRC) as f:
-        return int(re.search(rf"#define {name} (\d+)", f.read()).group(1))
+    """A #define of the block body (mm_block.cuh) or of ring_step_mm.cu."""
+    for src in ("mm_block.cuh", "ring_step_mm.cu"):
+        with open(os.path.join(_CSRC, src)) as f:
+            found = re.search(rf"#define {name} (\d+)", f.read())
+        if found:
+            return int(found.group(1))
+    raise KeyError(name)
 
 
 TM, KC, STAGES, CONSUMERS, LOG_IDS = (_mm_define(n) for n in ("TM", "KC", "STAGES", "CONSUMERS", "LOG_IDS"))
@@ -385,12 +390,12 @@ STAGE_SIZE = 2 * SIDE
 
 
 def mm_swizzled(row, k):
-    """ring_step_mm.cu::swizzled: the byte of (row, k) in one side of a stage."""
+    """mm_block.cuh::swizzled: the byte of (row, k) in one side of a stage."""
     return (k >> 7) * ATOM + (row >> 3) * 1024 + (row & 7) * 128 + ((((k >> 4) & 7) ^ (row & 7)) << 4) + (k & 15)
 
 
 def gmma_desc(addr: int) -> int:
-    """ring_step_mm.cu::gmma_desc."""
+    """mm_block.cuh::gmma_desc."""
     return ((addr & 0x3FFFF) >> 4) | (1 << 16) | ((1024 >> 4) << 32) | (1 << 62)
 
 
@@ -414,7 +419,8 @@ def fragment_map(v: np.ndarray, lane: np.ndarray, w: np.ndarray):
 
 def emulate_mm_block(a: np.ndarray, b: np.ndarray, v_pad: int, by: int, bx: int, z: int, per_split: int,
                      tile: np.ndarray, stats: dict) -> None:
-    """One block of ring_step_mm_kernel: its partial sums added into `tile`."""
+    """One block of ring_step_mm_kernel (mm_block.cuh's sparse walk,
+    consumers and epilogue): its partial sums added into `tile`."""
     n_local, width = a.shape
     lo_id = z * per_split * KC
     hi_id = min(lo_id + per_split * KC, v_pad)
@@ -501,7 +507,8 @@ def emulate_mm_block(a: np.ndarray, b: np.ndarray, v_pad: int, by: int, bx: int,
 
 
 def mm_splits(n_local: int, v_pad: int, target: int) -> tuple[int, int]:
-    """ring_step_mm_launch's vocabulary splits: (splits, chunks a split)."""
+    """ring_step_mm_launch's vocabulary splits (mm_block.cuh::mm_splits,
+    TARGET_BLOCKS over its tiles x tiles grid): (splits, chunks a split)."""
     tiles = -(-n_local // TM)
     n_chunks = -(-v_pad // KC)
     splits = min(-(-target // (tiles * tiles)), max(1, n_chunks // _mm_define("MIN_CHUNKS")))
