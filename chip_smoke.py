@@ -81,12 +81,28 @@ Phases (any failure exits nonzero; nothing is caught):
    version, the library yardstick (the scatter_ of ``indicator_plain`` +
    ``torch._int_mm`` over vocabulary chunks) and the merge step; the matmul ring over clusters A,
    B and C byte-identical to the merge ring and to phase 6's one device;
-8. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+8. the streaming primary (``parallel/streaming.py``): 8a: 30 000 planted
+   genomes (MASH_sketch 1000, scaled depth 1 200, cut from phase 5's 10 000
+   for the time limit) through d_cluster_wrapper with default arguments, so
+   the JAX package's switch at --streaming_threshold decides, then
+   d_choose_wrapper and d_evaluate_wrapper; checks the ``streaming_sort``
+   route, one ``mash_shared`` launch a stripe, every planted cluster one
+   primary and one secondary cluster with one winner, and logs the stage
+   seconds and pairs/s; the kernel on stripe 0's whole column range timed
+   beside its bound, with a random 512x512 block of it equal to the plain
+   version; 8b: on phase 5's 10 000 genomes, ``streaming_mash_edges`` at
+   the average-linkage retention bound bit-identical to ``all_vs_all_mash``
+   thresholded there, and the LSH-pruned walk bit-identical to the dense
+   walk (its skipped tiles logged); 8c: half the shards of 8b's store
+   deleted and the walk rerun: the same edges, and pairs computed equal to
+   the deleted stripes' pairs;
+9. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps; the Mash and merge kernels also carry their
    time and bound on the main path's own operand, ``main_path_ms`` and
-   ``main_path_bound_ms``);
-9. the last line: ``{"ok": true, "device": {...}}``.
+   ``main_path_bound_ms``, and the Mash kernel its streaming launches and
+   stripe-0 time and bound from phase 8a, ``streaming``);
+10. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -123,6 +139,12 @@ REAL_SCALED_DEPTH = 10_000
 
 # the kernels of the one-shot main path (phases 4 and 5)
 PRIMARY_PATH_KERNELS = ("mash_shared", "indicator_mm")
+
+# the streaming slice (phase 8a): the JAX package's default
+# --streaming_threshold, and a scaled depth cut from phase 5's 10 000 (the
+# secondary's and the planter's host work grow with it) for the time limit
+STREAM_GENOMES = 30_000
+STREAM_SCALED_DEPTH = 1_200
 
 # positions of the dense ring in phase 7 (even: the middle step is split)
 RING_POSITIONS = 4
@@ -213,6 +235,14 @@ def mash_grid_cost(shared: np.ndarray, counts: np.ndarray, width: int) -> tuple[
             steps += mash_ops(shared[ri, rj], counts[ri], counts[rj], width)
     rows = t * TILE
     return steps, rows * width * 4 + rows * 4 + rows * (t // 2 + 1) * TILE * 4
+
+
+def mash_rect_cost(shared: np.ndarray, na: np.ndarray, nb: np.ndarray, width: int) -> tuple[int, int]:
+    """(merge steps, bytes) of one rectangular Mash launch over [ra, rb]
+    shared counts: the steps of every pair it computes; both sides' ids and
+    counts read once, the int32 counts written once."""
+    ra, rb = shared.shape
+    return mash_ops(shared, na, nb, width), (ra + rb) * (width + 1) * 4 + ra * rb * 4
 
 
 def edge_rows(rng, width: int, vocab: int) -> np.ndarray:
@@ -1337,6 +1367,189 @@ def phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond: dict) -> dict:
     return {"shapes": shapes, "rings": rings}
 
 
+def phase_streaming_auto(tmp: str, dev) -> dict:
+    """Phase 8a: STREAM_GENOMES planted genomes through d_cluster_wrapper
+    with default arguments (the streaming switch), choose and evaluate;
+    then the kernel on stripe 0 timed beside its bound and held against
+    its plain version on a 512x512 block."""
+    import pandas as pd
+    import torch
+
+    from drep_tpu_torch.choose import d_choose_wrapper
+    from drep_tpu_torch.cluster import controller
+    from drep_tpu_torch.evaluate import d_evaluate_wrapper
+    from drep_tpu_torch.ingest import save_sketch_cache
+    from drep_tpu_torch.ops import mash
+    from drep_tpu_torch.ops.minhash import pad_packed_rows
+    from drep_tpu_torch.parallel import streaming
+    from drep_tpu_torch.utils.synth import planted_sketches
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    n = STREAM_GENOMES
+    t0 = time.perf_counter()
+    gs, planted = planted_sketches(n, seed=21, s_bottom=1000, s_scaled=STREAM_SCALED_DEPTH)
+    t_plant = time.perf_counter() - t0
+    wd = WorkDirectory(os.path.join(tmp, "stream_wd"))
+    gdir = os.path.join(tmp, "stream_genomes")
+    os.makedirs(gdir)
+    for g in gs.names:
+        open(os.path.join(gdir, g), "wb").close()  # winners are copied; contents unused
+    bdb = pd.DataFrame({"genome": gs.names, "location": [os.path.join(gdir, g) for g in gs.names]})
+    wd.store_db(bdb, "Bdb")
+    save_sketch_cache(wd, gs)
+    wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
+    log(f"streaming: planted {n} genomes (MASH_sketch 1000, scaled depth {STREAM_SCALED_DEPTH}) in "
+        f"{t_plant:.1f} s, workdir {time.perf_counter() - t0 - t_plant:.1f} s")
+
+    # the pack and retention bound the main path hands the edge walk (the
+    # spy calls the real function)
+    calls = []
+    real_fn = streaming.streaming_mash_edges
+
+    def spy(packed, k, cutoff, **kw):
+        calls.append((packed, k, cutoff))
+        return real_fn(packed, k, cutoff, **kw)
+
+    streaming.streaming_mash_edges = spy
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cdb = controller.d_cluster_wrapper(wd, bdb, device=dev)
+        t_cluster = time.perf_counter() - t1
+        wdb = d_choose_wrapper(wd, bdb)
+        d_evaluate_wrapper(wd)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t1
+        launches = read_launches()
+    finally:
+        streaming.streaming_mash_edges = real_fn
+    st = dict(streaming.STATS)
+    stages = dict(controller.STAGE_SECONDS)
+    resolved = wd.get_arguments("cluster")["primary_estimator_resolved"]
+    log(f"streaming: d_cluster_wrapper {t_cluster:.2f} s, with choose+evaluate {t_total:.2f} s; stages "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; route {resolved}; walk {json.dumps(st)}; "
+        f"launches {launches}")
+    log(f"streaming: primary compare {st['pairs_computed']} pairs in {st['seconds']:.3f} s = "
+        f"{st['pairs_computed'] / st['seconds']:.1f} pairs/s ({st['pairs_computed'] / stages['primary']:.1f} "
+        f"pairs/s with the pack and linkage)")
+    require(resolved == "streaming_sort", f"{n} genomes took the {resolved} route, not streaming_sort")
+    require(len(calls) == 1, f"{len(calls)} streaming edge walks")
+    require(launches["mash_shared"] == st["launches"] == st["stripes"] == st["n_blocks"] > 1,
+            f"mash_shared launches {launches['mash_shared']} for {st['n_blocks']} stripes ({st})")
+    require(launches["indicator_mm"] > 0, f"the streaming run's secondary launched no indicator_mm: {launches}")
+    by_name = cdb.set_index("genome")
+    prim = by_name.loc[gs.names, "primary_cluster"].to_numpy()
+    sec = by_name.loc[gs.names, "secondary_cluster"].to_numpy()
+    for c in np.unique(planted):
+        members = planted == c
+        require(len(set(prim[members])) == 1, f"planted cluster {c} split across primary clusters")
+        require(len(set(sec[members])) == 1, f"planted cluster {c} split across secondary clusters")
+    n_planted = len(np.unique(planted))
+    require(cdb["primary_cluster"].nunique() == cdb["secondary_cluster"].nunique() == n_planted,
+            "primary or secondary clusters != planted clusters")
+    require(len(wdb) == n_planted, "one winner per planted cluster expected")
+    log(f"streaming: {n_planted} planted clusters recovered as one primary and one secondary cluster each, "
+        "one winner each")
+
+    # stripe 0: the kernel over its whole column range, as the walk launched it
+    packed, k, cutoff = calls[0]
+    block, width = st["block"], packed.ids.shape[1]
+    ids, counts = pad_packed_rows(packed.ids, packed.counts, block)
+    ids_d, cnt_d = torch.from_numpy(ids).to(dev), torch.from_numpy(counts).to(dev)
+    a, na = ids_d[:block], cnt_d[:block]
+    shared = mash.mash_shared(a, na, ids_d, cnt_d, s_orig=width)
+    ms = cuda_ms(lambda: mash.mash_shared(a, na, ids_d, cnt_d, s_orig=width), reps=3)
+    keep_d = torch.from_numpy(mash.distance_table(width, k) <= cutoff).to(dev)
+    stripe_ms = cuda_ms(lambda: mash.stripe_survivors(a, na, ids_d, cnt_d, width, keep_d, diag=True), reps=3)
+    sh = shared.cpu().numpy()
+    steps, nbytes = mash_rect_cost(sh, counts[:block], counts, width)
+    bound_ops_ms = steps / SCALAR_OPS_PER_S * 1e3
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    rng = np.random.default_rng(8)
+    m = min(512, block)
+    rows = np.sort(rng.choice(block, size=m, replace=False))
+    cols = np.sort(rng.choice(n, size=m, replace=False))
+    plain = mash.mash_shared_plain(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in (
+        ids[rows], counts[rows], ids[cols], counts[cols])), s_orig=width)
+    require(np.array_equal(sh[np.ix_(rows, cols)], plain.cpu().numpy()),
+            "streaming stripe 0: a 512x512 block of the kernel's shared counts != plain")
+    out = {"launches": launches["mash_shared"], "stripes": st["stripes"], "block": block,
+           "stripe0_shape": [block, int(ids.shape[0]), width], "stripe0_ms": ms,
+           "stripe0_bound_ms": max(bound_ops_ms, bound_bytes_ms),
+           "stripe0_bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
+           "stripe0_steps": steps, "stripe0_bytes": nbytes, "stripe0_with_compaction_ms": stripe_ms,
+           "edge_walk_s": st["seconds"], "pairs_per_s": st["pairs_computed"] / st["seconds"],
+           "d_cluster_s": t_cluster, "with_choose_evaluate_s": t_total, "stages": stages}
+    log(f"streaming: stripe 0 [{block} x {ids.shape[0]}] at width {width}: a 512x512 block equals the plain "
+        f"version; {json.dumps({k: v for k, v in out.items() if k != 'stages'})}")
+    return out
+
+
+def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
+    """Phases 8b and 8c on phase 5's pack: the streaming edges against the
+    dense matrix, the pruned walk against the dense walk, then a resume
+    after deleting half the shards."""
+    import glob
+
+    from drep_tpu_torch.ops.lsh import build_candidates
+    from drep_tpu_torch.ops.mash import all_vs_all_mash
+    from drep_tpu_torch.parallel import streaming
+
+    n = packed.n
+    keep = streaming.retention_bound(0.1, 0.25, "average")
+    t0 = time.perf_counter()
+    dist, _ = all_vs_all_mash(packed, k=k, device=dev)
+    t_dense = time.perf_counter() - t0
+    wi, wj = np.nonzero(np.triu(dist <= keep, 1))
+    ck = os.path.join(tmp, "stream_store")
+    t0 = time.perf_counter()
+    dense = streaming.streaming_mash_edges(packed, k, keep, checkpoint_dir=ck, device=dev)
+    t_walk = time.perf_counter() - t0
+    st_dense = dict(streaming.STATS)
+    ii, jj, dd, pairs = dense
+    order = np.lexsort((jj, ii))
+    require(np.array_equal(ii[order], wi) and np.array_equal(jj[order], wj),
+            f"streaming edges at keep {keep} != the dense matrix's pairs")
+    require(dd[order].tobytes() == dist[wi, wj].tobytes(), "streaming edge distances != the dense matrix's entries")
+    require(pairs == n * (n - 1) // 2, f"dense walk computed {pairs} pairs")
+    log(f"streaming edges: {len(ii)} edges at keep {keep} over {n} genomes bit-identical to all_vs_all_mash "
+        f"thresholded there; walk {t_walk:.2f} s ({st_dense['launches']} launches), dense matrix {t_dense:.2f} s")
+
+    t0 = time.perf_counter()
+    cand = build_candidates(packed, keep=keep, k=k)
+    t_cand = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pruned = streaming.streaming_mash_edges(packed, k, keep, prune=cand, device=dev)
+    t_pruned = time.perf_counter() - t0
+    st_pruned = dict(streaming.STATS)
+    require(all(x.tobytes() == y.tobytes() for x, y in zip(pruned[:3], dense[:3])),
+            "the pruned walk's edges != the dense walk's")
+    require(st_pruned["tiles_skipped"] > 0, "the pruned walk skipped no tile")
+    log(f"streaming edges: the LSH-pruned walk bit-identical to the dense walk; {cand.n_candidates} candidates "
+        f"in {t_cand:.2f} s, walk {t_pruned:.2f} s: {st_pruned['tiles_computed']} tiles computed, "
+        f"{st_pruned['tiles_skipped']} skipped, {st_pruned['launches']} launches, {pruned[3]} pairs")
+
+    shards = sorted(glob.glob(os.path.join(ck, "row_*.npz")))
+    require(len(shards) == st_dense["n_blocks"], f"{len(shards)} shards for {st_dense['n_blocks']} stripes")
+    block, n_blocks = st_dense["block"], st_dense["n_blocks"]
+    deleted = list(range(0, n_blocks, 2))
+    for bi in deleted:
+        os.remove(shards[bi])
+    want = sum(streaming._real_pairs_in_tile(bi * block, bj * block, block, n)
+               for bi in deleted for bj in range(bi, n_blocks))
+    t0 = time.perf_counter()
+    again = streaming.streaming_mash_edges(packed, k, keep, checkpoint_dir=ck, device=dev)
+    t_resume = time.perf_counter() - t0
+    require(all(x.tobytes() == y.tobytes() for x, y in zip(again[:3], dense[:3])), "resumed edges != the first run's")
+    require(again[3] == want, f"resume computed {again[3]} pairs, the deleted stripes hold {want}")
+    log(f"streaming resume: {len(deleted)} of {n_blocks} shards deleted; rerun {t_resume:.2f} s recomputed "
+        f"{again[3]} pairs (the deleted stripes' {want}), edges identical")
+    return {"edges": len(ii), "walk_s": t_walk, "dense_s": t_dense, "candidates_s": t_cand,
+            "pruned_walk_s": t_pruned, "tiles_computed": st_pruned["tiles_computed"],
+            "tiles_skipped": st_pruned["tiles_skipped"], "resume_s": t_resume, "resume_pairs": again[3]}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -1378,6 +1591,8 @@ def main() -> int:
         ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
         ring_path = phase_ring_path(tmp, dev, gs_beyond, beyond)
         ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
+        stream = phase_streaming_auto(tmp, dev)
+        stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -1407,6 +1622,7 @@ def main() -> int:
     kernels[0]["main_path_ms"] = real["mash_ms"]
     kernels[0]["main_path_rows"] = real["mash_rows"]
     kernels[0]["main_path_bound_ms"] = real["mash_bound_ms"]
+    kernels[0]["streaming"] = {**{k: v for k, v in stream.items() if k != "stages"}, "edges_10k": stream_edges}
     # the merge kernels on the operands their route built in phase 6 (B:
     # width 2048, A: stacked buckets), and the other route on the same pack
     # in place of a library call

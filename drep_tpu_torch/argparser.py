@@ -8,13 +8,15 @@ the dense ring over D positions dealt over the visible cards (all of them
 on one card, or on the CPU); the JAX package's --ring_comm,
 --ring_monolithic and the TPU-only --ring_vmem_mb are accepted and run the
 port's one ring.
-Flags of paths not ported yet (streaming, multiround, greedy, tertiary,
-LSH pruning) parse and then raise NotImplementedError in the cluster
-stage where the JAX package would take the path. The flags in
-:data:`UNPORTED_FLAGS` (fault tolerance, durable I/O, event tracing,
-profiling, the elastic pod, the LSH knobs, taxonomy) parse with the JAX
-defaults, and a run that sets one otherwise raises NotImplementedError
-naming its ROADMAP item (workflows.py).
+The streaming primary (--streaming_primary, --streaming_threshold,
+--streaming_block) and its LSH pruning (--primary_prune lsh, --prune_bands,
+--prune_min_shared, --prune_join_chunk) run as in the JAX package. Flags
+of paths not ported yet (multiround, greedy, tertiary) parse and then
+raise NotImplementedError in the cluster stage where the JAX package would
+take the path. The flags in :data:`UNPORTED_FLAGS` (fault tolerance,
+durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
+with the JAX defaults, and a run that sets one otherwise raises
+NotImplementedError naming its ROADMAP item (workflows.py).
 """
 
 from __future__ import annotations
@@ -38,9 +40,6 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
     "overlap_ingest": ((True,), "5"),
     "max_joins": ((0,), "12b"),
     "drain_grace_s": ((30.0,), "12b"),
-    "prune_bands": ((0,), "8"),
-    "prune_min_shared": ((0,), "8"),
-    "prune_join_chunk": ((0,), "8"),
     "run_tax": ((False,), "9"),
     "cent_index": ((None,), "9"),
 }
@@ -105,8 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
         clus.add_argument("--streaming_primary", action="store_true")
         clus.add_argument("--streaming_block", type=int, default=1024)
         clus.add_argument("--streaming_threshold", type=int, default=30_000,
-                          help="genome count at which the JAX package streams the primary "
-                               "stage; the port raises there until streaming is ported")
+                          help="genome count at which the primary stage switches to the "
+                               "streaming path (stripe by stripe, shard checkpoints, sparse Mdb)")
         clus.add_argument("--primary_prune", default="off", choices=["off", "lsh"])
         clus.add_argument("--prune_bands", type=int, default=0)
         clus.add_argument("--prune_min_shared", type=int, default=0)

@@ -1,14 +1,20 @@
 """Cluster-stage orchestration: Bdb -> Mdb -> Ndb -> Cdb.
 
 Counterpart of drep_tpu/cluster/controller.py, trimmed to the dense
-path (one device, or a mesh ring of --mesh_shape positions):
+path (one device, or a mesh ring of --mesh_shape positions) and the
+single-process streaming primary:
 
 - resume: if the workdir already holds Cdb and the stored cluster
   arguments match, skip recompute entirely;
 - PRIMARY: all-vs-all Mash distance (ops/mash.py kernel, or the ring of
   parallel/allpairs.py on a mesh) -> hierarchical
   clustering at 1-P_ani -> integer primary clusters (Mdb: dense for small
-  N, thresholded beyond `mdb_dense_limit`);
+  N, thresholded beyond `mdb_dense_limit`); at n >= --streaming_threshold
+  or with --streaming_primary, the streaming primary instead
+  (parallel/streaming.py: the Mash kernel stripe by stripe, shard
+  checkpoints under ``data/streaming_primary``, --primary_prune lsh,
+  sparse UPGMA or connected components; a sparse Mdb of the retained
+  edges);
 - SECONDARY: per primary cluster with >1 member, containment ANI through
   the one-shot indicator matmul (small clusters batched into one call),
   or past its budget the mesh ring, the merge kernel or the chunked
@@ -16,16 +22,16 @@ path (one device, or a mesh ring of --mesh_shape positions):
   coverage-gated hierarchical clustering at 1-S_ani -> "P_S" ids (Ndb);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 
-Where the JAX package would take a path not ported yet (the streaming
-primary and its auto-switch at --streaming_threshold, LSH pruning,
-multiround primary clustering above --primary_chunksize, greedy and
-tertiary secondary clustering, the subprocess engines), the run raises
+Where the JAX package would take a path not ported yet (multiround
+primary clustering above --primary_chunksize, greedy and tertiary
+secondary clustering, the subprocess engines), the run raises
 NotImplementedError naming its ROADMAP item before ingest; where the JAX
 package ignores such a flag (--primary_prune on the dense path, greedy or
 tertiary under --SkipSecondary), so does the port. The JAX package's
 per-cluster secondary checkpoints, the ring's block store and the
 device-failure retries are not ported either: a failure stops the run, and
-a rerun starts the stage over.
+a rerun starts the stage over (the streaming primary's finished stripes
+excepted).
 """
 
 from __future__ import annotations
@@ -73,6 +79,9 @@ CLUSTER_DEFAULTS: dict[str, Any] = {
     "streaming_block": 1024,
     "streaming_threshold": 30_000,
     "primary_prune": "off",
+    "prune_bands": 0,
+    "prune_min_shared": 0,
+    "prune_join_chunk": 0,
 }
 
 _RESUME_KEYS = [
@@ -99,11 +108,9 @@ _RESUME_KEYS = [
 
 # the ROADMAP items that own each path this controller does not run yet
 _NOT_PORTED = {
-    "streaming_primary": "the streaming primary (ROADMAP.md queue 1, item 8)",
     "multiround_primary_clustering": "multiround primary clustering (ROADMAP.md queue 1, item 9)",
     "greedy_secondary_clustering": "greedy secondary clustering (ROADMAP.md queue 1, item 9)",
     "run_tertiary_clustering": "tertiary clustering (ROADMAP.md queue 1, item 9)",
-    "primary_prune": "LSH candidate pruning (ROADMAP.md queue 1, item 8)",
     "engine": "the subprocess comparison engines (ROADMAP.md queue 1, item 9)",
 }
 # the JAX package's subprocess engines (drep_tpu/cluster/external.py, anim.py)
@@ -125,6 +132,13 @@ def _fill_defaults(kwargs: dict[str, Any]) -> dict[str, Any]:
     return out
 
 
+def _streams(kw: dict[str, Any], n: int) -> bool:
+    """Does the primary of `n` genomes take the streaming path (the JAX
+    package's switch: --streaming_primary, or jax_mash at n >=
+    --streaming_threshold)?"""
+    return kw["streaming_primary"] or (kw["primary_algorithm"] == "jax_mash" and n >= kw["streaming_threshold"])
+
+
 def _refuse_unported(kw: dict[str, Any], n: int) -> None:
     """Raise for the unported path the JAX package's d_cluster_wrapper
     would take on these arguments and `n` genomes, and only there: its
@@ -138,13 +152,7 @@ def _refuse_unported(kw: dict[str, Any], n: int) -> None:
         if kw["multiround_primary_clustering"] and n > kw["primary_chunksize"]:
             refuse(f"--multiround_primary_clustering with {n} genomes > --primary_chunksize "
                    f"{kw['primary_chunksize']}", "multiround_primary_clustering")
-        if kw["streaming_primary"] or (kw["primary_algorithm"] == "jax_mash" and n >= kw["streaming_threshold"]):
-            if kw["primary_prune"] != "off":
-                refuse(f"--primary_prune {kw['primary_prune']}", "primary_prune")
-            refuse("--streaming_primary" if kw["streaming_primary"] else
-                   f"{n} genomes >= --streaming_threshold {kw['streaming_threshold']} (the JAX "
-                   "package switches to the streaming primary there)", "streaming_primary")
-        if kw["primary_algorithm"] in SUBPROCESS_PRIMARY:
+        if not _streams(kw, n) and kw["primary_algorithm"] in SUBPROCESS_PRIMARY:
             refuse(f"--primary_algorithm {kw['primary_algorithm']}", "engine")
     if not kw["SkipSecondary"]:
         if kw["S_algorithm"] in SUBPROCESS_SECONDARY:
@@ -185,14 +193,88 @@ def _mdb_from_dist(
     )
 
 
+def _streaming_mdb(edges, names: list[str]) -> pd.DataFrame:
+    """Sparse Mdb from thresholded streaming edges: both directions plus the
+    diagonal, matching the thresholded branch of `_mdb_from_dist`."""
+    ii, jj, dd = edges
+    n = len(names)
+    arr = np.array(names)
+    g1 = np.concatenate([arr[ii], arr[jj], arr])
+    g2 = np.concatenate([arr[jj], arr[ii], arr])
+    d = np.concatenate([dd, dd, np.zeros(n, np.float32)])
+    return pd.DataFrame({"genome1": g1, "genome2": g2, "dist": d, "similarity": 1.0 - d})
+
+
+def _resolve_estimator_for_run(n: int, kw: dict[str, Any]) -> str:
+    """The estimator the run will use, in `_primary_clusters`' branch
+    order (SkipMash, streaming, the dense engine): the streaming primary
+    always runs the sort estimator's tiles."""
+    if kw["SkipMash"] or n == 1:
+        return "skipmash"
+    if _streams(kw, n):
+        return "streaming_sort"
+    return engines.resolve_primary_estimator(n, kw["mesh_shape"], kw["primary_estimator"], kw["device"])
+
+
+def _streaming_primary(
+    gs: GenomeSketches, kw: dict[str, Any], wd: WorkDirectory
+) -> tuple[np.ndarray, tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """The streaming primary of the JAX package's branch: (labels, edges)."""
+    from drep_tpu_torch.ops.minhash import pack_sketches
+    from drep_tpu_torch.parallel import streaming
+
+    logger = get_logger()
+    n = len(gs.names)
+    if not kw["streaming_primary"]:
+        logger.warning(
+            "%d genomes >= --streaming_threshold %d: primary stage auto-switches "
+            "to the out-of-core streaming path (pass --streaming_primary to opt "
+            "in explicitly, or raise the threshold to keep the dense path)",
+            n, kw["streaming_threshold"],
+        )
+    if kw["primary_estimator"] not in ("auto", "sort"):
+        logger.warning(
+            "streaming primary always uses the sort (union-bottom-s) tile "
+            "estimator; --primary_estimator %s is ignored on this path",
+            kw["primary_estimator"],
+        )
+    t0 = time.perf_counter()
+    packed = pack_sketches(gs.bottom, gs.names, gs.sketch_size)
+    t1 = time.perf_counter()
+    labels, edges, _pairs = streaming.streaming_primary_clusters(
+        packed,
+        gs.k,
+        kw["P_ani"],
+        block=kw["streaming_block"],
+        checkpoint_dir=wd.get_dir(os.path.join("data", "streaming_primary")),
+        keep_dist=_warn_dist(kw),
+        cluster_alg=kw["clusterAlg"],
+        primary_prune=kw["primary_prune"],
+        prune_bands=kw["prune_bands"],
+        prune_min_shared=kw["prune_min_shared"],
+        prune_join_chunk=kw["prune_join_chunk"],
+        device=kw["device"],
+    )
+    st = streaming.STATS
+    STAGE_SECONDS.update(
+        primary_pack=t1 - t0, primary_prune=st["prune_seconds"], primary_compare=st["seconds"],
+        primary_linkage=st["linkage_seconds"],
+    )
+    return labels, edges
+
+
 def _primary_clusters(
-    gs: GenomeSketches, bdb: pd.DataFrame, kw: dict[str, Any]
-) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (labels 1..C, dist matrix, linkage)."""
+    gs: GenomeSketches, bdb: pd.DataFrame, kw: dict[str, Any], wd: WorkDirectory
+) -> tuple[np.ndarray, np.ndarray | None, np.ndarray, pd.DataFrame | None]:
+    """Returns (labels 1..C, dist matrix or None, linkage, sparse Mdb of
+    the streaming primary or None)."""
     n = len(gs.names)
     if kw["SkipMash"] or n == 1:
         # reference --SkipMash: everything lands in one primary cluster
-        return np.ones(n, dtype=np.int64), np.zeros((n, n), np.float32), np.empty((0, 4))
+        return np.ones(n, dtype=np.int64), np.zeros((n, n), np.float32), np.empty((0, 4)), None
+    if _streams(kw, n):
+        labels, edges = _streaming_primary(gs, kw, wd)
+        return labels, None, np.empty((0, 4)), _streaming_mdb(edges, gs.names)
     if kw["primary_prune"] != "off":
         # the JAX package's warning: pruning exists only on the streaming schedule
         get_logger().warning(
@@ -215,7 +297,7 @@ def _primary_clusters(
     else:
         labels, link = cluster_hierarchical(dist, cutoff, method=kw["clusterAlg"])
     STAGE_SECONDS.update(primary_compare=t1 - t0, primary_linkage=time.perf_counter() - t1)
-    return labels, dist, link
+    return labels, dist, link, None
 
 
 def _secondary_postprocess(
@@ -293,12 +375,7 @@ def d_cluster_wrapper(
     # normalize: CLI passes 0.25 explicitly, library callers omit it
     snapshot["warn_dist"] = _warn_dist(kw)
     snapshot["genomes"] = sorted(bdb["genome"])
-    snapshot["primary_estimator_resolved"] = (
-        "skipmash" if kw["SkipMash"] or len(bdb) == 1
-        else engines.resolve_primary_estimator(
-            len(bdb), kw["mesh_shape"], kw["primary_estimator"], kw["device"]
-        )
-    )
+    snapshot["primary_estimator_resolved"] = _resolve_estimator_for_run(len(bdb), kw)
     match_keys = [k for k in snapshot if k != "primary_estimator_resolved"]
     if wd.hasDb("Cdb") and wd.arguments_match("cluster", snapshot, keys=match_keys):
         logger.info("resuming: Cdb present with matching cluster arguments — skipping recompute")
@@ -321,17 +398,20 @@ def d_cluster_wrapper(
         n, kw["device"], kw["primary_algorithm"], kw["S_algorithm"],
     )
     t1 = time.perf_counter()
-    primary, pdist, plink = _primary_clusters(gs, bdb, kw)
+    primary, pdist, plink, sparse_mdb = _primary_clusters(gs, bdb, kw, wd)
     t2 = time.perf_counter()
     n_primary = int(primary.max()) if n else 0
     logger.info("primary clustering: %d clusters from %d genomes", n_primary, n)
-    mdb = _mdb_from_dist(pdist, gs.names, kw["mdb_dense_limit"], kw["P_ani"], warn_dist=_warn_dist(kw))
+    if pdist is not None:
+        mdb = _mdb_from_dist(pdist, gs.names, kw["mdb_dense_limit"], kw["P_ani"], warn_dist=_warn_dist(kw))
+    else:
+        mdb = sparse_mdb
     wd.store_db(schemas.validate(mdb, "Mdb"), "Mdb")
 
     clustering_files: dict[str, Any] = {
         "primary_linkage": plink,
         "primary_names": gs.names,
-        "primary_dist": pdist if n <= kw["mdb_dense_limit"] else None,
+        "primary_dist": pdist if (pdist is not None and n <= kw["mdb_dense_limit"]) else None,
         "secondary": {},
     }
 

@@ -1,10 +1,11 @@
-"""Native (C++) host-ingest bindings — ctypes, no pybind11.
+"""Native (C++) host bindings — ctypes, no pybind11.
 
-The hot host loop (FASTA -> canonical k-mers -> sketches) has a C++
-implementation in ingest.cc (a copy of the JAX package's), built lazily
-with g++ into a content-addressed shared library under ``_build/`` next to
-the source. Ingest degrades to the numpy path (ops/kmers.py) when no
-compiler is available; the two paths are byte-equal.
+Two host loops have C++ implementations, copies of the JAX package's,
+built lazily with g++ into one content-addressed shared library under
+``_build/`` next to the sources: ingest.cc (FASTA -> canonical k-mers ->
+sketches) and linkage.cc (the streaming primary's sparse UPGMA). Each
+degrades to its Python path when no compiler is available (ops/kmers.py,
+ops/linkage.py::sparse_average_linkage); the two paths are equal.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from drep_tpu_torch.ops.kmers import max_scaled_hash
 from drep_tpu_torch.utils.logger import get_logger
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(_HERE, "ingest.cc")
+_SOURCES = [os.path.join(_HERE, "ingest.cc"), os.path.join(_HERE, "linkage.cc")]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -42,19 +43,22 @@ class _DrepSketch(ctypes.Structure):
 
 
 def _build_library() -> str | None:
-    """Compile ingest.cc -> cached .so keyed on the source hash; None on
-    any failure (missing g++ or zlib, read-only package directory)."""
+    """Compile the sources -> cached .so keyed on their hash; None on any
+    failure (missing g++ or zlib, read-only package directory)."""
     tmp = None
     try:
-        with open(_SOURCE, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        h = hashlib.sha256()
+        for src in _SOURCES:
+            with open(src, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:16]
         build_dir = os.path.join(_HERE, "_build")
-        so_path = os.path.join(build_dir, f"libdrep_ingest_{digest}.so")
+        so_path = os.path.join(build_dir, f"libdrep_native_{digest}.so")
         if os.path.exists(so_path):
             return so_path
         os.makedirs(build_dir, exist_ok=True)
         tmp = so_path + f".tmp{os.getpid()}"
-        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", _SOURCE, "-o", tmp, "-lz"]
+        cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", *_SOURCES, "-o", tmp, "-lz"]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if res.returncode != 0:
             get_logger().debug("native build failed: %s", res.stderr[-1000:])
@@ -81,7 +85,7 @@ def get_library() -> ctypes.CDLL | None:
         so_path = _build_library()
         if so_path is None:
             _lib_failed = True
-            get_logger().info("native ingest unavailable — using the numpy path")
+            get_logger().info("native library unavailable — using the numpy and Python paths")
             return None
         lib = ctypes.CDLL(so_path)
         lib.drep_sketch_fasta.restype = ctypes.c_int
@@ -95,6 +99,18 @@ def get_library() -> ctypes.CDLL | None:
         ]
         lib.drep_sketch_free.restype = None
         lib.drep_sketch_free.argtypes = [ctypes.POINTER(_DrepSketch)]
+        lib.drep_sparse_upgma.restype = ctypes.c_int
+        lib.drep_sparse_upgma.argtypes = [
+            ctypes.c_int64,
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_double),
+            ctypes.c_double,
+            ctypes.c_double,
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
         _lib = lib
     return _lib
 
@@ -142,3 +158,35 @@ def sketch_fasta_native(
         "bottom": bottom.astype(np.uint64),
         "scaled": scaled.astype(np.uint64),
     }
+
+
+def sparse_upgma_native(
+    n: int, ii: np.ndarray, jj: np.ndarray, dd: np.ndarray, cutoff: float, keep: float
+) -> tuple[np.ndarray, int] | None:
+    """Native sparse UPGMA (linkage.cc), a replica of
+    ops/linkage.py::sparse_average_linkage's partition: (raw labels, merges
+    that averaged over unobserved pairs), the caller renumbering the labels
+    by first appearance; None when the native library is unavailable."""
+    if not len(ii) == len(jj) == len(dd):
+        raise ValueError(f"sparse UPGMA: edge arrays of lengths {len(ii)}, {len(jj)}, {len(dd)}")
+    lib = get_library()
+    if lib is None:
+        return None
+    ii = np.ascontiguousarray(ii, dtype=np.int64)
+    jj = np.ascontiguousarray(jj, dtype=np.int64)
+    dd = np.ascontiguousarray(dd, dtype=np.float64)
+    labels = np.zeros(n, dtype=np.int64)
+    approx = ctypes.c_int64(0)
+
+    def p(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    rc = lib.drep_sparse_upgma(
+        n, len(ii), p(ii, ctypes.c_int64), p(jj, ctypes.c_int64), p(dd, ctypes.c_double),
+        float(cutoff), float(keep), p(labels, ctypes.c_int64), ctypes.byref(approx),
+    )
+    if rc == -2:
+        raise ValueError(f"sparse UPGMA: edge index out of range for n={n}")
+    if rc != 0:
+        raise RuntimeError(f"native sparse UPGMA failed (rc={rc})")
+    return labels, int(approx.value)

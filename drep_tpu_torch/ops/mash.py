@@ -6,7 +6,9 @@ sketch rows the kernel returns one int32 `shared` count: the ids present
 in both rows among the bottom-s_use distinct ids of their union, with
 s_use = min(|A|, |B|, s_orig). The jaccard -> distance transform runs on
 the host in numpy (:func:`shared_counts_to_distance`, copied exactly from
-the JAX package), so every consumer shares one formula.
+the JAX package), so every consumer shares one formula; the streaming
+primary's keep test (:func:`stripe_survivors`) reads a table that formula
+built, so its edges are the dense matrix's, bit for bit.
 
 :func:`mash_shared` runs ``csrc/mash_shared.cu`` for CUDA tensors and
 :func:`mash_shared_plain` for CPU tensors; there is no fallback between
@@ -165,6 +167,50 @@ def shared_counts_to_distance(
     ).astype(np.float32)
     dist = mash_distance_from_jaccard(j, k).astype(np.float32)
     return dist, j
+
+
+def distance_table(width: int, k: int) -> np.ndarray:
+    """[width + 1, width + 1] float32: entry [s_use, shared] is the Mash
+    distance of a pair with that s_use and shared count, computed by
+    :func:`shared_counts_to_distance` itself, so a lookup equals the dense
+    matrix's entry bit for bit (entries with shared > s_use never occur)."""
+    s = np.arange(width + 1, dtype=np.int32)
+    shared = np.broadcast_to(s[None, :], (width + 1, width + 1))
+    dist, _ = shared_counts_to_distance(shared, s, np.full(width + 1, width, np.int32), width, k)
+    return dist
+
+
+def stripe_survivors(
+    a: torch.Tensor,
+    na: torch.Tensor,
+    b: torch.Tensor,
+    nb: torch.Tensor,
+    s_orig: int,
+    keep_table: torch.Tensor,
+    diag: bool,
+) -> np.ndarray:
+    """The pairs of one row stripe that a keep table retains, compacted on
+    the stripe's device: one :func:`mash_shared` launch of the stripe rows
+    `a` [block, W] against their column tiles `b` [n_tiles * block, W]
+    (ascending, concatenated), then the keep test
+    ``keep_table[s_use, shared]``, the pad-row mask (count 0) and, with
+    `diag`, the i < j mask on the first tile (the stripe's own), all as
+    plain torch. Returns [E, 4] int64 rows (tile, row, col, shared) in the
+    JAX package's edge order: tile by tile, row-major inside a tile."""
+    block = a.shape[0]
+    n_tiles = b.shape[0] // block
+    shared = mash_shared(a, na, b, nb, s_orig)
+    s_use = torch.clamp(torch.minimum(na[:, None], nb[None, :]), max=s_orig)
+    if (s_orig + 1) ** 2 > np.iinfo(np.int32).max:  # the flat index outgrows int32
+        s_use = s_use.long()
+    keep = keep_table.reshape(-1)[s_use * (s_orig + 1) + shared]
+    keep &= (na > 0)[:, None] & (nb > 0)[None, :]
+    if diag:
+        keep[:, :block] &= torch.ones((block, block), dtype=torch.bool, device=a.device).triu(1)
+    tiles = keep.view(block, n_tiles, block).permute(1, 0, 2)
+    t, r, c = tiles.nonzero(as_tuple=True)
+    got = shared.view(block, n_tiles, block)[r, t, c]
+    return torch.stack([t, r, c, got.long()], dim=1).cpu().numpy()
 
 
 def _pad_rows(ids: np.ndarray, counts: np.ndarray, width: int) -> tuple[np.ndarray, np.ndarray]:

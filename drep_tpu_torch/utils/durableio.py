@@ -9,14 +9,18 @@ workdir written by one package resumes in the other:
   canonical dump without it);
 - every publish is uuid-tmp + rename, whole-file-or-nothing.
 
-The shared-filesystem retry, fsync and fault-injection layers of the JAX
-package's store belong to paths this port does not run yet (streaming
-shards, index, pods) and are not carried over.
+The streaming primary's row shards publish through :func:`atomic_savez`
+and read back through :func:`load_npz_or_none`, as the JAX package's do,
+so a shard store written by either package resumes in the other. The
+shared-filesystem retry, fsync and fault-injection layers of the JAX
+package's store belong to paths this port does not run yet (index, pods)
+and are not carried over.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import uuid
@@ -101,6 +105,38 @@ def load_npz_checked(path: str, what: str = "payload") -> dict[str, np.ndarray]:
     if checksum_arrays(loaded) != stored:
         raise CorruptPayloadError(f"{what} {path}: in-band checksum mismatch")
     return loaded
+
+
+def atomic_savez(path: str, compressed: bool = True, **arrays) -> None:
+    """Serialise `arrays` plus their in-band ``__crc__`` to an npz in
+    memory and publish it whole through :func:`atomic_write`. The tmp name
+    does not end in ``.npz``, so a crash leaves nothing a shard glob or a
+    store clear would take for a shard."""
+    buf = io.BytesIO()
+    (np.savez_compressed if compressed else np.savez)(buf, **with_checksum(arrays))
+    atomic_write_bytes(path, buf.getbuffer())
+
+
+def load_npz_or_none(path: str, what: str, convert: Callable[[dict], Any], warn: str) -> Any:
+    """``convert(payload)`` of a checked npz read, or None for the caller
+    to recompute: a missing file returns None; an I/O error warns and
+    leaves the file in place (it may be intact); anything else (torn,
+    unparseable, checksum mismatch, a member missing inside `convert`)
+    warns with `warn` (%s = path) and removes the payload."""
+    from drep_tpu_torch.utils.logger import get_logger
+
+    try:
+        return convert(load_npz_checked(path, what=what))
+    except FileNotFoundError:
+        return None
+    except OSError:
+        get_logger().warning("%s %s: unreadable — recomputing, shard left in place", what, path)
+        return None
+    except Exception:  # noqa: BLE001 — any corrupt shard is recomputed
+        get_logger().warning(warn, path)
+        with contextlib.suppress(OSError):
+            os.remove(path)
+        return None
 
 
 def dump_json_checked(obj: dict[str, Any], default=str) -> bytes:

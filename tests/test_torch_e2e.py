@@ -333,13 +333,10 @@ def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, mon
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--streaming_primary"], "item 8"),
     (["--greedy_secondary_clustering"], "item 9"),
     (["--run_tertiary_clustering"], "item 9"),
     # the JAX package takes multiround only above --primary_chunksize
     (["--multiround_primary_clustering", "--primary_chunksize", "2"], "item 9"),
-    # ... and pruning only on the streaming primary
-    (["--streaming_primary", "--primary_prune", "lsh"], "item 8"),
     (["--primary_estimator", "matmul"], "item 9"),
     (["--primary_algorithm", "mash"], "item 9"),
     (["--S_algorithm", "fastANI"], "item 9"),
@@ -384,6 +381,34 @@ def test_flags_jax_ignores_here_equal_jax_bytes(tmp_path, genome_paths, flags, k
         assert _table(wd, table) == _table(jwd, table)
 
 
+@pytest.mark.parametrize("operation,flags,kwargs", [
+    ("compare", ["--streaming_primary"], {"streaming_primary": True}),
+    ("compare", ["--streaming_primary", "--primary_prune", "lsh"], {"streaming_primary": True, "primary_prune": "lsh"}),
+    ("dereplicate", ["--prune_bands", "4"], {"prune_bands": 4}),
+    ("dereplicate", ["--prune_min_shared", "1"], {"prune_min_shared": 1}),
+    ("dereplicate", ["--prune_join_chunk", "1000"], {"prune_join_chunk": 1000}),
+])
+def test_streaming_argvs_equal_jax_bytes(tmp_path, genome_paths, operation, flags, kwargs):
+    """The streaming primary's argvs on the fixture genomes (the first two
+    stream; the LSH knobs alone leave the run on the dense path, where both
+    packages ignore them): the port's tables equal the JAX package's."""
+    q = tmp_path / "q.csv"
+    q.write_text(QUALITY)
+    wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    extra = ["--genomeInfo", str(q)] if operation == "dereplicate" else []
+    torch_main([operation, wd, "-g", *genome_paths, *extra, "--skip_plots", "-p", "1", "--device", "cpu", *flags])
+    if operation == "dereplicate":
+        jax_dereplicate(jwd, genome_paths, genomeInfo=str(q), skip_plots=True, processes=1, **kwargs)
+    else:
+        jax_compare(jwd, genome_paths, skip_plots=True, processes=1, **kwargs)
+    streamed = os.path.isdir(os.path.join(wd, "data", "streaming_primary"))
+    assert streamed == ("--streaming_primary" in flags)
+    tables = ("Cdb", "Ndb", "Sdb", "Wdb") if operation == "dereplicate" else ("Bdb", "Cdb", "Ndb")
+    for table in tables:
+        assert _table(wd, table) == _table(jwd, table)
+    _assert_mdb_close(wd, jwd)
+
+
 # the JAX CLI's flags that the port parses and runs only at their JAX
 # defaults: a value to refuse, and the ROADMAP item that ports it
 _UNPORTED_FLAG_VALUES = [
@@ -397,9 +422,6 @@ _UNPORTED_FLAG_VALUES = [
     (["--no_overlap_ingest"], "item 5"),
     (["--max_joins", "1"], "item 12b"),
     (["--drain_grace_s", "5"], "item 12b"),
-    (["--prune_bands", "4"], "item 8"),
-    (["--prune_min_shared", "1"], "item 8"),
-    (["--prune_join_chunk", "1000"], "item 8"),
     (["--run_tax"], "item 9"),
     (["--cent_index", "idx"], "item 9"),
 ]
