@@ -71,8 +71,9 @@ Phases (any failure exits nonzero; nothing is caught):
    7c: phase 6 again with ``mesh_shape=4``: its three clusters must take
    ``mesh_ring``, whose steps run the matmul step where the cluster's
    v_pad is at most MATMUL_MAX_VPAD_PER_WIDTH times its width (C) and the
-   merge step elsewhere (A, B), as the Mash primary does, with
-   Cdb/Ndb/Wdb byte-identical to phase 6's and Mdb within 1e-7;
+   merge step elsewhere (A, B), as the Mash primary does, with Cdb/Ndb
+   byte-identical to phase 6's and Mdb within 1e-7 (d_cluster_wrapper
+   only: choose and evaluate read nothing else);
    7d: the matmul ring step (``csrc/ring_step_mm.cu``) against its plain
    version (tile, copied operand, no-copy step, every timed launch's
    tile) and the merge step on
@@ -96,13 +97,31 @@ Phases (any failure exits nonzero; nothing is caught):
    walk (its skipped tiles logged); 8c: half the shards of 8b's store
    deleted and the walk rerun: the same edges, and pairs computed equal to
    the deleted stripes' pairs;
-9. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+9. the options of ROADMAP queue 1 item 9a, each through d_cluster_wrapper
+   with the launch counts zeroed just before it: 9a ``--primary_estimator
+   matmul`` on phase 5's genomes (secondary skipped): one ``indicator_mm``
+   launch a vocabulary chunk, the primary equal to phase 5's, the whole
+   [N, N] counts equal to ``intersect.cu``'s, chunk 0 equal to the plain
+   version and timed beside its bound, the Jaccard within 0.06 of the sort
+   estimator's; 9b ``--multiround_primary_clustering`` in chunks of 2 500:
+   five ``mash_shared`` launches, the partition equal to phase 5's; 9c
+   ``--greedy_secondary_clustering`` on phase 6's workdir (A, B and C on
+   ``greedy_secondary_cluster``: the rectangular entry of
+   ``indicator_mm.cu`` held against its plain version at each cluster's
+   first block x rep tile with both walks and timed, B's Ndb and labels
+   byte-identical to its CPU run) and on phase 5's (the batched route, Cdb
+   byte-identical to phase 5's); 9d ``--run_tertiary_clustering`` on phase
+   5's first 2 500 genomes: the merges, and Cdb equal to phase 5's rows
+   where nothing merged;
+10. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
-   7c for both ring steps; the Mash and merge kernels also carry their
-   time and bound on the main path's own operand, ``main_path_ms`` and
-   ``main_path_bound_ms``, and the Mash kernel its streaming launches and
-   stripe-0 time and bound from phase 8a, ``streaming``);
-10. the last line: ``{"ok": true, "device": {...}}``.
+   7c for both ring steps, from 9c for the rectangular entry; the Mash and
+   merge kernels also carry their time and bound on the main path's own
+   operand, ``main_path_ms`` and ``main_path_bound_ms``, the Mash kernel its
+   streaming launches and stripe-0 time and bound from phase 8a,
+   ``streaming``, and its multiround launches, and the fused indicator
+   kernel its matmul-estimator chunk from 9a);
+11. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -682,6 +701,7 @@ def reset_launches() -> None:
 
     mash.LAUNCHES["mash_shared"] = 0
     indicator.LAUNCHES["indicator_mm"] = 0
+    indicator.LAUNCHES["indicator_mm_rect"] = 0
     intersect.LAUNCHES["intersect"] = 0
     intersect.LAUNCHES["intersect_stacked"] = 0
     ring.LAUNCHES["ring_step"] = 0
@@ -691,8 +711,7 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     from drep_tpu_torch.ops import indicator, intersect, mash, ring
 
-    return {"mash_shared": mash.LAUNCHES["mash_shared"], "indicator_mm": indicator.LAUNCHES["indicator_mm"],
-            **intersect.LAUNCHES, **ring.LAUNCHES}
+    return {"mash_shared": mash.LAUNCHES["mash_shared"], **indicator.LAUNCHES, **intersect.LAUNCHES, **ring.LAUNCHES}
 
 
 def phase_cli(tmp: str, dev) -> dict:
@@ -837,7 +856,8 @@ def phase_real_size(tmp: str, dev) -> dict:
     log(f"real size: {n_planted} planted clusters recovered exactly; random 512x512 shared block "
         "equals the plain version")
     return {"launches": launches, "mash_ms": main_ms, "mash_bound_ms": main_bound_ms, "mash_rows": int(pad.shape[0]),
-            "packed": packed, "k": gs.k, "secondary": secondary}
+            "packed": packed, "k": gs.k, "secondary": secondary, "gs": gs, "planted": planted, "wd": wd.location,
+            "bdb": bdb, "cdb": cdb}
 
 
 def phase_real_batches(batches) -> dict:
@@ -888,10 +908,10 @@ def beyond_workdir(tmp: str, name: str, gs):
     return wd, bdb
 
 
-def run_beyond(wd, bdb, dev, what: str, **kw):
-    """d_cluster -> choose -> evaluate on a beyond-budget workdir with the
-    launch counts zeroed just before: (Cdb, launches, secondary paths,
-    stage seconds, d_cluster seconds)."""
+def run_beyond(wd, bdb, dev, what: str, choose: bool = True, **kw):
+    """d_cluster -> choose -> evaluate (d_cluster alone without `choose`)
+    on a beyond-budget workdir with the launch counts zeroed just before:
+    (Cdb, launches, secondary paths, stage seconds, d_cluster seconds)."""
     import torch
 
     from drep_tpu_torch.choose import d_choose_wrapper
@@ -904,8 +924,9 @@ def run_beyond(wd, bdb, dev, what: str, **kw):
     t1 = time.perf_counter()
     cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, **kw)
     t_cluster = time.perf_counter() - t1
-    d_choose_wrapper(wd, bdb)
-    d_evaluate_wrapper(wd)
+    if choose:
+        d_choose_wrapper(wd, bdb)
+        d_evaluate_wrapper(wd)
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t1
     launches = read_launches()
@@ -942,7 +963,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
     cdb, launches, paths, _, t_cluster = run_beyond(wd, bdb, dev, "beyond budget", mesh_shape=1)
     require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
-    launches = {k: v for k, v in launches.items() if k not in ("ring_step", "ring_step_mm")}
+    launches = {k: v for k, v in launches.items() if k not in ("ring_step", "ring_step_mm", "indicator_mm_rect")}
     require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
     n_chunks = c_chunks(gs, planted)[0].shape[0]
     require(launches["indicator_mm"] == n_chunks,
@@ -1237,12 +1258,14 @@ def phase_ring_primary(dev, packed, k: int) -> dict:
 
 
 def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
-    """Phase 7c: phase 6 again with mesh_shape=RING_POSITIONS."""
+    """Phase 7c: phase 6's d_cluster_wrapper again with
+    mesh_shape=RING_POSITIONS (choose and evaluate read only tables held
+    equal here, so they are not run again)."""
     import pandas as pd
 
     wd, bdb = beyond_workdir(tmp, "beyond_mesh_wd", gs)
     _, launches, paths, stages, t_cluster = run_beyond(
-        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS})", mesh_shape=RING_POSITIONS)
+        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS})", choose=False, mesh_shape=RING_POSITIONS)
     require(paths == {"mesh_ring": len(BEYOND)}, f"mesh run's secondary routes {paths}")
     require(launches["ring_step"] > 0 and launches["ring_step_mm"] > 0,
             f"mesh run launched no merge or no matmul ring step: {launches}")
@@ -1250,7 +1273,7 @@ def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
     def table(root: str, name: str) -> str:
         return os.path.join(root, "data_tables", f"{name}.csv")
 
-    for name in ("Cdb", "Ndb", "Wdb"):
+    for name in ("Cdb", "Ndb"):
         with open(table(wd.location, name), "rb") as f, open(table(beyond["wd"], name), "rb") as g:
             require(f.read() == g.read(), f"mesh run's {name} != the single-device run's")
     with open(table(wd.location, "Mdb"), "rb") as f, open(table(beyond["wd"], "Mdb"), "rb") as g:
@@ -1260,7 +1283,7 @@ def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
         require(got[["genome1", "genome2"]].equals(want[["genome1", "genome2"]]), "mesh run's Mdb pairs differ")
         err = float(np.abs(got["dist"].to_numpy() - want["dist"].to_numpy()).max()) if len(got) else 0.0
     require(err <= 1e-7, f"mesh run's Mdb distances differ by {err}")
-    log(f"ring path: Cdb, Ndb and Wdb byte-identical to phase 6, Mdb max |diff| {err}; "
+    log(f"ring path: Cdb and Ndb byte-identical to phase 6, Mdb max |diff| {err}; "
         f"d_cluster_wrapper {t_cluster:.2f} s against {beyond['d_cluster_s']:.2f} s on one position")
     return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err}
 
@@ -1550,6 +1573,329 @@ def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
             "tiles_skipped": st_pruned["tiles_skipped"], "resume_s": t_resume, "resume_pairs": again[3]}
 
 
+# phase 9: the options of ROADMAP queue 1 item 9a on phases 5's and 6's
+# genomes. The multiround chunk (a quarter of phase 5's genomes), and
+# phase 9d's cut of phase 5's genomes: the tertiary Ndb holds every
+# cross-primary pair of representatives (~12 M rows at 10 000 genomes,
+# ~2 minutes of CSV on the chip machine's host), so 9d takes the first
+# 2 500 genomes (~0.8 M rows)
+MULTIROUND_CHUNK = 2_500
+TERTIARY_GENOMES = 2_500
+
+
+def clone_workdir(tmp: str, name: str, src: str):
+    """A workdir holding the sketch cache, Bdb and genomeInformation of the
+    workdir at `src` (hard links: the 10 000-genome cache is ~0.8 GB)."""
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    wd = WorkDirectory(os.path.join(tmp, name))
+    for rel in (os.path.join("data", "arrays", "sketches.npz"), os.path.join("log", "sketch_arguments.json"),
+                *(os.path.join("data_tables", f"{t}.csv") for t in ("Gdb", "Bdb", "genomeInformation"))):
+        os.link(os.path.join(src, rel), os.path.join(wd.location, rel))
+    return wd
+
+
+def run_option(wd, bdb, dev, what: str, **kw):
+    """d_cluster_wrapper on `wd` with the launch counts zeroed just before:
+    (Cdb, launches, stage seconds, stage pairs, seconds)."""
+    import torch
+
+    from drep_tpu_torch.cluster import controller
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, mesh_shape=1, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    stages, pairs = dict(controller.STAGE_SECONDS), dict(controller.STAGE_PAIRS)
+    log(f"{what}: d_cluster_wrapper {dt:.2f} s; stages {json.dumps({k: round(v, 3) for k, v in stages.items()})}; "
+        f"pairs {pairs}; launches { {k: v for k, v in launches.items() if v} }")
+    return cdb, launches, stages, pairs, dt
+
+
+def same_partition(got: np.ndarray, want: np.ndarray) -> int:
+    """-1 where two label arrays are one partition up to renumbering, else
+    the first position where they part."""
+    fwd, back = {}, {}
+    for i, (g, w) in enumerate(zip(got.tolist(), want.tolist())):
+        if fwd.setdefault(g, w) != w or back.setdefault(w, g) != g:
+            return i
+    return -1
+
+
+def require_planted(cdb, names, planted, column: str, what: str) -> None:
+    """Every planted cluster is one `column` cluster, and no two share one."""
+    labels = cdb.set_index("genome").loc[names, column].to_numpy()
+    require(len(set(zip(planted.tolist(), labels.tolist()))) == len(set(planted.tolist())) == len(set(labels.tolist())),
+            f"{what}: the planted clusters are not the {column}s")
+
+
+def phase_matmul_estimator(tmp: str, dev, real: dict) -> dict:
+    """Phase 9a: --primary_estimator matmul on phase 5's 10 000 genomes."""
+    import torch
+
+    from drep_tpu_torch.cluster import engines
+    from drep_tpu_torch.ops import containment, intersect, minhash_matmul
+    from drep_tpu_torch.ops import indicator as ind_mod
+    from drep_tpu_torch.ops.mash import all_vs_all_mash
+    from drep_tpu_torch.ops.minhash import ids_to_device
+
+    packed, n = real["packed"], real["packed"].n
+    m_pad = -(-n // minhash_matmul.ROW_PAD) * minhash_matmul.ROW_PAD
+    chunks, v_chunk = containment.vocab_chunks(packed, m_pad)
+    # the estimator's Jaccard and its [N, N] counts, as the main path
+    # computes them (the spies call the real functions)
+    out = {}
+    real_fn, real_counts = engines.all_vs_all_mash_matmul, minhash_matmul.intersections_chunked
+
+    def spy(p, k, device):
+        out["dist"], out["jac"] = real_fn(p, k=k, device=device)
+        return out["dist"], out["jac"]
+
+    def counts_spy(p, device, m_pad=None):
+        out["inter"] = real_counts(p, device, m_pad=m_pad)
+        return out["inter"]
+
+    wd = clone_workdir(tmp, "p9a_wd", real["wd"])
+    engines.all_vs_all_mash_matmul, minhash_matmul.intersections_chunked = spy, counts_spy
+    try:
+        cdb, launches, stages, pairs, dt = run_option(wd, real["bdb"], dev, "9a matmul estimator",
+                                                      primary_estimator="matmul", SkipSecondary=True)
+    finally:
+        engines.all_vs_all_mash_matmul, minhash_matmul.intersections_chunked = real_fn, real_counts
+    parts = dict(minhash_matmul.STAGE_SECONDS)
+    require(launches["indicator_mm"] == chunks.shape[0] > 1 and launches["mash_shared"] == 0,
+            f"9a: {launches} for {chunks.shape[0]} vocabulary chunks")
+    require(wd.get_arguments("cluster")["primary_estimator_resolved"] == "matmul", "9a did not resolve to matmul")
+    require_planted(cdb, real["gs"].names, real["planted"], "primary_cluster", "9a")
+    want_cdb = real["cdb"].set_index("genome").loc[cdb["genome"], "primary_cluster"].to_numpy()
+    require(same_partition(cdb["primary_cluster"].to_numpy(), want_cdb) < 0, "9a: primary != phase 5's")
+
+    # the whole [N, N] counts against the merge-intersect kernel's (an
+    # independent kernel of the same |A ∩ B|), and one chunk's launch
+    # against the plain version on the card
+    t = time.perf_counter()
+    merged = intersect.intersect_counts_self(packed.ids, dev)
+    t_merge = time.perf_counter() - t
+    require(np.array_equal(out.pop("inter"), merged), "9a: the chunked indicator counts != intersect.cu's")
+    del merged
+    c0 = ids_to_device(chunks[0], dev)
+    want, plain_ms = cuda_timed(lambda: ind_mod.indicator_intersections_plain(c0, v_chunk))
+    acc = torch.zeros((m_pad, m_pad), dtype=torch.int32, device=dev)
+    require(torch.equal(ind_mod.indicator_intersections(c0, v_chunk, out=acc), want), "9a: chunk 0 != plain")
+    del want
+
+    def one_chunk():
+        acc.zero_()
+        ind_mod.indicator_intersections(c0, v_chunk, out=acc)
+
+    zero_ms = cuda_ms(acc.zero_, reps=5)
+    chunk = {"shape": [*c0.shape, v_chunk], "dtype": str(c0.dtype), "chunks": int(chunks.shape[0]),
+             "walk": "dense" if ind_mod.dense_walk(c0.shape[1], v_chunk) else "sparse",
+             "ids_per_row_chunk": ids_per_row_chunk(c0, v_chunk),
+             "ms": cuda_ms(one_chunk, reps=5) - zero_ms, "plain_ms": plain_ms, **mm_bounds(c0, v_chunk),
+             "library_ms": cuda_ms(lambda: ind_mod.indicator_intersections_plain(c0, v_chunk), reps=3)}
+    del acc, c0
+
+    # the estimators agree within tests/test_minhash_matmul.py's 0.06 in Jaccard
+    _, jac_sort = all_vs_all_mash(packed, k=real["k"], device=dev)
+    jac_diff = float(np.abs(out["jac"] - jac_sort).max())
+    require(jac_diff < 0.06, f"9a: matmul Jaccard off the sort estimator's by {jac_diff}")
+    res = {"launches": launches, "d_cluster_s": dt, "stages": stages, "estimator_s": parts,
+           "merge_counts_s": t_merge, "jaccard_max_diff_vs_sort": jac_diff,
+           "chunk0": chunk}
+    log(f"9a: {chunks.shape[0]} indicator_mm launches (one a vocabulary chunk); primary == phase 5's; [N, N] counts "
+        f"== intersect.cu's; chunk 0 == plain; {json.dumps(res)}")
+    return res
+
+
+def phase_multiround(tmp: str, dev, real: dict) -> dict:
+    """Phase 9b: --multiround_primary_clustering in chunks of MULTIROUND_CHUNK."""
+    wd = clone_workdir(tmp, "p9b_wd", real["wd"])
+    n = real["packed"].n
+    cdb, launches, stages, pairs, dt = run_option(
+        wd, real["bdb"], dev, "9b multiround", multiround_primary_clustering=True,
+        primary_chunksize=MULTIROUND_CHUNK, SkipSecondary=True)
+    want_launches = -(-n // MULTIROUND_CHUNK) + 1
+    require(launches["mash_shared"] == want_launches and launches["indicator_mm"] == 0,
+            f"9b: {launches}, expected {want_launches} mash_shared launches")
+    require(not wd.hasDb("Mdb"), "9b wrote an Mdb")
+    want = real["cdb"].set_index("genome").loc[cdb["genome"], "primary_cluster"].to_numpy()
+    first = same_partition(cdb["primary_cluster"].to_numpy(), want)
+    require(first < 0, f"9b: the multiround partition parts from phase 5's dense primary at genome "
+            f"{cdb['genome'].iloc[max(first, 0)]} (multiround {cdb['primary_cluster'].iloc[max(first, 0)]}, "
+            f"dense {want[max(first, 0)]})")
+    log(f"9b: {launches['mash_shared']} mash_shared launches; the partition equals phase 5's dense primary; "
+        f"{pairs['primary_compare']} pairs in {stages['primary_compare']:.2f} s")
+    return {"launches": launches, "d_cluster_s": dt, "stages": stages, "pairs": pairs}
+
+
+def mm_rect_bounds(a, b, v_pad: int) -> dict:
+    """The rectangular entry's two bounds on [na, W] x [nb, W] ids: the
+    function's (both packs read once, the [na, nb] int32 counts written
+    once, at the HBM rate) and its tensor-core formulation's (2 x 128^2 x
+    v_pad int8 operations an output tile, at the int8 peak)."""
+    na, nb = a.shape[0], b.shape[0]
+    bytes_ms = ((a.numel() + b.numel()) * a.element_size() + 4 * na * nb) / HBM_BYTES_PER_S * 1e3
+    tiles = -(-na // 128) * -(-nb // 128)
+    return {"bound_ms": bytes_ms, "bound_by": "bytes",
+            "tensor_core_bound_ms": tiles * 2 * 128 * 128 * v_pad / INT8_TENSOR_OPS_PER_S * 1e3}
+
+
+def check_rect(a, b, v_pad: int, what: str) -> dict:
+    """The rectangular entry at one of the path's shapes: both walks forced
+    equal to the plain version, then kernel, plain and library timed."""
+    import torch
+
+    from drep_tpu_torch.ops import indicator as ind_mod
+
+    want, plain_ms = cuda_timed(lambda: ind_mod.indicator_rect_intersections_plain(a, b, v_pad))
+    out = torch.zeros_like(want)
+    for dense in (True, False):
+        out.zero_()
+        ind_mod._launch_rect(a, b, v_pad, out, dense)
+        require(torch.equal(out, want), f"indicator_mm_rect {what}, {'dense' if dense else 'sparse'} walk != plain")
+    require(torch.equal(ind_mod.indicator_rect_intersections(a, b, v_pad), want), f"indicator_mm_rect {what} != plain")
+
+    def run(dense):
+        out.zero_()
+        ind_mod._launch_rect(a, b, v_pad, out, dense)
+
+    zero_ms = cuda_ms(out.zero_, reps=20)
+    walks = {"dense": [], "sparse": []}
+    for walk in ("dense", "sparse", "sparse", "dense"):
+        walks[walk].append(cuda_ms(lambda: run(walk == "dense"), reps=20) - zero_ms)
+    picked = "dense" if ind_mod.dense_walk(max(a.shape[1], b.shape[1]), v_pad) else "sparse"
+    return {"shape": [int(a.shape[0]), int(b.shape[0]), int(a.shape[1]), v_pad], "walk": picked,
+            "ids_per_row_chunk": ids_per_row_chunk(a, v_pad), "ms": sum(walks[picked]) / 2, "plain_ms": plain_ms,
+            **mm_rect_bounds(a, b, v_pad),
+            "library_ms": cuda_ms(lambda: ind_mod.indicator_rect_intersections_plain(a, b, v_pad), reps=5),
+            "walks_ms": {k: sum(v) / 2 for k, v in walks.items()}}
+
+
+def phase_greedy(tmp: str, dev, real: dict, gs6, planted6, beyond: dict) -> dict:
+    """Phase 9c: --greedy_secondary_clustering on phase 6's workdir (A, B
+    and C past SMALL_CLUSTER_MAX: greedy_secondary_cluster on the
+    rectangular kernel) and on phase 5's (every cluster small: the batched
+    route)."""
+    import torch
+
+    from drep_tpu_torch.cluster import controller, greedy
+    from drep_tpu_torch.ops import containment
+
+    # each large cluster's (pc, indices, kw, result) and its first block x
+    # rep-tile operands, as the path hands them to the rectangular kernel
+    runs, first_rect = {}, {}
+    real_greedy, real_rect = controller.greedy_secondary_cluster, containment.indicator_rect_intersections
+    current = []
+
+    def greedy_spy(gs, bdb, indices, pc, kw):
+        current[:] = [pc]
+        res = real_greedy(gs, bdb, indices, pc, kw)
+        runs[pc] = (list(indices), dict(kw), res)
+        return res
+
+    def rect_spy(a, b, v_pad, out=None):
+        first_rect.setdefault(current[0], (a, b, v_pad))
+        return real_rect(a, b, v_pad, out=out)
+
+    wd6 = clone_workdir(tmp, "p9c6_wd", beyond["wd"])
+    bdb6 = wd6.get_db("Bdb")
+    greedy.GREEDY_TIMINGS.clear()
+    controller.greedy_secondary_cluster, containment.indicator_rect_intersections = greedy_spy, rect_spy
+    try:
+        cdb6, launches6, stages6, pairs6, dt6 = run_option(wd6, bdb6, dev, "9c greedy on phase 6's workdir",
+                                                           greedy_secondary_clustering=True)
+    finally:
+        controller.greedy_secondary_cluster, containment.indicator_rect_intersections = real_greedy, real_rect
+    timings = dict(greedy.GREEDY_TIMINGS)
+    require(len(runs) == len(BEYOND) and launches6["indicator_mm_rect"] > 0 and launches6["indicator_mm"] > 0,
+            f"9c: {len(runs)} clusters took greedy_secondary_cluster; launches {launches6}")
+    require(pairs6["secondary_compare"] == len(wd6.get_db("Ndb")), "9c: the pair counter != the Ndb rows")
+    by = cdb6.set_index("genome")
+    for i, (key, (n, _, _, route)) in enumerate(BEYOND.items()):
+        sec = by.loc[np.array(gs6.names)[planted6 == i], "secondary_cluster"]
+        want = n if route == "pallas_range" else 1
+        require(sec.nunique() == want, f"9c: cluster {key} in {sec.nunique()} greedy clusters, expected {want}")
+    require(cdb6["primary_cluster"].tolist() == pd_read(beyond["wd"], "Cdb")["primary_cluster"].tolist(),
+            "9c: phase 6's primary changed")
+
+    # cluster B on the host: the port's own CPU run, byte for byte
+    key_b = list(BEYOND).index("B")
+    pc_b = int(by.loc[gs6.names[int(np.flatnonzero(planted6 == key_b)[0])], "primary_cluster"])
+    indices, kw, (ndb_b, labels_b) = runs[pc_b]
+    t = time.perf_counter()
+    cpu_ndb, cpu_labels = real_greedy(gs6, bdb6, indices, pc_b, {**kw, "device": torch.device("cpu")})
+    t_cpu = time.perf_counter() - t
+    require(ndb_b.to_csv(index=False) == cpu_ndb.to_csv(index=False) and np.array_equal(labels_b, cpu_labels),
+            "9c: cluster B's greedy Ndb/labels on the card != the CPU run's")
+    log(f"9c: cluster B ({len(indices)} genomes, {len(ndb_b)} Ndb rows) byte-identical to its CPU run "
+        f"({t_cpu:.1f} s on the host)")
+
+    rect = {}
+    for pc, (a, b, v_pad) in sorted(first_rect.items()):
+        key = list(BEYOND)[int(planted6[runs[pc][0][0]])]
+        rect[key] = check_rect(a, b, v_pad, f"cluster {key}'s first block x rep tile")
+        log(f"9c: indicator_mm_rect on cluster {key}'s first block x rep tile equals the plain version (both "
+            f"walks); {json.dumps(rect[key])}")
+
+    wd5 = clone_workdir(tmp, "p9c5_wd", real["wd"])
+    cdb5, launches5, stages5, pairs5, dt5 = run_option(wd5, real["bdb"], dev, "9c greedy on phase 5's workdir",
+                                                       greedy_secondary_clustering=True)
+    require(launches5["indicator_mm"] > 0 and launches5["indicator_mm_rect"] == 0,
+            f"9c: phase 5's small clusters left the batched route: {launches5}")
+    require(pd_bytes(wd5.location, "Cdb") == pd_bytes(real["wd"], "Cdb"), "9c: phase 5's greedy Cdb != phase 5's Cdb")
+    log(f"9c: phase 5's clusters took the batched route ({launches5['indicator_mm']} indicator_mm launches) and "
+        f"Cdb equals phase 5's byte for byte")
+    return {"launches": launches6, "d_cluster_s": dt6, "stages": stages6, "pairs": pairs6, "timings": timings,
+            "cluster_B_cpu_s": t_cpu, "rect": rect, "phase5": {"launches": launches5, "d_cluster_s": dt5,
+                                                               "stages": stages5, "pairs": pairs5}}
+
+
+def pd_bytes(root: str, name: str) -> bytes:
+    with open(os.path.join(root, "data_tables", f"{name}.csv"), "rb") as f:
+        return f.read()
+
+
+def pd_read(root: str, name: str):
+    import pandas as pd
+
+    return pd.read_csv(os.path.join(root, "data_tables", f"{name}.csv"))
+
+
+def phase_tertiary(tmp: str, dev, real: dict) -> dict:
+    """Phase 9d: --run_tertiary_clustering on phase 5's first
+    TERTIARY_GENOMES genomes: the merges, and Cdb equal to phase 5's rows
+    of those genomes wherever nothing merged."""
+    import pandas as pd
+
+    from drep_tpu_torch.ingest import GenomeSketches, save_sketch_cache
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    gs, m = real["gs"], TERTIARY_GENOMES
+    cut = GenomeSketches(names=gs.names[:m], gdb=gs.gdb.iloc[:m].reset_index(drop=True), bottom=gs.bottom[:m],
+                         scaled=gs.scaled[:m], k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale)
+    wd = WorkDirectory(os.path.join(tmp, "p9d_wd"))
+    save_sketch_cache(wd, cut)
+    bdb = real["bdb"].iloc[:m].reset_index(drop=True)
+    cdb, launches, stages, pairs, dt = run_option(wd, bdb, dev, "9d tertiary", run_tertiary_clustering=True)
+    require(launches["mash_shared"] > 0 and launches["indicator_mm"] > 0, f"9d skipped a kernel: {launches}")
+    want = real["cdb"].iloc[:m].reset_index(drop=True)
+    before, after = want["secondary_cluster"], cdb["secondary_cluster"]
+    merged = set(before) - set(after)
+    kept = ~before.isin(merged)
+    require(cdb[kept].to_csv(index=False) == want[kept].to_csv(index=False),
+            "9d: Cdb rows where nothing merged != phase 5's")
+    ndb = wd.get_db("Ndb")
+    n_tertiary = int((ndb["primary_cluster"] == 0).sum())
+    log(f"9d: {len(merged)} secondary clusters merged across primary clusters; Cdb equals phase 5's first {m} rows "
+        f"where nothing merged; {n_tertiary} tertiary Ndb rows")
+    return {"launches": launches, "d_cluster_s": dt, "stages": stages, "merges": len(merged),
+            "tertiary_ndb_rows": n_tertiary, "genomes": m}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -1593,6 +1939,12 @@ def main() -> int:
         ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
         stream = phase_streaming_auto(tmp, dev)
         stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
+        t9 = time.perf_counter()
+        p9a = phase_matmul_estimator(tmp, dev, real)
+        p9b = phase_multiround(tmp, dev, real)
+        p9c = phase_greedy(tmp, dev, real, gs_beyond, planted_beyond, beyond)
+        p9d = phase_tertiary(tmp, dev, real)
+        log(f"phase 9: {time.perf_counter() - t9:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -1613,9 +1965,19 @@ def main() -> int:
                                          "library_ms", "merge_step_ms", "shape", "v_pad")},
         "shapes": ring_mm["shapes"], "rings": ring_mm["rings"],
     })
+    rect = p9c["rect"]
+    rect_main = rect["B"]
+    kernels.append({
+        "name": "indicator_mm_rect", "route": "cuda", "source": "drep_tpu_torch/csrc/indicator_mm.cu",
+        "replaces": "drep_tpu/ops/pallas_indicator.py:50", "site": "drep_tpu/ops/containment.py:508",
+        "equal": True, "max_abs_err": 0,
+        **{key: rect_main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "tensor_core_bound_ms",
+                                           "library_ms", "shape", "walk", "walks_ms")},
+        "clusters": rect, "greedy_timings": p9c["timings"],
+    })
     for k in kernels:
         path = real if k["name"] in PRIMARY_PATH_KERNELS else ring_path if k["name"].startswith("ring_step") \
-            else beyond
+            else p9c if k["name"] == "indicator_mm_rect" else beyond
         k["launches"] = path["launches"][k["name"]]
     kernels[1]["main_path"] = real["secondary"]
     kernels[1]["chunked_launches"] = beyond["launches"]["indicator_mm"]
@@ -1623,6 +1985,9 @@ def main() -> int:
     kernels[0]["main_path_rows"] = real["mash_rows"]
     kernels[0]["main_path_bound_ms"] = real["mash_bound_ms"]
     kernels[0]["streaming"] = {**{k: v for k, v in stream.items() if k != "stages"}, "edges_10k": stream_edges}
+    kernels[0]["multiround_launches"] = p9b["launches"]["mash_shared"]
+    kernels[1]["matmul_estimator"] = {**p9a["chunk0"], "launches": p9a["launches"]["indicator_mm"]}
+    kernels[1]["tertiary_launches"] = p9d["launches"]["indicator_mm"]
     # the merge kernels on the operands their route built in phase 6 (B:
     # width 2048, A: stacked buckets), and the other route on the same pack
     # in place of a library call

@@ -10,10 +10,13 @@ on one card, or on the CPU); the JAX package's --ring_comm,
 port's one ring.
 The streaming primary (--streaming_primary, --streaming_threshold,
 --streaming_block) and its LSH pruning (--primary_prune lsh, --prune_bands,
---prune_min_shared, --prune_join_chunk) run as in the JAX package. Flags
-of paths not ported yet (multiround, greedy, tertiary) parse and then
-raise NotImplementedError in the cluster stage where the JAX package would
-take the path. The flags in :data:`UNPORTED_FLAGS` (fault tolerance,
+--prune_min_shared, --prune_join_chunk) run as in the JAX package, and so
+do --primary_estimator matmul, --multiround_primary_clustering,
+--greedy_secondary_clustering and --run_tertiary_clustering. The
+subprocess engines (--primary_algorithm mash, --S_algorithm fastANI and
+the ANI programs) parse and then raise NotImplementedError in the cluster
+stage where the JAX package would run them. The flags in
+:data:`UNPORTED_FLAGS` (fault tolerance,
 durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
 with the JAX defaults, and a run that sets one otherwise raises
 NotImplementedError naming its ROADMAP item (workflows.py).
@@ -40,8 +43,8 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
     "overlap_ingest": ((True,), "5"),
     "max_joins": ((0,), "12b"),
     "drain_grace_s": ((30.0,), "12b"),
-    "run_tax": ((False,), "9"),
-    "cent_index": ((None,), "9"),
+    "run_tax": ((False,), "9b"),
+    "cent_index": ((None,), "9b"),
 }
 
 

@@ -1,37 +1,42 @@
 """Cluster-stage orchestration: Bdb -> Mdb -> Ndb -> Cdb.
 
-Counterpart of drep_tpu/cluster/controller.py, trimmed to the dense
-path (one device, or a mesh ring of --mesh_shape positions) and the
-single-process streaming primary:
+Counterpart of drep_tpu/cluster/controller.py, trimmed to one process
+(one device, or a mesh ring of --mesh_shape positions):
 
 - resume: if the workdir already holds Cdb and the stored cluster
-  arguments match, skip recompute entirely;
-- PRIMARY: all-vs-all Mash distance (ops/mash.py kernel, or the ring of
-  parallel/allpairs.py on a mesh) -> hierarchical
-  clustering at 1-P_ani -> integer primary clusters (Mdb: dense for small
-  N, thresholded beyond `mdb_dense_limit`); at n >= --streaming_threshold
-  or with --streaming_primary, the streaming primary instead
-  (parallel/streaming.py: the Mash kernel stripe by stripe, shard
+  arguments match, skip recompute entirely (with the JAX package's
+  warning where the primary estimator would now resolve otherwise);
+- PRIMARY: all-vs-all Mash distance (ops/mash.py kernel, the
+  --primary_estimator matmul estimator of ops/minhash_matmul.py, or the
+  ring of parallel/allpairs.py on a mesh) -> hierarchical clustering at
+  1-P_ani -> integer primary clusters (Mdb: dense for small N,
+  thresholded beyond `mdb_dense_limit`); with
+  --multiround_primary_clustering above --primary_chunksize, the chunked
+  two-round primary of cluster/multiround.py (no Mdb); at n >=
+  --streaming_threshold or with --streaming_primary, the streaming
+  primary (parallel/streaming.py: the Mash kernel stripe by stripe, shard
   checkpoints under ``data/streaming_primary``, --primary_prune lsh,
   sparse UPGMA or connected components; a sparse Mdb of the retained
   edges);
 - SECONDARY: per primary cluster with >1 member, containment ANI through
   the one-shot indicator matmul (small clusters batched into one call),
   or past its budget the mesh ring, the merge kernel or the chunked
-  matmul (engines) ->
-  coverage-gated hierarchical clustering at 1-S_ani -> "P_S" ids (Ndb);
+  matmul (engines) -> coverage-gated hierarchical clustering at 1-S_ani
+  -> "P_S" ids (Ndb); with --greedy_secondary_clustering, the greedy
+  assignment instead (cluster/greedy.py: small clusters over the batched
+  call's matrices, larger ones block by block on the rectangular
+  indicator product);
+- with --run_tertiary_clustering, cross-primary merges of the secondary
+  clusters' representatives (cluster/tertiary.py);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 
-Where the JAX package would take a path not ported yet (multiround
-primary clustering above --primary_chunksize, greedy and tertiary
-secondary clustering, the subprocess engines), the run raises
-NotImplementedError naming its ROADMAP item before ingest; where the JAX
-package ignores such a flag (--primary_prune on the dense path, greedy or
-tertiary under --SkipSecondary), so does the port. The JAX package's
-per-cluster secondary checkpoints, the ring's block store and the
-device-failure retries are not ported either: a failure stops the run, and
-a rerun starts the stage over (the streaming primary's finished stripes
-excepted).
+Where the JAX package would run a subprocess engine (ROADMAP.md queue 1,
+item 9b), the run raises NotImplementedError naming it before ingest;
+where the JAX package ignores such a flag (an engine under --SkipMash or
+--SkipSecondary), so does the port. The JAX package's per-cluster
+secondary checkpoints, the ring's block store and the device-failure
+retries are not ported: a failure stops the run, and a rerun starts the
+stage over (the streaming primary's finished stripes excepted).
 """
 
 from __future__ import annotations
@@ -46,6 +51,9 @@ import pandas as pd
 
 from drep_tpu_torch import schemas
 from drep_tpu_torch.cluster import dispatch, engines, pairs
+from drep_tpu_torch.cluster.greedy import greedy_assign_from_matrices, greedy_secondary_cluster
+from drep_tpu_torch.cluster.multiround import multiround_primary_clustering
+from drep_tpu_torch.cluster.tertiary import run_tertiary_clustering
 from drep_tpu_torch.device import resolve_device
 from drep_tpu_torch.ingest import DEFAULT_SCALE, DEFAULT_SKETCH_SIZE, GenomeSketches, sketch_genomes
 from drep_tpu_torch.ops.kmers import DEFAULT_K
@@ -106,13 +114,8 @@ _RESUME_KEYS = [
     "genomes",
 ]
 
-# the ROADMAP items that own each path this controller does not run yet
-_NOT_PORTED = {
-    "multiround_primary_clustering": "multiround primary clustering (ROADMAP.md queue 1, item 9)",
-    "greedy_secondary_clustering": "greedy secondary clustering (ROADMAP.md queue 1, item 9)",
-    "run_tertiary_clustering": "tertiary clustering (ROADMAP.md queue 1, item 9)",
-    "engine": "the subprocess comparison engines (ROADMAP.md queue 1, item 9)",
-}
+# the ROADMAP item that owns the paths this controller does not run yet
+_NOT_PORTED = "the subprocess comparison engines (ROADMAP.md queue 1, item 9b)"
 # the JAX package's subprocess engines (drep_tpu/cluster/external.py, anim.py)
 SUBPROCESS_PRIMARY = ("mash",)
 SUBPROCESS_SECONDARY = ("fastANI", "ANImf", "ANIn", "gANI", "goANI")
@@ -124,6 +127,10 @@ BATCH_ROWS_MAX = 512
 
 # wall-clock seconds of each stage of the last d_cluster_wrapper run
 STAGE_SECONDS: dict[str, float] = {}
+# genome pairs each compare stage of the last run compared (the JAX
+# package's counters: the greedy secondary counts its Ndb rows, the
+# comparisons its scan made, on both its routes)
+STAGE_PAIRS: dict[str, int] = {}
 
 
 def _fill_defaults(kwargs: dict[str, Any]) -> dict[str, Any]:
@@ -139,27 +146,27 @@ def _streams(kw: dict[str, Any], n: int) -> bool:
     return kw["streaming_primary"] or (kw["primary_algorithm"] == "jax_mash" and n >= kw["streaming_threshold"])
 
 
-def _refuse_unported(kw: dict[str, Any], n: int) -> None:
-    """Raise for the unported path the JAX package's d_cluster_wrapper
-    would take on these arguments and `n` genomes, and only there: its
-    primary branches in order (SkipMash or one genome, multiround above
-    --primary_chunksize, streaming, the dense engine), then its secondary
-    unless --SkipSecondary."""
-    def refuse(what: str, key: str) -> None:
-        raise NotImplementedError(f"{what}: {_NOT_PORTED[key]} is not ported yet")
+def _multiround(kw: dict[str, Any], n: int) -> bool:
+    """Does the primary of `n` genomes take the multiround path (the JAX
+    package's branch: --multiround_primary_clustering above
+    --primary_chunksize, ahead of streaming)?"""
+    return kw["multiround_primary_clustering"] and n > kw["primary_chunksize"]
 
-    if not (kw["SkipMash"] or n == 1):
-        if kw["multiround_primary_clustering"] and n > kw["primary_chunksize"]:
-            refuse(f"--multiround_primary_clustering with {n} genomes > --primary_chunksize "
-                   f"{kw['primary_chunksize']}", "multiround_primary_clustering")
-        if not _streams(kw, n) and kw["primary_algorithm"] in SUBPROCESS_PRIMARY:
-            refuse(f"--primary_algorithm {kw['primary_algorithm']}", "engine")
-    if not kw["SkipSecondary"]:
-        if kw["S_algorithm"] in SUBPROCESS_SECONDARY:
-            refuse(f"--S_algorithm {kw['S_algorithm']}", "engine")
-        for key in ("greedy_secondary_clustering", "run_tertiary_clustering"):
-            if kw[key]:
-                refuse(f"--{key}", key)
+
+def _refuse_unported(kw: dict[str, Any], n: int) -> None:
+    """Raise for a subprocess engine the JAX package's d_cluster_wrapper
+    would run on these arguments and `n` genomes, and only there: the
+    primary engine on its dense branch (not under SkipMash or for one
+    genome, not multiround, not streaming), the secondary engine unless
+    --SkipSecondary."""
+    def refuse(what: str) -> None:
+        raise NotImplementedError(f"{what}: {_NOT_PORTED} is not ported yet")
+
+    if not (kw["SkipMash"] or n == 1 or _multiround(kw, n) or _streams(kw, n)):
+        if kw["primary_algorithm"] in SUBPROCESS_PRIMARY:
+            refuse(f"--primary_algorithm {kw['primary_algorithm']}")
+    if not kw["SkipSecondary"] and kw["S_algorithm"] in SUBPROCESS_SECONDARY:
+        refuse(f"--S_algorithm {kw['S_algorithm']}")
 
 
 def _warn_dist(kw: dict[str, Any]) -> float:
@@ -207,10 +214,16 @@ def _streaming_mdb(edges, names: list[str]) -> pd.DataFrame:
 
 def _resolve_estimator_for_run(n: int, kw: dict[str, Any]) -> str:
     """The estimator the run will use, in `_primary_clusters`' branch
-    order (SkipMash, streaming, the dense engine): the streaming primary
-    always runs the sort estimator's tiles."""
+    order (SkipMash, multiround, streaming, the dense engine): multiround
+    resolves a chunk's, and the streaming primary always runs the sort
+    estimator's tiles."""
     if kw["SkipMash"] or n == 1:
         return "skipmash"
+    if _multiround(kw, n):
+        per_chunk = engines.resolve_primary_estimator(
+            min(n, kw["primary_chunksize"]), kw["mesh_shape"], kw["primary_estimator"], kw["device"]
+        )
+        return f"multiround_{per_chunk}"
     if _streams(kw, n):
         return "streaming_sort"
     return engines.resolve_primary_estimator(n, kw["mesh_shape"], kw["primary_estimator"], kw["device"])
@@ -272,6 +285,11 @@ def _primary_clusters(
     if kw["SkipMash"] or n == 1:
         # reference --SkipMash: everything lands in one primary cluster
         return np.ones(n, dtype=np.int64), np.zeros((n, n), np.float32), np.empty((0, 4)), None
+    if _multiround(kw, n):
+        t0 = time.perf_counter()
+        labels, STAGE_PAIRS["primary_compare"] = multiround_primary_clustering(gs, bdb, kw)
+        STAGE_SECONDS.update(primary_compare=time.perf_counter() - t0)
+        return labels, None, np.empty((0, 4)), None
     if _streams(kw, n):
         labels, edges = _streaming_primary(gs, kw, wd)
         return labels, None, np.empty((0, 4)), _streaming_mdb(edges, gs.names)
@@ -290,6 +308,7 @@ def _primary_clusters(
         mesh_shape=kw["mesh_shape"],
     )
     t1 = time.perf_counter()
+    STAGE_PAIRS["primary_compare"] = n * (n - 1) // 2
     cutoff = 1.0 - kw["P_ani"]
     if kw["clusterAlg"] == "single" and n > 64:
         labels = single_linkage_device(dist, cutoff, kw["device"])
@@ -334,16 +353,29 @@ def _secondary_clusters(
         elif indices:
             multi.append((pc, indices))
 
-    batched_fn = dispatch.get_secondary_batched(kw["S_algorithm"])
+    greedy = kw["greedy_secondary_clustering"]
+    # under greedy the batched route stays for small clusters, whose
+    # assignment then runs on the batch's matrices; only for jax_ani, whose
+    # containment numbers the greedy engine computes for the larger ones
+    batched_fn = (
+        dispatch.get_secondary_batched(kw["S_algorithm"]) if not greedy or kw["S_algorithm"] == "jax_ani" else None
+    )
     results: dict[int, tuple[pd.DataFrame, np.ndarray, np.ndarray]] = {}
     small: list[tuple[int, list[int]]] = []
+    pairs_done = 0
     for pc, indices in multi:
-        if batched_fn is not None and len(indices) <= SMALL_CLUSTER_MAX:
+        m = len(indices)
+        if batched_fn is not None and m <= SMALL_CLUSTER_MAX:
             small.append((pc, indices))  # one device call for many
+        elif greedy:
+            ndb, labels = greedy_secondary_cluster(gs, bdb, indices, pc, kw)
+            pairs_done += len(ndb)  # the comparisons the greedy scan made
+            results[pc] = (ndb, labels, np.empty((0, 4)))
         else:
             engine = dispatch.get_secondary(kw["S_algorithm"])
             ani, cov = engine(gs, indices, bdb=bdb, device=kw["device"], processes=kw["processes"],
                               mesh_shape=kw["mesh_shape"])
+            pairs_done += m * (m - 1) // 2
             results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
 
     # flush the small clusters in row-bounded batches
@@ -358,7 +390,14 @@ def _secondary_clusters(
     for batch in batches:
         outs = batched_fn(gs, [ix for _, ix in batch], device=kw["device"], mesh_shape=kw["mesh_shape"])
         for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
-            results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+            if greedy:
+                ndb, labels = greedy_assign_from_matrices(gs, indices, pc, kw, ani, cov)
+                pairs_done += len(ndb)
+                results[pc] = (ndb, labels, np.empty((0, 4)))
+            else:
+                pairs_done += len(indices) * (len(indices) - 1) // 2
+                results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+    STAGE_PAIRS["secondary_compare"] = pairs_done
     return results, multi, singles
 
 
@@ -375,13 +414,25 @@ def d_cluster_wrapper(
     # normalize: CLI passes 0.25 explicitly, library callers omit it
     snapshot["warn_dist"] = _warn_dist(kw)
     snapshot["genomes"] = sorted(bdb["genome"])
+    # stored to detect a resolution that changed, and kept out of the match
+    # keys: a changed resolution warns rather than recomputes
     snapshot["primary_estimator_resolved"] = _resolve_estimator_for_run(len(bdb), kw)
     match_keys = [k for k in snapshot if k != "primary_estimator_resolved"]
     if wd.hasDb("Cdb") and wd.arguments_match("cluster", snapshot, keys=match_keys):
+        stored = (wd.get_arguments("cluster") or {}).get("primary_estimator_resolved")
+        if stored is not None and stored != snapshot["primary_estimator_resolved"]:
+            logger.warning(
+                "resuming a workdir whose primary estimator resolved to %r, but this "
+                "run would resolve to %r (N or device count crossed an auto-selection "
+                "boundary). The cached Mdb is kept — its per-pair values differ from a "
+                "fresh run within estimator variance; delete Cdb/Mdb to recompute.",
+                stored, snapshot["primary_estimator_resolved"],
+            )
         logger.info("resuming: Cdb present with matching cluster arguments — skipping recompute")
         return wd.get_db("Cdb")
 
     STAGE_SECONDS.clear()
+    STAGE_PAIRS.clear()
     t0 = time.perf_counter()
     gs = sketch_genomes(
         bdb,
@@ -404,9 +455,9 @@ def d_cluster_wrapper(
     logger.info("primary clustering: %d clusters from %d genomes", n_primary, n)
     if pdist is not None:
         mdb = _mdb_from_dist(pdist, gs.names, kw["mdb_dense_limit"], kw["P_ani"], warn_dist=_warn_dist(kw))
-    else:
-        mdb = sparse_mdb
-    wd.store_db(schemas.validate(mdb, "Mdb"), "Mdb")
+        wd.store_db(schemas.validate(mdb, "Mdb"), "Mdb")
+    elif sparse_mdb is not None:
+        wd.store_db(schemas.validate(sparse_mdb, "Mdb"), "Mdb")
 
     clustering_files: dict[str, Any] = {
         "primary_linkage": plink,
@@ -421,11 +472,6 @@ def d_cluster_wrapper(
     if kw["SkipSecondary"]:
         for i, g in enumerate(gs.names):
             secondary_names[g] = f"{primary[i]}_0"
-        if kw["run_tertiary_clustering"]:
-            logger.warning(
-                "--run_tertiary_clustering ignored: requires secondary clustering "
-                "(remove --SkipSecondary)"
-            )
     else:
         results, multi, singles = _secondary_clusters(gs, bdb, primary, kw)
         secondary_names.update(singles)
@@ -451,6 +497,18 @@ def d_cluster_wrapper(
             "primary_cluster": primary,
         }
     )
+    if kw["run_tertiary_clustering"]:
+        if kw["SkipSecondary"]:
+            logger.warning(
+                "--run_tertiary_clustering ignored: requires secondary clustering "
+                "(remove --SkipSecondary)"
+            )
+        else:
+            cdb, tertiary_ndb = run_tertiary_clustering(gs, bdb, cdb, kw)
+            if len(tertiary_ndb):
+                ndb = pd.concat([ndb, tertiary_ndb], ignore_index=True)
+            STAGE_SECONDS["tertiary"] = time.perf_counter() - t4
+    t5 = time.perf_counter()
     wd.store_db(schemas.validate(ndb, "Ndb"), "Ndb")
     wd.store_db(schemas.validate(cdb, "Cdb"), "Cdb")
     cf_dir = wd.get_dir(os.path.join("data", "Clustering_files"))
@@ -463,7 +521,7 @@ def d_cluster_wrapper(
     wd.store_arguments("cluster", snapshot)
     STAGE_SECONDS.update(
         ingest_or_cache=t1 - t0, primary=t2 - t1, mdb=t3 - t2, secondary=t4 - t3,
-        assembly_io=time.perf_counter() - t4,
+        assembly_io=time.perf_counter() - t5,
     )
     logger.info(
         "clustering done: %d primary, %d secondary clusters",

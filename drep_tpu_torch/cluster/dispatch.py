@@ -6,7 +6,7 @@ The port registers only the device engines, `jax_mash` and `jax_ani`
 (the JAX package's names, so that an argv runs unchanged). The JAX
 package's subprocess engines (`mash`, `fastANI`, `ANImf`, `ANIn`, `gANI`,
 `goANI`) are not ported: cluster/controller.py refuses them before ingest
-(ROADMAP.md queue 1, item 9).
+(ROADMAP.md queue 1, item 9b).
 
 A primary algorithm maps a GenomeSketches + kwargs to a full [N, N] distance
 matrix. A secondary algorithm maps a subset of genomes to directional

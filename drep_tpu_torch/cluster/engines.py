@@ -7,7 +7,8 @@ are identical to the JAX package's; here they run the CUDA kernels
 
 - `jax_mash`: the exact union-bottom-s Mash estimator over the upper
   triangle of pair tiles, host-mirrored. `auto` resolves to it (the sort
-  estimator), as on a TPU; the MXU-style `matmul` estimator is not ported.
+  estimator), as on a TPU; `--primary_estimator matmul` runs the
+  common-threshold estimator (ops/minhash_matmul.py) on one device.
 - `jax_ani`: the one-shot indicator matmul, per cluster or batched over
   many small clusters in cluster-local id spaces. A cluster past the
   one-shot budget takes the mesh ring when the run has one, else one of
@@ -45,16 +46,11 @@ from drep_tpu_torch.ops.containment import (
 )
 from drep_tpu_torch.ops.intersect import all_vs_all_containment_merge
 from drep_tpu_torch.ops.mash import all_vs_all_mash
+from drep_tpu_torch.ops.minhash_matmul import all_vs_all_mash_matmul
 from drep_tpu_torch.ops.minhash import next_pow2, pack_sketches
 from drep_tpu_torch.parallel.allpairs import sharded_containment_allpairs, sharded_mash_allpairs
 from drep_tpu_torch.parallel.mesh import Mesh, make_mesh
 from drep_tpu_torch.utils.logger import get_logger
-
-MATMUL_ESTIMATOR_TODO = (
-    "--primary_estimator matmul (the common-threshold MinHash estimator, "
-    "drep_tpu/ops/minhash_matmul.py) is not ported yet: ROADMAP.md queue 1, "
-    "item 9 (other primary and secondary options)"
-)
 
 # below this many genomes a multi-position ring costs more in steps and
 # padding than it saves in compute
@@ -75,24 +71,26 @@ def resolve_primary_estimator(
     n: int, mesh_shape: int | None, estimator: str, device: torch.device
 ) -> str:
     """The concrete estimator the dense primary runs for `n` genomes:
-    `ring_sort` on a mesh (whatever the request), else `auto` and `sort`
-    are the union-bottom-s sort estimator and `matmul` raises."""
+    `ring_sort` on a mesh (whatever the request), else `matmul` where it is
+    asked for, and the union-bottom-s `sort` estimator for `auto` and
+    `sort` (as the JAX package resolves `auto` on a TPU)."""
     if estimator not in ("auto", "sort", "matmul"):
         raise ValueError(f"unknown mash estimator {estimator!r}")
     if _mesh_or_none(mesh_shape, n, device) is not None:
         return "ring_sort"
-    if estimator == "matmul":
-        raise NotImplementedError(MATMUL_ESTIMATOR_TODO)
-    return "sort"
+    return "matmul" if estimator == "matmul" else "sort"
 
 
 def mash_distance_matrix(
     packed, k: int, device: torch.device, mesh_shape: int | None = None, estimator: str = "auto"
 ) -> np.ndarray:
-    """[N, N] Mash distance: over the ring on a mesh, else the wrapped
-    symmetric grid on `device`. The ring computes the sort estimator, so
-    it serves `auto` and `sort`; `matmul` on a mesh warns and rides it."""
-    if resolve_primary_estimator(packed.n, mesh_shape, estimator, device) == "ring_sort":
+    """[N, N] Mash distance: over the ring on a mesh, else on `device` by
+    the estimator asked for (the sort estimator's wrapped symmetric grid,
+    or the matmul estimator's chunked intersection product). The ring
+    computes the sort estimator, so it serves `auto` and `sort`; `matmul`
+    on a mesh warns and rides it."""
+    resolved = resolve_primary_estimator(packed.n, mesh_shape, estimator, device)
+    if resolved == "ring_sort":
         mesh = _mesh_or_none(mesh_shape, packed.n, device)
         if estimator == "matmul":
             get_logger().warning(
@@ -101,7 +99,10 @@ def mash_distance_matrix(
                 mesh.size,
             )
         return sharded_mash_allpairs(packed, k=k, mesh=mesh)
-    dist, _jac = all_vs_all_mash(packed, k=k, device=device)
+    if resolved == "matmul":
+        dist, _jac = all_vs_all_mash_matmul(packed, k=k, device=device)
+    else:
+        dist, _jac = all_vs_all_mash(packed, k=k, device=device)
     return dist
 
 

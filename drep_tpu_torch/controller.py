@@ -17,7 +17,7 @@ def check_dependencies() -> list[str]:
     """Log (and return) the torch build, the CUDA cards it sees and the
     nvcc that builds the kernels. The JAX package also probes the external
     binaries of its subprocess engines, which the port does not run
-    (ROADMAP.md queue 1, item 9)."""
+    (ROADMAP.md queue 1, item 9b)."""
     import torch
 
     from drep_tpu_torch.ops import _build
@@ -30,7 +30,7 @@ def check_dependencies() -> list[str]:
     except RuntimeError as e:
         lines.append(f"  nvcc NOT FOUND ({e})")
     lines.append("  subprocess engines (mash, fastANI, ANImf, ANIn, gANI, goANI): not ported "
-                 "(ROADMAP.md queue 1, item 9)")
+                 "(ROADMAP.md queue 1, item 9b)")
     setup_logger(None)
     for line in lines:
         get_logger().info("%s", line)

@@ -13,16 +13,22 @@
 // into one accumulator). An id repeated in a row counts once; ids >= v_pad
 // (PAD_ID included) and ids < 0 never count. 0/1 int8 products summed in
 // int32 are exact. The [n, v_pad] indicator never reaches device memory.
+// The rectangular entry (indicator_mm_rect_launch) computes the function
+// of containment.py::_intersect_matmul_rect_jit, which the greedy
+// secondary's block-versus-representatives comparisons read on a TPU: two
+// packs a [na, width] and b [nb, width], out[i][j] += |set(a_i) ∩
+// set(b_j)| over the ids below v_pad into [na, nb] (row-major).
 //
-// What bounds it: bytes, the ids read once and the [n, n] counts written
-// once; its tensor-core formulation does 2 x 128^2 x v_pad int8
-// operations for each upper 128 x 128 tile.
+// What bounds it: bytes, the ids read once and the [n, n] (or [na, nb])
+// counts written once; its tensor-core formulation does 2 x 128^2 x v_pad
+// int8 operations for each computed 128 x 128 tile.
 //
 // Design. A block owns an upper output tile (bi <= bj; the grid's x) and a
 // share of the vocabulary (the grid's y: as many splits as fill the card's
 // SMs in one wave, so even a pack of few tiles fills it), runs
 // mm_block.cuh's block body, and adds each sum at (i, j) and, off the
-// diagonal tile, at (j, i).
+// diagonal tile, at (j, i). The rectangular entry's blocks own every
+// output tile of [na, nb] (no mirror, no diagonal), with the same splits.
 // On a diagonal tile the A rows are the B rows: the dense walk stages them
 // once, and both wgmma operands read that side. The producers walk one of
 // two ways, picked by the wrapper from the pack's width against v_pad (a
@@ -62,20 +68,23 @@ __device__ __forceinline__ int put(int v, int base, uint32_t span, uint32_t line
 }
 
 // The dense walk of a producer warp over ids [lo_id, hi_id): the staged
-// rows are A rows a_row0 .. a_row0 + TM - 1, then (off the diagonal) B rows
-// b_row0 ..; warp w takes per_warp consecutive ones. Rows at or past n
-// read as empty; `width` is a multiple of 4 and each row 16-byte aligned.
-__device__ __forceinline__ void dense_producer(MmShared& sh, uint32_t stages, const int32_t* __restrict__ ids,
-                                               int n, int width, int a_row0, int b_row0, bool diag,
-                                               int lo_id, int hi_id) {
+// rows are A rows a_row0 .. a_row0 + TM - 1 of `a` (na rows), then (off
+// the diagonal) B rows b_row0 .. of `b` (nb rows); warp w takes per_warp
+// consecutive ones. Rows at or past their side's row count read as empty;
+// `width` is a multiple of 4 and each row 16-byte aligned.
+__device__ __forceinline__ void dense_producer(MmShared& sh, uint32_t stages, const int32_t* __restrict__ a, int na,
+                                               const int32_t* __restrict__ b, int nb, int width, int a_row0,
+                                               int b_row0, bool diag, int lo_id, int hi_id) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per_warp = (diag ? TM : 2 * TM) / (4 * PRODUCERS);  // 16 or 32
   const int first = warp * per_warp;                            // the warp's first staged row
-  // the pack row of staged row r (A rows, then B rows)
+  // the row in its side's pack of staged row r (A rows, then B rows), and
+  // whether that pack holds it
   auto pack_row = [&](int r) { return (r < TM ? a_row0 : b_row0) + (r & (TM - 1)); };
-  auto row_of = [&](int r) { return ids + (int64_t)(pack_row(r) < n ? pack_row(r) : 0) * width; };
+  auto held = [&](int r) { return pack_row(r) < (r < TM ? na : nb); };
+  auto row_of = [&](int r) { return (r < TM ? a : b) + (int64_t)(held(r) ? pack_row(r) : 0) * width; };
   int cursor = width;  // lane j: the position in the warp's row j of its first id >= the chunk's start
-  if (lane < per_warp && pack_row(first + lane) < n) cursor = lower_bound(row_of(first + lane), width, lo_id);
+  if (lane < per_warp && held(first + lane)) cursor = lower_bound(row_of(first + lane), width, lo_id);
   const int grp = lane / ROW_LANES, gl = lane % ROW_LANES;
   int stage = 0, phase = 0;
   for (int base = lo_id;; base += KC) {
@@ -184,31 +193,78 @@ indicator_mm_kernel(const int32_t* __restrict__ ids, int32_t* __restrict__ out, 
   const int hi_id = min(lo_id + chunks_per_split * KC, v_pad);
   if (threadIdx.x < 128 * PRODUCERS) {
     if (DENSE)
-      dense_producer(sh, stages, ids, n, width, bi * TM, bj * TM, diag, lo_id, hi_id);
+      dense_producer(sh, stages, ids, n, ids, n, width, bi * TM, bj * TM, diag, lo_id, hi_id);
     else
-      mm_sparse_producer(sh, stages, ids, bi * TM, ids, bj * TM, n, width, lo_id, hi_id);
+      mm_sparse_producer(sh, stages, ids, bi * TM, n, ids, bj * TM, n, width, lo_id, hi_id);
   } else {
     int d[64];
     mm_consumer(sh, stages, DENSE && diag ? 0 : SIDE_BYTES, d);
-    mm_epilogue(d, out, n, bi * TM, bj * TM, !diag);
+    mm_epilogue(d, out, n, n, n, bi * TM, bj * TM, !diag);
   }
+}
+
+// The rectangular entry: grid (every output tile, row-major over B's
+// tiles, times the vocabulary splits); out [na, nb] row-major holds what
+// the counts |A_i ∩ B_j| add to. No tile is mirrored or staged once.
+template <bool DENSE>
+__global__ void __launch_bounds__(THREADS, 1)
+indicator_mm_rect_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b, int32_t* __restrict__ out,
+                         int na, int nb, int width, int v_pad, int tiles_b, int chunks_per_split) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  __shared__ MmShared sh;
+  const int bi = blockIdx.x / tiles_b, bj = blockIdx.x % tiles_b;
+  const uint32_t stages = mm_setup(smem_raw, sh);
+  const int lo_id = blockIdx.y * chunks_per_split * KC;
+  const int hi_id = min(lo_id + chunks_per_split * KC, v_pad);
+  if (threadIdx.x < 128 * PRODUCERS) {
+    if (DENSE)
+      dense_producer(sh, stages, a, na, b, nb, width, bi * TM, bj * TM, false, lo_id, hi_id);
+    else
+      mm_sparse_producer(sh, stages, a, bi * TM, na, b, bj * TM, nb, width, lo_id, hi_id);
+  } else {
+    int d[64];
+    mm_consumer(sh, stages, SIDE_BYTES, d);
+    mm_epilogue(d, out, na, nb, nb, bi * TM, bj * TM, false);
+  }
+}
+
+// The kernel's shared memory granted, and the card's SMs in *sms.
+template <typename Kernel>
+static int prepare(Kernel kernel, int* sms) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  int dev;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)e;
 }
 
 template <bool DENSE>
 static int launch(const int32_t* ids, int32_t* out, int n, int width, int v_pad, cudaStream_t s) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(indicator_mm_kernel<DENSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  int dev, sms;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
+  int sms;
+  const int rc = prepare(indicator_mm_kernel<DENSE>, &sms);
+  if (rc != 0) return rc;
   const int tiles = (n + TM - 1) / TM, upper = tiles * (tiles + 1) / 2;
   // one wave: as many splits of each upper tile as fill the SMs once
   int chunks_per_split;
   const int splits = mm_splits(sms / upper, (v_pad + KC - 1) / KC, MIN_CHUNKS, &chunks_per_split);
   const dim3 grid(upper, splits);
   indicator_mm_kernel<DENSE><<<grid, THREADS, SMEM_BYTES, s>>>(ids, out, n, width, v_pad, tiles, chunks_per_split);
+  return 0;
+}
+
+template <bool DENSE>
+static int launch_rect(const int32_t* a, const int32_t* b, int32_t* out, int na, int nb, int width, int v_pad,
+                       cudaStream_t s) {
+  int sms;
+  const int rc = prepare(indicator_mm_rect_kernel<DENSE>, &sms);
+  if (rc != 0) return rc;
+  const int tiles_b = (nb + TM - 1) / TM, tiles = (na + TM - 1) / TM * tiles_b;
+  // one wave, as the symmetric entry
+  int chunks_per_split;
+  const int splits = mm_splits(sms / tiles, (v_pad + KC - 1) / KC, MIN_CHUNKS, &chunks_per_split);
+  const dim3 grid(tiles, splits);
+  indicator_mm_rect_kernel<DENSE><<<grid, THREADS, SMEM_BYTES, s>>>(a, b, out, na, nb, width, v_pad, tiles_b,
+                                                                   chunks_per_split);
   return 0;
 }
 
@@ -219,6 +275,18 @@ extern "C" int indicator_mm_launch(const int32_t* ids, int32_t* out, int n, int 
   if (n > 0 && width > 0) {
     const int rc = dense ? launch<true>(ids, out, n, width, v_pad, (cudaStream_t)stream)
                          : launch<false>(ids, out, n, width, v_pad, (cudaStream_t)stream);
+    if (rc != 0) return rc;
+  }
+  return (int)cudaGetLastError();
+}
+
+// a [na, width], b [nb, width]; out: [na, nb] int32, added to; v_pad and
+// dense as indicator_mm_launch's.
+extern "C" int indicator_mm_rect_launch(const int32_t* a, const int32_t* b, int32_t* out, int na, int nb, int width,
+                                        int v_pad, int dense, void* stream) {
+  if (na > 0 && nb > 0 && width > 0) {
+    const int rc = dense ? launch_rect<true>(a, b, out, na, nb, width, v_pad, (cudaStream_t)stream)
+                         : launch_rect<false>(a, b, out, na, nb, width, v_pad, (cudaStream_t)stream);
     if (rc != 0) return rc;
   }
   return (int)cudaGetLastError();

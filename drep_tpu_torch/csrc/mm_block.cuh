@@ -1,6 +1,7 @@
 // The block body of the port's indicator products on the int8 tensor
 // cores, for Hopper (sm_90a): ring_step_mm.cu (one step of the matmul
-// ring) and indicator_mm.cu (a pack's intersection counts) include it.
+// ring) and indicator_mm.cu (a pack's intersection counts, or two packs'
+// rectangle) include it.
 //
 // A block owns a TM x TM output tile (TM A rows against TM B rows) and a
 // contiguous range of 256-id vocabulary chunks; the blocks of one tile
@@ -304,11 +305,12 @@ __device__ __forceinline__ bool produce(Producer& p, MmShared& sh) {
 }
 
 // The sparse walk of a producer thread (warps 0 .. 4 PRODUCERS - 1) over
-// ids [lo_id, hi_id): A rows a_row0 .. a_row0 + TM - 1 of `a`, B rows
-// b_row0 .. of `b` (rows at or past n_rows read as empty).
+// ids [lo_id, hi_id): A rows a_row0 .. a_row0 + TM - 1 of `a` (a_rows
+// rows), B rows b_row0 .. of `b` (b_rows rows), both `width` ids a row;
+// rows at or past a side's row count read as empty.
 __device__ __forceinline__ void mm_sparse_producer(MmShared& sh, uint32_t stages, const int32_t* __restrict__ a,
-                                                   int a_row0, const int32_t* __restrict__ b, int b_row0,
-                                                   int n_rows, int width, int lo_id, int hi_id) {
+                                                   int a_row0, int a_rows, const int32_t* __restrict__ b,
+                                                   int b_row0, int b_rows, int width, int lo_id, int hi_id) {
   static_assert(STAGES == 2, "the producers' loop below names each stage");
   Producer p;
   p.warp = threadIdx.x >> 5;
@@ -327,8 +329,9 @@ __device__ __forceinline__ void mm_sparse_producer(MmShared& sh, uint32_t stages
     p.n_set[s] = 0;
   }
   const int r = (p.side == 0 ? a_row0 : b_row0) + p.t;
-  const int32_t* row = (p.side == 0 ? a : b) + (int64_t)(r < n_rows ? r : 0) * width;
-  stream_start(p.rs, row, r < n_rows ? lower_bound(row, width, lo_id) : width, width);
+  const bool held = r < (p.side == 0 ? a_rows : b_rows);
+  const int32_t* row = (p.side == 0 ? a : b) + (int64_t)(held ? r : 0) * width;
+  stream_start(p.rs, row, held ? lower_bound(row, width, lo_id) : width, width);
   while (produce<0>(p, sh) && produce<1>(p, sh)) {
     p.phase ^= 1;
   }
@@ -399,22 +402,23 @@ __device__ __forceinline__ void mm_consumer(MmShared& sh, uint32_t stages, uint3
   }
 }
 
-// The sums into out [n, n] (row-major), added over the vocabulary splits:
-// value v of a consumer thread is row 16 w + lane / 4 + 8 ((v >> 1) & 1)
-// of its 64, column 8 (v >> 2) + 2 (lane % 4) + (v & 1); the tile's rows
-// start at row0, its columns at col0. With `mirror`, each sum is also
-// added at the transposed place.
-__device__ __forceinline__ void mm_epilogue(const int (&d)[64], int32_t* __restrict__ out, int n, int row0,
-                                            int col0, bool mirror) {
+// The sums into out [rows, cols] (row-major, `ld` ints a row), added over
+// the vocabulary splits: value v of a consumer thread is row 16 w + lane /
+// 4 + 8 ((v >> 1) & 1) of its 64, column 8 (v >> 2) + 2 (lane % 4) + (v &
+// 1); the tile's rows start at row0, its columns at col0. With `mirror`
+// (a square out, rows == cols == ld), each sum is also added at the
+// transposed place.
+__device__ __forceinline__ void mm_epilogue(const int (&d)[64], int32_t* __restrict__ out, int rows, int cols,
+                                            int ld, int row0, int col0, bool mirror) {
   const int g = (int)(threadIdx.x >> 7) - PRODUCERS;
   const int w = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
 #pragma unroll
   for (int v = 0; v < 64; ++v) {
     const int ri = row0 + 64 * g + 16 * w + (lane >> 2) + 8 * ((v >> 1) & 1);
     const int cj = col0 + 8 * (v >> 2) + 2 * (lane & 3) + (v & 1);
-    if (ri < n && cj < n && d[v] != 0) {
-      atomicAdd(out + (int64_t)ri * n + cj, d[v]);
-      if (mirror) atomicAdd(out + (int64_t)cj * n + ri, d[v]);
+    if (ri < rows && cj < cols && d[v] != 0) {
+      atomicAdd(out + (int64_t)ri * ld + cj, d[v]);
+      if (mirror) atomicAdd(out + (int64_t)cj * ld + ri, d[v]);
     }
   }
 }

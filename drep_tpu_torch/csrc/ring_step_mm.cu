@@ -60,11 +60,11 @@ ring_step_mm_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b
   const int hi_id = min(lo_id + chunks_per_split * KC, v_pad);
 
   if (tid < 128 * PRODUCERS) {
-    mm_sparse_producer(sh, stages, a, blockIdx.y * TM, b, blockIdx.x * TM, n_local, width, lo_id, hi_id);
+    mm_sparse_producer(sh, stages, a, blockIdx.y * TM, n_local, b, blockIdx.x * TM, n_local, width, lo_id, hi_id);
   } else {
     int d[64];
     mm_consumer(sh, stages, SIDE_BYTES, d);
-    mm_epilogue(d, tile, n_local, blockIdx.y * TM, blockIdx.x * TM, false);
+    mm_epilogue(d, tile, n_local, n_local, n_local, blockIdx.y * TM, blockIdx.x * TM, false);
   }
 }
 

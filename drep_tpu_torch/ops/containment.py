@@ -22,7 +22,10 @@ Two regimes, chosen by cluster/engines.py::containment_matrices:
   accumulator on the device.
 
 The other beyond-budget route, the merge-intersect kernel, is
-ops/intersect.py.
+ops/intersect.py. The greedy secondary's working set is
+:class:`VocabChunkGeometry` (chunk bounds fixed from a whole cluster, any
+subset of its rows repacked into them), read by :func:`rect_from_chunks`
+and :func:`self_from_chunks`.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from drep_tpu_torch.ops.indicator import ROW_BUCKET_MIN, indicator_intersections
+from drep_tpu_torch.ops.indicator import ROW_BUCKET_MIN, indicator_intersections, indicator_rect_intersections
 from drep_tpu_torch.ops.minhash import (
     PAD_ID,
     U16_PAD,
@@ -230,12 +233,14 @@ def _stacked_vocab_chunks(ids: np.ndarray, v_chunk: int, m_pad: int, plan=None) 
     return out
 
 
-def vocab_chunks(packed: PackedSketches) -> tuple[np.ndarray, int]:
+def vocab_chunks(packed: PackedSketches, m_pad: int | None = None) -> tuple[np.ndarray, int]:
     """(stacked [R, m_pad, W] vocabulary chunks, chunk width) of the
     chunked route: the chunk plan (int32 chunks, or 2^15-wide uint16
-    chunks when those ship fewer bytes)."""
+    chunks when those ship fewer bytes). Rows pad to `m_pad` (default the
+    secondary's pow2 bucket, :func:`matmul_rows_pad`)."""
     require_int32_ids(packed.ids, "intersections_chunked")
-    m_pad = matmul_rows_pad(packed.n)
+    if m_pad is None:
+        m_pad = matmul_rows_pad(packed.n)
     v_chunk = matmul_vocab_chunk(m_pad)
     extent = vocab_extent(packed.ids)
     u16_chunk = 1 << 15
@@ -250,13 +255,13 @@ def vocab_chunks(packed: PackedSketches) -> tuple[np.ndarray, int]:
     return _stacked_vocab_chunks(packed.ids, v_chunk, m_pad, plan=plan), v_chunk
 
 
-def intersections_chunked(packed: PackedSketches, device: torch.device) -> np.ndarray:
+def intersections_chunked(packed: PackedSketches, device: torch.device, m_pad: int | None = None) -> np.ndarray:
     """[m, m] int32 exact intersection counts through vocabulary chunks
-    (:func:`vocab_chunks`): ONE stacked copy to the device, per chunk one
-    launch adding its counts into one accumulator on the device, one copy
-    back —
+    (:func:`vocab_chunks`, rows padded to `m_pad`): ONE stacked copy to
+    the device, per chunk one launch adding its counts into one
+    accumulator on the device, one copy back —
     drep_tpu/ops/containment.py::all_vs_all_containment_matmul_chunked."""
-    chunks, v_chunk = vocab_chunks(packed)
+    chunks, v_chunk = vocab_chunks(packed, m_pad)
     m, m_pad = packed.n, chunks.shape[1]
     stacked = ids_to_device(chunks, device)
     acc = torch.zeros((m_pad, m_pad), dtype=torch.int32, device=stacked.device)
@@ -271,3 +276,62 @@ def all_vs_all_containment_matmul_chunked(
     """(ani, cov) [m, m] through the vocabulary-chunked indicator matmul,
     for a pack past the one-shot budget."""
     return ani_cov_from_intersections(intersections_chunked(packed, device), packed.counts, k)
+
+
+class VocabChunkGeometry:
+    """Per-cluster vocabulary-chunk layout for incremental rectangular
+    intersections (the greedy secondary's working set) —
+    drep_tpu/ops/containment.py::VocabChunkGeometry.
+
+    The chunk bounds, each chunk's width and every row's slice of each
+    chunk are fixed once from the whole cluster's id matrix, so any subset
+    of rows repacks into aligned chunk tensors in O(rows) host work, and an
+    append-only subset (the representatives) can stay on the device as
+    per-chunk tensors that only ever receive new rows.
+    """
+
+    def __init__(self, ids: np.ndarray, max_rows_per_call: int):
+        require_int32_ids(ids, "VocabChunkGeometry")
+        self.ids = ids
+        extent = vocab_extent(ids)
+        # the budget covers both operands of a rectangular call at the
+        # stated row bound (the JAX package's indicator budget; the chunk
+        # bounds, and so the chunk tensors, are the JAX package's)
+        fit = max(MATMUL_BUDGET_ELEMS // max(2 * matmul_rows_pad(max_rows_per_call), 1) - 1, 1)
+        self.v_chunk = max(_VOCAB_BUCKET_MIN, 1 << (fit.bit_length() - 1))
+        self.n_chunks = max(1, -(-extent // self.v_chunk))
+        self.starts = bucket_starts(ids, self.v_chunk, self.n_chunks)
+        self.hist = np.diff(self.starts, axis=1)
+        # a chunk's width is its largest count over ALL the cluster's rows,
+        # so any subset fits and no chunk tensor is ever widened
+        self.widths = [_pow2_bucket(int(self.hist[:, c].max()), MIN_BUCKET_WIDTH) for c in range(self.n_chunks)]
+
+    def rows_chunks(self, rows) -> list[np.ndarray]:
+        """[len(rows), W_c] rebased int32 chunk tensor of each chunk, for
+        any subset of the cluster's rows."""
+        rows = np.asarray(rows, dtype=np.int64)
+        sub = self.ids[rows]
+        return [
+            repack_bucket(sub, self.starts[rows, c], self.hist[rows, c], self.widths[c], rebase=c * self.v_chunk)
+            for c in range(self.n_chunks)
+        ]
+
+
+def rect_from_chunks(a_chunks, b_chunks, v_chunk: int, out: torch.Tensor | None = None) -> torch.Tensor:
+    """Σ_c |A ∩ B| over aligned chunk tensors on one device: one launch of
+    the rectangular indicator product a chunk, each adding into one int32
+    [na, nb] accumulator on the device (`out`, zeros when None), which is
+    returned (the caller copies it back once)."""
+    for a_c, b_c in zip(a_chunks, b_chunks, strict=True):
+        out = indicator_rect_intersections(a_c, b_c, v_chunk, out=out)
+    return out
+
+
+def self_from_chunks(chunks, v_chunk: int) -> torch.Tensor:
+    """Σ_c |A ∩ A| over one side's chunk tensors on one device: one launch
+    of the symmetric indicator product a chunk (one staged side on each
+    diagonal tile), adding into one int32 [n, n] accumulator."""
+    out = None
+    for c in chunks:
+        out = indicator_intersections(c, v_chunk, out=out)
+    return out

@@ -333,11 +333,6 @@ def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, mon
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--greedy_secondary_clustering"], "item 9"),
-    (["--run_tertiary_clustering"], "item 9"),
-    # the JAX package takes multiround only above --primary_chunksize
-    (["--multiround_primary_clustering", "--primary_chunksize", "2"], "item 9"),
-    (["--primary_estimator", "matmul"], "item 9"),
     (["--primary_algorithm", "mash"], "item 9"),
     (["--S_algorithm", "fastANI"], "item 9"),
     (["--S_algorithm", "ANImf"], "item 9"),
@@ -353,6 +348,48 @@ def test_unported_paths_raise(tmp_path, genome_paths, flag, item):
         torch_main(["compare", str(wd), "-g", *genome_paths, "--device", "cpu",
                     "--skip_plots", *flag])
     assert sorted(os.listdir(wd / "data_tables")) == ["Bdb.csv"]
+
+
+@pytest.mark.parametrize("operation,flags,kwargs", [
+    ("dereplicate", ["--greedy_secondary_clustering"], {"greedy_secondary_clustering": True}),
+    ("dereplicate", ["--run_tertiary_clustering"], {"run_tertiary_clustering": True}),
+    ("dereplicate", ["--greedy_secondary_clustering", "--run_tertiary_clustering"],
+     {"greedy_secondary_clustering": True, "run_tertiary_clustering": True}),
+    # the JAX package takes multiround only above --primary_chunksize
+    ("dereplicate", ["--multiround_primary_clustering", "--primary_chunksize", "2"],
+     {"multiround_primary_clustering": True, "primary_chunksize": 2}),
+    ("compare", ["--multiround_primary_clustering", "--primary_chunksize", "3", "--primary_estimator", "matmul"],
+     {"multiround_primary_clustering": True, "primary_chunksize": 3, "primary_estimator": "matmul"}),
+    ("compare", ["--primary_estimator", "matmul"], {"primary_estimator": "matmul"}),
+    ("dereplicate", ["--primary_estimator", "matmul", "--greedy_secondary_clustering"],
+     {"primary_estimator": "matmul", "greedy_secondary_clustering": True}),
+])
+def test_item_9a_argvs_equal_jax_bytes(tmp_path, genome_paths, operation, flags, kwargs):
+    """The options of ROADMAP queue 1 item 9a on the fixture genomes, the
+    same argv through both packages' compare or dereplicate: Cdb, Ndb (and
+    Sdb, Wdb) byte-identical; Mdb byte-identical where the matmul estimator
+    wrote it (its distances are host numpy in both packages), within the
+    sort estimator's 1e-7 elsewhere, and written by neither under
+    multiround."""
+    q = tmp_path / "q.csv"
+    q.write_text(QUALITY)
+    wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    extra = ["--genomeInfo", str(q)] if operation == "dereplicate" else []
+    torch_main([operation, wd, "-g", *genome_paths, *extra, "--skip_plots", "-p", "1", "--device", "cpu", *flags])
+    if operation == "dereplicate":
+        jax_dereplicate(jwd, genome_paths, genomeInfo=str(q), skip_plots=True, processes=1, **kwargs)
+    else:
+        jax_compare(jwd, genome_paths, skip_plots=True, processes=1, **kwargs)
+    tables = ("Cdb", "Ndb", "Sdb", "Wdb") if operation == "dereplicate" else ("Bdb", "Cdb", "Ndb")
+    for table in tables:
+        assert _table(wd, table) == _table(jwd, table)
+    has_mdb = os.path.exists(os.path.join(wd, "data_tables", "Mdb.csv"))
+    assert has_mdb == os.path.exists(os.path.join(jwd, "data_tables", "Mdb.csv"))
+    assert has_mdb == ("--multiround_primary_clustering" not in flags)
+    if has_mdb and "matmul" in flags:
+        assert _table(wd, "Mdb") == _table(jwd, "Mdb")
+    elif has_mdb:
+        _assert_mdb_close(wd, jwd)
 
 
 @pytest.mark.parametrize("flags,kwargs", [

@@ -10,6 +10,9 @@ lane, the lines cleared a chunk, the bytes scattered into the
 of its mirrored epilogue is held against the plain version; the sparse
 walk is the ring kernel's block body, emulated in
 tests/test_torch_ring_matmul.py, run here on the triangle's tiles. The
+rectangular entry's grid (every output tile of [na, nb] times the
+splits), its producers on two packs with their own row counts, and its
+epilogue (bounded by each side, no mirror) are emulated the same way. The
 constants are read from the sources; a change to the kernel's schedule or
 layout must be made here too. The plain version is held bit for bit
 against the JAX package's triangular indicator matmul and host mirror.
@@ -84,28 +87,48 @@ def indicator_mm_grid(n: int, v_pad: int, sms: int = 132) -> tuple[int, int, int
     return tiles, -(-n_chunks // per_split), per_split
 
 
+def indicator_mm_rect_grid(na: int, nb: int, v_pad: int, sms: int = 132) -> tuple[int, int, int, int]:
+    """indicator_mm_rect_launch's (B tiles, output tiles, splits, chunks a
+    split): mm_splits of one wave of blocks over every output tile."""
+    tiles_b = -(-nb // TM)
+    tiles = -(-na // TM) * tiles_b
+    n_chunks = -(-v_pad // KC)
+    splits = max(1, min(sms // tiles, max(1, n_chunks // MIN_CHUNKS)))
+    per_split = -(-n_chunks // splits)
+    return tiles_b, tiles, -(-n_chunks // per_split), per_split
+
+
 def row_line(t: int) -> int:
     return (t >> 3) * 1024 + (t & 7) * 128
 
 
-def emulate_dense_block(ids: np.ndarray, v_pad: int, bi: int, bj: int, z: int, per_split: int,
-                        out: np.ndarray, stats: dict) -> None:
-    """One block of indicator_mm_kernel<true>: its sums added into `out`."""
-    n, width = ids.shape
-    assert width % 4 == 0
-    diag = bi == bj
+def emulate_dense_block(a: np.ndarray, b: np.ndarray, v_pad: int, bi: int, bj: int, z: int, per_split: int,
+                        out: np.ndarray, stats: dict, symmetric: bool) -> None:
+    """One block of indicator_mm_kernel<true> (`symmetric`: `a` is `b`, a
+    diagonal tile stages one side, an off-diagonal one is mirrored) or of
+    indicator_mm_rect_kernel<true>: its sums added into out [len(a),
+    len(b)]. Each side's rows past its own count read as empty."""
+    width = a.shape[1]
+    assert width % 4 == 0 and b.shape[1] == width
+    diag = symmetric and bi == bj
     n_rows = TM if diag else 2 * TM  # staged rows: A's, then B's
     per_warp = n_rows // PRODUCER_WARPS
     lo_id = z * per_split * KC
     hi_id = min(lo_id + per_split * KC, v_pad)
 
+    def side(r):
+        return a if r < TM else b
+
     def pack_row(r):
         return (bi if r < TM else bj) * TM + r % TM
 
-    def row_of(r):
-        return ids[pack_row(r) if pack_row(r) < n else 0]
+    def held(r):
+        return pack_row(r) < side(r).shape[0]
 
-    cursor = [int(np.searchsorted(row_of(r), lo_id)) if pack_row(r) < n else width for r in range(n_rows)]
+    def row_of(r):
+        return side(r)[pack_row(r) if held(r) else 0]
+
+    cursor = [int(np.searchsorted(row_of(r), lo_id)) if held(r) else width for r in range(n_rows)]
     smem = np.zeros(STAGES * STAGE_SIZE, np.uint8)
     acc = np.zeros((CONSUMERS, 64, 128), np.int64)
     stage, base = 0, lo_id
@@ -142,13 +165,13 @@ def emulate_dense_block(ids: np.ndarray, v_pad: int, bi: int, bj: int, z: int, p
             stats["chunks"] += 1
         span = end - base
         # the stage holds exactly this chunk's bytes of the staged rows
-        held = np.zeros(STAGE_SIZE, np.uint8)
+        want = np.zeros(STAGE_SIZE, np.uint8)
         for r in range(n_rows):
-            g = pack_row(r)
-            if live and g < n:
-                ks = ids[g][(ids[g] >= base) & (ids[g] < base + span)].astype(np.int64) - base
-                held[(r // TM) * SIDE + mm_swizzled(r % TM, ks)] = 1
-        np.testing.assert_array_equal(smem[st : st + STAGE_SIZE], held)
+            if live and held(r):
+                row = side(r)[pack_row(r)]
+                ks = row[(row >= base) & (row < base + span)].astype(np.int64) - base
+                want[(r // TM) * SIDE + mm_swizzled(r % TM, ks)] = 1
+        np.testing.assert_array_equal(smem[st : st + STAGE_SIZE], want)
         b_off = 0 if diag else SIDE  # a diagonal tile's B operand is its staged A rows
         for g in range(CONSUMERS):
             for s in range(KC // 32):
@@ -164,9 +187,9 @@ def emulate_dense_block(ids: np.ndarray, v_pad: int, bi: int, bj: int, z: int, p
     for g in range(CONSUMERS):
         ri = bi * TM + 64 * g + row
         cj = bj * TM + col
-        keep = (ri < n) & (cj < n)
+        keep = (ri < out.shape[0]) & (cj < out.shape[1])  # the epilogue's rows, cols (ld = cols)
         np.add.at(out, (ri[keep], cj[keep]), acc[g][row[keep], col[keep]])
-        if not diag:
+        if symmetric and not diag:
             np.add.at(out, (cj[keep], ri[keep]), acc[g][row[keep], col[keep]])
 
 
@@ -178,11 +201,25 @@ def emulate_indicator_mm(ids: np.ndarray, v_pad: int, dense: bool, out: np.ndarr
         for u in range(tiles * (tiles + 1) // 2):
             bi, bj = upper_tile(u, tiles)
             if dense:
-                emulate_dense_block(ids, v_pad, bi, bj, z, per_split, out, stats)
+                emulate_dense_block(ids, ids, v_pad, bi, bj, z, per_split, out, stats, symmetric=True)
             else:  # the ring's block body on A rows bi and B rows bj, mirrored off the diagonal
                 tile = np.zeros_like(out)
                 emulate_mm_block(ids, ids, v_pad, bi, bj, z, per_split, tile, stats)
                 out += tile if bi == bj else tile + tile.T
+
+
+def emulate_indicator_mm_rect(a: np.ndarray, b: np.ndarray, v_pad: int, dense: bool, out: np.ndarray,
+                              stats: dict) -> None:
+    """indicator_mm_rect_launch on int32 packs of one width: every block's
+    sums added into out [len(a), len(b)]."""
+    tiles_b, tiles, splits, per_split = indicator_mm_rect_grid(a.shape[0], b.shape[0], v_pad)
+    for z in range(splits):
+        for x in range(tiles):
+            bi, bj = x // tiles_b, x % tiles_b
+            if dense:
+                emulate_dense_block(a, b, v_pad, bi, bj, z, per_split, out, stats, symmetric=False)
+            else:
+                emulate_mm_block(a, b, v_pad, bi, bj, z, per_split, out, stats)
 
 
 def _rows(rng, n: int, width: int, vocab: int, lo: int) -> np.ndarray:
@@ -225,6 +262,48 @@ def test_emulated_kernel_equals_plain(shape, dense):
     emulate_indicator_mm(ids, v_pad, dense, out, stats)
     np.testing.assert_array_equal(out, _plain(ids, v_pad))
     assert stats["chunks"] > 0
+
+
+# (na, nb, width, v_pad, vocab, fewest ids a row): both sides below a
+# tile, A past one tile and B past two, ids past v_pad
+RECT_SHAPES = {
+    "dense": (150, 300, 512, 1024, 1024, 300),
+    "sparse": (200, 70, 24, 2048, 2048, 1),
+    "rows_64_by_130": (64, 130, 256, 1024, 1024, 200),
+    "ids_past_v_pad": (130, 20, 160, 768, 1200, 100),
+}
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense_walk", "sparse_walk"])
+@pytest.mark.parametrize("shape", list(RECT_SHAPES))
+def test_emulated_rect_kernel_equals_plain(shape, dense):
+    """The rectangular entry, either walk, on every block of its grid (each
+    side's rows past its own count masked, no mirror, no diagonal tile),
+    gives the plain version's [na, nb] counts."""
+    na, nb, width, v_pad, vocab, lo = RECT_SHAPES[shape]
+    rng = np.random.default_rng(na + 3 * nb)
+    a, b = _rows(rng, na, width, vocab, lo), _rows(rng, nb, width, vocab, lo)
+    stats = {"chunks": 0, "jumps": 0, "line_clears": 0, "windows": 0}
+    out = np.zeros((na, nb), np.int64)
+    emulate_indicator_mm_rect(a, b, v_pad, dense, out, stats)
+    want = ti.indicator_rect_intersections_plain(torch.from_numpy(a), torch.from_numpy(b), v_pad).numpy()
+    np.testing.assert_array_equal(out, want)
+    assert stats["chunks"] > 0
+
+
+@pytest.mark.parametrize("sms", [132, 1])
+@pytest.mark.parametrize("na,nb,v_pad", [(128, 512, 1 << 18), (256, 128, 1 << 15), (129, 1000, 8192), (1, 1, 256)])
+def test_rect_grid_covers_each_tile_vocabulary_once(na, nb, v_pad, sms):
+    """The rectangular grid visits every output tile once (row-major over
+    B's tiles), its splits tile [0, v_pad) in whole chunks, every split
+    non-empty, in one wave where the tiles are fewer than the SMs."""
+    tiles_b, tiles, splits, per = indicator_mm_rect_grid(na, nb, v_pad, sms)
+    seen = sorted((x // tiles_b, x % tiles_b) for x in range(tiles))
+    assert seen == [(i, j) for i in range(-(-na // TM)) for j in range(-(-nb // TM))]
+    n_chunks = -(-v_pad // KC)
+    assert (splits - 1) * per < n_chunks <= splits * per
+    if tiles <= sms:
+        assert tiles * splits <= sms
 
 
 def test_emulated_kernel_adds_chunks_into_one_accumulator():
@@ -329,6 +408,26 @@ def test_wrapper_on_cpu_adds_into_out_and_counts_no_launch():
         ti.indicator_intersections(ids, 32, out=torch.zeros((3, 3), dtype=torch.int64))
     with pytest.raises(ValueError, match="want ids"):
         ti.indicator_intersections(ids[0], 32)
+
+
+def test_rect_wrapper_on_cpu_adds_into_out_and_counts_no_launch():
+    """On CPU tensors the rectangular wrapper runs the plain version (a
+    uint16 pack widened), adds into `out` and launches nothing; it takes
+    packs of one width only."""
+    a = torch.tensor([[0, 5, 9, PAD], [5, 9, 40, PAD]], dtype=torch.int32)
+    b = torch.tensor([[5, 0xFFFF, 0xFFFF, 0xFFFF], [0, 9, 0xFFFF, 0xFFFF], [0xFFFF] * 4],
+                     dtype=torch.int32).to(torch.uint16)
+    before = dict(ti.LAUNCHES)
+    out = torch.ones((2, 3), dtype=torch.int32)
+    assert ti.indicator_rect_intersections(a, b, 32, out=out) is out
+    assert out.tolist() == [[2, 3, 1], [2, 2, 1]]  # id 40 >= v_pad counts nothing
+    assert ti.LAUNCHES == before
+    with pytest.raises(ValueError, match="out must be"):
+        ti.indicator_rect_intersections(a, b, 32, out=torch.zeros((3, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match="v_pad"):
+        ti.indicator_rect_intersections(a, b, 20)
+    with pytest.raises(ValueError, match="one width"):
+        ti.indicator_rect_intersections(a, b[:, :2], 32)
 
 
 @pytest.mark.parametrize("width,v_pad,want", [(32768, 65536, True), (16384, 16384, True), (1024, 32768, True),

@@ -419,16 +419,17 @@ def fragment_map(v: np.ndarray, lane: np.ndarray, w: np.ndarray):
 
 def emulate_mm_block(a: np.ndarray, b: np.ndarray, v_pad: int, by: int, bx: int, z: int, per_split: int,
                      tile: np.ndarray, stats: dict) -> None:
-    """One block of ring_step_mm_kernel (mm_block.cuh's sparse walk,
-    consumers and epilogue): its partial sums added into `tile`."""
-    n_local, width = a.shape
+    """One block of mm_block.cuh's sparse walk, consumers and epilogue on A
+    rows `by` of `a` and B rows `bx` of `b` (ring_step_mm_kernel's, and the
+    sparse indicator_mm kernels'): its partial sums added into `tile`
+    [len(a), len(b)]. Each side's rows past its own count read as empty."""
     lo_id = z * per_split * KC
     hi_id = min(lo_id + per_split * KC, v_pad)
     rows = [[], []]
     for side, (m, blk) in enumerate(((a, by), (b, bx))):
         for t in range(TM):
             r = blk * TM + t
-            rows[side].append([int(x) for x in m[r]] if r < n_local else [])
+            rows[side].append([int(x) for x in m[r]] if r < m.shape[0] else [])
     cur = [[int(np.searchsorted(np.asarray(rw, np.int64), lo_id)) for rw in rows[side]] for side in (0, 1)]
 
     def id_at(side, t):
@@ -502,7 +503,7 @@ def emulate_mm_block(a: np.ndarray, b: np.ndarray, v_pad: int, by: int, bx: int,
     for g in range(CONSUMERS):
         ri = by * TM + 64 * g + row
         cj = bx * TM + col
-        keep = (ri < n_local) & (cj < n_local)
+        keep = (ri < tile.shape[0]) & (cj < tile.shape[1])  # the epilogue's rows, cols (ld = cols)
         np.add.at(tile, (ri[keep], cj[keep]), acc[g][row[keep], col[keep]])
 
 
