@@ -68,12 +68,13 @@ Phases (any failure exits nonzero; nothing is caught):
    10 000 genomes, bit-identical to the single-device matrix (both timed);
    where there are two cards or more, the kernel check with the copy
    landing on the second card;
-   7c: phase 6 again with ``mesh_shape=4``: its three clusters must take
-   ``mesh_ring``, whose steps run the matmul step where the cluster's
-   v_pad is at most MATMUL_MAX_VPAD_PER_WIDTH times its width (C) and the
-   merge step elsewhere (A, B), as the Mash primary does, with Cdb/Ndb
-   byte-identical to phase 6's and Mdb within 1e-7 (d_cluster_wrapper
-   only: choose and evaluate read nothing else);
+   7c: phase 6's clusters B and C again with ``mesh_shape=4`` (A cut for
+   the time limit): both must take ``mesh_ring``, whose steps run the
+   matmul step where the cluster's v_pad is at most
+   MATMUL_MAX_VPAD_PER_WIDTH times its width (C) and the merge step
+   elsewhere (B), as the Mash primary does, with Cdb/Ndb equal to phase
+   6's rows of those genomes (primary clusters renumbered) and Mdb within
+   1e-7 (d_cluster_wrapper only: choose and evaluate read nothing else);
    7d: the matmul ring step (``csrc/ring_step_mm.cu``) against its plain
    version (tile, copied operand, no-copy step, every timed launch's
    tile) and the merge step on
@@ -105,23 +106,40 @@ Phases (any failure exits nonzero; nothing is caught):
    version and timed beside its bound, the Jaccard within 0.06 of the sort
    estimator's; 9b ``--multiround_primary_clustering`` in chunks of 2 500:
    five ``mash_shared`` launches, the partition equal to phase 5's; 9c
-   ``--greedy_secondary_clustering`` on phase 6's workdir (A, B and C on
-   ``greedy_secondary_cluster``: the rectangular entry of
-   ``indicator_mm.cu`` held against its plain version at each cluster's
-   first block x rep tile with both walks and timed, B's Ndb and labels
-   byte-identical to its CPU run) and on phase 5's (the batched route, Cdb
-   byte-identical to phase 5's); 9d ``--run_tertiary_clustering`` on phase
-   5's first 2 500 genomes: the merges, and Cdb equal to phase 5's rows
-   where nothing merged;
-10. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+   ``--greedy_secondary_clustering`` on phase 6's clusters B and C (A cut
+   for the time limit; both on ``greedy_secondary_cluster``: the
+   rectangular entry of ``indicator_mm.cu`` held against its plain version
+   at each cluster's first block x rep tile with both walks and timed, B's
+   Ndb and labels byte-identical to its CPU run) and on phase 5's first
+   2 500 genomes (the batched route, Cdb equal to phase 5's rows); 9d
+   ``--run_tertiary_clustering`` on the same 2 500 genomes: the merges,
+   and Cdb equal to phase 5's rows where nothing merged;
+10. the genome index (``drep_tpu_torch/index``, ROADMAP queue 1 item 10a)
+   on phase 5's finished workdir: 10a ``build_from_workdir`` (generation 0,
+   labels equal to phase 5's Cdb); 10b ``index_update`` of INDEX_NEW
+   planted genomes (half near indexed genomes, so their primary clusters
+   turn dirty, half novel) through ``presketched``: one ``mash_shared``
+   launch a tail stripe and one ``indicator_mm`` launch a dirty
+   multi-member cluster, counted; tail stripe 0 and the largest dirty
+   cluster held against their plain versions on the card; the new edges
+   equal to the plain version over the same rectangle on the card; the
+   same update of a prefix index (phase 5's first INDEX_PREFIX genomes,
+   cut for the host's plain Mash version) publishing equal stores on the
+   card and on the CPU; 10c ``classify_batch`` of INDEX_QUERIES planted
+   queries from one ``load_resident_index``, joint and separate, with the
+   index tree's digest unchanged, and the first INDEX_CPU_QUERIES
+   queries' verdicts on the prefix index equal on the card and the CPU;
+11. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
    operand, ``main_path_ms`` and ``main_path_bound_ms``, the Mash kernel its
    streaming launches and stripe-0 time and bound from phase 8a,
    ``streaming``, and its multiround launches, and the fused indicator
-   kernel its matmul-estimator chunk from 9a);
-11. the last line: ``{"ok": true, "device": {...}}``.
+   kernel its matmul-estimator chunk from 9a; both carry phase 10's
+   timings under ``index`` (the tail stripe, the largest dirty cluster)
+   and its launches under ``index_launches``);
+12. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -1257,35 +1275,74 @@ def phase_ring_primary(dev, packed, k: int) -> dict:
     return {"ring_s": t_ring, "single_s": t_single}
 
 
-def phase_ring_path(tmp: str, dev, gs, beyond: dict) -> dict:
-    """Phase 7c: phase 6's d_cluster_wrapper again with
-    mesh_shape=RING_POSITIONS (choose and evaluate read only tables held
-    equal here, so they are not run again)."""
+# the beyond-budget clusters phases 7c and 9c re-run: B and C, cut from A,
+# B and C for the time limit (A's 2000 genomes hold ~4 M of phase 6's
+# ~6.7 M Ndb and Mdb rows, whose CSV sets those phases' pace); B's ring
+# runs the merge step and C's the matmul step, as A's and B's did
+BEYOND_RERUN = ("B", "C")
+
+
+def beyond_subset(gs, planted, keys):
+    """(sketches, planted cluster per genome) of the beyond-budget clusters
+    `keys` alone, their genomes in phase 6's order under its names."""
+    from drep_tpu_torch.ingest import GenomeSketches
+
+    keep = [i for i, p in enumerate(planted.tolist()) if list(BEYOND)[p] in keys]
+    sub = GenomeSketches(names=[gs.names[i] for i in keep], gdb=gs.gdb.iloc[keep].reset_index(drop=True),
+                         bottom=[gs.bottom[i] for i in keep], scaled=[gs.scaled[i] for i in keep],
+                         k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale)
+    return sub, planted[keep]
+
+
+def phase6_rows(root: str, names: list[str]) -> dict:
+    """Phase 6's Cdb, Ndb and Mdb rows of the genomes `names` (as strings,
+    as its CSV holds them), primary clusters renumbered by first
+    appearance: the tables a run on those genomes alone writes."""
     import pandas as pd
 
-    wd, bdb = beyond_workdir(tmp, "beyond_mesh_wd", gs)
+    cdb = pd.read_csv(os.path.join(root, "data_tables", "Cdb.csv"), dtype=str)
+    cdb = cdb[cdb["genome"].isin(set(names))].reset_index(drop=True)
+    renum = {p: str(i) for i, p in enumerate(dict.fromkeys(cdb["primary_cluster"]), start=1)}
+    cdb["secondary_cluster"] = [f"{renum[p]}_{s.rsplit('_', 1)[1]}"
+                                for p, s in zip(cdb["primary_cluster"], cdb["secondary_cluster"])]
+    cdb["primary_cluster"] = cdb["primary_cluster"].map(renum)
+    ndb = pd.read_csv(os.path.join(root, "data_tables", "Ndb.csv"), dtype=str)
+    ndb = ndb[ndb["primary_cluster"].isin(set(renum))].reset_index(drop=True)
+    ndb["primary_cluster"] = ndb["primary_cluster"].map(renum)
+    mdb = pd.read_csv(os.path.join(root, "data_tables", "Mdb.csv"))
+    mdb = mdb[mdb["genome1"].isin(set(names)) & mdb["genome2"].isin(set(names))].reset_index(drop=True)
+    return {"Cdb": cdb, "Ndb": ndb, "Mdb": mdb}
+
+
+def phase_ring_path(tmp: str, dev, gs, planted, beyond: dict) -> dict:
+    """Phase 7c: phase 6's d_cluster_wrapper again on clusters
+    BEYOND_RERUN with mesh_shape=RING_POSITIONS (choose and evaluate read
+    only tables held equal here, so they are not run again)."""
+    import pandas as pd
+
+    sub, _ = beyond_subset(gs, planted, BEYOND_RERUN)
+    wd, bdb = beyond_workdir(tmp, "beyond_mesh_wd", sub)
     _, launches, paths, stages, t_cluster = run_beyond(
-        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS})", choose=False, mesh_shape=RING_POSITIONS)
-    require(paths == {"mesh_ring": len(BEYOND)}, f"mesh run's secondary routes {paths}")
+        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS}, clusters {BEYOND_RERUN})", choose=False,
+        mesh_shape=RING_POSITIONS)
+    require(paths == {"mesh_ring": len(BEYOND_RERUN)}, f"mesh run's secondary routes {paths}")
     require(launches["ring_step"] > 0 and launches["ring_step_mm"] > 0,
             f"mesh run launched no merge or no matmul ring step: {launches}")
+    want = phase6_rows(beyond["wd"], sub.names)
 
-    def table(root: str, name: str) -> str:
-        return os.path.join(root, "data_tables", f"{name}.csv")
+    def table(name: str, **kw):
+        return pd.read_csv(os.path.join(wd.location, "data_tables", f"{name}.csv"), **kw)
 
     for name in ("Cdb", "Ndb"):
-        with open(table(wd.location, name), "rb") as f, open(table(beyond["wd"], name), "rb") as g:
-            require(f.read() == g.read(), f"mesh run's {name} != the single-device run's")
-    with open(table(wd.location, "Mdb"), "rb") as f, open(table(beyond["wd"], "Mdb"), "rb") as g:
-        err = 0.0 if f.read() == g.read() else None
-    if err is None:  # not byte-identical: hold the distances to 1e-7
-        got, want = pd.read_csv(table(wd.location, "Mdb")), pd.read_csv(table(beyond["wd"], "Mdb"))
-        require(got[["genome1", "genome2"]].equals(want[["genome1", "genome2"]]), "mesh run's Mdb pairs differ")
-        err = float(np.abs(got["dist"].to_numpy() - want["dist"].to_numpy()).max()) if len(got) else 0.0
+        require(table(name, dtype=str).equals(want[name]), f"mesh run's {name} != the single-device run's rows")
+    got = table("Mdb")
+    require(got[["genome1", "genome2"]].equals(want["Mdb"][["genome1", "genome2"]]), "mesh run's Mdb pairs differ")
+    err = float(np.abs(got["dist"].to_numpy() - want["Mdb"]["dist"].to_numpy()).max()) if len(got) else 0.0
     require(err <= 1e-7, f"mesh run's Mdb distances differ by {err}")
-    log(f"ring path: Cdb and Ndb byte-identical to phase 6, Mdb max |diff| {err}; "
-        f"d_cluster_wrapper {t_cluster:.2f} s against {beyond['d_cluster_s']:.2f} s on one position")
-    return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err}
+    log(f"ring path: Cdb and Ndb equal to phase 6's rows of clusters {BEYOND_RERUN} (primary clusters renumbered), "
+        f"Mdb max |diff| {err}; d_cluster_wrapper {t_cluster:.2f} s")
+    return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err,
+            "clusters": list(BEYOND_RERUN)}
 
 
 def mm_library_tile(a, b, v_pad: int):
@@ -1575,12 +1632,13 @@ def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
 
 # phase 9: the options of ROADMAP queue 1 item 9a on phases 5's and 6's
 # genomes. The multiround chunk (a quarter of phase 5's genomes), and
-# phase 9d's cut of phase 5's genomes: the tertiary Ndb holds every
-# cross-primary pair of representatives (~12 M rows at 10 000 genomes,
-# ~2 minutes of CSV on the chip machine's host), so 9d takes the first
-# 2 500 genomes (~0.8 M rows)
+# the cut of phase 5's genomes that 9c's batched route and 9d run on:
+# the tertiary Ndb holds every cross-primary pair of representatives
+# (~12 M rows at 10 000 genomes, ~2 minutes of CSV on the chip machine's
+# host), so 9d takes the first 2 500 genomes (~0.8 M rows), and 9c's
+# batched route the same genomes for the time limit
 MULTIROUND_CHUNK = 2_500
-TERTIARY_GENOMES = 2_500
+PREFIX_OPTION_GENOMES = 2_500
 
 
 def clone_workdir(tmp: str, name: str, src: str):
@@ -1775,11 +1833,11 @@ def check_rect(a, b, v_pad: int, what: str) -> dict:
             "walks_ms": {k: sum(v) / 2 for k, v in walks.items()}}
 
 
-def phase_greedy(tmp: str, dev, real: dict, gs6, planted6, beyond: dict) -> dict:
-    """Phase 9c: --greedy_secondary_clustering on phase 6's workdir (A, B
-    and C past SMALL_CLUSTER_MAX: greedy_secondary_cluster on the
-    rectangular kernel) and on phase 5's (every cluster small: the batched
-    route)."""
+def phase_greedy(tmp: str, dev, real: dict, gs_beyond, planted_beyond, beyond: dict) -> dict:
+    """Phase 9c: --greedy_secondary_clustering on phase 6's clusters
+    BEYOND_RERUN (past SMALL_CLUSTER_MAX: greedy_secondary_cluster on the
+    rectangular kernel) and on phase 5's first PREFIX_OPTION_GENOMES
+    genomes (every cluster small: the batched route)."""
     import torch
 
     from drep_tpu_torch.cluster import controller, greedy
@@ -1801,26 +1859,28 @@ def phase_greedy(tmp: str, dev, real: dict, gs6, planted6, beyond: dict) -> dict
         first_rect.setdefault(current[0], (a, b, v_pad))
         return real_rect(a, b, v_pad, out=out)
 
-    wd6 = clone_workdir(tmp, "p9c6_wd", beyond["wd"])
-    bdb6 = wd6.get_db("Bdb")
+    gs6, planted6 = beyond_subset(gs_beyond, planted_beyond, BEYOND_RERUN)
+    wd6, bdb6 = beyond_workdir(tmp, "p9c6_wd", gs6)
     greedy.GREEDY_TIMINGS.clear()
     controller.greedy_secondary_cluster, containment.indicator_rect_intersections = greedy_spy, rect_spy
     try:
-        cdb6, launches6, stages6, pairs6, dt6 = run_option(wd6, bdb6, dev, "9c greedy on phase 6's workdir",
+        cdb6, launches6, stages6, pairs6, dt6 = run_option(wd6, bdb6, dev, "9c greedy on phase 6's clusters B and C",
                                                            greedy_secondary_clustering=True)
     finally:
         controller.greedy_secondary_cluster, containment.indicator_rect_intersections = real_greedy, real_rect
     timings = dict(greedy.GREEDY_TIMINGS)
-    require(len(runs) == len(BEYOND) and launches6["indicator_mm_rect"] > 0 and launches6["indicator_mm"] > 0,
+    require(len(runs) == len(BEYOND_RERUN) and launches6["indicator_mm_rect"] > 0 and launches6["indicator_mm"] > 0,
             f"9c: {len(runs)} clusters took greedy_secondary_cluster; launches {launches6}")
     require(pairs6["secondary_compare"] == len(wd6.get_db("Ndb")), "9c: the pair counter != the Ndb rows")
     by = cdb6.set_index("genome")
     for i, (key, (n, _, _, route)) in enumerate(BEYOND.items()):
+        if key not in BEYOND_RERUN:
+            continue
         sec = by.loc[np.array(gs6.names)[planted6 == i], "secondary_cluster"]
         want = n if route == "pallas_range" else 1
         require(sec.nunique() == want, f"9c: cluster {key} in {sec.nunique()} greedy clusters, expected {want}")
-    require(cdb6["primary_cluster"].tolist() == pd_read(beyond["wd"], "Cdb")["primary_cluster"].tolist(),
-            "9c: phase 6's primary changed")
+    want_primary = phase6_rows(beyond["wd"], gs6.names)["Cdb"]["primary_cluster"].astype(int).tolist()
+    require(cdb6["primary_cluster"].tolist() == want_primary, "9c: phase 6's primary changed")
 
     # cluster B on the host: the port's own CPU run, byte for byte
     key_b = list(BEYOND).index("B")
@@ -1841,45 +1901,41 @@ def phase_greedy(tmp: str, dev, real: dict, gs6, planted6, beyond: dict) -> dict
         log(f"9c: indicator_mm_rect on cluster {key}'s first block x rep tile equals the plain version (both "
             f"walks); {json.dumps(rect[key])}")
 
-    wd5 = clone_workdir(tmp, "p9c5_wd", real["wd"])
-    cdb5, launches5, stages5, pairs5, dt5 = run_option(wd5, real["bdb"], dev, "9c greedy on phase 5's workdir",
+    m = PREFIX_OPTION_GENOMES
+    wd5, bdb5 = prefix_workdir(tmp, "p9c5_wd", real, m)
+    cdb5, launches5, stages5, pairs5, dt5 = run_option(wd5, bdb5, dev, f"9c greedy on phase 5's first {m} genomes",
                                                        greedy_secondary_clustering=True)
     require(launches5["indicator_mm"] > 0 and launches5["indicator_mm_rect"] == 0,
             f"9c: phase 5's small clusters left the batched route: {launches5}")
-    require(pd_bytes(wd5.location, "Cdb") == pd_bytes(real["wd"], "Cdb"), "9c: phase 5's greedy Cdb != phase 5's Cdb")
+    require(cdb5.to_csv(index=False) == real["cdb"].iloc[:m].to_csv(index=False),
+            f"9c: the greedy Cdb of phase 5's first {m} genomes != phase 5's rows")
     log(f"9c: phase 5's clusters took the batched route ({launches5['indicator_mm']} indicator_mm launches) and "
-        f"Cdb equals phase 5's byte for byte")
+        f"Cdb equals phase 5's first {m} rows")
     return {"launches": launches6, "d_cluster_s": dt6, "stages": stages6, "pairs": pairs6, "timings": timings,
             "cluster_B_cpu_s": t_cpu, "rect": rect, "phase5": {"launches": launches5, "d_cluster_s": dt5,
                                                                "stages": stages5, "pairs": pairs5}}
 
 
-def pd_bytes(root: str, name: str) -> bytes:
-    with open(os.path.join(root, "data_tables", f"{name}.csv"), "rb") as f:
-        return f.read()
+def prefix_workdir(tmp: str, name: str, real: dict, m: int):
+    """(WorkDirectory, Bdb) holding the sketch cache of phase 5's first `m`
+    genomes."""
+    from drep_tpu_torch.ingest import GenomeSketches, save_sketch_cache
+    from drep_tpu_torch.workdir import WorkDirectory
 
-
-def pd_read(root: str, name: str):
-    import pandas as pd
-
-    return pd.read_csv(os.path.join(root, "data_tables", f"{name}.csv"))
+    gs = real["gs"]
+    cut = GenomeSketches(names=gs.names[:m], gdb=gs.gdb.iloc[:m].reset_index(drop=True), bottom=gs.bottom[:m],
+                         scaled=gs.scaled[:m], k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale)
+    wd = WorkDirectory(os.path.join(tmp, name))
+    save_sketch_cache(wd, cut)
+    return wd, real["bdb"].iloc[:m].reset_index(drop=True)
 
 
 def phase_tertiary(tmp: str, dev, real: dict) -> dict:
     """Phase 9d: --run_tertiary_clustering on phase 5's first
-    TERTIARY_GENOMES genomes: the merges, and Cdb equal to phase 5's rows
-    of those genomes wherever nothing merged."""
-    import pandas as pd
-
-    from drep_tpu_torch.ingest import GenomeSketches, save_sketch_cache
-    from drep_tpu_torch.workdir import WorkDirectory
-
-    gs, m = real["gs"], TERTIARY_GENOMES
-    cut = GenomeSketches(names=gs.names[:m], gdb=gs.gdb.iloc[:m].reset_index(drop=True), bottom=gs.bottom[:m],
-                         scaled=gs.scaled[:m], k=gs.k, sketch_size=gs.sketch_size, scale=gs.scale)
-    wd = WorkDirectory(os.path.join(tmp, "p9d_wd"))
-    save_sketch_cache(wd, cut)
-    bdb = real["bdb"].iloc[:m].reset_index(drop=True)
+    PREFIX_OPTION_GENOMES genomes: the merges, and Cdb equal to phase 5's
+    rows of those genomes wherever nothing merged."""
+    m = PREFIX_OPTION_GENOMES
+    wd, bdb = prefix_workdir(tmp, "p9d_wd", real, m)
     cdb, launches, stages, pairs, dt = run_option(wd, bdb, dev, "9d tertiary", run_tertiary_clustering=True)
     require(launches["mash_shared"] > 0 and launches["indicator_mm"] > 0, f"9d skipped a kernel: {launches}")
     want = real["cdb"].iloc[:m].reset_index(drop=True)
@@ -1894,6 +1950,342 @@ def phase_tertiary(tmp: str, dev, real: dict) -> dict:
         f"where nothing merged; {n_tertiary} tertiary Ndb rows")
     return {"launches": launches, "d_cluster_s": dt, "stages": stages, "merges": len(merged),
             "tertiary_ndb_rows": n_tertiary, "genomes": m}
+
+
+# phase 10: the incremental genome index (ROADMAP queue 1 item 10a),
+# snapshotted from phase 5's finished workdir: the update's batch and the
+# classify queries, each half near an indexed genome and half novel. The
+# card-against-CPU comparisons run on a prefix index of phase 5's first
+# INDEX_PREFIX genomes at streaming block INDEX_PREFIX_BLOCK, cut from
+# 10 000 genomes at block 1024: the plain Mash version sorts 2 x 1000 ids
+# a pair on the host, ~40 s a 1024 x 1024 tile, and the 10 000-genome
+# update's rectangle is 20 such tiles
+INDEX_NEW = 512
+INDEX_QUERIES = 64
+INDEX_CPU_QUERIES = 8
+INDEX_PREFIX = 512
+INDEX_PREFIX_BLOCK = 128
+
+
+def plant_near(gs, sources, n_novel: int, seed: int, stem: str, gdir: str):
+    """(Bdb, sketch results) of one genome near each indexed genome of
+    `sources` (~92% of its bottom and ~97% of its scaled sketch, plus
+    private hashes, as a planted cluster's members), then `n_novel`
+    genomes of fresh hashes; names stem_0, stem_1, ..., in that order."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    s_b = gs.sketch_size
+    names, results = [], {}
+    for t in range(len(sources) + n_novel):
+        name = f"{stem}_{t}.fasta"
+        if t < len(sources):
+            i = int(sources[t])
+            kb, ks = gs.bottom[i], gs.scaled[i]
+            kb, ks = kb[rng.random(len(kb)) < 0.92], ks[rng.random(len(ks)) < 0.97]
+            n_own_s = max(1, len(gs.scaled[i]) // 25)
+        else:
+            kb = ks = np.empty(0, np.uint64)
+            n_own_s = REAL_SCALED_DEPTH
+        own_b = rng.integers(0, 2**63, size=max(1, s_b // 6) if t < len(sources) else 2 * s_b, dtype=np.uint64)
+        own_s = rng.integers(0, 2**63, size=n_own_s, dtype=np.uint64)
+        results[name] = {"length": 4_000_000, "N50": 50_000, "contigs": 100, "n_kmers": 3_900_000,
+                         "bottom": np.unique(np.concatenate([kb, own_b]))[:s_b],
+                         "scaled": np.unique(np.concatenate([ks, own_s]))}
+        names.append(name)
+    return pd.DataFrame({"genome": names, "location": [os.path.join(gdir, g) for g in names]}), results
+
+
+def tree_digest(root: str) -> dict:
+    """sha256 of every file under `root`, by relative path."""
+    import hashlib
+
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            h = hashlib.sha256()
+            with open(path, "rb") as fh:
+                for chunk in iter(lambda: fh.read(1 << 24), b""):
+                    h.update(chunk)
+            out[os.path.relpath(path, root)] = h.hexdigest()
+    return out
+
+
+def stores_equal(a: str, b: str) -> str | None:
+    """None when two index stores are equal payload by payload (the same
+    files but logs, manifest.json byte-equal, every npz member equal; npz
+    zip timestamps differ), else the first difference."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
+                      for f in fs if os.path.relpath(d, root).split(os.sep)[0] != "log")
+
+    if files(a) != files(b):
+        return f"file sets {files(a)} != {files(b)}"
+    for rel in files(a):
+        if rel.endswith(".json"):
+            with open(os.path.join(a, rel), "rb") as f, open(os.path.join(b, rel), "rb") as g:
+                if f.read() != g.read():
+                    return rel
+            continue
+        with np.load(os.path.join(a, rel)) as za, np.load(os.path.join(b, rel)) as zb:
+            if sorted(za.files) != sorted(zb.files):
+                return f"{rel} members"
+            for k in za.files:
+                if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k]):
+                    return f"{rel}:{k}"
+    return None
+
+
+def build_prefix_index(loc: str, params: dict, gs, n: int, dev) -> None:
+    """Generation 0 of an index of `gs`'s first `n` genomes, on the card,
+    through the machinery build_from_paths runs after sketching."""
+    import pandas as pd
+
+    from drep_tpu_torch.index.store import IndexStore, empty_index
+    from drep_tpu_torch.index.update import _admit_batch, _rect_edges, publish_generation, recluster
+
+    store = IndexStore(loc)
+    names = gs.names[:n]
+    results = {g: {**{c: int(gs.gdb[c].iloc[i]) for c in ("length", "N50", "contigs", "n_kmers")},
+                   "bottom": gs.bottom[i], "scaled": gs.scaled[i]} for i, g in enumerate(names)}
+    idx = empty_index(params, location=store.location)
+    _admit_batch(idx, pd.DataFrame({"genome": names, "location": [f"/nonexistent/{g}" for g in names]}), results, 0)
+    ii, jj, dd, _ = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    order = np.lexsort((jj, ii))
+    idx.edges = (ii[order], jj[order], dd[order])
+    recluster(idx, 0, device=dev)
+    publish_generation(store, idx, 0, 0, idx.edges)
+
+
+def phase_index(tmp: str, dev, real: dict) -> dict:
+    """Phase 10: build, update and classify of the genome index."""
+    import torch
+
+    from drep_tpu_torch.cluster import engines
+    from drep_tpu_torch.index import build_from_workdir, classify_batch, index_update, load_resident_index
+    from drep_tpu_torch.index import update as upd
+    from drep_tpu_torch.index.classify import SketchedQueries
+    from drep_tpu_torch.ops import containment, mash
+    from drep_tpu_torch.ops import indicator as ind_mod
+    from drep_tpu_torch.parallel import streaming
+    from drep_tpu_torch.utils.durableio import load_npz_checked, read_json_checked
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    gs, n = real["gs"], len(real["gs"].names)
+    t_phase = time.perf_counter()
+    gdir = os.path.join(tmp, "index_genomes")  # locations only: the index reads no FASTA here
+    rng = np.random.default_rng(10)
+    near = np.concatenate([rng.choice(INDEX_PREFIX, INDEX_NEW // 4, replace=False),
+                           rng.choice(np.arange(INDEX_PREFIX, n), INDEX_NEW // 4, replace=False)])
+    batch, results = plant_near(gs, near, INDEX_NEW // 2, 11, "index_new", gdir)
+    # queries: near ones (the first few near prefix genomes) then novel ones;
+    # the CPU comparison takes the first few of each, moved to the front
+    half, few = INDEX_QUERIES // 2, INDEX_CPU_QUERIES // 2
+    q_near = np.concatenate([rng.choice(INDEX_PREFIX, few, replace=False), rng.choice(n, half - few, replace=False)])
+    qb, qres = plant_near(gs, q_near, half, 12, "query:index_query", gdir)
+    head = [*range(few), *range(half, half + few)]
+    order = head + [t for t in range(INDEX_QUERIES) if t not in head]
+    queries = SketchedQueries(admitted=qb.iloc[order].reset_index(drop=True), results=qres)
+    t_plant = time.perf_counter() - t_phase
+
+    # 10a: generation 0 from phase 5's workdir
+    wd = WorkDirectory(real["wd"])
+    snap = wd.get_arguments("cluster")
+    require(snap is not None and wd.hasDb("Mdb"), "phase 5's workdir lacks its cluster snapshot or Mdb")
+    mdb_rows = len(wd.get_db("Mdb"))
+    shape = "every ordered pair" if mdb_rows == n * n else \
+        "the streaming shape: both directions and the diagonal of the pairs up to max(1 - P_ani, warn_dist)"
+    log(f"index build: phase 5's workdir holds its cluster argument snapshot (estimator resolved to "
+        f"{snap.get('primary_estimator_resolved')!r}) and an Mdb of {mdb_rows} rows ({shape}); nothing added")
+    idx_dir = os.path.join(tmp, "index")
+    t0 = time.perf_counter()
+    built = build_from_workdir(idx_dir, real["wd"])
+    t_build = time.perf_counter() - t0
+    state = load_npz_checked(os.path.join(idx_dir, "state", "state_g000000.npz"))
+    cdb = real["cdb"].set_index("genome").loc[[str(x) for x in state["names"]]]
+    require(np.array_equal(state["primary"], cdb["primary_cluster"].to_numpy()), "10a: primary labels != phase 5's Cdb")
+    sec = [f"{p}_{s}" for p, s in zip(state["primary"], state["suffix"])]
+    require(sec == list(cdb["secondary_cluster"]), "10a: secondary labels != phase 5's Cdb")
+    log(f"10a index build: {built} in {t_build:.2f} s; labels equal phase 5's Cdb")
+
+    # 10b: the update, with the tail stripes and the per-cluster launches captured
+    stripes, clusters, walks = [], [], []
+    real_surv, real_ind, real_walk = streaming.stripe_survivors, containment.indicator_intersections, \
+        streaming.streaming_mash_edges
+
+    def surv_spy(a, na, b, nb, s_orig, keep, diag):
+        if not stripes:
+            stripes.append((a, na, b, nb, s_orig))
+        return real_surv(a, na, b, nb, s_orig, keep, diag)
+
+    def ind_spy(ids, v_pad, out=None):
+        clusters.append((ids, v_pad))
+        return real_ind(ids, v_pad, out=out)
+
+    def walk_spy(packed, k, cutoff, **kw):
+        walks.append((packed, k, cutoff))
+        return real_walk(packed, k, cutoff, **kw)
+
+    paths_before = dict(engines.SECONDARY_PATH_COUNTS)
+    streaming.stripe_survivors, containment.indicator_intersections = surv_spy, ind_spy
+    streaming.streaming_mash_edges = walk_spy
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = index_update(idx_dir, None, processes=1, presketched=(batch, results), device=dev)
+        torch.cuda.synchronize()
+        t_update = time.perf_counter() - t0
+        launches_update = read_launches()
+    finally:
+        streaming.stripe_survivors, containment.indicator_intersections = real_surv, real_ind
+        streaming.streaming_mash_edges = real_walk
+    parts = dict(upd.STATS)
+    walk = dict(streaming.STATS)
+    paths = {p: c - paths_before.get(p, 0) for p, c in engines.SECONDARY_PATH_COUNTS.items()
+             if c - paths_before.get(p, 0)}
+    shapes = [[int(ids.shape[0]), int(ids.shape[1]), v_pad] for ids, v_pad in clusters]
+    log(f"10b index update: {json.dumps(summary)} in {t_update:.2f} s; parts "
+        f"{json.dumps({k: round(v, 3) if isinstance(v, float) else v for k, v in parts.items()})}; launches "
+        f"{launches_update}; secondary paths {paths}; per-cluster indicator_mm shapes [m_pad, W, v_pad], the "
+        f"largest {max(shapes, key=lambda s: s[0] * s[1]) if shapes else None}")
+    require(summary["admitted"] == INDEX_NEW and summary["generation"] == 1, f"10b: {summary}")
+    require(launches_update["mash_shared"] == parts["rect_launches"] == walk["stripes"] == walk["n_blocks"] > 1,
+            f"10b: {launches_update['mash_shared']} mash_shared launches for {walk['n_blocks']} tail stripes")
+    require(launches_update["indicator_mm"] == parts["secondary_calls"] == len(clusters) == paths.get("one_shot")
+            and set(paths) == {"one_shot"},
+            f"10b: {launches_update['indicator_mm']} indicator_mm launches for {parts['secondary_calls']} dirty "
+            f"clusters ({paths})")
+    require(parts["secondary_calls"] >= INDEX_NEW // 4, f"10b: only {parts['secondary_calls']} dirty clusters")
+
+    # one tail stripe's counts against the plain version on the card
+    a, na, b, nb, s_orig = stripes[0]
+    got = mash.mash_shared(a, na, b, nb, s_orig)
+    want, stripe_plain_ms = cuda_timed(lambda: mash.mash_shared_plain(a, na, b, nb, s_orig))
+    require(torch.equal(got, want), f"10b: tail stripe 0 [{a.shape[0]} x {b.shape[0]}] shared counts != plain")
+    stripe_ms = cuda_ms(lambda: mash.mash_shared(a, na, b, nb, s_orig), reps=5)
+    steps, nbytes = mash_rect_cost(got.cpu().numpy(), na.cpu().numpy(), nb.cpu().numpy(), s_orig)
+    ops_ms, bytes_ms = steps / SCALAR_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    stripe = {"shape": [int(a.shape[0]), int(b.shape[0]), int(a.shape[1])], "ms": stripe_ms,
+              "plain_ms": stripe_plain_ms, "bound_ms": max(ops_ms, bytes_ms),
+              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "steps": steps, "bytes": nbytes}
+    del got, want
+
+    # the largest dirty cluster's counts against the plain version
+    ids, v_pad = max(clusters, key=lambda c: c[0].shape[0] * c[0].shape[1])
+    want, cl_plain_ms = cuda_timed(lambda: ind_mod.indicator_intersections_plain(ids, v_pad))
+    require(torch.equal(ind_mod.indicator_intersections(ids, v_pad), want),
+            f"10b: indicator_mm on the largest dirty cluster {tuple(ids.shape)} != plain")
+    largest = {"shape": [int(ids.shape[0]), int(ids.shape[1]), v_pad], "dtype": str(ids.dtype),
+               "walk": "dense" if ind_mod.dense_walk(ids.shape[1], v_pad) else "sparse",
+               "ms": cuda_ms(lambda: ind_mod.indicator_intersections(ids, v_pad), reps=20),
+               "plain_ms": cl_plain_ms, **mm_bounds(ids, v_pad),
+               "library_ms": cuda_ms(lambda: ind_mod.indicator_intersections_plain(ids, v_pad), reps=10)}
+    del clusters[:], stripes[:]
+
+    # the new edges against the plain version over the same rectangle on the card
+    packed, k, cutoff = walks[0]
+    n_all, n_old, width = packed.n, n, packed.ids.shape[1]
+    t0 = time.perf_counter()
+    ids_d = torch.from_numpy(packed.ids).to(dev)
+    cnt_d = torch.from_numpy(packed.counts).to(dev)
+    dist_tbl = mash.distance_table(width, k)
+    keep_d = torch.from_numpy(dist_tbl <= cutoff).to(dev)
+    cols = torch.arange(n_old, n_all, device=dev)
+    found = []
+    for r0 in range(0, n_all, 1024):
+        rows = torch.arange(r0, min(r0 + 1024, n_all), device=dev)
+        sh = mash.mash_shared_plain(ids_d[rows], cnt_d[rows], ids_d[n_old:], cnt_d[n_old:], width).long()
+        s_use = torch.clamp(torch.minimum(cnt_d[rows, None], cnt_d[None, n_old:]), max=width).long()
+        hit = keep_d[s_use, sh] & (rows[:, None] < cols[None, :])
+        r, c = torch.nonzero(hit, as_tuple=True)
+        found.append(torch.stack([rows[r], cols[c], s_use[r, c], sh[r, c]], 1).cpu().numpy())
+    f = np.concatenate(found)
+    o = np.lexsort((f[:, 1], f[:, 0]))
+    f = f[o]
+    edges = load_npz_checked(os.path.join(idx_dir, "edges", "edges_g000001.npz"))
+    require(np.array_equal(edges["ii"], f[:, 0]) and np.array_equal(edges["jj"], f[:, 1])
+            and edges["dist"].tobytes() == dist_tbl[f[:, 2], f[:, 3]].astype(np.float32).tobytes(),
+            "10b: the update's new edges != the plain version's over the same rectangle")
+    t_rect_plain = time.perf_counter() - t0
+    del ids_d, cnt_d, packed, walks[:]
+    log(f"10b: tail stripe 0 and the largest dirty cluster equal their plain versions; the {len(f)} new edges "
+        f"equal the plain version's over the [{n_all} x {n_all - n_old}] rectangle ({t_rect_plain:.2f} s); "
+        f"stripe {json.dumps(stripe)}; largest cluster {json.dumps(largest)}")
+
+    # the same update on the card and on the CPU, on a prefix index
+    params = dict(read_json_checked(os.path.join(idx_dir, "manifest.json"))["params"])
+    params["streaming_block"] = INDEX_PREFIX_BLOCK
+    pre_gpu, pre_cpu = os.path.join(tmp, "index_prefix_gpu"), os.path.join(tmp, "index_prefix_cpu")
+    build_prefix_index(pre_gpu, params, gs, INDEX_PREFIX, dev)
+    shutil.copytree(pre_gpu, pre_cpu)
+    t0 = time.perf_counter()
+    s_gpu = index_update(pre_gpu, None, processes=1, presketched=(batch, results), device=dev)
+    t_pre_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_cpu = index_update(pre_cpu, None, processes=1, presketched=(batch, results), device=torch.device("cpu"))
+    t_pre_cpu = time.perf_counter() - t0
+    diff = stores_equal(pre_gpu, pre_cpu)
+    require(diff is None, f"10b: the prefix index's update on the card != on the CPU ({diff})")
+    log(f"10b: the update of a {INDEX_PREFIX}-genome prefix index (block {INDEX_PREFIX_BLOCK}) publishes equal stores "
+        f"on the card ({t_pre_gpu:.2f} s) and on the CPU ({t_pre_cpu:.2f} s); {json.dumps(s_gpu)}")
+    require(s_gpu == {**s_cpu, "seconds": s_gpu["seconds"]}, "10b: prefix summaries differ")
+
+    # 10c: classify from one resident load, both modes; the tree untouched
+    t0 = time.perf_counter()
+    before = tree_digest(idx_dir)
+    t_digest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resident = load_resident_index(idx_dir)
+    t_load = time.perf_counter() - t0
+    classify = {}
+    for joint in (True, False):
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdicts = classify_batch(resident, queries, processes=1, joint=joint, device=dev)
+        torch.cuda.synchronize()
+        key = "joint" if joint else "separate"
+        classify[key] = {"s": time.perf_counter() - t0, "launches": read_launches(), "verdicts": verdicts,
+                         "rect_s": upd.STATS["classify_rect_s"], "pack_s": upd.STATS["pack_s"]}
+        novel = sum(v["novel_primary"] for v in verdicts)
+        log(f"10c classify joint={joint}: {len(verdicts)} verdicts in {classify[key]['s']:.2f} s "
+            f"(pack {upd.STATS['pack_s']:.2f} s, rectangle {upd.STATS['rect_s']:.2f} s); {novel} novel primary; "
+            f"launches { {k: v for k, v in classify[key]['launches'].items() if v} }")
+        require(len(verdicts) == INDEX_QUERIES
+                and classify[key]["launches"]["mash_shared"] == streaming.STATS["n_blocks"],
+                f"10c: {len(verdicts)} verdicts, launches {classify[key]['launches']}")
+        require(novel == INDEX_QUERIES // 2 and not any(v["novel_primary"] for v in verdicts[:INDEX_CPU_QUERIES // 2]),
+                f"10c: {novel} novel primary verdicts for {INDEX_QUERIES // 2} novel queries")
+    require(tree_digest(idx_dir) == before, "10c: classify changed the index tree")
+    # the first queries on the prefix index (generation 1), card against CPU
+    pre = load_resident_index(pre_gpu)
+    first = SketchedQueries(admitted=queries.admitted.iloc[:INDEX_CPU_QUERIES].reset_index(drop=True),
+                            results=qres)
+    t0 = time.perf_counter()
+    for joint in (True, False):
+        g = classify_batch(pre, first, processes=1, joint=joint, device=dev)
+        c = classify_batch(pre, first, processes=1, joint=joint, device=torch.device("cpu"))
+        require(g == c, f"10c: prefix-index verdicts (joint={joint}) on the card != on the CPU")
+    t_cpu_classify = time.perf_counter() - t0
+    log(f"10c: the index tree's digest is unchanged ({len(before)} files, {t_digest:.2f} s a digest); the first "
+        f"{INDEX_CPU_QUERIES} queries on the prefix index give equal verdicts on the card and the CPU, both modes "
+        f"({t_cpu_classify:.2f} s)")
+
+    out = {"build_s": t_build, "update_s": t_update, "update_parts": parts, "plant_s": t_plant,
+           "rect_pairs": parts["rect_pairs"], "rect_pairs_per_s": parts["rect_pairs"] / parts["rect_s"],
+           "launches_update": launches_update, "secondary_calls": len(shapes),
+           "secondary_shapes_largest": largest["shape"], "rect_plain_check_s": t_rect_plain,
+           "prefix": {"genomes": INDEX_PREFIX, "block": INDEX_PREFIX_BLOCK, "update_gpu_s": t_pre_gpu,
+                      "update_cpu_s": t_pre_cpu, "classify_card_and_cpu_s": t_cpu_classify},
+           "load_resident_s": t_load, "digest_s": t_digest,
+           **{f"classify_{k}_s": v["s"] for k, v in classify.items()},
+           "stripe": stripe, "largest_cluster": largest,
+           "launches_classify": {k: v["launches"] for k, v in classify.items()}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: {json.dumps({k: v for k, v in out.items() if k not in ('stripe', 'largest_cluster')})}")
+    return out
 
 
 def main() -> int:
@@ -1935,7 +2327,7 @@ def main() -> int:
         beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond)
         ring_kernel = phase_ring_kernel(dev, real["packed"], gs_beyond, planted_beyond)
         ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
-        ring_path = phase_ring_path(tmp, dev, gs_beyond, beyond)
+        ring_path = phase_ring_path(tmp, dev, gs_beyond, planted_beyond, beyond)
         ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
         stream = phase_streaming_auto(tmp, dev)
         stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
@@ -1945,6 +2337,7 @@ def main() -> int:
         p9c = phase_greedy(tmp, dev, real, gs_beyond, planted_beyond, beyond)
         p9d = phase_tertiary(tmp, dev, real)
         log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+        p10 = phase_index(tmp, dev, real)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -1988,6 +2381,14 @@ def main() -> int:
     kernels[0]["multiround_launches"] = p9b["launches"]["mash_shared"]
     kernels[1]["matmul_estimator"] = {**p9a["chunk0"], "launches": p9a["launches"]["indicator_mm"]}
     kernels[1]["tertiary_launches"] = p9d["launches"]["indicator_mm"]
+    # phase 10, the genome index: the tail rectangle's stripes and the
+    # dirty clusters' secondary launches, each at the index's own shapes
+    index_common = {k: p10[k] for k in ("build_s", "update_s", "update_parts", "rect_pairs", "rect_pairs_per_s",
+                                         "load_resident_s", "classify_joint_s", "classify_separate_s", "prefix")}
+    for k, name, part in ((kernels[0], "mash_shared", "stripe"), (kernels[1], "indicator_mm", "largest_cluster")):
+        k["index"] = {**p10[part], **index_common}
+        k["index_launches"] = {"update": p10["launches_update"][name],
+                               **{f"classify_{m}": p10["launches_classify"][m][name] for m in ("joint", "separate")}}
     # the merge kernels on the operands their route built in phase 6 (B:
     # width 2048, A: stacked buckets), and the other route on the same pack
     # in place of a library call

@@ -1,4 +1,5 @@
-"""drep_tpu_torch — dRep's compare/dereplicate pipeline on PyTorch and CUDA.
+"""drep_tpu_torch — dRep's compare/dereplicate pipeline and its genome
+index on PyTorch and CUDA.
 
 The PyTorch port of the JAX package ``drep_tpu`` (which stays in the repo
 as the reference). Module names mirror ``drep_tpu/`` so each counterpart is
@@ -16,6 +17,10 @@ with nvcc at first use and loaded with ctypes (``ops/_build.py``):
   dense mesh ring, by merge walks or by the indicator product: the
   step's tile and the B operand's copy into the neighbour
   (``parallel/``).
+
+The genome index (``index/``: ``index build|update|classify`` on one
+store) drives the Mash kernel over the K x N tail rectangle and the
+indicator product over each re-clustered primary cluster.
 
 Every entry point runs on ``cuda`` unless the caller asks for
 ``device="cpu"`` (CLI: ``--device cpu``); on the CPU each kernel wrapper

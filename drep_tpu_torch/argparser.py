@@ -1,4 +1,4 @@
-"""CLI argument tree: `compare`, `dereplicate` and `check_dependencies`.
+"""CLI argument tree: `compare`, `dereplicate`, `index` and `check_dependencies`.
 
 Counterpart of drep_tpu/argparser.py. The flag groups, names and defaults
 of `compare` and `dereplicate` are the JAX package's (FILTERING, GENOME
@@ -20,6 +20,11 @@ stage where the JAX package would run them. The flags in
 durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
 with the JAX defaults, and a run that sets one otherwise raises
 NotImplementedError naming its ROADMAP item (workflows.py).
+`index build|update|classify` take the JAX CLI's flags plus --device; its
+federated flags (--partitions, --fed_pods, --params_file) are in
+UNPORTED_FLAGS too, and `index split|merge|compact|serve|route|supervise`
+parse and raise NotImplementedError naming their item
+(:data:`UNPORTED_INDEX_OPS`).
 """
 
 from __future__ import annotations
@@ -45,6 +50,18 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
     "drain_grace_s": ((30.0,), "12b"),
     "run_tax": ((False,), "9b"),
     "cent_index": ((None,), "9b"),
+    # the federated index (`index build --partitions`, its pods and their
+    # sketches+params handoff)
+    "partitions": ((0,), "10b"),
+    "fed_pods": ((None,), "10b"),
+    "params_file": ((None,), "10b"),
+}
+
+# `index` subcommands of the JAX CLI that the port parses and refuses:
+# the federated index's maintenance verbs and the serve tier
+UNPORTED_INDEX_OPS: dict[str, str] = {
+    "split": "10b", "merge": "10b", "compact": "10b",
+    "serve": "11", "route": "11", "supervise": "11",
 }
 
 
@@ -174,6 +191,88 @@ def build_parser() -> argparse.ArgumentParser:
             sc.add_argument("-sizeW", "--size_weight", type=float, default=0.0)
             sc.add_argument("-centW", "--centrality_weight", type=float, default=1.0)
             sc.add_argument("--extra_weight_table", default=None)
+
+    def add_index_io(p: argparse.ArgumentParser):
+        p.add_argument("index_directory", help="the long-lived genome index")
+        p.add_argument("-g", "--genomes", nargs="*", default=None, help="genome FASTA files")
+        p.add_argument("-p", "--processes", type=int, default=6)
+        p.add_argument("-d", "--debug", action="store_true")
+        p.add_argument("--io_retries", type=int, default=None,
+                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+        p.add_argument("--fsync", action="store_true",
+                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+        p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                       help="where the kernels run (default cuda; cpu runs their plain "
+                            "PyTorch versions and must be asked for)")
+
+    def add_prune(p: argparse.ArgumentParser):
+        p.add_argument("--primary_prune", default="off", choices=["off", "lsh"],
+                       help="LSH candidate pruning of the K x N rectangle (recall 1.0 at the "
+                            "index's retention bound: the same edges and verdicts)")
+        p.add_argument("--prune_bands", type=int, default=0)
+        p.add_argument("--prune_min_shared", type=int, default=0)
+        p.add_argument("--prune_join_chunk", type=int, default=0)
+
+    idx_p = sub.add_parser(
+        "index",
+        help="incremental service mode: a long-lived genome index with "
+             "build/update/classify entrypoints",
+    )
+    isub = idx_p.add_subparsers(dest="index_op", required=True)
+
+    b = isub.add_parser(
+        "build",
+        help="create generation 0: snapshot a completed run's workdir "
+             "(--work_directory) or bootstrap from FASTAs (-g)",
+    )
+    add_index_io(b)
+    b.add_argument("--work_directory", default=None,
+                   help="completed compare/dereplicate workdir to snapshot; omit to "
+                        "bootstrap from -g FASTAs instead")
+    b.add_argument("--partitions", type=int, default=0,
+                   help="a federated index: not ported yet (item 10b); 0 = one store")
+    b.add_argument("--fed_pods", type=int, default=None,
+                   help="the federated build's pods: not ported yet (item 10b)")
+    bp = b.add_argument_group("INDEX PARAMETERS (bootstrap build only; "
+                              "workdir builds pin the source run's)")
+    bp.add_argument("-pa", "--P_ani", type=float, default=None)
+    bp.add_argument("-sa", "--S_ani", type=float, default=None)
+    bp.add_argument("-nc", "--cov_thresh", type=float, default=None)
+    bp.add_argument("--clusterAlg", default=None, choices=["average", "single"])
+    bp.add_argument("-ms", "--MASH_sketch", type=int, default=None)
+    bp.add_argument("--scale", type=int, default=None)
+    bp.add_argument("-k", "--kmer_size", type=int, default=None)
+    bp.add_argument("--hash", default=None, choices=["splitmix64", "murmur3"])
+    bp.add_argument("--warn_dist", type=float, default=None)
+    bp.add_argument("-l", "--length", type=int, default=None,
+                    help="minimum genome length admitted (the filter stage's rule)")
+    bp.add_argument("--streaming_block", type=int, default=None)
+
+    u = isub.add_parser(
+        "update",
+        help="admit K new genomes: sketch K, compare K x N on the Mash kernel, "
+             "re-cluster only touched clusters, publish the next generation "
+             "(crash-resumable; with no -g this is a pure heal pass)",
+    )
+    add_index_io(u)
+    add_prune(u)
+    u.add_argument("--fed_pods", type=int, default=None,
+                   help="the federated index's update pods: not ported yet (item 10b)")
+    u.add_argument("--params_file", default=None, metavar="NPZ",
+                   help="a federation's sketches+params handoff: not ported yet (item 10b)")
+
+    c = isub.add_parser(
+        "classify",
+        help="membership query: the cluster/winner each FASTA would join, "
+             "answered from the index alone (read-only)",
+    )
+    add_index_io(c)
+    add_prune(c)
+
+    for op, item in UNPORTED_INDEX_OPS.items():
+        r = isub.add_parser(op, help=f"not ported yet (ROADMAP.md queue 1, item {item})")
+        r.add_argument("index_directory")
+        r.add_argument("rest", nargs=argparse.REMAINDER, help="the JAX CLI's flags of this subcommand")
 
     cmp_p = sub.add_parser("compare", help="cluster genomes without dereplicating")
     add_common(cmp_p, with_filter=False, with_scoring=False)

@@ -22,7 +22,9 @@ Counterpart of drep_tpu/cluster/controller.py, trimmed to one process
   the one-shot indicator matmul (small clusters batched into one call),
   or past its budget the mesh ring, the merge kernel or the chunked
   matmul (engines) -> coverage-gated hierarchical clustering at 1-S_ani
-  -> "P_S" ids (Ndb); with --greedy_secondary_clustering, the greedy
+  -> "P_S" ids (Ndb); one cluster alone through :func:`secondary_for_cluster`
+  (the genome index's re-run of a dirty cluster); with
+  --greedy_secondary_clustering, the greedy
   assignment instead (cluster/greedy.py: small clusters over the batched
   call's matrices, larger ones block by block on the rectangular
   indicator product);
@@ -335,6 +337,28 @@ def _secondary_postprocess(
     return ndb, labels, link
 
 
+def secondary_for_cluster(
+    gs: GenomeSketches,
+    bdb: pd.DataFrame,
+    indices: list[int],
+    pc: int,
+    kw: dict[str, Any],
+) -> tuple[pd.DataFrame, np.ndarray, np.ndarray]:
+    """One primary cluster -> (Ndb rows, secondary labels 1.., linkage):
+    the engine's per-cluster route (the one-shot indicator product, or
+    past its budget the mesh ring, `pallas_range` or `matmul_chunked`, by
+    the rule `_secondary_clusters` applies to a cluster it does not
+    batch), then `_secondary_postprocess`. The genome index
+    (index/update.py) re-runs the secondary through it for exactly the
+    primary clusters an update touched, so a cluster's rows are those a
+    from-scratch run gives the same members. `kw` needs S_algorithm,
+    S_ani, cov_thresh, clusterAlg, processes, mesh_shape and device."""
+    engine = dispatch.get_secondary(kw["S_algorithm"])
+    ani, cov = engine(gs, indices, bdb=bdb, device=kw["device"], processes=kw["processes"],
+                      mesh_shape=kw["mesh_shape"])
+    return _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+
+
 def _secondary_clusters(
     gs: GenomeSketches, bdb: pd.DataFrame, primary: np.ndarray, kw: dict[str, Any]
 ) -> tuple[dict[int, tuple[pd.DataFrame, np.ndarray, np.ndarray]], list[tuple[int, list[int]]], dict[str, str]]:
@@ -372,11 +396,8 @@ def _secondary_clusters(
             pairs_done += len(ndb)  # the comparisons the greedy scan made
             results[pc] = (ndb, labels, np.empty((0, 4)))
         else:
-            engine = dispatch.get_secondary(kw["S_algorithm"])
-            ani, cov = engine(gs, indices, bdb=bdb, device=kw["device"], processes=kw["processes"],
-                              mesh_shape=kw["mesh_shape"])
             pairs_done += m * (m - 1) // 2
-            results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+            results[pc] = secondary_for_cluster(gs, bdb, indices, pc, kw)
 
     # flush the small clusters in row-bounded batches
     batches: list[list[tuple[int, list[int]]]] = []

@@ -1,16 +1,23 @@
 """Top-level controller: parsed args -> workflow (drep_tpu/controller.py:
-compare, dereplicate and check_dependencies)."""
+compare, dereplicate, index and check_dependencies)."""
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 
-from drep_tpu_torch.argparser import parse_args
+from drep_tpu_torch.argparser import UNPORTED_INDEX_OPS, parse_args
 from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.utils.logger import get_logger, setup_logger
-from drep_tpu_torch.workflows import compare_wrapper, dereplicate_wrapper
+from drep_tpu_torch.workflows import (
+    compare_wrapper,
+    dereplicate_wrapper,
+    index_build_wrapper,
+    index_classify_wrapper,
+    index_update_wrapper,
+)
 
 
 def check_dependencies() -> list[str]:
@@ -37,12 +44,38 @@ def check_dependencies() -> list[str]:
     return lines
 
 
+def index_operation(**kwargs):
+    """`index build|update|classify`: classify prints one JSON verdict
+    line per query on stdout, as the JAX CLI does; build and update log
+    their summaries. The JAX CLI's other index subcommands raise
+    NotImplementedError naming their ROADMAP item."""
+    sub = kwargs.pop("index_op")
+    index_loc = kwargs.pop("index_directory")
+    if sub in UNPORTED_INDEX_OPS:
+        raise NotImplementedError(
+            f"index {sub}: not ported yet (ROADMAP.md queue 1, item {UNPORTED_INDEX_OPS[sub]})"
+        )
+    genomes = kwargs.pop("genomes", None)
+    if sub == "build":
+        return index_build_wrapper(index_loc, genomes, **kwargs)
+    if sub == "update":
+        return index_update_wrapper(index_loc, genomes, **kwargs)
+    if sub == "classify":
+        verdicts = index_classify_wrapper(index_loc, genomes, **kwargs)
+        for v in verdicts:
+            print(json.dumps(v), file=sys.stdout, flush=True)
+        return verdicts
+    raise ValueError(f"unknown index operation {sub!r}")
+
+
 def run(args: argparse.Namespace):
     if args.operation == "check_dependencies":
         return check_dependencies()
     kwargs = {k: v for k, v in vars(args).items() if k != "operation"}
     if kwargs.pop("debug", False):
         setup_logger(None, verbosity=logging.DEBUG)
+    if args.operation == "index":
+        return index_operation(**kwargs)
     wd_loc = kwargs.pop("work_directory")
     genomes = kwargs.pop("genomes", None)
     if args.operation == "compare":

@@ -1,0 +1,298 @@
+"""`index build`: create generation 0 of a genome index.
+
+Counterpart of drep_tpu/index/build.py. Two front doors:
+
+- **from a completed work directory** (``--work_directory``): snapshot
+  the run's sketches (the workdir cache), its retained edges (Mdb), its
+  cluster labels (Cdb), and its winners, re-scored through choose.py's
+  core with the index's pinned weights, so build-time and update-time
+  scores cannot drift;
+- **from FASTA paths** (``-g``): the whole input set is admitted as
+  generation 0 through the update machinery (sketch -> the full triangle
+  on the streaming walk -> cluster -> score), which equals a
+  from-scratch run by construction.
+
+Refused at build, as in the JAX package: engines other than jax_mash /
+jax_ani, clusterAlg other than average|single, SkipMash, SkipSecondary,
+greedy, multiround and tertiary runs, and quality-informed scoring. A
+federated build (``--partitions``, ``--fed_pods``) raises
+NotImplementedError (ROADMAP.md queue 1 item 10b) in workflows.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pandas as pd
+
+from drep_tpu_torch.errors import UserInputError
+from drep_tpu_torch.index.store import IndexStore, empty_index
+from drep_tpu_torch.index.update import (
+    STATS,
+    _admit_batch,
+    _rect_edges,
+    publish_generation,
+    recluster,
+    sketch_batch,
+)
+from drep_tpu_torch.utils.logger import get_logger
+
+# the scoring weights an index pins at build (choose.py SCORE_DEFAULTS
+# minus S_ani, which rides in params directly)
+_WEIGHT_KEYS = (
+    "completeness_weight", "contamination_weight",
+    "strain_heterogeneity_weight", "N50_weight", "size_weight",
+    "centrality_weight",
+)
+
+_UNSUPPORTED_SNAPSHOT_FLAGS = (
+    "SkipMash", "SkipSecondary", "greedy_secondary_clustering",
+    "multiround_primary_clustering", "run_tertiary_clustering",
+)
+
+
+def _refuse_existing(index_loc: str) -> IndexStore:
+    """The store to build at `index_loc`, which must hold no index yet."""
+    from drep_tpu_torch.index import meta as fedmeta
+
+    if fedmeta.is_federated(index_loc):
+        raise UserInputError(
+            f"{index_loc} already holds a FEDERATED index "
+            f"({fedmeta.META_NAME}); `index update` grows it — build "
+            f"refuses to overwrite"
+        )
+    store = IndexStore(index_loc)
+    if store.exists():
+        raise UserInputError(
+            f"{index_loc} already holds an index (generation "
+            f"{store.read_manifest()['generation']}); `index update` grows "
+            f"it — build refuses to overwrite"
+        )
+    return store
+
+
+def resolve_params(**kwargs) -> dict:
+    """The index's pinned parameter set, from CLUSTER_DEFAULTS/
+    SCORE_DEFAULTS/FILTER_DEFAULTS with explicit overrides."""
+    from drep_tpu_torch.choose import SCORE_DEFAULTS
+    from drep_tpu_torch.cluster.controller import CLUSTER_DEFAULTS
+    from drep_tpu_torch.evaluate import EVALUATE_DEFAULTS
+    from drep_tpu_torch.filter import FILTER_DEFAULTS
+
+    def pick(key, default):
+        v = kwargs.get(key)
+        return default if v is None else v
+
+    alg = pick("clusterAlg", CLUSTER_DEFAULTS["clusterAlg"])
+    if alg not in ("average", "single"):
+        raise UserInputError(
+            f"index service mode supports --clusterAlg average or single "
+            f"(the sparse-edge-graph linkages), not {alg!r}"
+        )
+    s_alg = pick("S_algorithm", CLUSTER_DEFAULTS["S_algorithm"])
+    if s_alg != "jax_ani":
+        raise UserInputError(
+            f"index service mode runs the TPU-native secondary only "
+            f"(--S_algorithm jax_ani), not {s_alg!r}"
+        )
+    return {
+        "P_ani": float(pick("P_ani", CLUSTER_DEFAULTS["P_ani"])),
+        "S_ani": float(pick("S_ani", CLUSTER_DEFAULTS["S_ani"])),
+        "cov_thresh": float(pick("cov_thresh", CLUSTER_DEFAULTS["cov_thresh"])),
+        "clusterAlg": alg,
+        "S_algorithm": s_alg,
+        "sketch_size": int(pick("MASH_sketch", CLUSTER_DEFAULTS["MASH_sketch"])),
+        "scale": int(pick("scale", CLUSTER_DEFAULTS["scale"])),
+        "kmer_size": int(pick("kmer_size", CLUSTER_DEFAULTS["kmer_size"])),
+        "hash": pick("hash", CLUSTER_DEFAULTS["hash"]),
+        "warn_dist": float(pick("warn_dist", EVALUATE_DEFAULTS["warn_dist"])),
+        "filter_length": int(pick("length", FILTER_DEFAULTS["length"])),
+        "streaming_block": int(pick("streaming_block", CLUSTER_DEFAULTS["streaming_block"])),
+        "weights": {k: float(pick(k, SCORE_DEFAULTS[k])) for k in _WEIGHT_KEYS},
+    }
+
+
+def _params_from_workdir(wd) -> dict:
+    """Pin the index params to what the source run used (its cluster and
+    filter argument snapshots), refusing unsupported modes."""
+    snap = wd.get_arguments("cluster")
+    if snap is None:
+        raise UserInputError(
+            f"workdir {wd.location} has no cluster argument snapshot — "
+            f"build the index from a COMPLETED compare/dereplicate run"
+        )
+    bad = [f for f in _UNSUPPORTED_SNAPSHOT_FLAGS if snap.get(f)]
+    if bad:
+        raise UserInputError(
+            f"the source run used {bad} — index service mode does not "
+            f"support these clustering modes (they break the pinned "
+            f"incremental==from-scratch invariant)"
+        )
+    filt = wd.get_arguments("filter") or {}
+    resolved = snap.get("primary_estimator_resolved")
+    if resolved is not None and resolved != "streaming_sort":
+        get_logger().warning(
+            "index build: the source run's primary estimator resolved to %r; "
+            "incremental updates always compare with the streaming sort "
+            "estimator, so snapshot edges and update edges agree within "
+            "estimator variance (run the source with --streaming_primary "
+            "for exact numerics)", resolved,
+        )
+    return resolve_params(
+        P_ani=snap.get("P_ani"), S_ani=snap.get("S_ani"),
+        cov_thresh=snap.get("cov_thresh"), clusterAlg=snap.get("clusterAlg"),
+        S_algorithm=snap.get("S_algorithm"), MASH_sketch=snap.get("MASH_sketch"),
+        scale=snap.get("scale"), kmer_size=snap.get("kmer_size"),
+        hash=snap.get("hash"), warn_dist=snap.get("warn_dist"),
+        length=filt.get("length", 0),
+    )
+
+
+def _edges_from_mdb(mdb: pd.DataFrame, name_to_idx: dict[str, int], keep: float):
+    """Mdb rows -> the canonical unique (i < j, dist <= keep) edge arrays,
+    from either Mdb shape: the sparse one (both directions + the
+    diagonal) or the dense one (all ordered pairs)."""
+    g1 = mdb["genome1"].map(name_to_idx).to_numpy()
+    g2 = mdb["genome2"].map(name_to_idx).to_numpy()
+    # dist is parsed as float32, the streaming path's dtype: the Mdb CSV
+    # holds a float32's shortest repr, which parses back to the same
+    # float32 (so a snapshot's edges are the run's, bit for bit)
+    dd = mdb["dist"].to_numpy().astype(np.float32)
+    ii = np.minimum(g1, g2)
+    jj = np.maximum(g1, g2)
+    sel = (ii < jj) & (dd <= np.float32(keep))
+    ii, jj, dd = ii[sel], jj[sel], dd[sel]
+    # canonical (ii, jj) order, then one row per pair
+    order = np.lexsort((jj, ii))
+    ii, jj, dd = ii[order], jj[order], dd[order]
+    if len(ii):
+        first = np.ones(len(ii), bool)
+        first[1:] = (ii[1:] != ii[:-1]) | (jj[1:] != jj[:-1])
+        ii, jj, dd = ii[first], jj[first], dd[first]
+    return ii.astype(np.int64), jj.astype(np.int64), dd
+
+
+def build_from_workdir(index_loc: str, wd_loc: str) -> dict:
+    """Generation 0 from a completed compare/dereplicate workdir (host
+    work only: the snapshot computes no distance)."""
+    from drep_tpu_torch import schemas
+    from drep_tpu_torch.choose import score_and_pick
+    from drep_tpu_torch.ingest import _load
+    from drep_tpu_torch.parallel.streaming import retention_bound
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    logger = get_logger()
+    store = _refuse_existing(index_loc)
+    wd = WorkDirectory(wd_loc)
+    for table in ("Cdb", "Mdb", "Bdb"):
+        if not wd.hasDb(table):
+            raise UserInputError(
+                f"workdir {wd_loc} has no {table} — build the index from a "
+                f"COMPLETED compare/dereplicate run"
+            )
+    if wd.hasDb("genomeInfo"):
+        raise UserInputError(
+            "the source run scored with genome quality (genomeInfo); index "
+            "service mode scores quality-uninformed (new genomes arrive "
+            "with no quality data) — build from a run without genomeInfo"
+        )
+    params = _params_from_workdir(wd)
+    if not wd.has_arrays("sketches"):
+        raise UserInputError(
+            f"workdir {wd_loc} has no sketch cache (data/arrays/"
+            f"sketches.npz) — the index snapshots sketches, not FASTAs"
+        )
+    gs = _load(wd, params["kmer_size"], params["sketch_size"], params["scale"])
+    cdb = wd.get_db("Cdb")
+    if sorted(gs.names) != sorted(cdb["genome"]):
+        raise UserInputError(
+            f"workdir {wd_loc}: sketch cache and Cdb cover different genome "
+            f"sets — the run is stale or partially resumed; rerun it"
+        )
+    bdb = wd.get_db("Bdb").set_index("genome")["location"]
+
+    idx = empty_index(params, location=store.location)
+    idx.names = list(gs.names)
+    idx.locations = [str(bdb.get(g, "")) for g in gs.names]
+    idx.gdb = gs.gdb.reset_index(drop=True)
+    idx.admitted = np.zeros(len(gs.names), np.int64)
+    idx.bottom = list(gs.bottom)
+    idx.scaled = list(gs.scaled)
+
+    cutoff = 1.0 - params["P_ani"]
+    keep = retention_bound(cutoff, params["warn_dist"], params["clusterAlg"])
+    name_to_idx = {g: i for i, g in enumerate(gs.names)}
+    idx.edges = _edges_from_mdb(wd.get_db("Mdb"), name_to_idx, keep)
+
+    # labels: the snapshot — Cdb in index genome order
+    by_genome = cdb.set_index("genome")
+    idx.primary = np.array(
+        [int(by_genome.loc[g, "primary_cluster"]) for g in gs.names], np.int64
+    )
+    suffixes = []
+    for g in gs.names:
+        sec = str(by_genome.loc[g, "secondary_cluster"])
+        try:
+            suffixes.append(int(sec.rsplit("_", 1)[1]))
+        except (IndexError, ValueError) as e:
+            raise UserInputError(
+                f"Cdb secondary_cluster {sec!r} is not 'P_S'-shaped — "
+                f"unsupported clustering output for service mode"
+            ) from e
+    idx.suffix = np.array(suffixes, np.int64)
+
+    # scores + winners re-derived with the index's pinned weights (never
+    # copied from Sdb: a run scored with custom weights would disagree
+    # with every later update)
+    ndb = wd.get_db("Ndb") if wd.hasDb("Ndb") else schemas.empty("Ndb")
+    stats = idx.gdb[["genome", "length", "N50"]]
+    cdb_idx = pd.DataFrame(
+        {"genome": idx.names, "secondary_cluster": idx.secondary_names()}
+    )
+    sdb_full, wdb = score_and_pick(
+        cdb_idx, stats, ndb, None, S_ani=params["S_ani"], **params["weights"]
+    )
+    by_score = sdb_full.set_index("genome")["score"]
+    idx.score = np.array([float(by_score[g]) for g in idx.names], np.float64)
+    idx.winners = wdb[["cluster", "genome", "score"]]
+
+    publish_generation(store, idx, 0, 0, idx.edges)
+    logger.info(
+        "index build: snapshotted %d genomes / %d primary clusters from %s "
+        "-> %s (generation 0)",
+        idx.n, int(idx.primary.max()) if idx.n else 0, wd_loc, index_loc,
+    )
+    return {
+        "n_genomes": idx.n, "generation": 0,
+        "primary_clusters": int(idx.primary.max()) if idx.n else 0,
+        "secondary_clusters": int(cdb_idx["secondary_cluster"].nunique()),
+    }
+
+
+def build_from_paths(
+    index_loc: str, genome_paths: list[str], processes: int = 1, device=None, **kwargs
+) -> dict:
+    """Bootstrap build on `device` (default cuda; the CPU only when
+    asked): the whole input set is generation 0's batch, admitted through
+    the update machinery."""
+    from drep_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    store = _refuse_existing(index_loc)
+    params = resolve_params(**kwargs)
+    idx = empty_index(params, location=store.location)
+    batch, results = sketch_batch(idx, genome_paths, processes=processes)
+    if not len(batch):
+        raise UserInputError("no genomes survived the length filter — nothing to index")
+    STATS.clear()
+    _admit_batch(idx, batch, results, 0)
+    ii, jj, dd, _pairs = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    order = np.lexsort((jj, ii))
+    idx.edges = (ii[order], jj[order], dd[order])
+    summary = recluster(idx, 0, processes=processes, device=dev)
+    publish_generation(store, idx, 0, 0, idx.edges)
+    get_logger().info(
+        "index build: %d genomes -> %s (generation 0, %d primary / %d "
+        "secondary clusters)",
+        idx.n, index_loc, summary["primary_clusters"], summary["secondary_clusters"],
+    )
+    return {"n_genomes": idx.n, "generation": 0, **summary}

@@ -1,0 +1,521 @@
+"""The genome-index store: on-disk layout, load/publish, self-heal.
+
+Counterpart of drep_tpu/index/store.py, in its format byte for byte, so a
+store written by either package loads, updates and heals in the other.
+Every payload is an atomic publish carrying an in-band checksum
+(utils/durableio.py).
+
+Layout (all paths relative to the index directory)::
+
+    manifest.json                 -- THE atomically-published root: format,
+                                     generation counter, params, and the
+                                     shard lists with their index ranges.
+                                     Checked JSON (in-band "crc").
+    sketches/sketch_g%06d.npz     -- one per admitted batch [lo, hi):
+                                     names/locations/stats + the raw
+                                     uint64 bottom & scaled sketches in
+                                     the ingest ragged layout.
+    edges/edges_g%06d.npz         -- one per admitted batch: the retained
+                                     edges with lo <= jj < hi (ii < jj,
+                                     dist <= keep), sorted by (ii, jj).
+    state/state_g%06d.npz         -- the CURRENT generation's derived
+                                     state: primary labels, secondary
+                                     suffixes, scores, the winner table,
+                                     plus a redundant copy of
+                                     names/locations/stats (the heal
+                                     anchor for a rotted sketch shard).
+    pending/                      -- the rectangle's shard store of an
+                                     in-flight update (removed after the
+                                     publish; a killed update resumes
+                                     from it).
+
+Generation semantics: every mutation writes its new shards under
+deterministic generation-stamped names, then atomically publishes
+``manifest.json`` with the bumped generation. A crash before the publish
+leaves every reader at the old generation; rerunning the same update
+rewrites the orphan shards with the same payloads and publishes.
+
+Self-heal matrix (update-time; classify is read-only and refuses):
+
+- sketch shard corrupt/missing  -> re-sketch its range from the
+  names/locations held in state (refusing if a FASTA changed since it
+  was indexed);
+- edge shard corrupt/missing    -> recompute its [lo, hi) column range
+  with the same rectangular walk that produced it;
+- state corrupt/missing         -> flagged; update.py reclusters every
+  component from the edges;
+- manifest corrupt, or state AND a sketch shard both rotted -> fatal.
+
+Not ported here: the JAX package's telemetry event at each publish
+(ROADMAP items 5.3 and 13) and its federated load (item 10b: a federated
+root raises NotImplementedError).
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from dataclasses import dataclass, field
+
+import numpy as np
+import pandas as pd
+
+from drep_tpu_torch.errors import UserInputError
+from drep_tpu_torch.ingest import _pack_ragged, _unpack_ragged
+from drep_tpu_torch.utils.logger import get_logger
+
+MANIFEST_NAME = "manifest.json"
+INDEX_FORMAT = 1
+
+_STAT_COLS = ("length", "N50", "contigs", "n_kmers")
+
+@dataclass
+class LoadedIndex:
+    """The whole index in memory — what update/classify operate on."""
+
+    location: str | None
+    params: dict
+    generation: int  # -1 = empty (a fresh build's starting point)
+    names: list[str]
+    locations: list[str]
+    gdb: pd.DataFrame  # genome, length, N50, contigs, n_kmers
+    admitted: np.ndarray  # per-genome admitting generation
+    bottom: list[np.ndarray]
+    scaled: list[np.ndarray]
+    edges: tuple[np.ndarray, np.ndarray, np.ndarray]  # ii, jj, dist
+    primary: np.ndarray  # 1..C primary labels
+    suffix: np.ndarray  # within-primary secondary numbers (the S of "P_S")
+    score: np.ndarray  # choose-stage score per genome
+    winners: pd.DataFrame  # cluster ("P_S"), genome, score
+    sketch_shards: list[dict] = field(default_factory=list)  # {file, lo, hi, generation}
+    edge_shards: list[dict] = field(default_factory=list)
+    healed: list[str] = field(default_factory=list)
+    state_missing: bool = False  # state rotted: caller must recluster all
+
+    @property
+    def n(self) -> int:
+        return len(self.names)
+
+    def secondary_names(self) -> list[str]:
+        return [f"{int(p)}_{int(s)}" for p, s in zip(self.primary, self.suffix)]
+
+
+def sketch_crc(bottom: np.ndarray, scaled: np.ndarray) -> int:
+    """Per-genome sketch fingerprint, held in state: the heal path proves
+    with it that a re-sketched FASTA still holds what was indexed."""
+    import zlib
+
+    crc = zlib.crc32(np.ascontiguousarray(bottom).tobytes())
+    return zlib.crc32(np.ascontiguousarray(scaled).tobytes(), crc) & 0xFFFFFFFF
+
+
+def empty_index(params: dict, location: str | None = None) -> LoadedIndex:
+    e = np.empty(0, np.int64)
+    return LoadedIndex(
+        location=location, params=params, generation=-1,
+        names=[], locations=[],
+        gdb=pd.DataFrame({"genome": [], **{c: [] for c in _STAT_COLS}}),
+        admitted=e.copy(), bottom=[], scaled=[],
+        edges=(e.copy(), e.copy(), np.empty(0, np.float32)),
+        primary=e.copy(), suffix=e.copy(), score=np.empty(0, np.float64),
+        winners=pd.DataFrame({"cluster": [], "genome": [], "score": []}),
+    )
+
+
+class IndexStore:
+    """Path bookkeeping + shard (de)serialization for one index dir."""
+
+    def __init__(self, location: str):
+        self.location = os.path.abspath(location)
+
+    # ---- paths -----------------------------------------------------------
+    @property
+    def manifest_path(self) -> str:
+        return os.path.join(self.location, MANIFEST_NAME)
+
+    def exists(self) -> bool:
+        return os.path.exists(self.manifest_path)
+
+    def sketch_shard_name(self, gen: int) -> str:
+        return os.path.join("sketches", f"sketch_g{gen:06d}.npz")
+
+    def edge_shard_name(self, gen: int) -> str:
+        return os.path.join("edges", f"edges_g{gen:06d}.npz")
+
+    def state_name(self, gen: int) -> str:
+        return os.path.join("state", f"state_g{gen:06d}.npz")
+
+    def pending_dir(self, gen: int) -> str:
+        # the in-flight update's rectangle shard store: a killed update
+        # resumes its finished stripes from here on the rerun
+        return os.path.join(self.location, "pending", f"g{gen:06d}")
+
+    def abspath(self, rel: str) -> str:
+        return os.path.join(self.location, rel)
+
+    def ensure_dirs(self) -> None:
+        for sub in ("sketches", "edges", "state", "log"):
+            os.makedirs(os.path.join(self.location, sub), exist_ok=True)
+
+    # ---- manifest --------------------------------------------------------
+    def read_manifest(self) -> dict:
+        from drep_tpu_torch.utils.durableio import CorruptPayloadError, read_json_checked
+
+        if not self.exists():
+            raise UserInputError(
+                f"{self.location} is not a genome index (no {MANIFEST_NAME}); "
+                f"create one with `drep-tpu-torch index build`"
+            )
+        try:
+            m = read_json_checked(self.manifest_path, what="index manifest")
+        except CorruptPayloadError as e:
+            # the one family with no redundant copy: its loss is fatal
+            raise UserInputError(
+                f"index manifest {self.manifest_path} is corrupt ({e}); "
+                f"restore it from a backup or rebuild the index"
+            ) from e
+        if not isinstance(m, dict) or m.get("format") != INDEX_FORMAT:
+            raise UserInputError(
+                f"index manifest {self.manifest_path} has unsupported format "
+                f"{m.get('format') if isinstance(m, dict) else type(m).__name__!r} "
+                f"(this build reads format {INDEX_FORMAT})"
+            )
+        return m
+
+    def publish_manifest(self, manifest: dict) -> None:
+        """THE generation commit point: everything before this is
+        invisible to readers, everything after is durable."""
+        from drep_tpu_torch.utils.durableio import atomic_write_json
+
+        atomic_write_json(self.manifest_path, manifest)
+
+    # ---- shard serialization --------------------------------------------
+    def write_sketch_shard(self, rel: str, names, locations, gdb_rows: pd.DataFrame,
+                           bottom, scaled, admitted_gen) -> None:
+        from drep_tpu_torch.utils.durableio import atomic_savez
+
+        # admitted_gen: one int for a per-generation append shard, or a
+        # per-genome array (a heal rewrites a shard that spans several)
+        adm = np.asarray(admitted_gen, np.int64)
+        if adm.ndim == 0:
+            adm = np.full(len(names), adm, np.int64)
+        payload: dict[str, np.ndarray] = {
+            "names": np.array(names, dtype=str),
+            "locations": np.array(locations, dtype=str),
+            "admitted_generation": adm,
+        }
+        for c in _STAT_COLS:
+            payload[c] = gdb_rows[c].to_numpy().astype(np.int64)
+        for key, arrs in (("bottom", bottom), ("scaled", scaled)):
+            payload[key], payload[f"{key}_offsets"] = _pack_ragged(list(arrs))
+        os.makedirs(os.path.dirname(self.abspath(rel)), exist_ok=True)
+        # uncompressed like the workdir sketch cache: hashes are incompressible
+        atomic_savez(self.abspath(rel), compressed=False, **payload)
+
+    def write_edge_shard(self, rel: str, ii, jj, dd) -> None:
+        from drep_tpu_torch.utils.durableio import atomic_savez
+
+        # canonical (ii, jj) order: a healed recompute must reproduce the
+        # original payload exactly, whatever walk produced it
+        order = np.lexsort((jj, ii))
+        os.makedirs(os.path.dirname(self.abspath(rel)), exist_ok=True)
+        atomic_savez(
+            self.abspath(rel),
+            ii=np.asarray(ii, np.int64)[order],
+            jj=np.asarray(jj, np.int64)[order],
+            dist=np.asarray(dd, np.float32)[order],
+        )
+
+    def write_state(self, rel: str, idx: LoadedIndex) -> None:
+        from drep_tpu_torch.utils.durableio import atomic_savez
+
+        os.makedirs(os.path.dirname(self.abspath(rel)), exist_ok=True)
+        atomic_savez(
+            self.abspath(rel),
+            names=np.array(idx.names, dtype=str),
+            locations=np.array(idx.locations, dtype=str),
+            admitted_generation=np.asarray(idx.admitted, np.int64),
+            primary=np.asarray(idx.primary, np.int64),
+            suffix=np.asarray(idx.suffix, np.int64),
+            score=np.asarray(idx.score, np.float64),
+            winner_cluster=idx.winners["cluster"].to_numpy().astype(str),
+            winner_genome=idx.winners["genome"].to_numpy().astype(str),
+            winner_score=idx.winners["score"].to_numpy().astype(np.float64),
+            sketch_crc=np.array(
+                [sketch_crc(b, s) for b, s in zip(idx.bottom, idx.scaled)],
+                np.uint32,
+            ),
+            **{c: idx.gdb[c].to_numpy().astype(np.int64) for c in _STAT_COLS},
+        )
+
+    def gc_states(self, keep_rel: str) -> None:
+        """Best-effort removal of superseded state generations and the
+        pending dir — strictly AFTER the manifest publish, so a kill in
+        between leaves only orphans the next run rewrites."""
+        import contextlib
+
+        state_dir = os.path.join(self.location, "state")
+        keep = os.path.basename(keep_rel)
+        if os.path.isdir(state_dir):
+            for f in os.listdir(state_dir):
+                if f != keep and f.startswith("state_g") and f.endswith(".npz"):
+                    with contextlib.suppress(OSError):
+                        os.remove(os.path.join(state_dir, f))
+        shutil.rmtree(os.path.join(self.location, "pending"), ignore_errors=True)
+
+
+def build_manifest(idx: LoadedIndex, state_rel: str) -> dict:
+    """The manifest document for idx's in-memory shape, built whole (a
+    fresh build and an update publish through one recipe)."""
+    return {
+        "format": INDEX_FORMAT,
+        "generation": int(idx.generation),
+        "n_genomes": idx.n,
+        "params": idx.params,
+        "sketch_shards": idx.sketch_shards,
+        "edge_shards": idx.edge_shards,
+        "state": state_rel,
+    }
+
+
+def _recompute_edge_range(
+    idx: LoadedIndex, lo: int, hi: int, device=None
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Heal path: recompute the retained edges with lo <= jj < hi on the
+    same rectangular walk that produced them (the Mash kernel, one launch
+    a row stripe, on `device`). Only the first `hi` genomes can touch the
+    shard (ii < jj < hi), so the walk packs that prefix and starts at
+    column `lo`; a pair's distance reads only its two rows, so the healed
+    payload equals the lost one."""
+    from drep_tpu_torch.ops.minhash import pack_sketches
+    from drep_tpu_torch.parallel.streaming import retention_bound, streaming_mash_edges
+
+    p = idx.params
+    cutoff = 1.0 - float(p["P_ani"])
+    keep = retention_bound(cutoff, float(p["warn_dist"]), p["clusterAlg"])
+    packed = pack_sketches(idx.bottom[:hi], idx.names[:hi], int(p["sketch_size"]))
+    ii, jj, dd, _ = streaming_mash_edges(
+        packed, int(p["kmer_size"]), keep,
+        block=int(p["streaming_block"]), min_col=lo, device=device,
+    )
+    # the tiles that reach column lo also hold pairs below it
+    sel = jj >= lo
+    return ii[sel], jj[sel], dd[sel]
+
+
+def load_index(location: str, heal: bool = False, device=None) -> LoadedIndex:
+    """Read the whole index at its manifest generation.
+
+    `heal=True` (the `index update` path) repairs corrupt/missing shards
+    per the module-docstring heal matrix, rewriting them in place and
+    recording what it fixed in ``LoadedIndex.healed`` (an edge shard's
+    recompute runs on `device`); a rotted state is flagged
+    (``state_missing``) for the caller to recluster. `heal=False`
+    (classify, read-only) raises an actionable error instead of touching
+    the store. A federated root raises NotImplementedError (item 10b).
+    """
+    from drep_tpu_torch.index.meta import refuse_federated
+    from drep_tpu_torch.utils import durableio
+
+    refuse_federated(location, "loading the index")
+    logger = get_logger()
+    store = IndexStore(location)
+    manifest = store.read_manifest()
+    params = manifest["params"]
+    n = int(manifest["n_genomes"])
+    healed: list[str] = []
+
+    def _read_or_none(rel: str, what: str):
+        """corrupt-vs-missing classification: healing removes a corrupt
+        payload (the rewrite below replaces it); read-only mode refuses."""
+        path = store.abspath(rel)
+        if heal:
+            return durableio.load_npz_or_none(
+                path, what=what, convert=lambda z: z,
+                warn=f"index {what}: corrupt %s — healing via recompute",
+            )
+        try:
+            return durableio.load_npz_checked(path, what=what)
+        except FileNotFoundError:
+            return None
+        except durableio.CorruptPayloadError as e:
+            raise UserInputError(
+                f"index {what} {path} is corrupt ({e}). classify is "
+                f"read-only; run `drep-tpu-torch index update {location}` (no "
+                f"genomes needed) to heal it"
+            ) from e
+
+    # 1. state (the heal anchor for sketch shards) ------------------------
+    state = _read_or_none(manifest["state"], "state")
+    if state is None and not heal:
+        raise UserInputError(
+            f"index state {store.abspath(manifest['state'])} is missing; "
+            f"run `drep-tpu-torch index update {location}` to heal"
+        )
+
+    # 2. sketch shards ----------------------------------------------------
+    names: list[str | None] = [None] * n
+    locations: list[str | None] = [None] * n
+    admitted = np.zeros(n, np.int64)
+    stats = {c: np.zeros(n, np.int64) for c in _STAT_COLS}
+    bottom: list[np.ndarray | None] = [None] * n
+    scaled: list[np.ndarray | None] = [None] * n
+
+    def _install_sketches(lo: int, hi: int, shard_names, shard_locs, shard_stats,
+                          sb, ss, adm) -> None:
+        names[lo:hi] = shard_names
+        locations[lo:hi] = shard_locs
+        admitted[lo:hi] = adm
+        for c in _STAT_COLS:
+            stats[c][lo:hi] = shard_stats[c]
+        bottom[lo:hi] = sb
+        scaled[lo:hi] = ss
+
+    def _require_heal(rel: str, what: str) -> None:
+        if not heal:
+            raise UserInputError(
+                f"index {what} {store.abspath(rel)} is missing; classify is "
+                f"read-only — run `drep-tpu-torch index update {location}` (no "
+                f"genomes needed) to heal the store first"
+            )
+
+    for entry in manifest["sketch_shards"]:
+        lo, hi = int(entry["lo"]), int(entry["hi"])
+        z = _read_or_none(entry["file"], "sketch shard")
+        if z is None:
+            _require_heal(entry["file"], "sketch shard")
+        if z is not None:
+            m = hi - lo
+            _install_sketches(
+                lo, hi,
+                [str(x) for x in z["names"]],
+                [str(x) for x in z["locations"]],
+                {c: z[c].astype(np.int64) for c in _STAT_COLS},
+                _unpack_ragged(z["bottom"], z["bottom_offsets"], m),
+                _unpack_ragged(z["scaled"], z["scaled_offsets"], m),
+                z["admitted_generation"].astype(np.int64),
+            )
+            continue
+        # heal: re-sketch the range from the redundant copy in state
+        if state is None:
+            raise UserInputError(
+                f"index at {location}: sketch shard {entry['file']} AND the "
+                f"state payload are both unreadable — the double fault the "
+                f"store's redundancy cannot cover. Rebuild the index."
+            )
+        from drep_tpu_torch.ingest import sketch_paths
+
+        shard_names = [str(x) for x in state["names"][lo:hi]]
+        shard_locs = [str(x) for x in state["locations"][lo:hi]]
+        logger.warning(
+            "index: re-sketching %d genome(s) to heal %s", hi - lo, entry["file"]
+        )
+        bdb = pd.DataFrame({"genome": shard_names, "location": shard_locs})
+        res = sketch_paths(
+            bdb, int(params["kmer_size"]), int(params["sketch_size"]),
+            int(params["scale"]), params["hash"],
+        )
+        # the FASTAs must still be what was indexed: a changed file would
+        # poison every stored edge touching it
+        crcs = state.get("sketch_crc")
+        drifted = [
+            g for i, g in enumerate(shard_names)
+            if (
+                sketch_crc(res[g]["bottom"], res[g]["scaled"])
+                != int(crcs[lo + i])
+                if crcs is not None
+                else res[g]["n_kmers"] != int(state["n_kmers"][lo + i])
+            )
+        ]
+        if drifted:
+            raise UserInputError(
+                f"index heal: genome file(s) changed since indexing "
+                f"(k-mer count drifted): {drifted[:5]} — the stored edges "
+                f"for them are stale. Rebuild the index, or restore the "
+                f"original files."
+            )
+        shard_stats = {
+            c: np.array([res[g][c] for g in shard_names], np.int64)
+            for c in _STAT_COLS
+        }
+        _install_sketches(
+            lo, hi, shard_names, shard_locs, shard_stats,
+            [res[g]["bottom"] for g in shard_names],
+            [res[g]["scaled"] for g in shard_names],
+            state["admitted_generation"][lo:hi].astype(np.int64),
+        )
+        healed.append(entry["file"])  # rewritten below, once all ranges load
+
+    gdb = pd.DataFrame({"genome": names, **stats})
+    idx = LoadedIndex(
+        location=store.location, params=params,
+        generation=int(manifest["generation"]),
+        names=[str(x) for x in names], locations=[str(x) for x in locations],
+        gdb=gdb, admitted=admitted,
+        bottom=bottom, scaled=scaled,  # type: ignore[arg-type]
+        edges=(np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.float32)),
+        primary=np.zeros(n, np.int64), suffix=np.zeros(n, np.int64),
+        score=np.zeros(n, np.float64),
+        winners=pd.DataFrame({"cluster": [], "genome": [], "score": []}),
+        sketch_shards=[dict(e) for e in manifest["sketch_shards"]],
+        edge_shards=[dict(e) for e in manifest["edge_shards"]],
+        healed=healed,
+    )
+
+    # rewrite healed sketch shards now that every range is in memory
+    for entry in manifest["sketch_shards"]:
+        if entry["file"] not in healed:
+            continue
+        lo, hi = int(entry["lo"]), int(entry["hi"])
+        store.write_sketch_shard(
+            entry["file"], idx.names[lo:hi], idx.locations[lo:hi],
+            idx.gdb.iloc[lo:hi], idx.bottom[lo:hi], idx.scaled[lo:hi],
+            idx.admitted[lo:hi],
+        )
+
+    # 3. edge shards ------------------------------------------------------
+    parts_ii: list[np.ndarray] = []
+    parts_jj: list[np.ndarray] = []
+    parts_dd: list[np.ndarray] = []
+    for entry in manifest["edge_shards"]:
+        lo, hi = int(entry["lo"]), int(entry["hi"])
+        z = _read_or_none(entry["file"], "edge shard")
+        if z is None:
+            _require_heal(entry["file"], "edge shard")
+            logger.warning(
+                "index: recomputing edge range [%d, %d) to heal %s",
+                lo, hi, entry["file"],
+            )
+            ii, jj, dd = _recompute_edge_range(idx, lo, hi, device=device)
+            store.write_edge_shard(entry["file"], ii, jj, dd)
+            healed.append(entry["file"])
+            order = np.lexsort((jj, ii))
+            ii, jj, dd = ii[order], jj[order], dd[order]
+        else:
+            ii = z["ii"].astype(np.int64)
+            jj = z["jj"].astype(np.int64)
+            dd = z["dist"].astype(np.float32)
+        parts_ii.append(ii)
+        parts_jj.append(jj)
+        parts_dd.append(dd)
+    idx.edges = (
+        np.concatenate(parts_ii) if parts_ii else np.empty(0, np.int64),
+        np.concatenate(parts_jj) if parts_jj else np.empty(0, np.int64),
+        np.concatenate(parts_dd) if parts_dd else np.empty(0, np.float32),
+    )
+
+    # 4. derived state ----------------------------------------------------
+    if state is not None:
+        idx.primary = state["primary"].astype(np.int64)
+        idx.suffix = state["suffix"].astype(np.int64)
+        idx.score = state["score"].astype(np.float64)
+        idx.winners = pd.DataFrame(
+            {
+                "cluster": [str(x) for x in state["winner_cluster"]],
+                "genome": [str(x) for x in state["winner_genome"]],
+                "score": state["winner_score"].astype(np.float64),
+            }
+        )
+    else:
+        idx.state_missing = True  # update.py reclusters everything
+    return idx

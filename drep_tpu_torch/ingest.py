@@ -5,7 +5,8 @@ pipeline: a process pool over genomes runs sketch_worker.sketch_one (the
 C++ ingest when g++ is available, numpy otherwise). Results are cached in
 the work directory (``data/arrays/sketches.npz`` + the Gdb table + the
 ``sketch`` argument snapshot) in the SAME format the JAX package writes,
-so either package resumes from the other's cache.
+so either package resumes from the other's cache. :func:`sketch_paths`
+runs the same sketcher with no workdir, for the genome index.
 
 The JAX package's mid-run ingest shard store and its multi-host barrier
 are not ported yet: a killed ingest restarts from the first genome.
@@ -78,6 +79,52 @@ def _unpack_ragged(flat: np.ndarray, offs: np.ndarray, n: int) -> list[np.ndarra
     return [flat[offs[i] : offs[i + 1]] for i in range(n)]
 
 
+def _sketch_jobs(jobs: list[tuple], processes: int) -> dict[str, dict]:
+    """sketch_worker.sketch_one over `jobs`, in a spawn pool when asked."""
+    results: dict[str, dict] = {}
+    if processes > 1 and len(jobs) > 1:
+        # spawn, not fork: the parent may hold CUDA and threads
+        ctx = multiprocessing.get_context("spawn")
+        with ProcessPoolExecutor(max_workers=processes, mp_context=ctx) as pool:
+            for name, res in pool.map(_sketch_one, jobs):
+                results[name] = res
+    else:
+        for job in jobs:
+            name, res = _sketch_one(job)
+            results[name] = res
+    return results
+
+
+def _refuse_unparsed(names, results: dict[str, dict], k: int) -> None:
+    unparsed = [g for g in names if results[g]["n_kmers"] == 0]
+    if unparsed:
+        shown = ", ".join(unparsed[:10]) + (" ..." if len(unparsed) > 10 else "")
+        raise UserInputError(
+            f"no FASTA records with valid nucleotide {k}-mers in {len(unparsed)} "
+            f"input file(s) (not FASTA, empty, or shorter than k): {shown}"
+        )
+
+
+def sketch_paths(
+    bdb: pd.DataFrame,
+    k: int,
+    sketch_size: int,
+    scale: int,
+    hash_name: str,
+    processes: int = 1,
+) -> dict[str, dict]:
+    """Sketch a Bdb's genomes with no workdir or cache: the genome
+    index's ingest (index/update.py, index/classify.py), whose durability
+    is the index store. Returns {name: {length, N50, contigs, n_kmers,
+    bottom, scaled}} from the per-genome sketcher the pipeline runs, so
+    an update's sketches are those a from-scratch run would ingest.
+    Raises UserInputError on unparseable inputs."""
+    jobs = [(row.genome, row.location, k, sketch_size, scale, hash_name) for row in bdb.itertuples()]
+    results = _sketch_jobs(jobs, processes)
+    _refuse_unparsed(sorted(results), results, k)
+    return results
+
+
 def sketch_genomes(
     bdb: pd.DataFrame,
     k: int = kmers.DEFAULT_K,
@@ -99,26 +146,9 @@ def sketch_genomes(
         logger.warning("ingest: cached sketches contain zero-kmer genomes — recomputing")
 
     jobs = [(row.genome, row.location, k, sketch_size, scale, hash_name) for row in bdb.itertuples()]
-    results: dict[str, dict] = {}
-    if processes > 1 and len(jobs) > 1:
-        # spawn, not fork: the parent may hold CUDA and threads
-        ctx = multiprocessing.get_context("spawn")
-        with ProcessPoolExecutor(max_workers=processes, mp_context=ctx) as pool:
-            for name, res in pool.map(_sketch_one, jobs):
-                results[name] = res
-    else:
-        for job in jobs:
-            name, res = _sketch_one(job)
-            results[name] = res
-
+    results = _sketch_jobs(jobs, processes)
     names = list(bdb["genome"])
-    unparsed = [g for g in names if results[g]["n_kmers"] == 0]
-    if unparsed:
-        shown = ", ".join(unparsed[:10]) + (" ..." if len(unparsed) > 10 else "")
-        raise UserInputError(
-            f"no FASTA records with valid nucleotide {k}-mers in {len(unparsed)} "
-            f"input file(s) (not FASTA, empty, or shorter than k): {shown}"
-        )
+    _refuse_unparsed(names, results, k)
     gdb = pd.DataFrame(
         {
             "genome": names,

@@ -1,10 +1,12 @@
 """Top-level workflows composing the pipeline stages.
 
-Counterpart of drep_tpu/workflows.py (compare and dereplicate):
+Counterpart of drep_tpu/workflows.py (compare, dereplicate and the
+one-store genome index):
 dereplicate = filter -> cluster -> choose -> evaluate -> analyze;
-compare = cluster -> evaluate -> analyze (no filter/choose).
+compare = cluster -> evaluate -> analyze (no filter/choose);
+index build|update|classify = drep_tpu_torch/index.
 
-Both run on `device` (default cuda); a CUDA request on a machine without
+All run on `device` (default cuda); a CUDA request on a machine without
 CUDA, or a JAX CLI flag set to a value the port does not run
 (argparser.UNPORTED_FLAGS), raises before any work is done.
 """
@@ -13,7 +15,7 @@ from __future__ import annotations
 
 import pandas as pd
 
-from drep_tpu_torch.argparser import refuse_unported_flags
+from drep_tpu_torch.argparser import UNPORTED_FLAGS, refuse_unported_flags
 from drep_tpu_torch.choose import d_choose_wrapper
 from drep_tpu_torch.cluster.controller import d_cluster_wrapper
 from drep_tpu_torch.device import resolve_device
@@ -76,3 +78,74 @@ def dereplicate_wrapper(
         plot_all(wd)
     get_logger().info("dereplicate finished: %d winners", len(wdb))
     return wdb
+
+
+def _init_index(index_loc: str, op: str, device, kwargs: dict, write_logs: bool = True):
+    """An index command's checks, then its logging: the unported flags,
+    the device and (but for a build, which refuses any existing index) a
+    federated root are refused before anything is written; then the
+    logger goes under the index's log dir. `write_logs=False` (classify)
+    keeps logging on the console: classify writes nothing under the
+    index tree. Returns the device."""
+    import os
+
+    from drep_tpu_torch.index.meta import refuse_federated
+
+    refuse_unported_flags(kwargs)
+    dev = resolve_device(device)
+    if op != "build":
+        refuse_federated(index_loc, f"index {op}")
+    setup_logger(os.path.join(os.path.abspath(index_loc), "log") if write_logs else None)
+    return dev
+
+
+def _prune_kwargs(kwargs: dict) -> dict:
+    return {
+        "processes": kwargs.get("processes", 1) or 1,
+        "primary_prune": kwargs.get("primary_prune", "off") or "off",
+        "prune_bands": kwargs.get("prune_bands", 0) or 0,
+        "prune_min_shared": kwargs.get("prune_min_shared", 0) or 0,
+        "prune_join_chunk": kwargs.get("prune_join_chunk", 0) or 0,
+    }
+
+
+def index_build_wrapper(
+    index_loc: str, genomes: list[str] | None = None, work_directory: str | None = None,
+    device=None, **kwargs,
+) -> dict:
+    """`index build`: generation 0 from a completed workdir snapshot
+    (--work_directory) or bootstrapped from FASTAs (-g)."""
+    from drep_tpu_torch.index import build_from_paths, build_from_workdir
+
+    dev = _init_index(index_loc, "build", device, kwargs)
+    if work_directory and genomes:
+        raise UserInputError("index build takes --work_directory OR -g genomes, not both")
+    if work_directory:
+        return build_from_workdir(index_loc, work_directory)
+    if genomes:
+        params = {k: v for k, v in kwargs.items() if k not in ("processes", *UNPORTED_FLAGS)}
+        return build_from_paths(index_loc, genomes, processes=kwargs.get("processes", 1) or 1,
+                                device=dev, **params)
+    raise UserInputError(
+        "index build needs a source: --work_directory <completed run> or "
+        "-g <genome FASTAs>"
+    )
+
+
+def index_update_wrapper(index_loc: str, genomes: list[str] | None = None, device=None, **kwargs) -> dict:
+    """`index update`: admit a batch (or heal, with no genomes)."""
+    from drep_tpu_torch.index import index_update
+
+    dev = _init_index(index_loc, "update", device, kwargs)
+    return index_update(index_loc, genomes, device=dev, **_prune_kwargs(kwargs))
+
+
+def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, device=None,
+                           **kwargs) -> list[dict]:
+    """`index classify`: read-only membership verdicts."""
+    from drep_tpu_torch.index import index_classify
+
+    if not genomes:
+        raise UserInputError("index classify needs -g <genome FASTAs>")
+    dev = _init_index(index_loc, "classify", device, kwargs, write_logs=False)
+    return index_classify(index_loc, genomes, device=dev, **_prune_kwargs(kwargs))

@@ -1,0 +1,164 @@
+"""`python -m drep_tpu_torch index ...` against `python -m drep_tpu index
+...` on the fixture genomes, on the CPU: the same verdict lines on stdout
+and the same store (compared as tests/test_torch_index.py compares
+them), the refusals of what is not ported, and the guard that the index
+path loads nothing of JAX or drep_tpu."""
+
+import contextlib
+import io
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import _index_testlib as lib  # noqa: E402
+from test_torch_index import assert_stores_match, assert_verdicts_match  # noqa: E402
+
+from drep_tpu.controller import main as jax_main  # noqa: E402
+from drep_tpu_torch.controller import main as torch_main  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _verdicts(out: str) -> list[dict]:
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+@pytest.fixture(scope="module")
+def cli_runs(tmp_path_factory, genome_paths):
+    """Both CLIs: build on A-C, update with D-E, classify A and D (and
+    classify again after a heal-only update). Returns the stores and
+    the stdout of each classify."""
+    root = tmp_path_factory.mktemp("cli")
+    out = {}
+    for pkg, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        loc = str(root / pkg)
+        capture = []
+        for argv in (
+            ["build", loc, "-g", *genome_paths[:3]],
+            ["update", loc, "-g", *genome_paths[3:]],
+            ["classify", loc, "-g", genome_paths[0], genome_paths[3]],
+            ["update", loc],
+            ["classify", loc, "-g", genome_paths[4]],
+        ):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                main(["index", *argv, "-p", "1", *extra])
+            capture.append(buf.getvalue())
+        out[pkg] = (loc, capture)
+    return out
+
+
+def test_cli_store_equals_jax(cli_runs):
+    assert_stores_match(cli_runs["torch"][0], cli_runs["jax"][0])
+    with open(os.path.join(cli_runs["torch"][0], "manifest.json")) as f:
+        assert json.load(f)["generation"] == 1
+
+
+@pytest.mark.parametrize("call", [2, 4])
+def test_cli_classify_verdict_lines_equal_jax(cli_runs, call):
+    got = _verdicts(cli_runs["torch"][1][call])
+    want = _verdicts(cli_runs["jax"][1][call])
+    assert len(got) == (2 if call == 2 else 1)
+    assert_verdicts_match(got, want)
+    assert not got[0]["novel_primary"] and got[0]["nearest_dist"] == 0.0
+
+
+def test_cli_classify_writes_nothing(tmp_path, cli_runs, genome_paths):
+    loc = cli_runs["torch"][0]
+    before = lib.tree_digest(loc, exclude_dirs=())
+    torch_main(["index", "classify", loc, "-g", *genome_paths[1:3], "-p", "1", "--device", "cpu"])
+    assert lib.tree_digest(loc, exclude_dirs=()) == before
+
+
+@pytest.mark.parametrize("op", ["build", "update", "classify"])
+def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monkeypatch, op):
+    """Without --device the index entry points want cuda; on a machine
+    without it they raise asking for cpu, before anything is written."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    loc = str(tmp_path / "new") if op == "build" else cli_runs["torch"][0]
+    before = lib.tree_digest(loc, exclude_dirs=()) if op != "build" else None
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        torch_main(["index", op, loc, "-g", genome_paths[0], "-p", "1"])
+    if op == "build":
+        assert not os.path.exists(loc)
+    else:
+        assert lib.tree_digest(loc, exclude_dirs=()) == before
+
+
+@pytest.mark.parametrize("op,args,item", [
+    ("split", ["--pid", "1"], "10b"),
+    ("merge", ["--pids", "1", "2"], "10b"),
+    ("compact", ["--min_generations", "2"], "10b"),
+    ("serve", ["--log_dir", "/nonexistent"], "11"),
+    ("route", ["--replica", "127.0.0.1:1"], "11"),
+    ("supervise", ["--replica", "2"], "11"),
+])
+def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
+    loc = cli_runs["torch"][0]
+    before = lib.tree_digest(loc, exclude_dirs=())
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
+        torch_main(["index", op, loc, *args])
+    assert lib.tree_digest(loc, exclude_dirs=()) == before
+
+
+@pytest.mark.parametrize("op,flags,item", [
+    ("build", ["--partitions", "2"], "10b"),
+    ("build", ["--fed_pods", "2"], "10b"),
+    ("update", ["--fed_pods", "2"], "10b"),
+    ("update", ["--params_file", "handoff.npz"], "10b"),
+    ("update", ["--io_retries", "3"], "5"),
+    ("classify", ["--fsync"], "5"),
+])
+def test_cli_unported_flags_raise(tmp_path, genome_paths, op, flags, item):
+    """Federated and execution flags the port does not run raise
+    NotImplementedError naming their item before anything is sketched or
+    written (the index directory is not even created)."""
+    loc = str(tmp_path / "idx")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        torch_main(["index", op, loc, "-g", *genome_paths, "--device", "cpu", *flags])
+    assert not os.path.exists(loc)
+
+
+def test_cli_federated_root_refuses(tmp_path, genome_paths):
+    fed = tmp_path / "fed"
+    fed.mkdir()
+    (fed / "federation.json").write_text("{}")
+    for op in ("update", "classify"):
+        with pytest.raises(NotImplementedError, match="item 10b"):
+            torch_main(["index", op, str(fed), "-g", genome_paths[0], "--device", "cpu"])
+    assert os.listdir(fed) == ["federation.json"]
+
+
+def test_index_cli_subprocess_loads_no_jax_or_drep_tpu(tmp_path, genome_paths):
+    """The index path (build, update, classify) in a fresh interpreter
+    imports nothing of JAX or drep_tpu; classify prints its verdicts."""
+    loc = str(tmp_path / "idx")
+    code = (
+        "import sys\n"
+        "from drep_tpu_torch.controller import main\n"
+        f"main(['index', 'build', {loc!r}, '-g', *{list(genome_paths[:4])!r}, '--device', 'cpu', '-p', '1'])\n"
+        f"main(['index', 'update', {loc!r}, '-g', {genome_paths[4]!r}, '--device', 'cpu', '-p', '1'])\n"
+        f"main(['index', 'classify', {loc!r}, '-g', {genome_paths[0]!r}, '--device', 'cpu', '-p', '1'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'drep_tpu'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "LOADED []" in res.stdout
+    verdicts = _verdicts(res.stdout)
+    assert len(verdicts) == 1 and verdicts[0]["genome"] == "genome_A.fasta" and verdicts[0]["generation"] == 1
