@@ -124,12 +124,26 @@ Phases (any failure exits nonzero; nothing is caught):
    cluster held against their plain versions on the card; the new edges
    equal to the plain version over the same rectangle on the card; the
    same update of a prefix index (phase 5's first INDEX_PREFIX genomes,
-   cut for the host's plain Mash version) publishing equal stores on the
-   card and on the CPU; 10c ``classify_batch`` of INDEX_QUERIES planted
+   cut for the host's plain Mash version) on the card (its CPU half is
+   cut for the time limit); 10c ``classify_batch`` of INDEX_QUERIES planted
    queries from one ``load_resident_index``, joint and separate, with the
    index tree's digest unchanged, and the first INDEX_CPU_QUERIES
    queries' verdicts on the prefix index equal on the card and the CPU;
-11. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+   10c takes the union rectangle in both modes, and keeps the separate
+   run's edges for phase 11;
+11. the serve daemon (``drep_tpu_torch/serve``, ROADMAP queue 1 item 11a):
+   11a ``IndexServer`` in-process on 10b's store (the resident sketch
+   matrix uploaded to the card once), 10c's INDEX_QUERIES queries from
+   SERVE_CLIENTS concurrent ``ServeClient``s: verdicts equal to 10c's
+   separate-mode ones, one upload, no fallback, fewer batches than
+   requests, one ``mash_shared`` launch a batch, the tree unchanged, a
+   clean drain; on the 64-query batch the resident edges equal to 10c's
+   union-path edges bit for bit; the kernel at the resident shape held against its plain
+   version, timed and bounded; the resident rectangle of the prefix index
+   equal on the card and the CPU; 11b ``python -m drep_tpu_torch index
+   serve`` as a subprocess on an index of the fixture genomes A-C: its
+   verdict equal to ``index classify`` on the card, SIGTERM to exit 0;
+12. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -138,8 +152,10 @@ Phases (any failure exits nonzero; nothing is caught):
    ``streaming``, and its multiround launches, and the fused indicator
    kernel its matmul-estimator chunk from 9a; both carry phase 10's
    timings under ``index`` (the tail stripe, the largest dirty cluster)
-   and its launches under ``index_launches``);
-12. the last line: ``{"ok": true, "device": {...}}``.
+   and its launches under ``index_launches``, and phase 11's under
+   ``serve_launches``; the Mash kernel its resident-shape time and bound
+   under ``serve``);
+13. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -2012,31 +2028,6 @@ def tree_digest(root: str) -> dict:
     return out
 
 
-def stores_equal(a: str, b: str) -> str | None:
-    """None when two index stores are equal payload by payload (the same
-    files but logs, manifest.json byte-equal, every npz member equal; npz
-    zip timestamps differ), else the first difference."""
-    def files(root):
-        return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root)
-                      for f in fs if os.path.relpath(d, root).split(os.sep)[0] != "log")
-
-    if files(a) != files(b):
-        return f"file sets {files(a)} != {files(b)}"
-    for rel in files(a):
-        if rel.endswith(".json"):
-            with open(os.path.join(a, rel), "rb") as f, open(os.path.join(b, rel), "rb") as g:
-                if f.read() != g.read():
-                    return rel
-            continue
-        with np.load(os.path.join(a, rel)) as za, np.load(os.path.join(b, rel)) as zb:
-            if sorted(za.files) != sorted(zb.files):
-                return f"{rel} members"
-            for k in za.files:
-                if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k]):
-                    return f"{rel}:{k}"
-    return None
-
-
 def build_prefix_index(loc: str, params: dict, gs, n: int, dev) -> None:
     """Generation 0 of an index of `gs`'s first `n` genomes, on the card,
     through the machinery build_from_paths runs after sketching."""
@@ -2063,7 +2054,8 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
     import torch
 
     from drep_tpu_torch.cluster import engines
-    from drep_tpu_torch.index import build_from_workdir, classify_batch, index_update, load_resident_index
+    from drep_tpu_torch.index import build_from_workdir, index_update, load_resident_index, resident_device
+    from drep_tpu_torch.index import classify as classify_mod
     from drep_tpu_torch.index import update as upd
     from drep_tpu_torch.index.classify import SketchedQueries
     from drep_tpu_torch.ops import containment, mash
@@ -2214,25 +2206,24 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
         f"equal the plain version's over the [{n_all} x {n_all - n_old}] rectangle ({t_rect_plain:.2f} s); "
         f"stripe {json.dumps(stripe)}; largest cluster {json.dumps(largest)}")
 
-    # the same update on the card and on the CPU, on a prefix index
+    # the same update of a prefix index on the card (its CPU half, 19-26 s
+    # of the host's plain Mash, is cut for the time limit; 10c and phase
+    # 11 compare the prefix index's classify and resident rectangle on the
+    # card and the CPU)
     params = dict(read_json_checked(os.path.join(idx_dir, "manifest.json"))["params"])
     params["streaming_block"] = INDEX_PREFIX_BLOCK
-    pre_gpu, pre_cpu = os.path.join(tmp, "index_prefix_gpu"), os.path.join(tmp, "index_prefix_cpu")
+    pre_gpu = os.path.join(tmp, "index_prefix_gpu")
     build_prefix_index(pre_gpu, params, gs, INDEX_PREFIX, dev)
-    shutil.copytree(pre_gpu, pre_cpu)
     t0 = time.perf_counter()
     s_gpu = index_update(pre_gpu, None, processes=1, presketched=(batch, results), device=dev)
     t_pre_gpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    s_cpu = index_update(pre_cpu, None, processes=1, presketched=(batch, results), device=torch.device("cpu"))
-    t_pre_cpu = time.perf_counter() - t0
-    diff = stores_equal(pre_gpu, pre_cpu)
-    require(diff is None, f"10b: the prefix index's update on the card != on the CPU ({diff})")
-    log(f"10b: the update of a {INDEX_PREFIX}-genome prefix index (block {INDEX_PREFIX_BLOCK}) publishes equal stores "
-        f"on the card ({t_pre_gpu:.2f} s) and on the CPU ({t_pre_cpu:.2f} s); {json.dumps(s_gpu)}")
-    require(s_gpu == {**s_cpu, "seconds": s_gpu["seconds"]}, "10b: prefix summaries differ")
+    require(s_gpu["admitted"] == INDEX_NEW and s_gpu["generation"] == 1, f"10b: prefix update {s_gpu}")
+    log(f"10b: the update of a {INDEX_PREFIX}-genome prefix index (block {INDEX_PREFIX_BLOCK}) on the card "
+        f"({t_pre_gpu:.2f} s); {json.dumps(s_gpu)}")
 
-    # 10c: classify from one resident load, both modes; the tree untouched
+    # 10c: classify from one resident load, both modes, through the union
+    # rectangle (phase 11 holds the daemon's resident rectangle to these
+    # verdicts); the tree untouched
     t0 = time.perf_counter()
     before = tree_digest(idx_dir)
     t_digest = time.perf_counter() - t0
@@ -2240,6 +2231,56 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
     resident = load_resident_index(idx_dir)
     t_load = time.perf_counter() - t0
     classify = {}
+    union_edges = []  # the union rectangle's edges of each 10c classify
+    real_resident_rect, real_rect = resident_device.rect_edges_device, classify_mod._rect_edges
+
+    def rect_spy(*a, **kw):
+        out = real_rect(*a, **kw)
+        union_edges.append(out[:3])
+        return out
+
+    resident_device.rect_edges_device = lambda *a: None
+    classify_mod._rect_edges = rect_spy
+    try:
+        classify_10c(resident, queries, pre_gpu, qres, dev, classify)
+    finally:
+        resident_device.rect_edges_device, classify_mod._rect_edges = real_resident_rect, real_rect
+    require(tree_digest(idx_dir) == before, "10c: classify changed the index tree")
+    log(f"10c: the index tree's digest is unchanged ({len(before)} files, {t_digest:.2f} s a digest)")
+
+    out = {"build_s": t_build, "update_s": t_update, "update_parts": parts, "plant_s": t_plant,
+           "rect_pairs": parts["rect_pairs"], "rect_pairs_per_s": parts["rect_pairs"] / parts["rect_s"],
+           "launches_update": launches_update, "secondary_calls": len(shapes),
+           "secondary_shapes_largest": largest["shape"], "rect_plain_check_s": t_rect_plain,
+           "prefix": {"genomes": INDEX_PREFIX, "block": INDEX_PREFIX_BLOCK, "update_gpu_s": t_pre_gpu,
+                      "classify_card_and_cpu_s": classify["card_and_cpu_s"]},
+           "load_resident_s": t_load, "digest_s": t_digest,
+           **{f"classify_{k}_s": classify[k]["s"] for k in ("joint", "separate")},
+           "classify_separate_pack_s": classify["separate"]["pack_s"],
+           "classify_separate_walk_s": classify["separate"]["walk_s"],
+           "stripe": stripe, "largest_cluster": largest,
+           "launches_classify": {k: classify[k]["launches"] for k in ("joint", "separate")}}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 10: {json.dumps({k: v for k, v in out.items() if k not in ('stripe', 'largest_cluster')})}")
+    # what phase 11 serves: the post-update store, its queries and their
+    # separate-mode verdicts, the prefix index (not printed)
+    out["serve_inputs"] = {"idx_dir": idx_dir, "digest": before, "queries": queries, "qres": qres,
+                           "separate": classify["separate"]["verdicts"], "prefix_dir": pre_gpu,
+                           "union_edges": union_edges[1]}  # the separate run's
+    return out
+
+
+def classify_10c(resident, queries, pre_gpu: str, qres: dict, dev, classify: dict) -> None:
+    """Phase 10c's classify of INDEX_QUERIES queries from one resident
+    load, joint and separate, then the first INDEX_CPU_QUERIES on the
+    prefix index on the card and the CPU; fills `classify`."""
+    import torch
+
+    from drep_tpu_torch.index import classify_batch, load_resident_index
+    from drep_tpu_torch.index import update as upd
+    from drep_tpu_torch.index.classify import SketchedQueries
+    from drep_tpu_torch.parallel import streaming
+
     for joint in (True, False):
         reset_launches()
         torch.cuda.synchronize()
@@ -2248,7 +2289,8 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
         torch.cuda.synchronize()
         key = "joint" if joint else "separate"
         classify[key] = {"s": time.perf_counter() - t0, "launches": read_launches(), "verdicts": verdicts,
-                         "rect_s": upd.STATS["classify_rect_s"], "pack_s": upd.STATS["pack_s"]}
+                         "rect_s": upd.STATS["classify_rect_s"], "pack_s": upd.STATS["pack_s"],
+                         "walk_s": upd.STATS["rect_s"]}
         novel = sum(v["novel_primary"] for v in verdicts)
         log(f"10c classify joint={joint}: {len(verdicts)} verdicts in {classify[key]['s']:.2f} s "
             f"(pack {upd.STATS['pack_s']:.2f} s, rectangle {upd.STATS['rect_s']:.2f} s); {novel} novel primary; "
@@ -2258,7 +2300,6 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
                 f"10c: {len(verdicts)} verdicts, launches {classify[key]['launches']}")
         require(novel == INDEX_QUERIES // 2 and not any(v["novel_primary"] for v in verdicts[:INDEX_CPU_QUERIES // 2]),
                 f"10c: {novel} novel primary verdicts for {INDEX_QUERIES // 2} novel queries")
-    require(tree_digest(idx_dir) == before, "10c: classify changed the index tree")
     # the first queries on the prefix index (generation 1), card against CPU
     pre = load_resident_index(pre_gpu)
     first = SketchedQueries(admitted=queries.admitted.iloc[:INDEX_CPU_QUERIES].reset_index(drop=True),
@@ -2268,23 +2309,239 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
         g = classify_batch(pre, first, processes=1, joint=joint, device=dev)
         c = classify_batch(pre, first, processes=1, joint=joint, device=torch.device("cpu"))
         require(g == c, f"10c: prefix-index verdicts (joint={joint}) on the card != on the CPU")
-    t_cpu_classify = time.perf_counter() - t0
-    log(f"10c: the index tree's digest is unchanged ({len(before)} files, {t_digest:.2f} s a digest); the first "
-        f"{INDEX_CPU_QUERIES} queries on the prefix index give equal verdicts on the card and the CPU, both modes "
-        f"({t_cpu_classify:.2f} s)")
+    classify["card_and_cpu_s"] = time.perf_counter() - t0
+    log(f"10c: the first {INDEX_CPU_QUERIES} queries on the prefix index give equal verdicts on the card and the "
+        f"CPU, both modes ({classify['card_and_cpu_s']:.2f} s)")
 
-    out = {"build_s": t_build, "update_s": t_update, "update_parts": parts, "plant_s": t_plant,
-           "rect_pairs": parts["rect_pairs"], "rect_pairs_per_s": parts["rect_pairs"] / parts["rect_s"],
-           "launches_update": launches_update, "secondary_calls": len(shapes),
-           "secondary_shapes_largest": largest["shape"], "rect_plain_check_s": t_rect_plain,
-           "prefix": {"genomes": INDEX_PREFIX, "block": INDEX_PREFIX_BLOCK, "update_gpu_s": t_pre_gpu,
-                      "update_cpu_s": t_pre_cpu, "classify_card_and_cpu_s": t_cpu_classify},
-           "load_resident_s": t_load, "digest_s": t_digest,
-           **{f"classify_{k}_s": v["s"] for k, v in classify.items()},
-           "stripe": stripe, "largest_cluster": largest,
-           "launches_classify": {k: v["launches"] for k, v in classify.items()}}
+
+# phase 11: the serve daemon (ROADMAP queue 1 item 11a) on phase 10's
+# store: concurrent clients, each sending its share of the 64 queries
+SERVE_CLIENTS = 8
+SERVE_WINDOW_MS = 400.0
+
+
+def serve_classify_fn(queries, dev, rect_s: list):
+    """The daemon's classify core over phase 10c's presketched queries,
+    looked up by path: the port's classify_batch(joint=False) itself."""
+    from drep_tpu_torch.index import classify_batch, resident_device
+    from drep_tpu_torch.index.classify import SketchedQueries
+
+    row_of = {loc: i for i, loc in enumerate(queries.admitted["location"])}
+
+    def fn(resident, paths):
+        sq = SketchedQueries(admitted=queries.admitted.iloc[[row_of[p] for p in paths]].reset_index(drop=True),
+                             results=queries.results)
+        resident_device.STATS.pop("rect_s", None)
+        verdicts = classify_batch(resident, sq, processes=1, joint=False, device=dev)
+        rect_s.append(resident_device.STATS.get("rect_s"))
+        # keyed by the request's basename (the planted names carry the
+        # query: prefix that the verdicts drop)
+        return {os.path.basename(p): v for p, v in zip(paths, verdicts)}
+
+    return fn
+
+
+def serve_clients(addr: str, paths: list[str]) -> list[dict]:
+    """SERVE_CLIENTS concurrent ServeClients, each pipelining its share of
+    `paths`; the replies in the order of `paths`."""
+    import threading
+
+    from drep_tpu_torch.serve import ServeClient
+
+    shares = [paths[c::SERVE_CLIENTS] for c in range(SERVE_CLIENTS)]
+    got: dict = {}
+    errors: list = []
+    barrier = threading.Barrier(SERVE_CLIENTS)
+
+    def one(c):
+        try:
+            with ServeClient(addr, timeout_s=600) as cl:
+                barrier.wait()
+                got[c] = cl.classify_many(shares[c])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=one, args=(c,), daemon=True) for c in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    require(not errors and not any(t.is_alive() for t in threads) and len(got) == SERVE_CLIENTS,
+            f"11a: clients failed: {errors}")
+    out: list = [None] * len(paths)
+    for c in range(SERVE_CLIENTS):
+        for k, resp in enumerate(got[c]):
+            out[c + k * SERVE_CLIENTS] = resp
+    return out
+
+
+def phase_serve(tmp: str, dev, p10: dict) -> dict:
+    """Phase 11: 11a the daemon in-process on phase 10's post-update store
+    (the resident matrix on the card, 64 queries from concurrent clients,
+    verdicts equal to 10c's union-path ones, one upload, one mash_shared
+    launch a batch, the resident edges equal to the union edges on one
+    batch, the kernel at the resident shape against its plain version and
+    bound, the card against the CPU on the prefix index); 11b the CLI
+    daemon as a subprocess on an index of the fixture genomes A-C."""
+    import threading
+
+    import torch
+
+    from drep_tpu_torch.index import build_from_paths, index_classify, load_resident_index, resident_device
+    from drep_tpu_torch.index.classify import SketchedQueries
+    from drep_tpu_torch.ops import mash
+    from drep_tpu_torch.ops.minhash import pad_packed_rows
+    from drep_tpu_torch.serve import IndexServer, ServeClient, ServeConfig
+    from drep_tpu_torch.utils.profiling import counters
+
+    t_phase = time.perf_counter()
+    si = p10["serve_inputs"]
+    idx_dir, queries = si["idx_dir"], si["queries"]
+    paths = list(queries.admitted["location"])
+    for p in paths:  # the daemon admits paths that exist; its classify_fn reads the presketched queries
+        os.makedirs(os.path.dirname(p), exist_ok=True)
+        open(p, "wb").close()
+
+    # 11a: the daemon on the card
+    resident_device.reset_for_tests()
+    counters.reset()
+    rect_s: list = []
+    t0 = time.perf_counter()
+    srv = IndexServer(ServeConfig(index_loc=idx_dir, max_batch=INDEX_QUERIES, batch_window_ms=SERVE_WINDOW_MS,
+                                  poll_generation_s=60.0, device=dev),
+                      classify_fn=serve_classify_fn(queries, dev, rect_s))
+    addr = srv.start()
+    t_start = time.perf_counter() - t0
+    upload_s = resident_device.STATS["upload_s"]
+    loop = threading.Thread(target=srv.serve_batches, daemon=True)
+    loop.start()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resps = serve_clients(addr, paths)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        srv.request_drain()
+        loop.join(timeout=300)
+        srv.close()
+    require(not loop.is_alive(), "11a: the batch loop did not drain")
+    st = srv.snapshot()
+    log(f"11a serve: {len(resps)} requests from {SERVE_CLIENTS} clients in {t_serve:.2f} s, "
+        f"{st['batches_total']} batches; start {t_start:.2f} s (resident upload {upload_s:.2f} s); per-batch "
+        f"rectangle seconds {rect_s}; launches { {k: v for k, v in launches.items() if v} }; latency_ms "
+        f"{json.dumps(st['latency_ms'])}")
+    bad = [r for r in resps if not (r and r.get("ok"))]
+    require(not bad and st["errors_total"] == 0 and st["requests_total"] == INDEX_QUERIES,
+            f"11a: {len(bad)} error replies (first {bad[:1]}), snapshot {json.dumps(st)}")
+    want = {v["genome"]: v for v in si["separate"]}
+    got = {r["verdict"]["genome"]: r["verdict"] for r in resps}
+    require(got == want, "11a: daemon verdicts != 10c's separate-mode (union path) verdicts: "
+            f"{sorted(g for g in want if got.get(g) != want[g])[:5]}")
+    require(resident_device.upload_count() == 1 and resident_device.fallback_count() == 0,
+            f"11a: {resident_device.upload_count()} uploads, {resident_device.fallback_count()} fallbacks")
+    batches = st["batches_total"]
+    require(1 <= batches < INDEX_QUERIES and launches["mash_shared"] == batches and None not in rect_s,
+            f"11a: {launches['mash_shared']} mash_shared launches for {batches} batches (rect {rect_s})")
+    require(launches["indicator_mm"] > 0, "11a: no indicator_mm launch in the per-query reclusters")
+    require(tree_digest(idx_dir) == si["digest"], "11a: the daemon changed the index tree")
+
+    # one batch's resident edges against the union path's, on the card,
+    # on the daemon's resident index (its pack already on the card)
+    resident = srv._resident
+    n_old = resident.n
+    sq = SketchedQueries(admitted=queries.admitted, results=queries.results)
+    t0 = time.perf_counter()
+    ii, jj, dd = resident_device.rect_edges_device(resident, sq, n_old, dev)
+    t_resident_rect = time.perf_counter() - t0
+    uii, ujj, udd = si["union_edges"]  # 10c's separate classify of the same batch
+    sel = uii < n_old
+    o = np.lexsort((ujj[sel], uii[sel]))
+    require(np.array_equal(ii, uii[sel][o]) and np.array_equal(jj, ujj[sel][o])
+            and dd.tobytes() == udd[sel][o].tobytes(),
+            f"11a: resident edges ({len(ii)}) != the union path's ({int(sel.sum())})")
+    require(resident_device.upload_count() == 1, "11a: the edge check uploaded the resident matrix again")
+    log(f"11a: the {len(ii)} resident edges equal the union path's of 10c's separate classify bit for bit "
+        f"(resident rectangle {t_resident_rect:.4f} s; 10c's union pack {p10['classify_separate_pack_s']:.2f} s + "
+        f"walk {p10['classify_separate_walk_s']:.3f} s)")
+
+    # the kernel at the resident shape: against its plain version on the card, timed, bounded
+    pack = resident_device.pack_for(resident, dev)
+    q_ids, q_cts = resident_device._map_queries(pack, [np.asarray(sq.results[g]["bottom"])
+                                                        for g in sq.admitted["genome"]])
+    q_ids, q_cts = pad_packed_rows(q_ids, q_cts, mash.TILE)
+    b, nb = torch.from_numpy(q_ids).to(dev), torch.from_numpy(q_cts).to(dev)
+    got_sh = mash.mash_shared(pack.ids, pack.counts, b, nb, pack.s)
+    want_sh, plain_ms = cuda_timed(lambda: mash.mash_shared_plain(pack.ids, pack.counts, b, nb, pack.s))
+    require(torch.equal(got_sh, want_sh), f"11a: mash_shared at the resident shape {tuple(got_sh.shape)} != plain")
+    ms = cuda_ms(lambda: mash.mash_shared(pack.ids, pack.counts, b, nb, pack.s), reps=10)
+    steps, nbytes = mash_rect_cost(got_sh.cpu().numpy(), pack.cts_host, q_cts, pack.s)
+    ops_ms, bytes_ms = steps / SCALAR_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    kernel = {"shape": [int(pack.ids.shape[0]), int(b.shape[0]), pack.s], "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+              "steps": steps, "bytes": nbytes, "max_abs_err": 0}
+    del got_sh, want_sh, b, nb
+    log(f"11a: mash_shared at the resident shape equals its plain version: {json.dumps(kernel)}")
+
+    # the card against the CPU: the resident rectangle on the prefix index
+    t0 = time.perf_counter()
+    pre_g, pre_c = load_resident_index(si["prefix_dir"]), load_resident_index(si["prefix_dir"])
+    g = resident_device.rect_edges_device(pre_g, sq, pre_g.n, dev)
+    c = resident_device.rect_edges_device(pre_c, sq, pre_c.n, torch.device("cpu"))
+    require(g is not None and c is not None and all(np.array_equal(x, y) for x, y in zip(g, c))
+            and g[2].tobytes() == c[2].tobytes(),
+            "11a: the prefix index's resident rectangle on the card != on the CPU")
+    t_prefix = time.perf_counter() - t0
+    log(f"11a: the resident rectangle of the {pre_g.n}-genome prefix index x {INDEX_QUERIES} queries is equal on the "
+        f"card and the CPU ({len(g[0])} edges, {t_prefix:.2f} s)")
+
+    # 11b: the CLI daemon, a subprocess on the card
+    t0 = time.perf_counter()
+    cli_idx = os.path.join(tmp, "serve_cli_index")
+    fixture = [os.path.join(HERE, "tests", "genomes", f"genome_{x}.fasta") for x in "ABC"]
+    build_from_paths(cli_idx, fixture, processes=1, device=dev)
+    digest = tree_digest(cli_idx)
+    want_v = index_classify(cli_idx, fixture[:1], device=dev)[0]
+    sock = os.path.join(tmp, "serve.sock")
+    err_path = os.path.join(tmp, "serve_cli.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "drep_tpu_torch", "index", "serve", cli_idx, "--socket", sock],
+                                stdout=subprocess.PIPE, stderr=err, text=True, cwd=HERE)
+
+    def err_tail() -> str:
+        with open(err_path) as f:
+            return f.read()[-3000:]
+
+    try:
+        ready_line = proc.stdout.readline()
+        require(bool(ready_line), f"11b: the daemon died before its ready line (exit {proc.poll()}): {err_tail()}")
+        ready = json.loads(ready_line)
+        t_ready = time.perf_counter() - t0
+        with ServeClient(sock, timeout_s=300) as cl:
+            resp = cl.classify(fixture[0])
+        require(resp["ok"] and resp["verdict"] == want_v,
+                f"11b: the CLI daemon's verdict {resp} != index classify on the card {want_v}")
+        proc.send_signal(15)  # SIGTERM: drain
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    require(rc == 0, f"11b: the CLI daemon exited {rc} after SIGTERM: {err_tail()}")
+    require(tree_digest(cli_idx) == digest, "11b: the CLI daemon changed the index tree")
+    t_cli = time.perf_counter() - t0
+    log(f"11b: `index serve` subprocess ready in {t_ready:.2f} s ({json.dumps(ready)}), its verdict equals index "
+        f"classify on the card, SIGTERM drained it to exit 0 with the tree unchanged ({t_cli:.2f} s)")
+
+    out = {"start_s": t_start, "upload_s": upload_s, "serve_s": t_serve, "requests": INDEX_QUERIES,
+           "clients": SERVE_CLIENTS, "batches": batches, "rect_s": rect_s, "launches": launches,
+           "latency_ms": st["latency_ms"], "resident_rect_s": t_resident_rect,
+           "union_pack_s": p10["classify_separate_pack_s"], "union_walk_s": p10["classify_separate_walk_s"],
+           "kernel": kernel, "prefix_card_cpu_s": t_prefix, "cli_s": t_cli}
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 10: {json.dumps({k: v for k, v in out.items() if k not in ('stripe', 'largest_cluster')})}")
+    log(f"phase 11: {json.dumps({k: v for k, v in out.items() if k not in ('latency_ms',)})}")
     return out
 
 
@@ -2338,6 +2595,7 @@ def main() -> int:
         p9d = phase_tertiary(tmp, dev, real)
         log(f"phase 9: {time.perf_counter() - t9:.1f} s")
         p10 = phase_index(tmp, dev, real)
+        p11 = phase_serve(tmp, dev, p10)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -2389,6 +2647,12 @@ def main() -> int:
         k["index"] = {**p10[part], **index_common}
         k["index_launches"] = {"update": p10["launches_update"][name],
                                **{f"classify_{m}": p10["launches_classify"][m][name] for m in ("joint", "separate")}}
+        k["serve_launches"] = p11["launches"][name]
+    # phase 11, the serve daemon: the Mash kernel at the resident shape
+    # ([N_pad resident rows x the batch's query rows], one launch a batch)
+    kernels[0]["serve"] = {**p11["kernel"], **{k: p11[k] for k in (
+        "batches", "requests", "upload_s", "rect_s", "resident_rect_s", "union_pack_s", "union_walk_s", "serve_s",
+        "start_s")}}
     # the merge kernels on the operands their route built in phase 6 (B:
     # width 2048, A: stacked buckets), and the other route on the same pack
     # in place of a library call

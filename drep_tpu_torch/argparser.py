@@ -20,11 +20,11 @@ stage where the JAX package would run them. The flags in
 durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
 with the JAX defaults, and a run that sets one otherwise raises
 NotImplementedError naming its ROADMAP item (workflows.py).
-`index build|update|classify` take the JAX CLI's flags plus --device; its
-federated flags (--partitions, --fed_pods, --params_file) are in
-UNPORTED_FLAGS too, and `index split|merge|compact|serve|route|supervise`
-parse and raise NotImplementedError naming their item
-(:data:`UNPORTED_INDEX_OPS`).
+`index build|update|classify|serve` take the JAX CLI's flags plus
+--device; its federated flags (--partitions, --fed_pods, --params_file)
+are in UNPORTED_FLAGS too, `index serve --events on` raises naming item
+13, and `index split|merge|compact|route|supervise` parse and raise
+NotImplementedError naming their item (:data:`UNPORTED_INDEX_OPS`).
 """
 
 from __future__ import annotations
@@ -58,10 +58,10 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
 }
 
 # `index` subcommands of the JAX CLI that the port parses and refuses:
-# the federated index's maintenance verbs and the serve tier
+# the federated index's maintenance verbs and the serve fleet
 UNPORTED_INDEX_OPS: dict[str, str] = {
     "split": "10b", "merge": "10b", "compact": "10b",
-    "serve": "11", "route": "11", "supervise": "11",
+    "route": "11b", "supervise": "11b",
 }
 
 
@@ -97,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
         comp.add_argument("--primary_estimator", default="auto",
                           choices=["auto", "sort", "matmul"],
                           help="jax_mash Jaccard estimator: sort=union-bottom-s "
-                               "(reference Mash; auto resolves to it); matmul is not ported yet")
+                               "(reference Mash; auto resolves to it), matmul=common-threshold "
+                               "on the fused indicator kernel (csrc/indicator_mm.cu)")
         comp.add_argument("--S_algorithm", default="jax_ani",
                           help="secondary (ANI) comparison engine [jax_ani]")
         comp.add_argument("-ms", "--MASH_sketch", type=int, default=1000)
@@ -268,6 +269,54 @@ def build_parser() -> argparse.ArgumentParser:
     )
     add_index_io(c)
     add_prune(c)
+
+    s = isub.add_parser(
+        "serve",
+        help="resident serving tier: a long-lived daemon that loads the index once, "
+             "dynamically batches concurrent classify queries over a local socket into one "
+             "K x N rectangle against the sketch matrix held on the device, hot-swaps to "
+             "newly published generations, and drains on SIGTERM (verdicts identical to "
+             "one-shot classify; the index stays byte-for-byte untouched)",
+    )
+    s.add_argument("index_directory", help="the long-lived genome index")
+    s.add_argument("-p", "--processes", type=int, default=1,
+                   help="sketching processes per batch (queries are small; 1 keeps the daemon "
+                        "single-sketcher)")
+    s.add_argument("-d", "--debug", action="store_true")
+    s.add_argument("--io_retries", type=int, default=None,
+                   help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+    s.add_argument("--fsync", action="store_true",
+                   help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+    s.add_argument("--socket", default=None, metavar="PATH",
+                   help="serve on a unix-domain socket at PATH instead of TCP")
+    s.add_argument("--host", default="127.0.0.1",
+                   help="TCP bind host (default 127.0.0.1: the daemon is a local front door)")
+    s.add_argument("--port", type=int, default=0,
+                   help="TCP bind port (default 0 = OS-assigned; the bound address is printed "
+                        "as the JSON ready line)")
+    s.add_argument("--max_queue", type=int, default=256,
+                   help="admission-queue bound: a request arriving at a full queue is refused "
+                        "at once with a retry_after_s hint. Default 256")
+    s.add_argument("--max_batch", type=int, default=64,
+                   help="most queries coalesced into one rectangle (1 = unbatched FIFO). "
+                        "Default 64")
+    s.add_argument("--batch_window_ms", type=float, default=5.0,
+                   help="how long the first waiting query holds the batch open for late "
+                        "arrivals. Default 5 ms")
+    s.add_argument("--poll_generation_s", type=float, default=2.0,
+                   help="manifest re-read cadence for the generation hot swap. Default 2 s")
+    s.add_argument("--resident_mb", type=int, default=None,
+                   help="a federated index's residency budget (MiB): parsed, unused on a "
+                        "plain root (the federated index is item 10b)")
+    s.add_argument("--log_dir", default=None,
+                   help="home for the daemon's logs and perf counters; never the index "
+                        "directory (default: console-only logging, no files)")
+    s.add_argument("--events", default=None, choices=["off", "on"],
+                   help="event tracing of the serve timeline: on is not ported yet (item 13)")
+    add_prune(s)
+    s.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="where the kernels run (default cuda; cpu runs their plain "
+                        "PyTorch versions and must be asked for)")
 
     for op, item in UNPORTED_INDEX_OPS.items():
         r = isub.add_parser(op, help=f"not ported yet (ROADMAP.md queue 1, item {item})")

@@ -15,13 +15,13 @@ FASTA whose basename is already indexed is a lookup, not a collision.
 - :func:`sketch_queries` sketches FASTAs under the index's pinned params;
 - :func:`classify_batch` answers sketched queries from a resident index
   without mutating it: ``joint=True`` (the CLI) admits the batch as one
-  hypothetical admission, ``joint=False`` answers each query as if it
-  were alone, from one rectangle for the whole batch.
+  hypothetical admission, ``joint=False`` (the serve daemon) answers each
+  query as if it were alone, from one rectangle for the whole batch: the
+  resident sketch matrix held on the device (``resident_device.py``),
+  or the union rectangle where that path cannot represent the batch.
 
 Not ported here: the federated resident (ROADMAP.md queue 1 item 10b;
-a federated root raises NotImplementedError) and the serve daemon's
-device-resident pack (``resident_device.py``, item 11, armed only by the
-daemon): classify_batch always takes the union rectangle below.
+a federated root raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import numpy as np
 import pandas as pd
 
 from drep_tpu_torch.errors import UserInputError
+from drep_tpu_torch.index import resident_device
 from drep_tpu_torch.index.store import LoadedIndex, load_index
 from drep_tpu_torch.index.update import STATS, _admit_batch, _rect_edges, recluster
 from drep_tpu_torch.utils.logger import get_logger
@@ -196,9 +197,9 @@ def classify_batch(
       (query-query edges are dropped; each verdict re-runs the recluster
       with just its own query admitted).
 
-    ``prune_cfg`` routes the rectangle through the LSH candidate set
-    `index update` uses (recall 1.0 at the retention bound, so the
-    verdicts are the same)."""
+    ``prune_cfg`` routes the union rectangle through the LSH candidate
+    set `index update` uses (recall 1.0 at the retention bound, so the
+    verdicts are the same); the resident rectangle computes every pair."""
     from drep_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
@@ -208,15 +209,22 @@ def classify_batch(
     n_old = resident.n
     n_real = queries.n
     gen = int(resident.generation)
-    scratch = _scratch_index(resident)
     # No shape bucketing: the JAX package pads K to a power of two with
     # copies of the first query so that XLA compiles log-many shapes of
     # the rectangle. The port compiles nothing per shape (the kernels are
     # built once), so K stays as given; the pad columns' edges were never
     # read, so the verdicts are the same.
-    _admit_batch(scratch, queries.admitted, queries.results, gen + 1)
-    # in-memory rectangle: checkpoint_dir None => the walk writes nothing
-    ii, jj, dd, _pairs = _rect_edges(scratch, n_old, None, prune_cfg=prune_cfg, device=dev)
+    # joint=False first takes the resident matrix (one upload per
+    # generation): the per-query selection below reads only the
+    # query-to-indexed edges it gives; None => the union rectangle
+    fast = None if joint else resident_device.rect_edges_device(resident, queries, n_old, dev)
+    if fast is not None:
+        ii, jj, dd = fast
+    else:
+        scratch = _scratch_index(resident)
+        _admit_batch(scratch, queries.admitted, queries.results, gen + 1)
+        # in-memory rectangle: checkpoint_dir None => the walk writes nothing
+        ii, jj, dd, _pairs = _rect_edges(scratch, n_old, None, prune_cfg=prune_cfg, device=dev)
     # canonical (ii, jj) order, as in the update: the nearest-neighbour
     # argmin and the linkage merge order break ties on it
     order = np.lexsort((jj, ii))

@@ -1,4 +1,5 @@
-"""Recognising a federated index root, so the single-store path refuses it.
+"""Recognising a federated index root, so the single-store path refuses
+it, and reading a plain root's published generation.
 
 Counterpart of the part of drep_tpu/index/meta.py that a plain (one-store)
 index needs. A federated index keeps a ``federation.json`` meta-manifest
@@ -33,3 +34,13 @@ def refuse_federated(location: str, what: str) -> None:
             f"{what} on a federated index ({meta_path(location)}): the federated "
             f"index is not ported yet ({FEDERATION_ITEM})"
         )
+
+
+def current_generation(location: str) -> int:
+    """The published generation of a plain index: a checked read of its
+    manifest, nothing written (the serve daemon's hot-swap poller). A
+    federated root raises NotImplementedError (item 10b)."""
+    from drep_tpu_torch.index.store import IndexStore
+
+    refuse_federated(location, "reading the generation")
+    return int(IndexStore(location).read_manifest().get("generation", -1))

@@ -8,7 +8,9 @@ s_use = min(|A|, |B|, s_orig). The jaccard -> distance transform runs on
 the host in numpy (:func:`shared_counts_to_distance`, copied exactly from
 the JAX package), so every consumer shares one formula; the streaming
 primary's keep test (:func:`stripe_survivors`) reads a table that formula
-built, so its edges are the dense matrix's, bit for bit.
+built, so its edges are the dense matrix's, bit for bit; the serve
+daemon's walk over the resident index (:func:`rect_survivors`) reads the
+same table.
 
 :func:`mash_shared` runs ``csrc/mash_shared.cu`` for CUDA tensors and
 :func:`mash_shared_plain` for CPU tensors; there is no fallback between
@@ -180,6 +182,19 @@ def distance_table(width: int, k: int) -> np.ndarray:
     return dist
 
 
+def _keep_mask(
+    shared: torch.Tensor, na: torch.Tensor, nb: torch.Tensor, s_orig: int, keep_table: torch.Tensor
+) -> torch.Tensor:
+    """``keep_table[s_use, shared]`` with s_use = min(na, nb, s_orig),
+    and the pad-row mask (a row of count 0 keeps nothing)."""
+    s_use = torch.clamp(torch.minimum(na[:, None], nb[None, :]), max=s_orig)
+    if (s_orig + 1) ** 2 > np.iinfo(np.int32).max:  # the flat index outgrows int32
+        s_use = s_use.long()
+    keep = keep_table.reshape(-1)[s_use * (s_orig + 1) + shared]
+    keep &= (na > 0)[:, None] & (nb > 0)[None, :]
+    return keep
+
+
 def stripe_survivors(
     a: torch.Tensor,
     na: torch.Tensor,
@@ -200,17 +215,32 @@ def stripe_survivors(
     block = a.shape[0]
     n_tiles = b.shape[0] // block
     shared = mash_shared(a, na, b, nb, s_orig)
-    s_use = torch.clamp(torch.minimum(na[:, None], nb[None, :]), max=s_orig)
-    if (s_orig + 1) ** 2 > np.iinfo(np.int32).max:  # the flat index outgrows int32
-        s_use = s_use.long()
-    keep = keep_table.reshape(-1)[s_use * (s_orig + 1) + shared]
-    keep &= (na > 0)[:, None] & (nb > 0)[None, :]
+    keep = _keep_mask(shared, na, nb, s_orig, keep_table)
     if diag:
         keep[:, :block] &= torch.ones((block, block), dtype=torch.bool, device=a.device).triu(1)
     tiles = keep.view(block, n_tiles, block).permute(1, 0, 2)
     t, r, c = tiles.nonzero(as_tuple=True)
     got = shared.view(block, n_tiles, block)[r, t, c]
     return torch.stack([t, r, c, got.long()], dim=1).cpu().numpy()
+
+
+def rect_survivors(
+    a: torch.Tensor,
+    na: torch.Tensor,
+    b: torch.Tensor,
+    nb: torch.Tensor,
+    s_orig: int,
+    keep_table: torch.Tensor,
+) -> np.ndarray:
+    """The pairs of the rectangle `a` x `b` that a keep table retains,
+    compacted on the operands' device: one :func:`mash_shared` launch of
+    the rows `a` [rows_a, W] against `b` [rows_b, W] (both TILE multiples,
+    pad rows of count 0), then the keep test and the pad-row mask of
+    :func:`stripe_survivors`. Returns [E, 3] int64 rows (row of a, row of
+    b, shared), row-major: ascending by a's row, then b's."""
+    shared = mash_shared(a, na, b, nb, s_orig)
+    r, c = _keep_mask(shared, na, nb, s_orig, keep_table).nonzero(as_tuple=True)
+    return torch.stack([r, c, shared[r, c].long()], dim=1).cpu().numpy()
 
 
 def _pad_rows(ids: np.ndarray, counts: np.ndarray, width: int) -> tuple[np.ndarray, np.ndarray]:

@@ -4,7 +4,8 @@ Counterpart of drep_tpu/workflows.py (compare, dereplicate and the
 one-store genome index):
 dereplicate = filter -> cluster -> choose -> evaluate -> analyze;
 compare = cluster -> evaluate -> analyze (no filter/choose);
-index build|update|classify = drep_tpu_torch/index.
+index build|update|classify = drep_tpu_torch/index;
+index serve = drep_tpu_torch/serve.
 
 All run on `device` (default cuda); a CUDA request on a machine without
 CUDA, or a JAX CLI flag set to a value the port does not run
@@ -149,3 +150,78 @@ def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, dev
         raise UserInputError("index classify needs -g <genome FASTAs>")
     dev = _init_index(index_loc, "classify", device, kwargs, write_logs=False)
     return index_classify(index_loc, genomes, device=dev, **_prune_kwargs(kwargs))
+
+
+def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
+    """`index serve`: the resident serving tier (drep_tpu_torch/serve/):
+    load once, batch dynamically, hot-swap generations, drain on SIGTERM.
+    Blocks until drained; returns run()'s exit status (0).
+
+    What the port does not run is refused before anything is loaded:
+    ``--events on`` (item 13), ``--io_retries`` and ``--fsync`` (item 5),
+    a federated root (item 10b). The daemon is a pure reader of the
+    index, so its logs and counters live under ``--log_dir`` (or nowhere),
+    never in the index tree."""
+    import logging
+    import os
+
+    from drep_tpu_torch.index.meta import refuse_federated
+    from drep_tpu_torch.serve import IndexServer, ServeConfig, install_signal_handlers
+    from drep_tpu_torch.utils.profiling import counters, start_metrics_flush, stop_metrics_flush
+
+    if kwargs.get("events") == "on":
+        raise NotImplementedError(
+            "index serve --events on: event tracing is not ported yet (ROADMAP.md queue 1, item 13)"
+        )
+    refuse_unported_flags(kwargs)
+    refuse_federated(index_loc, "index serve")
+    dev = resolve_device(device)
+    log_dir = kwargs.get("log_dir") or None
+    if log_dir:
+        log_dir = os.path.abspath(log_dir)
+        idx_abs = os.path.abspath(index_loc)
+        if log_dir == idx_abs or log_dir.startswith(idx_abs + os.sep):
+            raise UserInputError(
+                f"--log_dir {log_dir} is inside the index directory — the "
+                f"daemon is read-only by contract; point it elsewhere"
+            )
+        os.makedirs(log_dir, exist_ok=True)
+    # keep the console verbosity the controller already set for -d:
+    # setup_logger replaces handlers
+    console_lvl = next(
+        (h.level for h in get_logger().handlers if isinstance(h, logging.StreamHandler)), logging.INFO,
+    )
+    setup_logger(log_dir, verbosity=console_lvl or logging.INFO)
+    if log_dir:
+        start_metrics_flush(log_dir)
+    else:
+        stop_metrics_flush()
+    counters.reset()
+    cfg = ServeConfig(
+        index_loc=index_loc,
+        host=kwargs.get("host", "127.0.0.1") or "127.0.0.1",
+        port=int(kwargs.get("port", 0) or 0),
+        socket_path=kwargs.get("socket") or None,
+        max_queue=int(kwargs.get("max_queue", 256) or 256),
+        max_batch=int(kwargs.get("max_batch", 64) or 64),
+        batch_window_ms=float(kwargs.get("batch_window_ms", 5.0) or 0.0),
+        poll_generation_s=float(kwargs.get("poll_generation_s", 2.0) or 2.0),
+        processes=int(kwargs.get("processes", 1) or 1),
+        prune_cfg={
+            "primary_prune": kwargs.get("primary_prune", "off") or "off",
+            "prune_bands": int(kwargs.get("prune_bands", 0) or 0),
+            "prune_min_shared": int(kwargs.get("prune_min_shared", 0) or 0),
+            "prune_join_chunk": int(kwargs.get("prune_join_chunk", 0) or 0),
+        },
+        log_dir=log_dir,
+        resident_mb=kwargs.get("resident_mb"),
+        device=dev,
+    )
+    server = IndexServer(cfg)
+    install_signal_handlers(server)
+    try:
+        return server.run()
+    finally:
+        stop_metrics_flush(final=bool(log_dir))
+        if log_dir:
+            counters.write(log_dir)

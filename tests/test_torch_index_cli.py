@@ -84,7 +84,7 @@ def test_cli_classify_writes_nothing(tmp_path, cli_runs, genome_paths):
     assert lib.tree_digest(loc, exclude_dirs=()) == before
 
 
-@pytest.mark.parametrize("op", ["build", "update", "classify"])
+@pytest.mark.parametrize("op", ["build", "update", "classify", "serve"])
 def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monkeypatch, op):
     """Without --device the index entry points want cuda; on a machine
     without it they raise asking for cpu, before anything is written."""
@@ -92,7 +92,7 @@ def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monke
     loc = str(tmp_path / "new") if op == "build" else cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=()) if op != "build" else None
     with pytest.raises(RuntimeError, match="--device cpu"):
-        torch_main(["index", op, loc, "-g", genome_paths[0], "-p", "1"])
+        torch_main(["index", op, loc, *(["-g", genome_paths[0]] if op != "serve" else []), "-p", "1"])
     if op == "build":
         assert not os.path.exists(loc)
     else:
@@ -103,9 +103,8 @@ def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monke
     ("split", ["--pid", "1"], "10b"),
     ("merge", ["--pids", "1", "2"], "10b"),
     ("compact", ["--min_generations", "2"], "10b"),
-    ("serve", ["--log_dir", "/nonexistent"], "11"),
-    ("route", ["--replica", "127.0.0.1:1"], "11"),
-    ("supervise", ["--replica", "2"], "11"),
+    ("route", ["--replica", "127.0.0.1:1"], "11b"),
+    ("supervise", ["--replica", "2"], "11b"),
 ])
 def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
     loc = cli_runs["torch"][0]
@@ -113,6 +112,31 @@ def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
         torch_main(["index", op, loc, *args])
     assert lib.tree_digest(loc, exclude_dirs=()) == before
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--events", "on", "--log_dir", "LOG"], "13"),
+    (["--io_retries", "3"], "5"),
+    (["--fsync"], "5"),
+    ([], "10b"),
+])
+def test_cli_serve_refusals(tmp_path, cli_runs, flags, item):
+    """`index serve` refuses what the port does not run before anything
+    is loaded, naming its item: event tracing, the durable-I/O flags, a
+    federated root (the last case: a root holding federation.json)."""
+    if item == "10b":
+        loc = str(tmp_path / "fed")
+        os.makedirs(loc)
+        with open(os.path.join(loc, "federation.json"), "w") as f:
+            f.write("{}")
+    else:
+        loc = cli_runs["torch"][0]
+    before = lib.tree_digest(loc, exclude_dirs=())
+    argv = [str(tmp_path / "log") if a == "LOG" else a for a in flags]
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        torch_main(["index", "serve", loc, "--device", "cpu", *argv])
+    assert lib.tree_digest(loc, exclude_dirs=()) == before
+    assert not os.path.exists(tmp_path / "log")
 
 
 @pytest.mark.parametrize("op,flags,item", [
@@ -162,3 +186,53 @@ def test_index_cli_subprocess_loads_no_jax_or_drep_tpu(tmp_path, genome_paths):
     assert "LOADED []" in res.stdout
     verdicts = _verdicts(res.stdout)
     assert len(verdicts) == 1 and verdicts[0]["genome"] == "genome_A.fasta" and verdicts[0]["generation"] == 1
+
+
+def test_index_serve_subprocess_loads_no_jax_or_drep_tpu(tmp_path, genome_paths):
+    """`index serve` in a fresh interpreter (build, serve on a unix
+    socket, one classify through the client, SIGTERM) imports nothing of
+    JAX or drep_tpu and drains to a clean return."""
+    loc, sock = str(tmp_path / "idx"), str(tmp_path / "s.sock")
+    code = (
+        "import os, signal, sys, threading, time\n"
+        "from drep_tpu_torch.controller import main\n"
+        "from drep_tpu_torch.serve import ServeClient\n"
+        f"main(['index', 'build', {loc!r}, '-g', *{list(genome_paths[:3])!r}, '--device', 'cpu', '-p', '1'])\n"
+        "got = []\n"
+        "def ask():\n"
+        f"    while not os.path.exists({sock!r}):\n"
+        "        time.sleep(0.05)\n"
+        f"    with ServeClient({sock!r}) as c:\n"
+        f"        got.append(c.classify({genome_paths[0]!r}))\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=ask, daemon=True).start()\n"
+        f"main(['index', 'serve', {loc!r}, '--device', 'cpu', '--socket', {sock!r}])\n"
+        "print('VERDICT', got[0]['verdict']['genome'], got[0]['generation'])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'drep_tpu'))\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "LOADED []" in res.stdout and "VERDICT genome_A.fasta 0" in res.stdout
+    assert not os.path.exists(sock)
+
+
+def _serve_options(build_parser) -> dict:
+    """option string -> (dest, default, choices) of `index serve`."""
+    def sub(parser, dest):
+        return next(a for a in parser._subparsers._group_actions if a.dest == dest)
+
+    serve = sub(sub(build_parser(), "operation").choices["index"], "index_op").choices["serve"]
+    return {o: (a.dest, a.default, a.choices) for a in serve._actions for o in a.option_strings}
+
+
+def test_cli_serve_parser_takes_every_jax_flag():
+    """`index serve` takes every flag of the JAX CLI's, with its dest,
+    default and choices, plus --device."""
+    from drep_tpu.argparser import build_parser as jax_build_parser
+    from drep_tpu_torch.argparser import build_parser
+
+    got, want = _serve_options(build_parser), _serve_options(jax_build_parser)
+    assert set(got) - set(want) == {"--device"}
+    assert {o: got[o] for o in want} == want
