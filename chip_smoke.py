@@ -40,8 +40,9 @@ Phases (any failure exits nonzero; nothing is caught):
 6. the beyond-budget slice: three planted primary clusters past the
    one-shot indicator budget (A: 2000 diverse genomes, ~19 000 private +
    ~1 300 core hashes each; B: 1300 diverse genomes at width 2048; C: 1024
-   overlapping genomes at depth 20 000) through d_cluster_wrapper,
-   d_choose_wrapper and d_evaluate_wrapper; checks the routes (A and B
+   overlapping genomes at depth 20 000) through d_cluster_wrapper (choose
+   and evaluate, ~55 s over its ~6.7 M-row CSVs, are cut for the time
+   limit: phase 5 runs them); checks the routes (A and B
    `pallas_range`, C `matmul_chunked`), that A and B split into one
    secondary cluster per genome and C stays one, that all four kernels
    launched (``indicator_mm`` once per vocabulary chunk of C), that each
@@ -100,12 +101,14 @@ Phases (any failure exits nonzero; nothing is caught):
    the deleted stripes' pairs;
 9. the options of ROADMAP queue 1 item 9a, each through d_cluster_wrapper
    with the launch counts zeroed just before it: 9a ``--primary_estimator
-   matmul`` on phase 5's genomes (secondary skipped): one ``indicator_mm``
-   launch a vocabulary chunk, the primary equal to phase 5's, the whole
-   [N, N] counts equal to ``intersect.cu``'s, chunk 0 equal to the plain
-   version and timed beside its bound, the Jaccard within 0.06 of the sort
-   estimator's; 9b ``--multiround_primary_clustering`` in chunks of 2 500:
-   five ``mash_shared`` launches, the partition equal to phase 5's; 9c
+   matmul`` on phase 5's first 2 500 genomes (secondary skipped; cut from
+   10 000 for the time limit): one ``indicator_mm`` launch a
+   vocabulary chunk, the primary equal to phase 5's rows, the whole [N, N]
+   counts equal to ``intersect.cu``'s, chunk 0 equal to the plain version
+   and timed beside its bound, the Jaccard within 0.06 of the sort
+   estimator's; 9b ``--multiround_primary_clustering`` on the same 2 500
+   genomes in chunks of 500 (cut from 10 000 in chunks of 2 500):
+   six ``mash_shared`` launches, the partition equal to phase 5's rows; 9c
    ``--greedy_secondary_clustering`` on phase 6's clusters B and C (A cut
    for the time limit; both on ``greedy_secondary_cluster``: the
    rectangular entry of ``indicator_mm.cu`` held against its plain version
@@ -143,7 +146,29 @@ Phases (any failure exits nonzero; nothing is caught):
    equal on the card and the CPU; 11b ``python -m drep_tpu_torch index
    serve`` as a subprocess on an index of the fixture genomes A-C: its
    verdict equal to ``index classify`` on the card, SIGTERM to exit 0;
-12. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+12. the federated index and its maintenance verbs (``index/federation.py``,
+   ``index/maintenance.py``, ROADMAP queue 1 item 10b), with phase 5's and
+   10's planted sketches substituted for ``federation.sketch_batch``: 12a
+   ``build_federated`` over phase 5's genomes in FED_PARTITIONS partitions
+   (each partition's ``mash_shared`` stripes and ``indicator_mm``
+   dirty-cluster launches counted, with the cross walk's and the union
+   recluster's, to make up the run's; no failed partition; the cross join
+   and walk timed; every planted cluster one primary and one secondary
+   cluster); 12b phase 10's update of INDEX_NEW genomes (the same checks,
+   every routed partition at generation 1; the union's partitions and
+   winners equal to phase 10's plain store's); 12c one-shot classify of
+   10c's queries from ``load_resident_index(streaming=False)``: verdicts
+   equal to 10c's joint ones (labels up to renumbering, the union orders
+   differ; ``nearest`` up to a tie), the tree unchanged; 12d
+   ``compact_store`` on phase 10's plain store, then ``index split`` of
+   the largest partition, ``index merge`` back and ``index compact`` of
+   the federation through the CLI, each leaving the union's partitions,
+   winners and the first FED_MAINT_QUERIES queries' verdicts as they
+   were; 12e a FED_PODS-pod update of a federation of phase 5's first
+   INDEX_PREFIX genomes (``python -m drep_tpu_torch index update
+   --params_file`` subprocesses, every rc 0), equal payload by payload to
+   the in-process update of its twin;
+13. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -153,9 +178,10 @@ Phases (any failure exits nonzero; nothing is caught):
    kernel its matmul-estimator chunk from 9a; both carry phase 10's
    timings under ``index`` (the tail stripe, the largest dirty cluster)
    and its launches under ``index_launches``, and phase 11's under
-   ``serve_launches``; the Mash kernel its resident-shape time and bound
-   under ``serve``);
-13. the last line: ``{"ok": true, "device": {...}}``.
+   ``serve_launches``, phase 12's under ``federation_launches``; the Mash
+   kernel its resident-shape time and bound under ``serve`` and phase
+   12's times, cross-join pairs and launches under ``federation``);
+14. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -974,9 +1000,8 @@ def run_beyond(wd, bdb, dev, what: str, choose: bool = True, **kw):
 
 
 def phase_beyond(tmp: str, dev, gs, planted) -> dict:
-    """The beyond-budget slice (phase 6): d_cluster -> choose -> evaluate
-    over the three BEYOND clusters, then each cluster's counts on both
-    routes."""
+    """The beyond-budget slice (phase 6): d_cluster over the three BEYOND
+    clusters, then each cluster's counts on both routes."""
     import pandas as pd
     import torch
 
@@ -995,7 +1020,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
     wd, bdb = beyond_workdir(tmp, "beyond_wd", gs)
     log(f"beyond budget: {len(gs.names)} genomes in clusters "
         f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
-    cdb, launches, paths, _, t_cluster = run_beyond(wd, bdb, dev, "beyond budget", mesh_shape=1)
+    cdb, launches, paths, _, t_cluster = run_beyond(wd, bdb, dev, "beyond budget", choose=False, mesh_shape=1)
     require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
     launches = {k: v for k, v in launches.items() if k not in ("ring_step", "ring_step_mm", "indicator_mm_rect")}
     require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
@@ -1647,26 +1672,14 @@ def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
 
 
 # phase 9: the options of ROADMAP queue 1 item 9a on phases 5's and 6's
-# genomes. The multiround chunk (a quarter of phase 5's genomes), and
-# the cut of phase 5's genomes that 9c's batched route and 9d run on:
-# the tertiary Ndb holds every cross-primary pair of representatives
-# (~12 M rows at 10 000 genomes, ~2 minutes of CSV on the chip machine's
-# host), so 9d takes the first 2 500 genomes (~0.8 M rows), and 9c's
-# batched route the same genomes for the time limit
-MULTIROUND_CHUNK = 2_500
+# genomes. The cut of phase 5's genomes that 9a, 9b, 9c's batched route
+# and 9d run on: the tertiary Ndb holds every cross-primary pair of
+# representatives (~12 M rows at 10 000 genomes, ~2 minutes of CSV on the
+# chip machine's host), so 9d takes the first 2 500 genomes (~0.8 M
+# rows), and the others the same genomes for the time limit (9a and 9b
+# to make room for phase 12); the multiround chunk, a fifth of them
+MULTIROUND_CHUNK = 500
 PREFIX_OPTION_GENOMES = 2_500
-
-
-def clone_workdir(tmp: str, name: str, src: str):
-    """A workdir holding the sketch cache, Bdb and genomeInformation of the
-    workdir at `src` (hard links: the 10 000-genome cache is ~0.8 GB)."""
-    from drep_tpu_torch.workdir import WorkDirectory
-
-    wd = WorkDirectory(os.path.join(tmp, name))
-    for rel in (os.path.join("data", "arrays", "sketches.npz"), os.path.join("log", "sketch_arguments.json"),
-                *(os.path.join("data_tables", f"{t}.csv") for t in ("Gdb", "Bdb", "genomeInformation"))):
-        os.link(os.path.join(src, rel), os.path.join(wd.location, rel))
-    return wd
 
 
 def run_option(wd, bdb, dev, what: str, **kw):
@@ -1707,7 +1720,8 @@ def require_planted(cdb, names, planted, column: str, what: str) -> None:
 
 
 def phase_matmul_estimator(tmp: str, dev, real: dict) -> dict:
-    """Phase 9a: --primary_estimator matmul on phase 5's 10 000 genomes."""
+    """Phase 9a: --primary_estimator matmul on phase 5's first
+    PREFIX_OPTION_GENOMES genomes."""
     import torch
 
     from drep_tpu_torch.cluster import engines
@@ -1716,7 +1730,10 @@ def phase_matmul_estimator(tmp: str, dev, real: dict) -> dict:
     from drep_tpu_torch.ops.mash import all_vs_all_mash
     from drep_tpu_torch.ops.minhash import ids_to_device
 
-    packed, n = real["packed"], real["packed"].n
+    from drep_tpu_torch.ops.minhash import pack_sketches
+
+    gs, n = real["gs"], PREFIX_OPTION_GENOMES
+    packed = pack_sketches(gs.bottom[:n], gs.names[:n], gs.sketch_size)
     m_pad = -(-n // minhash_matmul.ROW_PAD) * minhash_matmul.ROW_PAD
     chunks, v_chunk = containment.vocab_chunks(packed, m_pad)
     # the estimator's Jaccard and its [N, N] counts, as the main path
@@ -1732,10 +1749,10 @@ def phase_matmul_estimator(tmp: str, dev, real: dict) -> dict:
         out["inter"] = real_counts(p, device, m_pad=m_pad)
         return out["inter"]
 
-    wd = clone_workdir(tmp, "p9a_wd", real["wd"])
+    wd, bdb = prefix_workdir(tmp, "p9a_wd", real, n)
     engines.all_vs_all_mash_matmul, minhash_matmul.intersections_chunked = spy, counts_spy
     try:
-        cdb, launches, stages, pairs, dt = run_option(wd, real["bdb"], dev, "9a matmul estimator",
+        cdb, launches, stages, pairs, dt = run_option(wd, bdb, dev, f"9a matmul estimator on {n} genomes",
                                                       primary_estimator="matmul", SkipSecondary=True)
     finally:
         engines.all_vs_all_mash_matmul, minhash_matmul.intersections_chunked = real_fn, real_counts
@@ -1743,7 +1760,7 @@ def phase_matmul_estimator(tmp: str, dev, real: dict) -> dict:
     require(launches["indicator_mm"] == chunks.shape[0] > 1 and launches["mash_shared"] == 0,
             f"9a: {launches} for {chunks.shape[0]} vocabulary chunks")
     require(wd.get_arguments("cluster")["primary_estimator_resolved"] == "matmul", "9a did not resolve to matmul")
-    require_planted(cdb, real["gs"].names, real["planted"], "primary_cluster", "9a")
+    require_planted(cdb, gs.names[:n], real["planted"][:n], "primary_cluster", "9a")
     want_cdb = real["cdb"].set_index("genome").loc[cdb["genome"], "primary_cluster"].to_numpy()
     require(same_partition(cdb["primary_cluster"].to_numpy(), want_cdb) < 0, "9a: primary != phase 5's")
 
@@ -1786,11 +1803,12 @@ def phase_matmul_estimator(tmp: str, dev, real: dict) -> dict:
 
 
 def phase_multiround(tmp: str, dev, real: dict) -> dict:
-    """Phase 9b: --multiround_primary_clustering in chunks of MULTIROUND_CHUNK."""
-    wd = clone_workdir(tmp, "p9b_wd", real["wd"])
-    n = real["packed"].n
+    """Phase 9b: --multiround_primary_clustering on phase 5's first
+    PREFIX_OPTION_GENOMES genomes in chunks of MULTIROUND_CHUNK."""
+    n = PREFIX_OPTION_GENOMES
+    wd, bdb = prefix_workdir(tmp, "p9b_wd", real, n)
     cdb, launches, stages, pairs, dt = run_option(
-        wd, real["bdb"], dev, "9b multiround", multiround_primary_clustering=True,
+        wd, bdb, dev, f"9b multiround on {n} genomes", multiround_primary_clustering=True,
         primary_chunksize=MULTIROUND_CHUNK, SkipSecondary=True)
     want_launches = -(-n // MULTIROUND_CHUNK) + 1
     require(launches["mash_shared"] == want_launches and launches["indicator_mm"] == 0,
@@ -2266,7 +2284,9 @@ def phase_index(tmp: str, dev, real: dict) -> dict:
     # separate-mode verdicts, the prefix index (not printed)
     out["serve_inputs"] = {"idx_dir": idx_dir, "digest": before, "queries": queries, "qres": qres,
                            "separate": classify["separate"]["verdicts"], "prefix_dir": pre_gpu,
-                           "union_edges": union_edges[1]}  # the separate run's
+                           "union_edges": union_edges[1],  # the separate run's
+                           "joint": classify["joint"]["verdicts"], "batch": batch, "results": results,
+                           "params": params}
     return out
 
 
@@ -2545,6 +2565,322 @@ def phase_serve(tmp: str, dev, p10: dict) -> dict:
     return out
 
 
+# phase 12: the federated index (ROADMAP queue 1 item 10b) over phase 5's
+# genomes and phase 10's batch and queries, then its maintenance verbs
+FED_PARTITIONS = 4
+FED_MAINT_QUERIES = 8  # queries re-answered after each maintenance verb
+FED_PODS = 2
+
+
+def fed_kwargs(params: dict) -> dict:
+    """build_federated's keyword arguments that pin `params` (a plain
+    index's), so the federation and the plain store share every number."""
+    return {"P_ani": params["P_ani"], "S_ani": params["S_ani"], "cov_thresh": params["cov_thresh"],
+            "clusterAlg": params["clusterAlg"], "S_algorithm": params["S_algorithm"],
+            "MASH_sketch": params["sketch_size"], "scale": params["scale"], "kmer_size": params["kmer_size"],
+            "hash": params["hash"], "warn_dist": params["warn_dist"], "length": params["filter_length"],
+            "streaming_block": params["streaming_block"], **params["weights"]}
+
+
+def union_partitions(idx) -> tuple:
+    """(primary partition, secondary partition, winner keyed by its
+    secondary cluster's member set) of an index, as name sets."""
+    prim: dict = {}
+    sec: dict = {}
+    for g, p, name in zip(idx.names, idx.primary.tolist(), idx.secondary_names()):
+        prim.setdefault(p, set()).add(g)
+        sec.setdefault(name, set()).add(g)
+    winners = {frozenset(sec[c]): g for c, g in zip(idx.winners["cluster"], idx.winners["genome"])}
+    return set(map(frozenset, prim.values())), set(map(frozenset, sec.values())), winners
+
+
+def verdicts_agree(got: list, want: list, what: str, renumbered: bool) -> int:
+    """`got` == `want` field by field, but for the generation stamp; with
+    `renumbered` (two stores whose union orders differ) the cluster labels
+    up to one renumbering, `cluster_members` as sets, `score` at rtol
+    1e-12 (its centrality sums the cluster's ANIs in union order) and
+    `nearest` up to a tie at `nearest_dist` (the first minimum in union
+    order). `nearest_dist` at rtol 1e-6. Returns the number of ties."""
+    require(len(got) == len(want), f"{what}: {len(got)} verdicts, expected {len(want)}")
+    maps = {"primary_cluster": ({}, {}), "secondary_cluster": ({}, {})}
+    ties = 0
+    for g, w in zip(got, want):
+        require(g.keys() == w.keys(), f"{what}: verdict keys {sorted(g)} != {sorted(w)}")
+        for k in g:
+            if k == "generation":
+                continue
+            if k == "nearest_dist" and g[k] is not None and w[k] is not None:
+                require(abs(g[k] - w[k]) <= 1e-6 * abs(w[k]), f"{what}: {g['genome']} nearest_dist {g[k]} != {w[k]}")
+            elif renumbered and k in maps:
+                fwd, back = maps[k]
+                require(fwd.setdefault(w[k], g[k]) == g[k] and back.setdefault(g[k], w[k]) == w[k],
+                        f"{what}: {g['genome']} {k} {g[k]} is not a renumbering of {w[k]}")
+            elif renumbered and k == "cluster_members":
+                require(sorted(g[k]) == sorted(w[k]), f"{what}: {g['genome']} cluster members differ")
+            elif renumbered and k == "score":
+                require(abs(g[k] - w[k]) <= 1e-12 * abs(w[k]), f"{what}: {g['genome']} score {g[k]} != {w[k]}")
+            elif renumbered and k == "nearest" and g[k] != w[k]:
+                ties += 1
+            else:
+                require(g[k] == w[k], f"{what}: {g['genome']} {k} {g[k]!r} != {w[k]!r}")
+    return ties
+
+
+def fed_healthy(loc: str, what: str, routed=None, gen=None) -> dict:
+    """The federation's meta: no partial stamp, and every routed partition
+    at the new generation `gen`."""
+    from drep_tpu_torch.index import meta as fedmeta
+
+    m = fedmeta.read_meta(loc)
+    require("partial" not in m, f"{what}: the meta carries a partial stamp {m.get('partial')}")
+    for e in m["partitions"]:
+        if routed is not None and int(e["pid"]) in routed:
+            require(int(e["generation"]) == gen, f"{what}: partition {e['pid']} at generation {e['generation']}")
+    return m
+
+
+def fed_update_checked(what: str, stats: dict, launches: dict, summary: dict, p: int) -> dict:
+    """A federated update's (or build's) partitions: none failed, each
+    routed one's Mash launches and dirty-cluster secondaries counted, and
+    the run's launches exactly theirs plus the cross walk's and the union
+    recluster's. Returns the per-partition table."""
+    parts = stats["partitions"]
+    require(not stats["failed"] and summary["partitions_failed"] == [] and not summary.get("unadmitted"),
+            f"{what}: failed partitions {stats['failed']}")
+    require(sorted(parts) == summary["partitions_updated"] and len(parts) <= p, f"{what}: partitions {sorted(parts)}")
+    require(all(v["rect_launches"] > 0 for v in parts.values()), f"{what}: a partition launched no Mash stripe")
+    mash_want = sum(v["rect_launches"] for v in parts.values()) + stats["cross_launches"]
+    ind_want = sum(v["secondary_calls"] for v in parts.values()) + stats["union_secondary_calls"]
+    require(launches["mash_shared"] == mash_want > 0 and launches["indicator_mm"] == ind_want > 0,
+            f"{what}: launches {launches}, expected mash_shared {mash_want} and indicator_mm {ind_want}")
+    return {int(k): {kk: (round(vv, 3) if isinstance(vv, float) else vv) for kk, vv in v.items()}
+            for k, v in parts.items()}
+
+
+def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
+    """Phase 12: 12a build_federated over phase 5's genomes; 12b phase 10's
+    update; 12c one-shot classify of phase 10's queries; 12d compact_store
+    on phase 10's plain store, then split, merge and compact of the
+    federation through the CLI; 12e a --fed_pods update of a prefix
+    federation against its in-process twin."""
+    import pandas as pd
+    import torch
+
+    from drep_tpu_torch.controller import main as cli_main
+    from drep_tpu_torch.index import (build_federated, classify_batch, compact_store, index_update, load_index,
+                                      load_resident_index)
+    from drep_tpu_torch.index import federation
+    from drep_tpu_torch.index import meta as fedmeta
+    from drep_tpu_torch.index.classify import SketchedQueries
+    from drep_tpu_torch.utils.durableio import load_npz_checked, read_json_checked
+
+    t_phase = time.perf_counter()
+    gs, planted, si = real["gs"], real["planted"], p10["serve_inputs"]
+    idx_dir, queries = si["idx_dir"], si["queries"]
+    batch, results = si["batch"], si["results"]
+    gdir = os.path.join(tmp, "real_genomes")
+    stats_cols = ("length", "N50", "contigs", "n_kmers")
+    registry = {g: {**{c: int(gs.gdb[c].iloc[i]) for c in stats_cols}, "bottom": gs.bottom[i], "scaled": gs.scaled[i]}
+                for i, g in enumerate(gs.names)}
+    registry.update(results)
+    paths = [os.path.join(gdir, g) for g in gs.names]
+    batch_paths = list(batch["location"])
+
+    def planted_sketch_batch(idx, genome_paths, processes=1):
+        # the federation's front door with phase 5's and 10's planted
+        # sketches in place of sketching FASTAs
+        names = [os.path.basename(p) for p in genome_paths]
+        return pd.DataFrame({"genome": names, "location": list(genome_paths)}), {g: registry[g] for g in names}
+
+    plain_params = read_json_checked(os.path.join(idx_dir, "manifest.json"))["params"]
+    real_sketch_batch = federation.sketch_batch
+    federation.sketch_batch = planted_sketch_batch
+    out: dict = {"partitions": FED_PARTITIONS, "genomes": len(paths)}
+    try:
+        # 12a: the federated build over phase 5's genomes
+        fed_dir = os.path.join(tmp, "federation")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = build_federated(fed_dir, paths, FED_PARTITIONS, processes=1, device=dev, **fed_kwargs(plain_params))
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        launches = read_launches()
+        st = dict(federation.STATS)
+        parts = fed_update_checked("12a", st, launches, built, FED_PARTITIONS)
+        m = fed_healthy(fed_dir, "12a", routed=parts, gen=0)
+        require(m["params"] == plain_params and built["n_genomes"] == len(paths) and built["generation"] == 0,
+                f"12a: {built}")
+        t0 = time.perf_counter()
+        union = load_index(fed_dir)
+        t_load = time.perf_counter() - t0
+        by_name = dict(zip(union.names, zip(union.primary.tolist(), union.secondary_names())))
+        labels = [by_name[g] for g in gs.names]
+        n_planted = len(set(planted.tolist()))
+        require(len(set(zip(planted.tolist(), labels))) == n_planted == len({l[0] for l in labels})
+                == len({l[1] for l in labels}), "12a: the planted clusters are not the union's primary and "
+                "secondary clusters")
+        out["build"] = {"s": t_build, "launches": launches, "partitions": parts, "union_load_s": t_load,
+                        **{k: st[k] for k in ("load_s", "join_s", "cross_candidates", "walk_s", "cross_pairs",
+                                              "cross_launches", "recluster_s", "union_secondary_calls", "publish_s")},
+                        "cross_edges": built["cross_edges"], "n_per_partition": [e["n_genomes"] for e in m["partitions"]]}
+        log(f"12a federated build: {len(paths)} genomes over {FED_PARTITIONS} partitions in {t_build:.2f} s; "
+            f"{json.dumps(out['build'])}; every planted cluster is one primary and one secondary cluster")
+
+        # 12b: phase 10's update, routed over the partitions
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        upd = index_update(fed_dir, batch_paths, processes=1, device=dev)
+        torch.cuda.synchronize()
+        t_update = time.perf_counter() - t0
+        launches = read_launches()
+        st = dict(federation.STATS)
+        parts = fed_update_checked("12b", st, launches, upd, FED_PARTITIONS)
+        fed_healthy(fed_dir, "12b", routed=parts, gen=1)
+        require(upd["admitted"] == INDEX_NEW and upd["generation"] == 1, f"12b: {upd}")
+        union = load_index(fed_dir)
+        plain = load_index(idx_dir)
+        fed_parts, plain_parts = union_partitions(union), union_partitions(plain)
+        require(fed_parts[0] == plain_parts[0] and fed_parts[1] == plain_parts[1],
+                "12b: the union's primary or secondary partition != phase 10's plain store after its update")
+        require(fed_parts[2] == plain_parts[2], "12b: the union's winners != phase 10's plain store's")
+        out["update"] = {"s": t_update, "launches": launches, "partitions": parts,
+                         **{k: st[k] for k in ("load_s", "join_s", "cross_candidates", "walk_s", "cross_pairs",
+                                               "cross_launches", "recluster_s", "union_secondary_calls",
+                                               "publish_s")}, "cross_edges": upd["cross_edges"]}
+        log(f"12b federated update: {json.dumps(out['update'])}; the union's partitions and winners equal phase "
+            f"10's plain store's")
+
+        # 12c: one-shot classify (load_resident_index(streaming=False) +
+        # one joint batch, index_classify's body on presketched queries)
+        before = tree_digest(fed_dir)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resident = load_resident_index(fed_dir, streaming=False)
+        t_res = time.perf_counter() - t0
+        got = classify_batch(resident, queries, processes=1, joint=True, device=dev)
+        torch.cuda.synchronize()
+        t_classify = time.perf_counter() - t0
+        launches = read_launches()
+        require(tree_digest(fed_dir) == before, "12c: classify changed the federation's tree")
+        require(launches["mash_shared"] > 0, f"12c: launches {launches}")
+        ties = verdicts_agree(got, si["joint"], "12c", renumbered=True)
+        out["classify"] = {"s": t_classify, "load_s": t_res, "launches": launches, "nearest_ties": ties}
+        log(f"12c classify: {len(got)} verdicts in {t_classify:.2f} s (load {t_res:.2f} s) equal 10c's joint "
+            f"ones (labels up to renumbering, {ties} nearest tie(s)); launches "
+            f"{ {k: v for k, v in launches.items() if v} }; the tree unchanged")
+        few = SketchedQueries(admitted=queries.admitted.iloc[:FED_MAINT_QUERIES].reset_index(drop=True),
+                              results=queries.results)
+        base = classify_batch(resident, few, processes=1, joint=False, device=dev)
+        verdicts_agree(base, si["separate"][:FED_MAINT_QUERIES], "12c separate", renumbered=True)
+        del resident
+
+        # 12d: compact_store on phase 10's plain store, then split, merge
+        # and compact of the federation, each leaving the union's
+        # partitions and the first queries' verdicts as they were
+        maint = {}
+
+        def after(loc: str, want_parts, want_verdicts, what: str) -> None:
+            res = load_resident_index(loc, streaming=False)
+            require(union_partitions(res) == want_parts, f"{what}: the union's partitions or winners changed")
+            verdicts_agree(classify_batch(res, few, processes=1, joint=False, device=dev), want_verdicts, what,
+                           renumbered=False)
+
+        def step(what: str, fn):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            maint[what] = {"s": time.perf_counter() - t0, "launches": {k: v for k, v in read_launches().items() if v}}
+            return res
+
+        manifest = read_json_checked(os.path.join(idx_dir, "manifest.json"))
+        require(len(manifest["sketch_shards"]) == 2, "12d: phase 10's store is not two generations")
+        summary = step("compact_store", lambda: compact_store(idx_dir, device=dev))
+        require(summary["generation"] == 2 and summary["compacted"], f"12d compact_store: {summary}")
+        require(len(read_json_checked(os.path.join(idx_dir, "manifest.json"))["sketch_shards"]) == 1,
+                "12d: the compacted store holds more than one sketch shard")
+        after(idx_dir, plain_parts, si["separate"][:FED_MAINT_QUERIES], "12d compact_store")
+        m = fedmeta.read_meta(fed_dir)
+        big = max(m["partitions"], key=lambda e: e["n_genomes"])
+        pid = int(big["pid"])
+        step("split", lambda: cli_main(["index", "split", fed_dir, "--pid", str(pid), "-p", "1", "--device", dev.type]))
+        m = fed_healthy(fed_dir, "12d split")
+        require(m["n_partitions"] == FED_PARTITIONS + 1 and m["generation"] == 2, "12d: split did not commit")
+        require(maint["split"]["launches"].get("indicator_mm", 0) > 0, f"12d split: {maint['split']}")
+        after(fed_dir, fed_parts, base, "12d split")
+        step("merge", lambda: cli_main(["index", "merge", fed_dir, "--pids", str(pid), str(pid + 1), "-p", "1",
+                                        "--device", dev.type]))
+        m = fed_healthy(fed_dir, "12d merge")
+        require(m["n_partitions"] == FED_PARTITIONS and m["generation"] == 3, "12d: merge did not commit")
+        require(maint["merge"]["launches"].get("indicator_mm", 0) > 0, f"12d merge: {maint['merge']}")
+        after(fed_dir, fed_parts, base, "12d merge")
+        step("compact", lambda: cli_main(["index", "compact", fed_dir, "--min_generations", "2", "-p", "1",
+                                          "--device", dev.type]))
+        m = fed_healthy(fed_dir, "12d compact")
+        require(m["generation"] == 4, "12d: compact did not commit")
+        for e in m["partitions"]:
+            pm = read_json_checked(os.path.join(fed_dir, e["dir"], "manifest.json"))
+            require(len(pm["sketch_shards"]) == 1, f"12d: partition {e['pid']} holds several generations")
+        after(fed_dir, fed_parts, base, "12d compact")
+        out["maintenance"] = maint
+        log(f"12d: compact_store, split of partition {pid} ({big['n_genomes']} genomes), merge back and compact; "
+            f"the partitions, winners and the first {FED_MAINT_QUERIES} queries' verdicts unchanged after each; "
+            f"{json.dumps(maint)}")
+
+        # 12e: a --fed_pods update of a federation of phase 10's prefix
+        # genomes against its in-process twin
+        pre_params = si["params"]
+        twin_a, twin_b = os.path.join(tmp, "fed_prefix_a"), os.path.join(tmp, "fed_prefix_b")
+        t0 = time.perf_counter()
+        build_federated(twin_a, paths[:INDEX_PREFIX], FED_PARTITIONS, processes=1, device=dev,
+                        **fed_kwargs(pre_params))
+        t_pre = time.perf_counter() - t0
+        shutil.copytree(twin_a, twin_b)
+        reset_launches()
+        t0 = time.perf_counter()
+        ua = index_update(twin_a, batch_paths, processes=1, device=dev)
+        t_in = time.perf_counter() - t0
+        launches = read_launches()
+        parts = fed_update_checked("12e in process", dict(federation.STATS), launches, ua, FED_PARTITIONS)
+        t0 = time.perf_counter()
+        ub = index_update(twin_b, batch_paths, processes=1, fed_pods=FED_PODS, device=dev)
+        t_pods = time.perf_counter() - t0
+        st = dict(federation.STATS)
+        rcs = st["pod_rcs"]
+        require(not st["failed"] and set(rcs.values()) == {0} and sorted(rcs) == sorted(parts)
+                and ub["partitions_failed"] == [] and ub["partitions_updated"] == ua["partitions_updated"],
+                f"12e: pods {rcs}, failed {st['failed']}")
+        fed_healthy(twin_b, "12e pods", routed=parts, gen=1)
+        files_a = sorted(os.path.relpath(os.path.join(d, f), twin_a) for d, _, fs in os.walk(twin_a) for f in fs
+                         if "log" not in os.path.relpath(d, twin_a).split(os.sep))
+        files_b = sorted(os.path.relpath(os.path.join(d, f), twin_b) for d, _, fs in os.walk(twin_b) for f in fs
+                         if "log" not in os.path.relpath(d, twin_b).split(os.sep))
+        require(files_a == files_b, f"12e: the pods' store holds other files than the in-process twin's")
+        for rel in files_a:
+            a, b = os.path.join(twin_a, rel), os.path.join(twin_b, rel)
+            if rel.endswith(".json"):
+                with open(a, "rb") as fa, open(b, "rb") as fb:
+                    require(fa.read() == fb.read(), f"12e: {rel} differs between the pods and the in-process twin")
+            else:
+                za, zb = load_npz_checked(a), load_npz_checked(b)
+                require(sorted(za) == sorted(zb) and all(np.array_equal(za[k], zb[k]) for k in za),
+                        f"12e: {rel} differs between the pods and the in-process twin")
+        out["pods"] = {"prefix_build_s": t_pre, "in_process_s": t_in, "pods_s": t_pods, "pod_rcs": rcs,
+                       "pods": FED_PODS, "in_process_launches": launches, "partitions": parts,
+                       "files_compared": len(files_a)}
+        log(f"12e: a {FED_PODS}-pod update of a {INDEX_PREFIX}-genome {FED_PARTITIONS}-partition federation "
+            f"equals its in-process twin ({len(files_a)} files); {json.dumps(out['pods'])}")
+    finally:
+        federation.sketch_batch = real_sketch_batch
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -2596,6 +2932,7 @@ def main() -> int:
         log(f"phase 9: {time.perf_counter() - t9:.1f} s")
         p10 = phase_index(tmp, dev, real)
         p11 = phase_serve(tmp, dev, p10)
+        p12 = phase_federation(tmp, dev, real, p10)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -2648,6 +2985,16 @@ def main() -> int:
         k["index_launches"] = {"update": p10["launches_update"][name],
                                **{f"classify_{m}": p10["launches_classify"][m][name] for m in ("joint", "separate")}}
         k["serve_launches"] = p11["launches"][name]
+        # phase 12, the federated index and its maintenance verbs
+        k["federation_launches"] = {
+            **{part: p12[part]["launches"][name] for part in ("build", "update", "classify")},
+            **{f"maintenance_{v}": p12["maintenance"][v]["launches"].get(name, 0) for v in p12["maintenance"]},
+            "prefix_in_process": p12["pods"]["in_process_launches"][name]}
+    kernels[0]["federation"] = {
+        **{f"{part}_s": p12[part]["s"] for part in ("build", "update", "classify")},
+        **{f"{part}_{k}": p12[part][k] for part in ("build", "update") for k in (
+            "join_s", "cross_candidates", "walk_s", "cross_pairs", "cross_launches")},
+        "pods_s": p12["pods"]["pods_s"], "in_process_s": p12["pods"]["in_process_s"], "phase_s": p12["phase_s"]}
     # phase 11, the serve daemon: the Mash kernel at the resident shape
     # ([N_pad resident rows x the batch's query rows], one launch a batch)
     kernels[0]["serve"] = {**p11["kernel"], **{k: p11[k] for k in (

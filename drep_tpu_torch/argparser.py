@@ -20,11 +20,12 @@ stage where the JAX package would run them. The flags in
 durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
 with the JAX defaults, and a run that sets one otherwise raises
 NotImplementedError naming its ROADMAP item (workflows.py).
-`index build|update|classify|serve` take the JAX CLI's flags plus
---device; its federated flags (--partitions, --fed_pods, --params_file)
-are in UNPORTED_FLAGS too, `index serve --events on` raises naming item
-13, and `index split|merge|compact|route|supervise` parse and raise
-NotImplementedError naming their item (:data:`UNPORTED_INDEX_OPS`).
+`index build|update|classify|serve|split|merge|compact` take the JAX
+CLI's flags plus --device, the federated ones included (`index build
+--partitions/--fed_pods`, `index update --fed_pods/--params_file`);
+`index serve` on a federated root and `index serve --events on` raise
+naming their items (11b, 13), and `index route|supervise` parse and raise
+NotImplementedError naming item 11b (:data:`UNPORTED_INDEX_OPS`).
 """
 
 from __future__ import annotations
@@ -50,19 +51,11 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
     "drain_grace_s": ((30.0,), "12b"),
     "run_tax": ((False,), "9b"),
     "cent_index": ((None,), "9b"),
-    # the federated index (`index build --partitions`, its pods and their
-    # sketches+params handoff)
-    "partitions": ((0,), "10b"),
-    "fed_pods": ((None,), "10b"),
-    "params_file": ((None,), "10b"),
 }
 
 # `index` subcommands of the JAX CLI that the port parses and refuses:
-# the federated index's maintenance verbs and the serve fleet
-UNPORTED_INDEX_OPS: dict[str, str] = {
-    "split": "10b", "merge": "10b", "compact": "10b",
-    "route": "11b", "supervise": "11b",
-}
+# the serve fleet
+UNPORTED_INDEX_OPS: dict[str, str] = {"route": "11b", "supervise": "11b"}
 
 
 def refuse_unported_flags(kwargs: dict) -> None:
@@ -231,9 +224,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="completed compare/dereplicate workdir to snapshot; omit to "
                         "bootstrap from -g FASTAs instead")
     b.add_argument("--partitions", type=int, default=0,
-                   help="a federated index: not ported yet (item 10b); 0 = one store")
+                   help="create a FEDERATED index: this many range partitions of the genome "
+                        "space (each a full index store) under one atomically published "
+                        "meta-manifest (index/federation.py). Bootstrap (-g) builds only; "
+                        "routing is by sketch-derived range code, pinned at creation. "
+                        "0 = one store")
     b.add_argument("--fed_pods", type=int, default=None,
-                   help="the federated build's pods: not ported yet (item 10b)")
+                   help="with --partitions: run the partitions' generation 0 as up to this many "
+                        "concurrent subprocess pods (sketches and pinned params ride a "
+                        "--params_file handoff into each pod)")
     bp = b.add_argument_group("INDEX PARAMETERS (bootstrap build only; "
                               "workdir builds pin the source run's)")
     bp.add_argument("-pa", "--P_ani", type=float, default=None)
@@ -258,9 +257,15 @@ def build_parser() -> argparse.ArgumentParser:
     add_index_io(u)
     add_prune(u)
     u.add_argument("--fed_pods", type=int, default=None,
-                   help="the federated index's update pods: not ported yet (item 10b)")
+                   help="FEDERATED index only: run the per-partition updates as up to this many "
+                        "concurrent subprocess pods (each the ordinary `index update` on one "
+                        "partition store). Default 0: in process, one at a time")
     u.add_argument("--params_file", default=None, metavar="NPZ",
-                   help="a federation's sketches+params handoff: not ported yet (item 10b)")
+                   help="sketches+params handoff from a federated router "
+                        "(index/federation.py write_params_handoff): the routed batch's sketches "
+                        "and the federation's pinned params, so a partition pod never re-sketches "
+                        "and an empty partition materializes generation 0. With it, -g is "
+                        "ignored: the handoff is the batch")
 
     c = isub.add_parser(
         "classify",
@@ -307,7 +312,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="manifest re-read cadence for the generation hot swap. Default 2 s")
     s.add_argument("--resident_mb", type=int, default=None,
                    help="a federated index's residency budget (MiB): parsed, unused on a "
-                        "plain root (the federated index is item 10b)")
+                        "plain root (serving a federated root is item 11b)")
     s.add_argument("--log_dir", default=None,
                    help="home for the daemon's logs and perf counters; never the index "
                         "directory (default: console-only logging, no files)")
@@ -317,6 +322,52 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu runs their plain "
                         "PyTorch versions and must be asked for)")
+
+    def add_maint_io(p: argparse.ArgumentParser):
+        p.add_argument("index_directory", help="the long-lived genome index")
+        p.add_argument("-p", "--processes", type=int, default=6)
+        p.add_argument("-d", "--debug", action="store_true")
+        p.add_argument("--io_retries", type=int, default=None,
+                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+        p.add_argument("--fsync", action="store_true",
+                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+        p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                       help="where the kernels run (default cuda; cpu runs their plain "
+                            "PyTorch versions and must be asked for)")
+
+    sp = isub.add_parser(
+        "split",
+        help="index lifecycle: bisect a FEDERATED partition's range at its sketch-code median "
+             "into two child partition stores, a staged meta-manifest transaction (children "
+             "under pending/, one atomic federation.json commit, the parent removed after); "
+             "crash-safe at every phase",
+    )
+    add_maint_io(sp)
+    sp.add_argument("--pid", type=int, required=True,
+                    help="the partition id to split (pids are renumbered densely by range order "
+                         "at commit)")
+    mg = isub.add_parser(
+        "merge",
+        help="index lifecycle: fold two ADJACENT federated partitions into one (the split's "
+             "inverse, the same staged transaction)",
+    )
+    add_maint_io(mg)
+    mg.add_argument("--pids", type=int, nargs=2, required=True, metavar=("PID_A", "PID_B"),
+                    help="the two adjacent partition ids to fold")
+    cp = isub.add_parser(
+        "compact",
+        help="index lifecycle: fold a store's N sketch/edge/state shard generations into one "
+             "and remove the superseded shards (a federated root compacts per partition and "
+             "commits through the meta-manifest; classify and update answer as on the "
+             "uncompacted store)",
+    )
+    add_maint_io(cp)
+    cp.add_argument("--pid", type=int, default=None,
+                    help="compact only this federated partition (default: every partition past "
+                         "--min_generations)")
+    cp.add_argument("--min_generations", type=int, default=None,
+                    help="without --pid: compact partitions holding at least this many shard "
+                         "generations (default 4)")
 
     for op, item in UNPORTED_INDEX_OPS.items():
         r = isub.add_parser(op, help=f"not ported yet (ROADMAP.md queue 1, item {item})")

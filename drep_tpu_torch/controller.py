@@ -16,6 +16,7 @@ from drep_tpu_torch.workflows import (
     dereplicate_wrapper,
     index_build_wrapper,
     index_classify_wrapper,
+    index_maintenance_wrapper,
     index_serve_wrapper,
     index_update_wrapper,
 )
@@ -46,10 +47,10 @@ def check_dependencies() -> list[str]:
 
 
 def index_operation(**kwargs):
-    """`index build|update|classify|serve`: classify prints one JSON
-    verdict line per query on stdout, as the JAX CLI does; build and
-    update log their summaries; serve blocks until drained (exit 0 is the
-    drain contract). The JAX CLI's other index subcommands raise
+    """`index build|update|classify|serve|split|merge|compact`: classify
+    prints one JSON verdict line per query on stdout, as the JAX CLI
+    does; the others log their summaries; serve blocks until drained
+    (exit 0 is the drain contract). `index route|supervise` raise
     NotImplementedError naming their ROADMAP item."""
     sub = kwargs.pop("index_op")
     index_loc = kwargs.pop("index_directory")
@@ -64,6 +65,8 @@ def index_operation(**kwargs):
         return index_update_wrapper(index_loc, genomes, **kwargs)
     if sub == "serve":
         return index_serve_wrapper(index_loc, **kwargs)
+    if sub in ("split", "merge", "compact"):
+        return index_maintenance_wrapper(index_loc, op=sub, **kwargs)
     if sub == "classify":
         verdicts = index_classify_wrapper(index_loc, genomes, **kwargs)
         for v in verdicts:

@@ -1,4 +1,4 @@
-"""The incremental genome index on one store (counterpart of drep_tpu/index).
+"""The incremental genome index (counterpart of drep_tpu/index).
 
 `build` snapshots a completed workdir, or bootstraps from FASTAs, as
 generation 0; `update` admits K new genomes per batch — the K x N tail
@@ -9,10 +9,20 @@ fused indicator kernel — and atomically publishes the next generation;
 Stores are the JAX package's format, so either package reads, updates and
 heals the other's.
 
-Not ported yet: the federated index and its maintenance verbs (split,
-merge, compact; ROADMAP.md queue 1 item 10b) and the serve tier with its
-device-resident pack (item 11). A federated root raises
-NotImplementedError.
+The federated index (index/federation.py, index/meta.py): `build
+--partitions N` splits the genome space into range partitions, each a
+full index store, under one atomically published meta-manifest; `update`
+routes a batch by sketch-derived range code and runs one independent
+update per dirty partition (in process or as `--fed_pods` subprocess
+pods); only boundary LSH buckets cross partitions. `load_index`, and so
+`classify`, reads a federated root as the assembled union. The
+maintenance verbs (index/maintenance.py) split and merge partitions and
+compact shard generations as staged transactions that `roll_forward`
+converges.
+
+Not ported yet: the streaming federated resident that `index serve`
+loads on a federated root (``FederatedResident``, ROADMAP.md queue 1
+item 11b).
 """
 
 from drep_tpu_torch.index.build import build_from_paths, build_from_workdir  # noqa: F401
@@ -22,6 +32,21 @@ from drep_tpu_torch.index.classify import (  # noqa: F401
     index_classify,
     load_resident_index,
     sketch_queries,
+)
+from drep_tpu_torch.index.federation import (  # noqa: F401
+    FederationStore,
+    build_federated,
+    fed_update,
+    load_federated,
+    read_params_handoff,
+    write_params_handoff,
+)
+from drep_tpu_torch.index.maintenance import (  # noqa: F401
+    compact_store,
+    fed_compact,
+    fed_merge,
+    fed_split,
+    roll_forward,
 )
 from drep_tpu_torch.index.store import IndexStore, LoadedIndex, load_index  # noqa: F401
 from drep_tpu_torch.index.update import index_update  # noqa: F401

@@ -14,9 +14,9 @@ Counterpart of drep_tpu/index/build.py. Two front doors:
 
 Refused at build, as in the JAX package: engines other than jax_mash /
 jax_ani, clusterAlg other than average|single, SkipMash, SkipSecondary,
-greedy, multiround and tertiary runs, and quality-informed scoring. A
-federated build (``--partitions``, ``--fed_pods``) raises
-NotImplementedError (ROADMAP.md queue 1 item 10b) in workflows.py.
+greedy, multiround and tertiary runs, and quality-informed scoring. The
+federated build (``--partitions``, ``--fed_pods``) is
+index/federation.py::build_federated.
 """
 
 from __future__ import annotations

@@ -20,8 +20,12 @@ FASTA whose basename is already indexed is a lookup, not a collision.
   resident sketch matrix held on the device (``resident_device.py``),
   or the union rectangle where that path cannot represent the batch.
 
-Not ported here: the federated resident (ROADMAP.md queue 1 item 10b;
-a federated root raises NotImplementedError).
+A federated root is answered from the union of its partitions
+(``load_resident_index(streaming=False)``, what one-shot `index
+classify` loads). Not ported here: the streaming federated resident
+that ``streaming=True`` returns there in the JAX package (ROADMAP.md
+queue 1 item 11b; it raises NotImplementedError before anything is
+read).
 """
 
 from __future__ import annotations
@@ -40,10 +44,16 @@ from drep_tpu_torch.index.update import STATS, _admit_batch, _rect_edges, reclus
 from drep_tpu_torch.utils.logger import get_logger
 
 
-def load_resident_index(index_loc: str) -> LoadedIndex:
+def load_resident_index(index_loc: str, streaming: bool = True, resident_mb: int | None = None) -> LoadedIndex:
     """Load the index once, read-only (``heal=False``: a rotted store is
-    refused, never rewritten). A federated root raises
-    NotImplementedError (item 10b)."""
+    refused, never rewritten). On a federated root ``streaming=False``
+    assembles the union of its partitions; ``streaming=True`` (the
+    serving view, with its residency budget `resident_mb`) raises
+    NotImplementedError (item 11b) before anything is read."""
+    from drep_tpu_torch.index import meta as fedmeta
+
+    if streaming:
+        fedmeta.refuse_federated_serving(index_loc, "loading the streaming federated resident")
     return load_index(index_loc, heal=False)
 
 
@@ -271,7 +281,9 @@ def index_classify(
     from drep_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    resident = load_resident_index(index_loc)
+    # a federated root is union-assembled: the one-shot classify is the
+    # oracle the streaming serving view is held to
+    resident = load_resident_index(index_loc, streaming=False)
     queries = sketch_queries(resident, genome_paths, processes=processes)
     prune_cfg = {
         "primary_prune": primary_prune,

@@ -46,9 +46,11 @@ Self-heal matrix (update-time; classify is read-only and refuses):
   component from the edges;
 - manifest corrupt, or state AND a sketch shard both rotted -> fatal.
 
+A federated root (index/federation.py) loads as the assembled union of
+its partitions.
+
 Not ported here: the JAX package's telemetry event at each publish
-(ROADMAP items 5.3 and 13) and its federated load (item 10b: a federated
-root raises NotImplementedError).
+(ROADMAP items 5.3 and 13).
 """
 
 from __future__ import annotations
@@ -312,12 +314,16 @@ def load_index(location: str, heal: bool = False, device=None) -> LoadedIndex:
     recompute runs on `device`); a rotted state is flagged
     (``state_missing``) for the caller to recluster. `heal=False`
     (classify, read-only) raises an actionable error instead of touching
-    the store. A federated root raises NotImplementedError (item 10b).
+    the store. A federated root loads as the union of its partitions at
+    the meta's generation (federation.load_federated).
     """
-    from drep_tpu_torch.index.meta import refuse_federated
+    from drep_tpu_torch.index import meta as fedmeta
     from drep_tpu_torch.utils import durableio
 
-    refuse_federated(location, "loading the index")
+    if fedmeta.is_federated(location):
+        from drep_tpu_torch.index.federation import load_federated
+
+        return load_federated(location, heal=heal, device=device)
     logger = get_logger()
     store = IndexStore(location)
     manifest = store.read_manifest()

@@ -25,12 +25,15 @@ Crash story: the rectangle checkpoints per-stripe shards under
 under deterministic generation-stamped names, and the mutation becomes
 visible only at the atomic manifest publish.
 
-Not ported here: the federated update and the params-file handoff of a
-federation's pods (ROADMAP.md queue 1 item 10b; both raise
-NotImplementedError before anything is sketched or written), with the
-frozen rows of federated serving; the JAX package's chaos hooks and
-stage counters (items 5.3 and 13). ``STATS`` holds the last update's
-seconds and launch counts instead.
+A federated root takes the same front door (index/federation.py): the
+batch routes to range partitions, and each dirty partition runs this
+update on its own store, in process or as a pod fed by a
+``--params_file`` handoff (which also materializes an empty partition's
+generation 0 under the federation's pinned params).
+
+Not ported here: the JAX package's chaos hooks and stage counters (items
+5.3 and 13). ``STATS`` holds the last update's seconds and launch counts
+instead.
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ import numpy as np
 import pandas as pd
 
 from drep_tpu_torch.errors import UserInputError
-from drep_tpu_torch.index.meta import FEDERATION_ITEM, refuse_federated
-from drep_tpu_torch.index.store import IndexStore, LoadedIndex, build_manifest, load_index
+from drep_tpu_torch.index import meta as fedmeta
+from drep_tpu_torch.index.store import IndexStore, LoadedIndex, build_manifest, empty_index, load_index
 from drep_tpu_torch.utils.logger import get_logger
 
 _STAT_COLS = ("length", "N50", "contigs", "n_kmers")
@@ -208,23 +211,25 @@ def _primary_partition(idx: LoadedIndex, n_old: int) -> tuple[np.ndarray, list[l
     return labels, groups, reclustered
 
 
-def _score_cluster(
-    idx: LoadedIndex, members: list[int], sec_names: list[str], ndb: pd.DataFrame
-) -> np.ndarray:
-    """Choose-stage scores for one primary cluster's members, with the
-    index's pinned weights, through the batch pipeline's score_and_pick
-    (row-local, so the subset call equals the full run's rows)."""
+def _score_clusters(idx: LoadedIndex, parts: list[tuple[list[int], list[str], pd.DataFrame]]) -> np.ndarray:
+    """Choose-stage scores of the members of several primary clusters
+    [(members, their secondary names, the cluster's Ndb)], with the
+    index's pinned weights, in one call of the batch pipeline's
+    score_and_pick. Its rows are local (a genome's own stats and its
+    centrality to co-members of its secondary cluster, summed in the
+    order its cluster's Ndb gives), so one call over many clusters gives
+    each row the value a call over its own cluster does."""
     from drep_tpu_torch.choose import score_and_pick
 
+    members = [i for m, _, _ in parts for i in m]
     names = [idx.names[i] for i in members]
-    cdb_sub = pd.DataFrame({"genome": names, "secondary_cluster": sec_names})
+    cdb_sub = pd.DataFrame({"genome": names, "secondary_cluster": [s for _, sec, _ in parts for s in sec]})
     stats_sub = idx.gdb.iloc[members][["genome", "length", "N50"]]
+    ndbs = [nd for _, _, nd in parts if len(nd)]
+    ndb = pd.concat(ndbs, ignore_index=True) if ndbs else pd.DataFrame({"querry": [], "reference": [], "ani": []})
     w = idx.params["weights"]
-    sdb_full, _ = score_and_pick(
-        cdb_sub, stats_sub, ndb, None, S_ani=idx.params["S_ani"], **w
-    )
-    by = sdb_full.set_index("genome")["score"]
-    return np.array([float(by[g]) for g in names], np.float64)
+    sdb_full, _ = score_and_pick(cdb_sub, stats_sub, ndb, None, S_ani=idx.params["S_ani"], **w)
+    return sdb_full["score"].to_numpy(np.float64)
 
 
 def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> dict:
@@ -279,8 +284,11 @@ def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> 
     # per-cluster secondary launches: one secondary_for_cluster call (on
     # the card, one indicator_mm launch at the cluster's own v_pad) for
     # each dirty multi-member cluster — many small launches, counted here,
-    # the largest cluster logged
+    # the largest cluster logged. The recomputed clusters are scored in
+    # one call after the loop, their winners picked then.
     secondary_calls, largest, t_secondary = 0, 0, 0.0
+    to_score: list[tuple[list[int], list[str], pd.DataFrame]] = []
+    no_ndb = pd.DataFrame({"querry": [], "reference": [], "ani": []})
     for pc, members in enumerate(groups, start=1):
         fs = frozenset(members)
         if fs in old_groups:
@@ -299,12 +307,8 @@ def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> 
             continue
         recomputed += 1
         if len(members) == 1:
-            i = members[0]
-            suffix[i] = 1  # the pipeline's singleton convention ("pc_1")
-            score[i] = _score_cluster(
-                idx, members, [f"{pc}_1"], pd.DataFrame({"querry": [], "reference": [], "ani": []})
-            )[0]
-            win_rows.append((f"{pc}_1", idx.names[i], float(score[i])))
+            suffix[members[0]] = 1  # the pipeline's singleton convention ("pc_1")
+            to_score.append((list(members), [f"{pc}_1"], no_ndb))
             continue
         ts = time.perf_counter()
         ndb, labs, _link = secondary_for_cluster(gs, bdb, list(members), pc, kw)
@@ -312,14 +316,17 @@ def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> 
         secondary_calls += 1
         largest = max(largest, len(members))
         suffix[members] = labs
-        sec_names = [f"{pc}_{int(l)}" for l in labs]
-        score[members] = _score_cluster(idx, list(members), sec_names, ndb)
-        by_s = {}
-        for i, lab in zip(members, labs):
-            by_s.setdefault(int(lab), []).append(i)
-        for s_val, mem in sorted(by_s.items()):
-            won = _pick([(idx.names[i], float(score[i])) for i in mem])
-            win_rows.append((f"{pc}_{s_val}", won[0], won[1]))
+        to_score.append((list(members), [f"{pc}_{int(l)}" for l in labs], ndb))
+    if to_score:
+        scored = [i for m, _, _ in to_score for i in m]
+        score[scored] = _score_clusters(idx, to_score)
+        for members, sec_names, _ in to_score:
+            by_name: dict[str, list[int]] = {}
+            for i, name in zip(members, sec_names):
+                by_name.setdefault(name, []).append(i)
+            for name, mem in by_name.items():
+                won = _pick([(idx.names[i], float(score[i])) for i in mem])
+                win_rows.append((name, won[0], won[1]))
     if secondary_calls:
         get_logger().info(
             "index recluster: %d secondary re-run(s) of dirty primary clusters in %.2f s, "
@@ -438,6 +445,42 @@ def publish_generation(
     STATS["publish_s"] = time.perf_counter() - t0
 
 
+def materialize_generation0(
+    store: IndexStore, params: dict, batch: pd.DataFrame, results: dict[str, dict], processes: int = 1,
+    device=None,
+) -> dict:
+    """Generation 0 of a new store from presketched genomes and pinned
+    params, on `device`: a federation partition inherits the meta's
+    params verbatim (under ``--fed_pods`` they ride the params handoff,
+    since the CLI cannot express them)."""
+    from drep_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if not len(batch):
+        raise UserInputError(
+            f"partition {store.location}: no routed genome survived the "
+            f"length filter — nothing to materialize"
+        )
+    STATS.clear()
+    t0 = time.perf_counter()
+    idx = empty_index(dict(params), location=store.location)
+    _admit_batch(idx, batch, results, 0)
+    ii, jj, dd, pairs = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    order = np.lexsort((jj, ii))
+    idx.edges = (ii[order], jj[order], dd[order])
+    summary = recluster(idx, 0, processes=processes, device=dev)
+    publish_generation(store, idx, 0, 0, idx.edges)
+    STATS["total_s"] = time.perf_counter() - t0
+    summary.update(
+        {
+            "admitted": idx.n, "n_genomes": idx.n, "generation": 0,
+            "new_edges": int(len(ii)), "pairs_compared": int(pairs),
+            "healed": [],
+        }
+    )
+    return summary
+
+
 def index_update(
     index_loc: str, genome_paths: list[str] | None, processes: int = 1,
     primary_prune: str = "off", prune_bands: int = 0, prune_min_shared: int = 0,
@@ -456,29 +499,50 @@ def index_update(
     sketched elsewhere in place of `genome_paths`. `primary_prune="lsh"`
     routes the rectangle through the LSH candidate set (see _rect_edges):
     an execution knob, never pinned, since the edges are the same.
-    A federated root, `fed_pods` and `params_file` raise
-    NotImplementedError (ROADMAP.md queue 1 item 10b) before anything is
-    sketched or written."""
+
+    A federated root routes the batch over its partitions
+    (federation.fed_update; `fed_pods` > 0 runs them as concurrent
+    subprocess pods). `params_file` is a federation router's handoff to
+    one partition store: the routed batch's sketches and the pinned
+    params; a store that does not exist yet materializes generation 0
+    under them."""
     from drep_tpu_torch.device import resolve_device
 
-    refuse_federated(index_loc, "index update")
-    if fed_pods is not None:
-        raise NotImplementedError(
-            f"--fed_pods {fed_pods!r}: the federated index's update pods are not ported yet "
-            f"({FEDERATION_ITEM})"
-        )
-    if params_file:
-        raise NotImplementedError(
-            f"--params_file {params_file!r}: a federation's sketches+params handoff is not "
-            f"ported yet ({FEDERATION_ITEM})"
-        )
     dev = resolve_device(device)
+    if fedmeta.is_federated(index_loc):
+        from drep_tpu_torch.index.federation import fed_update
+
+        if params_file or presketched:
+            raise UserInputError(
+                "--params_file targets ONE partition store (the router "
+                "writes it); the federation root takes plain -g genomes"
+            )
+        return fed_update(
+            index_loc, genome_paths, processes=processes, fed_pods=fed_pods,
+            primary_prune=primary_prune, prune_bands=prune_bands,
+            prune_min_shared=prune_min_shared, prune_join_chunk=prune_join_chunk, device=dev,
+        )
     logger = get_logger()
+    store = IndexStore(index_loc)
+    handoff_params = None
+    if params_file:
+        from drep_tpu_torch.index.federation import read_params_handoff
+
+        handoff = read_params_handoff(params_file)
+        handoff_params = handoff["params"]
+        presketched = (handoff["batch"], handoff["results"])
+        if not store.exists():
+            return materialize_generation0(store, handoff_params, *presketched, processes=processes, device=dev)
     STATS.clear()
     t0 = time.perf_counter()
-    store = IndexStore(index_loc)
     idx = load_index(index_loc, heal=True, device=dev)
     STATS["load_s"] = time.perf_counter() - t0
+    if handoff_params is not None and dict(idx.params) != dict(handoff_params):
+        raise UserInputError(
+            f"params handoff {params_file} pins different params than the "
+            f"store at {index_loc} — the handoff belongs to a different "
+            f"federation (or generation); refuse rather than drift numerics"
+        )
     gen_new = idx.generation + 1
 
     batch = results = None
@@ -487,8 +551,9 @@ def index_update(
         dup = sorted(set(batch["genome"]) & set(idx.names))
         if dup:
             raise UserInputError(
-                f"{len(dup)} presketched genome basename(s) already indexed: "
-                f"{dup[:5]} — the index keys genomes by basename"
+                f"{len(dup)} handoff genome basename(s) already indexed: "
+                f"{dup[:5]} — the router routed a batch this store already "
+                f"admitted (resume the interrupted update instead)"
             )
     elif genome_paths:
         batch, results = sketch_batch(idx, genome_paths, processes=processes)

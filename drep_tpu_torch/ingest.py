@@ -79,6 +79,12 @@ def _unpack_ragged(flat: np.ndarray, offs: np.ndarray, n: int) -> list[np.ndarra
     return [flat[offs[i] : offs[i + 1]] for i in range(n)]
 
 
+# the index store and the federation's params handoff serialize sketches
+# in this one ragged layout
+pack_ragged = _pack_ragged
+unpack_ragged = _unpack_ragged
+
+
 def _sketch_jobs(jobs: list[tuple], processes: int) -> dict[str, dict]:
     """sketch_worker.sketch_one over `jobs`, in a spawn pool when asked."""
     results: dict[str, dict] = {}

@@ -1,8 +1,8 @@
 """Host-side range partitioning of sorted sketch-id rows.
 
-Counterpart of drep_tpu/ops/rangepart.py (the partitioners; its index and
-federation helpers belong to the index slice). Intersection counts are
-additive over disjoint id ranges:
+Counterpart of drep_tpu/ops/rangepart.py, but for its serving router's
+``bitmap_contains_any`` (ROADMAP.md queue 1 item 11b). Intersection
+counts are additive over disjoint id ranges:
 
     |A ∩ B| = Σ_r |A ∩ [b_r, b_{r+1}) ∩ B|
 
@@ -13,7 +13,12 @@ counts sum. Two callers:
   PALLAS_MAX_WIDTH: :func:`stacked_range_buckets` repacks every row into
   R shared id-range buckets of one common width, one [R, N, W] tensor;
 - the vocabulary-chunked matmul (ops/containment.py) caps the indicator
-  width: its chunks reuse :func:`bucket_starts` and :func:`repack_bucket`.
+  width: its chunks reuse :func:`bucket_starts` and :func:`repack_bucket`;
+- the federated index's boundary join (index/federation.py) bands the
+  raw uint64 bottom hashes into a shared code space
+  (:func:`hash_code_matrix`) and range-shards it with
+  :func:`partition_by_range`; every federated publish writes one routing
+  bitmap a partition (:func:`code_summary_bitmap`).
 
 Rows hold distinct sorted ids (sketches are sets), so a bucket covering
 `w` consecutive ids holds at most `w` entries a row and the adaptive
@@ -30,6 +35,48 @@ import numpy as np
 from drep_tpu_torch.ops.minhash import PAD_ID, U16_PAD, next_pow2, pad_sentinel
 
 MIN_BUCKET_WIDTH = 128  # never repack below one 128-wide row
+
+# raw uint64 sketch hashes -> int32 band codes: drop 34 low bits, so the
+# code space is 2^30 (< PAD_ID: the pad can never collide with a code).
+# The map is monotone and many-to-one: two sketches sharing a hash share
+# its code (the boundary join's recall), distinct hashes may share one
+# (paid in candidates only).
+HASH_CODE_SHIFT = 34
+
+# the routing summary's coarse code space: the top 16 bits of a raw hash
+# (a further coarsening of the band code), one 8 KiB bitmap a partition
+ROUTE_SUMMARY_BITS = 16
+
+
+def hash_code_matrix(hash_rows: list[np.ndarray], shift: int = HASH_CODE_SHIFT) -> np.ndarray:
+    """Sorted uint64 hash rows (raw bottom sketches) -> one [N, W] int32
+    PAD-padded matrix of each row's distinct sorted band codes: the
+    layout :func:`partition_by_range` shards. Packed ids are ranks local
+    to one pack, so two partitions can only be joined on raw hashes."""
+    n = len(hash_rows)
+    codes = [np.unique((np.asarray(r, np.uint64) >> np.uint64(shift)).astype(np.int32)) for r in hash_rows]
+    width = max((len(c) for c in codes), default=0)
+    out = np.full((n, max(1, width)), PAD_ID, dtype=np.int32)
+    for i, c in enumerate(codes):
+        out[i, : len(c)] = c
+    return out
+
+
+def coarse_codes(hash_row: np.ndarray, bits: int = ROUTE_SUMMARY_BITS) -> np.ndarray:
+    """The distinct sorted coarse codes (top `bits` bits) of one raw
+    uint64 hash row."""
+    return np.unique((np.asarray(hash_row, np.uint64) >> np.uint64(64 - bits)).astype(np.int64))
+
+
+def code_summary_bitmap(hash_rows: list[np.ndarray], bits: int = ROUTE_SUMMARY_BITS) -> np.ndarray:
+    """A packed uint64 bitmap over the 2^bits coarse codes with a bit set
+    for every code present in any of `hash_rows`: a partition's routing
+    summary, exact (a superset test, no false negatives)."""
+    bm = np.zeros((1 << bits) >> 6, np.uint64)
+    for r in hash_rows:
+        c = coarse_codes(r, bits)
+        np.bitwise_or.at(bm, c >> 6, np.left_shift(np.uint64(1), (c & 63).astype(np.uint64)))
+    return bm
 
 
 def vocab_extent(ids: np.ndarray) -> int:

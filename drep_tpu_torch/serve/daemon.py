@@ -28,9 +28,10 @@ serves classify requests over a local socket until drained:
   utils/profiling.py, served by the ``status`` op and HTTP ``/healthz``
   and written under ``--log_dir``, never the index directory.
 
-Not ported: the federated resident (item 10b), so ``classify_part`` and
-``prewarm`` answer ``not_federated`` as the JAX daemon does on a plain
-root; the router (``fleet`` answers ``not_a_router``; item 11b); event
+Not ported: the streaming federated resident (item 11b): on a federated
+root ``start()`` raises NotImplementedError before anything is loaded,
+and ``classify_part`` and ``prewarm`` answer ``not_federated`` as the JAX
+daemon does on a plain root; the router (``fleet`` answers ``not_a_router``; item 11b); event
 tracing (item 13); the snapshot's ``update_pod`` field, which the JAX
 daemon also omits when its pod-status tool is unreachable (item 12b).
 
@@ -138,7 +139,7 @@ class IndexServer:
         start the acceptor and generation-poller threads. Returns the
         bound address."""
         t0 = time.monotonic()
-        self._resident = load_resident_index(self.cfg.index_loc)
+        self._resident = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb)
         counters.set_gauge("serve_generation", float(self._resident.generation))
         # arm the resident rectangle before the first batch: one sketch
         # matrix upload per generation, not per batch
@@ -321,7 +322,7 @@ class IndexServer:
             if self._resident is None or gen <= int(self._resident.generation):
                 continue
             try:
-                fresh = load_resident_index(self.cfg.index_loc)
+                fresh = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb)
             except Exception as e:  # noqa: BLE001 — keep serving the old generation
                 get_logger().warning(
                     "serve: failed to load generation %d (%s) — still serving %d",
@@ -371,7 +372,7 @@ class IndexServer:
             "batches_total": self.stats.batches_total,
             "generation_swaps": self.stats.swaps_total,
             "latency_ms": hists,
-            # a plain root never answers PARTIAL (federated serving, item 10b)
+            # a plain root never answers PARTIAL (federated serving, item 11b)
             "partial_refusals": 0,
             "deadline_shed": self.stats.deadline_shed,
             "cancels": self.stats.cancels,

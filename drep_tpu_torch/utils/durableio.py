@@ -153,6 +153,18 @@ def atomic_write_json(path: str, obj: dict[str, Any], default=str) -> None:
     atomic_write_bytes(path, dump_json_checked(obj, default=default))
 
 
+def read_json_unverified(path: str, what: str = "note"):
+    """Read + parse a JSON document without verifying its checksum: a
+    present ``"crc"`` key stays in the returned document (a federation
+    meta records each partition manifest's)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    try:
+        return json.loads(raw.decode())
+    except ValueError as e:  # includes UnicodeDecodeError
+        raise CorruptPayloadError(f"{what} {path}: unparseable JSON ({e})") from e
+
+
 def read_json_checked(path: str, what: str = "note"):
     """Read + verify a checked JSON document; the ``"crc"`` key is
     stripped from the returned dict."""

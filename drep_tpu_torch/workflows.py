@@ -4,7 +4,7 @@ Counterpart of drep_tpu/workflows.py (compare, dereplicate and the
 one-store genome index):
 dereplicate = filter -> cluster -> choose -> evaluate -> analyze;
 compare = cluster -> evaluate -> analyze (no filter/choose);
-index build|update|classify = drep_tpu_torch/index;
+index build|update|classify|split|merge|compact = drep_tpu_torch/index;
 index serve = drep_tpu_torch/serve.
 
 All run on `device` (default cuda); a CUDA request on a machine without
@@ -81,21 +81,16 @@ def dereplicate_wrapper(
     return wdb
 
 
-def _init_index(index_loc: str, op: str, device, kwargs: dict, write_logs: bool = True):
-    """An index command's checks, then its logging: the unported flags,
-    the device and (but for a build, which refuses any existing index) a
-    federated root are refused before anything is written; then the
-    logger goes under the index's log dir. `write_logs=False` (classify)
-    keeps logging on the console: classify writes nothing under the
-    index tree. Returns the device."""
+def _init_index(index_loc: str, device, kwargs: dict, write_logs: bool = True):
+    """An index command's checks, then its logging: the unported flags and
+    the device are refused before anything is written; then the logger
+    goes under the index's log dir. `write_logs=False` (classify) keeps
+    logging on the console: classify writes nothing under the index
+    tree. Returns the device."""
     import os
-
-    from drep_tpu_torch.index.meta import refuse_federated
 
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
-    if op != "build":
-        refuse_federated(index_loc, f"index {op}")
     setup_logger(os.path.join(os.path.abspath(index_loc), "log") if write_logs else None)
     return dev
 
@@ -115,18 +110,32 @@ def index_build_wrapper(
     device=None, **kwargs,
 ) -> dict:
     """`index build`: generation 0 from a completed workdir snapshot
-    (--work_directory) or bootstrapped from FASTAs (-g)."""
-    from drep_tpu_torch.index import build_from_paths, build_from_workdir
+    (--work_directory) or bootstrapped from FASTAs (-g). With
+    ``--partitions N`` the bootstrap creates a federated index: N range
+    partitions under one meta-manifest, the whole input admitted as
+    federation generation 0 (``--fed_pods``: the partitions as pods)."""
+    from drep_tpu_torch.index import build_federated, build_from_paths, build_from_workdir
 
-    dev = _init_index(index_loc, "build", device, kwargs)
+    dev = _init_index(index_loc, device, kwargs)
     if work_directory and genomes:
         raise UserInputError("index build takes --work_directory OR -g genomes, not both")
+    partitions = int(kwargs.pop("partitions", 0) or 0)
+    fed_pods = kwargs.pop("fed_pods", None)
     if work_directory:
+        if partitions:
+            raise UserInputError(
+                "index build --partitions is a bootstrap (-g) mode: a "
+                "workdir snapshot has no per-genome routing pass — build "
+                "federated from the FASTAs instead"
+            )
         return build_from_workdir(index_loc, work_directory)
     if genomes:
+        processes = kwargs.get("processes", 1) or 1
         params = {k: v for k, v in kwargs.items() if k not in ("processes", *UNPORTED_FLAGS)}
-        return build_from_paths(index_loc, genomes, processes=kwargs.get("processes", 1) or 1,
-                                device=dev, **params)
+        if partitions:
+            return build_federated(index_loc, genomes, partitions, processes=processes, fed_pods=fed_pods,
+                                   device=dev, **params)
+        return build_from_paths(index_loc, genomes, processes=processes, device=dev, **params)
     raise UserInputError(
         "index build needs a source: --work_directory <completed run> or "
         "-g <genome FASTAs>"
@@ -134,11 +143,35 @@ def index_build_wrapper(
 
 
 def index_update_wrapper(index_loc: str, genomes: list[str] | None = None, device=None, **kwargs) -> dict:
-    """`index update`: admit a batch (or heal, with no genomes)."""
+    """`index update`: admit a batch (or heal, with no genomes). A
+    federated root routes by range code and updates its partitions as
+    independent units (``--fed_pods``: concurrent subprocess pods)."""
     from drep_tpu_torch.index import index_update
 
-    dev = _init_index(index_loc, "update", device, kwargs)
-    return index_update(index_loc, genomes, device=dev, **_prune_kwargs(kwargs))
+    dev = _init_index(index_loc, device, kwargs)
+    return index_update(index_loc, genomes, device=dev, fed_pods=kwargs.get("fed_pods"),
+                        params_file=kwargs.get("params_file"), **_prune_kwargs(kwargs))
+
+
+def index_maintenance_wrapper(index_loc: str, op: str, device=None, **kwargs) -> dict:
+    """`index split|merge|compact`: the transactional index lifecycle
+    (index/maintenance.py). Each verb first converges an interrupted
+    earlier transaction (roll_forward), then runs its own."""
+    from drep_tpu_torch.index import fed_compact, fed_merge, fed_split
+
+    dev = _init_index(index_loc, device, kwargs)
+    processes = kwargs.get("processes", 1) or 1
+    if op == "split":
+        summary = fed_split(index_loc, int(kwargs["pid"]), processes=processes, device=dev)
+    elif op == "merge":
+        pid_a, pid_b = kwargs["pids"]
+        summary = fed_merge(index_loc, int(pid_a), int(pid_b), processes=processes, device=dev)
+    else:
+        min_gens = kwargs.get("min_generations")
+        summary = fed_compact(index_loc, pid=kwargs.get("pid"), processes=processes,
+                              min_generations=4 if min_gens is None else int(min_gens), device=dev)
+    get_logger().info("index %s summary: %s", op, summary)
+    return summary
 
 
 def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, device=None,
@@ -148,7 +181,7 @@ def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, dev
 
     if not genomes:
         raise UserInputError("index classify needs -g <genome FASTAs>")
-    dev = _init_index(index_loc, "classify", device, kwargs, write_logs=False)
+    dev = _init_index(index_loc, device, kwargs, write_logs=False)
     return index_classify(index_loc, genomes, device=dev, **_prune_kwargs(kwargs))
 
 
@@ -159,13 +192,14 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
 
     What the port does not run is refused before anything is loaded:
     ``--events on`` (item 13), ``--io_retries`` and ``--fsync`` (item 5),
-    a federated root (item 10b). The daemon is a pure reader of the
+    a federated root (the streaming resident, item 11b). The daemon is a
+    pure reader of the
     index, so its logs and counters live under ``--log_dir`` (or nowhere),
     never in the index tree."""
     import logging
     import os
 
-    from drep_tpu_torch.index.meta import refuse_federated
+    from drep_tpu_torch.index.meta import refuse_federated_serving
     from drep_tpu_torch.serve import IndexServer, ServeConfig, install_signal_handlers
     from drep_tpu_torch.utils.profiling import counters, start_metrics_flush, stop_metrics_flush
 
@@ -174,7 +208,7 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
             "index serve --events on: event tracing is not ported yet (ROADMAP.md queue 1, item 13)"
         )
     refuse_unported_flags(kwargs)
-    refuse_federated(index_loc, "index serve")
+    refuse_federated_serving(index_loc, "index serve")
     dev = resolve_device(device)
     log_dir = kwargs.get("log_dir") or None
     if log_dir:

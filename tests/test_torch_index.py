@@ -81,9 +81,18 @@ def _files(root: str) -> set[str]:
     return out
 
 
+def _walk_family(rel: str) -> bool:
+    """An edge shard of a store (a federation partition's too) or a
+    federation's cross shard: a payload of Mash distances."""
+    parts = rel.split(os.sep)
+    return len(parts) >= 2 and parts[-2] in ("edges", "cross")
+
+
 def assert_stores_match(got: str, want: str, exact: bool = False) -> None:
-    """`got` == `want` payload by payload; an edge shard's dist (and its
-    __crc__) at rtol=1e-6 unless `exact` (module docstring)."""
+    """`got` == `want` payload by payload (a plain store, or a federation:
+    federation.json, its partitions, cross/, state/ and routing/); an
+    edge or cross shard's dist (and its __crc__) at rtol=1e-6 unless
+    `exact` (module docstring)."""
     assert _files(got) == _files(want)
     for rel in sorted(_files(got)):
         a, b = os.path.join(got, rel), os.path.join(want, rel)
@@ -93,7 +102,7 @@ def assert_stores_match(got: str, want: str, exact: bool = False) -> None:
             continue
         with np.load(a) as za, np.load(b) as zb:
             assert sorted(za.files) == sorted(zb.files), rel
-            loose = () if exact or not rel.startswith("edges") else ("dist", "__crc__")
+            loose = () if exact or not _walk_family(rel) else ("dist", "__crc__")
             for k in za.files:
                 if k not in loose:
                     assert za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k]), (rel, k)
@@ -428,38 +437,43 @@ def test_update_resumes_jax_pending_shards(tmp_path, lifecycle, planted, monkeyp
 
 
 def test_federated_root_and_arguments_refuse(tmp_path, genome_paths, monkeypatch):
-    """A federated root, --fed_pods and --params_file raise
-    NotImplementedError naming item 10b before anything is sketched or
-    written; a build over an existing index raises the JAX package's
-    UserInputError."""
-    import drep_tpu_torch.ingest as ingest_mod
+    """A federated root loads, updates and classifies as the union; what
+    still refuses there is the streaming resident of `index serve`
+    (NotImplementedError naming item 11b before anything is read) and a
+    partition pod's --params_file (the JAX package's UserInputError).
+    On a plain root --fed_pods is ignored and a --params_file handoff
+    materializes a missing store's generation 0; a build over an
+    existing index raises the JAX package's UserInputError."""
+    from drep_tpu_torch.index import build_federated, read_params_handoff, write_params_handoff
+    from drep_tpu_torch.index.store import empty_index
+    from drep_tpu_torch.index.update import sketch_batch
 
-    def no_sketching(*a, **k):
-        raise AssertionError("sketched before refusing")
-
-    monkeypatch.setattr(ingest_mod, "sketch_paths", no_sketching)
-    fed = tmp_path / "fed"
-    fed.mkdir()
-    (fed / "federation.json").write_text("{}")
-    before = lib.tree_digest(str(fed), exclude_dirs=())
-    for call in (
-        lambda: index_update(str(fed), genome_paths, device=CPU),
-        lambda: index_classify(str(fed), genome_paths, device=CPU),
-        lambda: load_index(str(fed), heal=True),
-        lambda: load_resident_index(str(fed)),
-    ):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            call()
-    assert lib.tree_digest(str(fed), exclude_dirs=()) == before
+    fed = str(tmp_path / "fed")
+    build_federated(fed, genome_paths[:3], 2, processes=1, device=CPU)
+    before = lib.tree_digest(fed, exclude_dirs=())
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        load_resident_index(fed)
+    assert lib.tree_digest(fed, exclude_dirs=()) == before
+    union = load_resident_index(fed, streaming=False)
+    assert union.n == 3 and load_index(fed, heal=True).n == 3
+    assert index_classify(fed, genome_paths[:1], processes=1, device=CPU)[0]["nearest_dist"] == 0.0
     with pytest.raises(UserInputError, match="FEDERATED"):
-        build_from_paths(str(fed), genome_paths, device=CPU)
+        build_from_paths(fed, genome_paths, device=CPU)
+    with pytest.raises(UserInputError, match="targets ONE partition store"):
+        index_update(fed, genome_paths[3:], device=CPU, params_file="handoff.npz")
+    summary = index_update(fed, genome_paths[3:], processes=1, device=CPU)
+    assert summary["generation"] == 1 and summary["n_genomes"] == 5
+    # a plain root: the handoff materializes generation 0; fed_pods is ignored
+    idx = load_index(fed)
+    handoff = str(tmp_path / "handoff.npz")
+    batch, results = sketch_batch(empty_index(idx.params), genome_paths[:2], processes=1)
+    write_params_handoff(handoff, idx.params, batch, results)
     plain = str(tmp_path / "plain")
-    for kw in ({"fed_pods": 2}, {"params_file": "handoff.npz"}):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            index_update(plain, genome_paths, device=CPU, **kw)
-    assert not os.path.exists(plain)
-    monkeypatch.undo()
-    build_from_paths(plain, genome_paths[:1], processes=1, device=CPU)
+    summary = index_update(plain, None, processes=1, device=CPU, params_file=handoff)
+    assert summary["generation"] == 0 and summary["n_genomes"] == 2
+    assert read_params_handoff(handoff)["params"] == load_index(plain).params
+    summary = index_update(plain, genome_paths[2:3], processes=1, device=CPU, fed_pods=2)
+    assert summary["generation"] == 1 and summary["n_genomes"] == 3
     with pytest.raises(UserInputError, match="build refuses to overwrite"):
         build_from_paths(plain, genome_paths[1:2], processes=1, device=CPU)
 

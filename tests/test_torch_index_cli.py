@@ -99,10 +99,61 @@ def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monke
         assert lib.tree_digest(loc, exclude_dirs=()) == before
 
 
+@pytest.fixture(scope="module")
+def planted(tmp_path_factory) -> list[str]:
+    """40 planted 6 kb genomes in 12 groups of 1-6, in a seeded order."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    groups = [int(x) for x in rng.integers(1, 7, size=12)]
+    groups[-1] += 40 - sum(groups)
+    assert groups[-1] > 0
+    paths = lib.write_genome_set(str(tmp_path_factory.mktemp("cli_planted")), groups, seed=22)
+    return [paths[i] for i in rng.permutation(len(paths))]
+
+
+# the federated lifecycle both CLIs run: a build over 3 partitions, an
+# update, then the maintenance verbs with the flags the port refused
+# before they were ported
+FED_STEPS = [
+    ("build", ["--partitions", "3", "-l", "0", "-ms", "256", "--streaming_block", "128"], (0, 30)),
+    ("update", [], (30, 38)),
+    ("split", ["--pid", "1"], None),
+    ("merge", ["--pids", "1", "2"], None),
+    ("compact", ["--min_generations", "2"], None),
+]
+
+
+@pytest.fixture(scope="module")
+def fed_cli_runs(tmp_path_factory, planted):
+    """Both CLIs through FED_STEPS on one federated root each, the root
+    copied aside after every step. Returns {(package, op): root}."""
+    import shutil
+
+    root = tmp_path_factory.mktemp("fed_cli")
+    out = {}
+    for pkg, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        loc = str(root / pkg)
+        for op, flags, genomes in FED_STEPS:
+            g = ["-g", *planted[genomes[0]:genomes[1]]] if genomes else []
+            main(["index", op, loc, *g, *flags, "-p", "1", *extra])
+            out[(pkg, op)] = str(root / f"{pkg}_{op}")
+            shutil.copytree(loc, out[(pkg, op)])
+    return out
+
+
+@pytest.mark.parametrize("op", [s[0] for s in FED_STEPS])
+def test_cli_federated_lifecycle_equals_jax(fed_cli_runs, op):
+    """`index build --partitions 3`, `update`, `split --pid 1`, `merge
+    --pids 1 2` and `compact --min_generations 2` on the port's CLI leave
+    the federation the JAX CLI leaves."""
+    assert_stores_match(fed_cli_runs[("torch", op)], fed_cli_runs[("jax", op)])
+    with open(os.path.join(fed_cli_runs[("torch", op)], "federation.json")) as f:
+        m = json.load(f)
+    assert m["n_partitions"] == (4 if op == "split" else 3) and "partial" not in m
+
+
 @pytest.mark.parametrize("op,args,item", [
-    ("split", ["--pid", "1"], "10b"),
-    ("merge", ["--pids", "1", "2"], "10b"),
-    ("compact", ["--min_generations", "2"], "10b"),
     ("route", ["--replica", "127.0.0.1:1"], "11b"),
     ("supervise", ["--replica", "2"], "11b"),
 ])
@@ -118,19 +169,13 @@ def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
     (["--events", "on", "--log_dir", "LOG"], "13"),
     (["--io_retries", "3"], "5"),
     (["--fsync"], "5"),
-    ([], "10b"),
+    ([], "11b"),
 ])
-def test_cli_serve_refusals(tmp_path, cli_runs, flags, item):
+def test_cli_serve_refusals(tmp_path, cli_runs, fed_cli_runs, flags, item):
     """`index serve` refuses what the port does not run before anything
     is loaded, naming its item: event tracing, the durable-I/O flags, a
-    federated root (the last case: a root holding federation.json)."""
-    if item == "10b":
-        loc = str(tmp_path / "fed")
-        os.makedirs(loc)
-        with open(os.path.join(loc, "federation.json"), "w") as f:
-            f.write("{}")
-    else:
-        loc = cli_runs["torch"][0]
+    federated root (the last case: the streaming resident)."""
+    loc = fed_cli_runs[("torch", "update")] if item == "11b" else cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=())
     argv = [str(tmp_path / "log") if a == "LOG" else a for a in flags]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
@@ -140,31 +185,75 @@ def test_cli_serve_refusals(tmp_path, cli_runs, flags, item):
 
 
 @pytest.mark.parametrize("op,flags,item", [
-    ("build", ["--partitions", "2"], "10b"),
-    ("build", ["--fed_pods", "2"], "10b"),
-    ("update", ["--fed_pods", "2"], "10b"),
-    ("update", ["--params_file", "handoff.npz"], "10b"),
     ("update", ["--io_retries", "3"], "5"),
     ("classify", ["--fsync"], "5"),
 ])
 def test_cli_unported_flags_raise(tmp_path, genome_paths, op, flags, item):
-    """Federated and execution flags the port does not run raise
-    NotImplementedError naming their item before anything is sketched or
-    written (the index directory is not even created)."""
+    """Execution flags the port does not run raise NotImplementedError
+    naming their item before anything is sketched or written (the index
+    directory is not even created)."""
     loc = str(tmp_path / "idx")
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         torch_main(["index", op, loc, "-g", *genome_paths, "--device", "cpu", *flags])
     assert not os.path.exists(loc)
 
 
-def test_cli_federated_root_refuses(tmp_path, genome_paths):
-    fed = tmp_path / "fed"
-    fed.mkdir()
-    (fed / "federation.json").write_text("{}")
-    for op in ("update", "classify"):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            torch_main(["index", op, str(fed), "-g", genome_paths[0], "--device", "cpu"])
-    assert os.listdir(fed) == ["federation.json"]
+@pytest.mark.parametrize("op,flags", [
+    ("build", ["--partitions", "2"]),
+    ("build", ["--fed_pods", "2"]),
+    ("update", ["--fed_pods", "2"]),
+    ("update", ["--params_file", "HANDOFF"]),
+])
+def test_cli_federated_flags_run_as_jax(tmp_path, genome_paths, op, flags):
+    """The federated flags run as the JAX CLI runs them: `build
+    --partitions 2` builds a federation, `--fed_pods` without one is
+    ignored, and `update --params_file` materializes a missing store from
+    a router's handoff (genomes A-C, then D-E or the handoff)."""
+    from drep_tpu_torch.index import load_index, write_params_handoff
+    from drep_tpu_torch.index.store import empty_index
+    from drep_tpu_torch.index.update import sketch_batch
+
+    handoff = str(tmp_path / "handoff.npz")
+    if "HANDOFF" in flags:
+        params = load_index(str(_plain_index(tmp_path, genome_paths))).params
+        batch, results = sketch_batch(empty_index(params), genome_paths[3:], processes=1)
+        write_params_handoff(handoff, params, batch, results)
+    argv = [handoff if a == "HANDOFF" else a for a in flags]
+    for pkg, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        loc = str(tmp_path / pkg)
+        if op == "update" and "HANDOFF" not in flags:
+            main(["index", "build", loc, "-g", *genome_paths[:3], "-p", "1", *extra])
+        genomes = [] if "HANDOFF" in flags else ["-g", *(genome_paths[3:] if op == "update" else genome_paths)]
+        main(["index", op, loc, *genomes, *argv, "-p", "1", *extra])
+    assert_stores_match(str(tmp_path / "torch"), str(tmp_path / "jax"))
+    assert os.path.exists(os.path.join(str(tmp_path / "torch"), "federation.json")) == ("--partitions" in flags)
+
+
+def _plain_index(tmp_path, genome_paths) -> str:
+    loc = str(tmp_path / "params_source")
+    torch_main(["index", "build", loc, "-g", *genome_paths[:3], "-p", "1", "--device", "cpu"])
+    return loc
+
+
+def test_cli_federated_root_refuses(tmp_path, fed_cli_runs, planted):
+    """`index update` and `index classify` on a federated root run
+    through the CLI as the JAX CLI's do (they refused before the
+    federation was ported); classify writes nothing under the root."""
+    import shutil
+
+    locs = {pkg: shutil.copytree(fed_cli_runs[(pkg, "update")], str(tmp_path / pkg)) for pkg in ("jax", "torch")}
+    outs = {}
+    for pkg, main, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        main(["index", "update", locs[pkg], "-g", *planted[38:39], "-p", "1", *extra])
+        before = lib.tree_digest(locs[pkg], exclude_dirs=())
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["index", "classify", locs[pkg], "-g", planted[39], planted[0], "-p", "1", *extra])
+        outs[pkg] = _verdicts(buf.getvalue())
+        assert lib.tree_digest(locs[pkg], exclude_dirs=()) == before
+    assert_stores_match(locs["torch"], locs["jax"])
+    assert_verdicts_match(outs["torch"], outs["jax"])
+    assert len(outs["torch"]) == 2 and outs["torch"][1]["nearest_dist"] == 0.0
 
 
 def test_index_cli_subprocess_loads_no_jax_or_drep_tpu(tmp_path, genome_paths):
@@ -218,13 +307,14 @@ def test_index_serve_subprocess_loads_no_jax_or_drep_tpu(tmp_path, genome_paths)
     assert not os.path.exists(sock)
 
 
-def _serve_options(build_parser) -> dict:
-    """option string -> (dest, default, choices) of `index serve`."""
+def _serve_options(build_parser, op: str = "serve") -> dict:
+    """option string -> (dest, default, choices, nargs, required) of
+    `index <op>`."""
     def sub(parser, dest):
         return next(a for a in parser._subparsers._group_actions if a.dest == dest)
 
-    serve = sub(sub(build_parser(), "operation").choices["index"], "index_op").choices["serve"]
-    return {o: (a.dest, a.default, a.choices) for a in serve._actions for o in a.option_strings}
+    serve = sub(sub(build_parser(), "operation").choices["index"], "index_op").choices[op]
+    return {o: (a.dest, a.default, a.choices, a.nargs, a.required) for a in serve._actions for o in a.option_strings}
 
 
 def test_cli_serve_parser_takes_every_jax_flag():
@@ -234,5 +324,18 @@ def test_cli_serve_parser_takes_every_jax_flag():
     from drep_tpu_torch.argparser import build_parser
 
     got, want = _serve_options(build_parser), _serve_options(jax_build_parser)
+    assert set(got) - set(want) == {"--device"}
+    assert {o: got[o] for o in want} == want
+
+
+@pytest.mark.parametrize("op", ["build", "update", "split", "merge", "compact"])
+def test_cli_index_parsers_take_every_jax_flag(op):
+    """`index build|update` (their federated flags among them) and `index
+    split|merge|compact` take every flag of the JAX CLI's, with its dest,
+    default, choices, nargs and requiredness, plus --device."""
+    from drep_tpu.argparser import build_parser as jax_build_parser
+    from drep_tpu_torch.argparser import build_parser
+
+    got, want = _serve_options(build_parser, op), _serve_options(jax_build_parser, op)
     assert set(got) - set(want) == {"--device"}
     assert {o: got[o] for o in want} == want
