@@ -159,16 +159,37 @@ Phases (any failure exits nonzero; nothing is caught):
    winners equal to phase 10's plain store's); 12c one-shot classify of
    10c's queries from ``load_resident_index(streaming=False)``: verdicts
    equal to 10c's joint ones (labels up to renumbering, the union orders
-   differ; ``nearest`` up to a tie), the tree unchanged; 12d
+   differ; ``nearest`` up to a tie), the tree unchanged, and the separate
+   verdicts of every query (phase 13's oracle); then phase 13, then 12d
    ``compact_store`` on phase 10's plain store, then ``index split`` of
    the largest partition, ``index merge`` back and ``index compact`` of
-   the federation through the CLI, each leaving the union's partitions,
-   winners and the first FED_MAINT_QUERIES queries' verdicts as they
-   were; 12e a FED_PODS-pod update of a federation of phase 5's first
+   the federation through the CLI, each leaving the union's partitions
+   and winners as they were, and the first FED_MAINT_QUERIES queries'
+   verdicts after compact_store and the last compact; 12e a FED_PODS-pod update of a federation of phase 5's first
    INDEX_PREFIX genomes (``python -m drep_tpu_torch index update
    --params_file`` subprocesses, every rc 0), equal payload by payload to
    the in-process update of its twin;
-13. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+13. serving the federated root (``index/federation.py::FederatedResident``,
+   ``serve/router.py``, ROADMAP queue 1 item 11b) at 12c's generation:
+   13a ``IndexServer`` in-process on the root (the streaming resident: the
+   spine at start, each partition's sketches on first consult, one
+   rectangle [n_p + K] a consulted partition, a ``mash_shared`` launch a
+   row stripe), 10c's queries from SERVE_CLIENTS concurrent clients:
+   verdicts equal to 12c's separate ones once the coverage stamps are
+   stripped, every verdict with full coverage, every partition healthy and
+   never suspect or quarantined (a failed launch would show as a PARTIAL
+   verdict), the ``mash_shared`` launches equal to the row stripes the
+   partitions and batches imply and the ``indicator_mm`` launches to the
+   reclusters' secondaries, the tree unchanged; 13b two replicas behind a
+   ``RouterServer`` (the router's sketch cache holding the planted
+   sketches, its batches FED_ROUTER_BATCH queries), scoped to partitions
+   FED_SERVE_SCOPES (every query scattered as ``classify_part`` legs,
+   merged on the router), then
+   unscoped (every query forwarded): verdicts equal to 13a's full dicts,
+   no leg failed, hedged or rerouted, the legs counted, the Mash launches
+   all on the replicas' side and the indicator launches split between
+   the router's reclusters and the replicas';
+14. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -180,8 +201,9 @@ Phases (any failure exits nonzero; nothing is caught):
    and its launches under ``index_launches``, and phase 11's under
    ``serve_launches``, phase 12's under ``federation_launches``; the Mash
    kernel its resident-shape time and bound under ``serve`` and phase
-   12's times, cross-join pairs and launches under ``federation``);
-14. the last line: ``{"ok": true, "device": {...}}``.
+   12's times, cross-join pairs and launches under ``federation``; both
+   phase 13's launches and times under ``federated_serve``);
+15. the last line: ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -2657,46 +2679,56 @@ def fed_update_checked(what: str, stats: dict, launches: dict, summary: dict, p:
             for k, v in parts.items()}
 
 
+class planted_sketches:
+    """Within the block, the federation's front door (``federation.
+    sketch_batch``) returns phase 5's and 10's planted sketches in place of
+    sketching FASTAs."""
+
+    def __init__(self, real: dict, p10: dict):
+        gs = real["gs"]
+        stats_cols = ("length", "N50", "contigs", "n_kmers")
+        self.registry = {g: {**{c: int(gs.gdb[c].iloc[i]) for c in stats_cols}, "bottom": gs.bottom[i],
+                             "scaled": gs.scaled[i]} for i, g in enumerate(gs.names)}
+        self.registry.update(p10["serve_inputs"]["results"])
+
+    def sketch_batch(self, idx, genome_paths, processes=1):
+        import pandas as pd
+
+        names = [os.path.basename(p) for p in genome_paths]
+        return pd.DataFrame({"genome": names, "location": list(genome_paths)}), {g: self.registry[g] for g in names}
+
+    def __enter__(self):
+        from drep_tpu_torch.index import federation
+
+        self.real = federation.sketch_batch
+        federation.sketch_batch = self.sketch_batch
+        return self
+
+    def __exit__(self, *exc):
+        from drep_tpu_torch.index import federation
+
+        federation.sketch_batch = self.real
+
+
 def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
-    """Phase 12: 12a build_federated over phase 5's genomes; 12b phase 10's
-    update; 12c one-shot classify of phase 10's queries; 12d compact_store
-    on phase 10's plain store, then split, merge and compact of the
-    federation through the CLI; 12e a --fed_pods update of a prefix
-    federation against its in-process twin."""
-    import pandas as pd
+    """Phase 12a-c: build_federated over phase 5's genomes; phase 10's
+    update; one-shot classify of phase 10's queries from the union, joint
+    and separate (the separate verdicts are phase 13's oracle)."""
     import torch
 
-    from drep_tpu_torch.controller import main as cli_main
-    from drep_tpu_torch.index import (build_federated, classify_batch, compact_store, index_update, load_index,
-                                      load_resident_index)
+    from drep_tpu_torch.index import build_federated, classify_batch, index_update, load_index, load_resident_index
     from drep_tpu_torch.index import federation
-    from drep_tpu_torch.index import meta as fedmeta
-    from drep_tpu_torch.index.classify import SketchedQueries
-    from drep_tpu_torch.utils.durableio import load_npz_checked, read_json_checked
+    from drep_tpu_torch.utils.durableio import read_json_checked
 
     t_phase = time.perf_counter()
     gs, planted, si = real["gs"], real["planted"], p10["serve_inputs"]
     idx_dir, queries = si["idx_dir"], si["queries"]
-    batch, results = si["batch"], si["results"]
     gdir = os.path.join(tmp, "real_genomes")
-    stats_cols = ("length", "N50", "contigs", "n_kmers")
-    registry = {g: {**{c: int(gs.gdb[c].iloc[i]) for c in stats_cols}, "bottom": gs.bottom[i], "scaled": gs.scaled[i]}
-                for i, g in enumerate(gs.names)}
-    registry.update(results)
     paths = [os.path.join(gdir, g) for g in gs.names]
-    batch_paths = list(batch["location"])
-
-    def planted_sketch_batch(idx, genome_paths, processes=1):
-        # the federation's front door with phase 5's and 10's planted
-        # sketches in place of sketching FASTAs
-        names = [os.path.basename(p) for p in genome_paths]
-        return pd.DataFrame({"genome": names, "location": list(genome_paths)}), {g: registry[g] for g in names}
-
+    batch_paths = list(si["batch"]["location"])
     plain_params = read_json_checked(os.path.join(idx_dir, "manifest.json"))["params"]
-    real_sketch_batch = federation.sketch_batch
-    federation.sketch_batch = planted_sketch_batch
     out: dict = {"partitions": FED_PARTITIONS, "genomes": len(paths)}
-    try:
+    with planted_sketches(real, p10):
         # 12a: the federated build over phase 5's genomes
         fed_dir = os.path.join(tmp, "federation")
         reset_launches()
@@ -2771,22 +2803,60 @@ def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
         log(f"12c classify: {len(got)} verdicts in {t_classify:.2f} s (load {t_res:.2f} s) equal 10c's joint "
             f"ones (labels up to renumbering, {ties} nearest tie(s)); launches "
             f"{ {k: v for k, v in launches.items() if v} }; the tree unchanged")
-        few = SketchedQueries(admitted=queries.admitted.iloc[:FED_MAINT_QUERIES].reset_index(drop=True),
-                              results=queries.results)
-        base = classify_batch(resident, few, processes=1, joint=False, device=dev)
-        verdicts_agree(base, si["separate"][:FED_MAINT_QUERIES], "12c separate", renumbered=True)
+        # the separate verdicts of every query: phase 13's oracle
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        separate = classify_batch(resident, queries, processes=1, joint=False, device=dev)
+        torch.cuda.synchronize()
+        out["classify"]["separate_s"] = time.perf_counter() - t0
+        verdicts_agree(separate, si["separate"], "12c separate", renumbered=True)
+        log(f"12c separate: {len(separate)} verdicts in {out['classify']['separate_s']:.2f} s equal 10c's separate "
+            f"ones (labels up to renumbering)")
         del resident
+    out.update(fed_dir=fed_dir, digest=before, separate=separate, fed_parts=fed_parts, plain_parts=plain_parts,
+               phase_s=time.perf_counter() - t_phase)
+    log(f"phase 12a-c: {out['phase_s']:.1f} s")
+    return out
 
+
+def phase_federation_maint(tmp: str, dev, real: dict, p10: dict, p12: dict) -> dict:
+    """Phase 12d-e: compact_store on phase 10's plain store, then split,
+    merge and compact of the federation through the CLI; a --fed_pods
+    update of a prefix federation against its in-process twin."""
+    import torch
+
+    from drep_tpu_torch.controller import main as cli_main
+    from drep_tpu_torch.index import (build_federated, classify_batch, compact_store, index_update,
+                                      load_resident_index)
+    from drep_tpu_torch.index import federation
+    from drep_tpu_torch.index import meta as fedmeta
+    from drep_tpu_torch.index.classify import SketchedQueries
+    from drep_tpu_torch.utils.durableio import load_npz_checked, read_json_checked
+
+    t_phase = time.perf_counter()
+    si = p10["serve_inputs"]
+    idx_dir, queries = si["idx_dir"], si["queries"]
+    fed_dir, fed_parts, plain_parts = p12["fed_dir"], p12["fed_parts"], p12["plain_parts"]
+    paths = [os.path.join(tmp, "real_genomes", g) for g in real["gs"].names]
+    batch_paths = list(si["batch"]["location"])
+    few = SketchedQueries(admitted=queries.admitted.iloc[:FED_MAINT_QUERIES].reset_index(drop=True),
+                          results=queries.results)
+    base = p12["separate"][:FED_MAINT_QUERIES]
+    out: dict = {}
+    with planted_sketches(real, p10):
         # 12d: compact_store on phase 10's plain store, then split, merge
         # and compact of the federation, each leaving the union's
         # partitions and the first queries' verdicts as they were
         maint = {}
 
         def after(loc: str, want_parts, want_verdicts, what: str) -> None:
+            # the queries' verdicts are re-checked after the last verb on
+            # each store only (cut for the time limit: phase 13 needs it)
             res = load_resident_index(loc, streaming=False)
             require(union_partitions(res) == want_parts, f"{what}: the union's partitions or winners changed")
-            verdicts_agree(classify_batch(res, few, processes=1, joint=False, device=dev), want_verdicts, what,
-                           renumbered=False)
+            if want_verdicts is not None:
+                verdicts_agree(classify_batch(res, few, processes=1, joint=False, device=dev), want_verdicts, what,
+                               renumbered=False)
 
         def step(what: str, fn):
             reset_launches()
@@ -2811,13 +2881,13 @@ def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
         m = fed_healthy(fed_dir, "12d split")
         require(m["n_partitions"] == FED_PARTITIONS + 1 and m["generation"] == 2, "12d: split did not commit")
         require(maint["split"]["launches"].get("indicator_mm", 0) > 0, f"12d split: {maint['split']}")
-        after(fed_dir, fed_parts, base, "12d split")
+        after(fed_dir, fed_parts, None, "12d split")
         step("merge", lambda: cli_main(["index", "merge", fed_dir, "--pids", str(pid), str(pid + 1), "-p", "1",
                                         "--device", dev.type]))
         m = fed_healthy(fed_dir, "12d merge")
         require(m["n_partitions"] == FED_PARTITIONS and m["generation"] == 3, "12d: merge did not commit")
         require(maint["merge"]["launches"].get("indicator_mm", 0) > 0, f"12d merge: {maint['merge']}")
-        after(fed_dir, fed_parts, base, "12d merge")
+        after(fed_dir, fed_parts, None, "12d merge")
         step("compact", lambda: cli_main(["index", "compact", fed_dir, "--min_generations", "2", "-p", "1",
                                           "--device", dev.type]))
         m = fed_healthy(fed_dir, "12d compact")
@@ -2828,7 +2898,8 @@ def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
         after(fed_dir, fed_parts, base, "12d compact")
         out["maintenance"] = maint
         log(f"12d: compact_store, split of partition {pid} ({big['n_genomes']} genomes), merge back and compact; "
-            f"the partitions, winners and the first {FED_MAINT_QUERIES} queries' verdicts unchanged after each; "
+            f"the partitions and winners unchanged after each, the first {FED_MAINT_QUERIES} queries' verdicts after "
+            f"compact_store and compact; "
             f"{json.dumps(maint)}")
 
         # 12e: a --fed_pods update of a federation of phase 10's prefix
@@ -2874,10 +2945,223 @@ def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
                        "files_compared": len(files_a)}
         log(f"12e: a {FED_PODS}-pod update of a {INDEX_PREFIX}-genome {FED_PARTITIONS}-partition federation "
             f"equals its in-process twin ({len(files_a)} files); {json.dumps(out['pods'])}")
+    out["maint_s"] = time.perf_counter() - t_phase
+    out["phase_s"] = p12["phase_s"] + out["maint_s"]
+    log(f"phase 12d-e: {out['maint_s']:.1f} s (phase 12: {out['phase_s']:.1f} s)")
+    return out
+
+
+# phase 13: serving the federated root (ROADMAP queue 1 item 11b) at 12c's
+# generation: 13a the daemon on the streaming resident, 13b a router over
+# two replicas scoped to FED_SERVE_SCOPES (scatter/gather), then over the
+# same replicas unscoped (forward)
+FED_SERVE_SCOPES = ("0,1", "2,3")
+# the router's batch bound: a classify_part leg is one protocol line
+# carrying its queries' bottoms as JSON integers (~17-21 bytes a hash),
+# and the line is capped at 1 MiB (protocol.MAX_LINE_BYTES, the JAX
+# package's too), so 64 queries of width 1000 overflow it and the replica
+# refuses the leg; 32 stay under it. The forward pass sends paths, not
+# sketches: its router batches all INDEX_QUERIES, so that each replica
+# packs its partitions once
+FED_ROUTER_BATCH = 32
+
+
+def fed_stripes(fed, bottoms: list, block: int) -> int:
+    """The Mash launches one streaming batch implies: for each partition
+    its queries route to, the row stripes of its [n_p + K_p] rectangle."""
+    from drep_tpu_torch.parallel.streaming import _effective_block
+
+    cand = fed.route_candidates(bottoms)
+    total = 0
+    for pid in set().union(*cand):
+        rows = fed._slots[pid].n + sum(pid in c for c in cand)
+        total += -(-rows // _effective_block(block, rows))
+    return total
+
+
+def fed_serve_classify_fn(queries, dev, batches: list):
+    """serve_classify_fn that also records each batch's query bottoms."""
+    inner = serve_classify_fn(queries, dev, [])
+    bottom_of = {loc: queries.results[g]["bottom"] for g, loc in zip(queries.admitted["genome"],
+                                                                       queries.admitted["location"])}
+
+    def fn(resident, paths):
+        batches.append([np.asarray(bottom_of[p], np.uint64) for p in paths])
+        return inner(resident, paths)
+
+    return fn
+
+
+def fed_coverage_full(verdicts: list, fed, what: str) -> None:
+    """Every verdict with full coverage, every partition healthy, and no
+    suspect, quarantine or recovery: a failed launch on the card would
+    show here as a PARTIAL verdict, not as an exception."""
+    bad = [v["genome"] for v in verdicts if v.get("partitions_unavailable") or v.get("partial")
+           or not v.get("partitions_consulted")]
+    require(not bad, f"{what}: verdicts without full coverage: {bad[:5]}")
+    hm = fed.health_map()
+    states = {p: e["state"] for p, e in hm["partitions"].items()}
+    require(set(states.values()) == {"healthy"} and not hm["quarantined"] and not hm["suspect"]
+            and hm["recoveries"] == 0 and not any("reason" in e for e in hm["partitions"].values()),
+            f"{what}: partition health {json.dumps(hm)}")
+
+
+def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
+    """Phase 13: 13a IndexServer in-process on the federated root at 12c's
+    generation (the streaming resident on the card), 10c's queries from
+    concurrent clients: verdicts equal to 12c's separate union verdicts
+    once stripped, full coverage, the Mash launches the partitions' stripes
+    imply; 13b two replicas behind a RouterServer, scoped (scatter/gather)
+    and then unscoped (forward): verdicts equal to 13a's full dicts, the
+    legs and each side's launches counted."""
+    import threading
+
+    import pandas as pd
+    import torch
+
+    from drep_tpu_torch.index.classify import SketchedQueries
+    from drep_tpu_torch.serve import IndexServer, ServeConfig
+    from drep_tpu_torch.serve.router import RouterConfig, RouterServer
+
+    t_phase = time.perf_counter()
+    fed_dir = p12["fed_dir"]
+    # 10c's queries under files named as `index classify` would name them
+    # (``query:`` + the basename), which the router's sketch cache and its
+    # forward path key on; the daemons admit paths that exist
+    q10 = p10["serve_inputs"]["queries"]
+    qdir = os.path.join(tmp, "fed_serve_queries")
+    os.makedirs(qdir)
+    names = list(q10.admitted["genome"])
+    paths = [os.path.join(qdir, g[len("query:"):]) for g in names]
+    for p in paths:
+        open(p, "wb").close()
+    queries = SketchedQueries(admitted=pd.DataFrame({"genome": names, "location": paths}), results=q10.results)
+    strip = ("partitions_consulted", "partitions_unavailable", "partial")
+    want = {v["genome"]: v for v in p12["separate"]}
+    out: dict = {}
+
+    def serve(cfg_cls, cfg_kw, classify_fn=None, max_batch=INDEX_QUERIES):
+        srv = cfg_cls[1](cfg_cls[0](index_loc=fed_dir, device=dev, poll_generation_s=60.0, max_batch=max_batch,
+                                    batch_window_ms=SERVE_WINDOW_MS, **cfg_kw), classify_fn=classify_fn)
+        t0 = time.perf_counter()
+        addr = srv.start()
+        t_start = time.perf_counter() - t0
+        loop = threading.Thread(target=srv.serve_batches, daemon=True)
+        loop.start()
+        return srv, addr, loop, t_start
+
+    def stop(srv, loop, what: str) -> None:
+        srv.request_drain()
+        loop.join(timeout=300)
+        srv.close()
+        require(not loop.is_alive(), f"{what}: the batch loop did not drain")
+
+    def answered(resps: list, srv, what: str) -> dict:
+        st = srv.snapshot()
+        bad = [r for r in resps if not (r and r.get("ok"))]
+        require(not bad and st["errors_total"] == 0, f"{what}: {len(bad)} error replies (first {bad[:1]})")
+        return {r["verdict"]["genome"]: r["verdict"] for r in resps}
+
+    # 13a: the daemon on the streaming resident
+    batches: list = []
+    reset_launches()
+    srv, addr, loop, t_start = serve((ServeConfig, IndexServer), {}, fed_serve_classify_fn(queries, dev, batches))
+    fed = srv._resident
+    require(fed.health_map()["resident_partitions"] == 0, "13a: the spine load made a partition resident")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resps = serve_clients(addr, paths)
+        torch.cuda.synchronize()
+        t_serve = time.perf_counter() - t0
+        launches = read_launches()
     finally:
-        federation.sketch_batch = real_sketch_batch
+        stop(srv, loop, "13a")
+    got_a = answered(resps, srv, "13a")
+    fed_coverage_full(list(got_a.values()), fed, "13a")
+    stripped = {g: {k: x for k, x in v.items() if k not in strip} for g, v in got_a.items()}
+    require(stripped == want, "13a: the streaming verdicts != 12c's separate union verdicts: "
+            f"{sorted(g for g in want if stripped.get(g) != want[g])[:5]}")
+    block = int(fed.params["streaming_block"])
+    stripes_want = sum(fed_stripes(fed, b, block) for b in batches)
+    work = dict(fed.work)
+    require(launches["mash_shared"] == work["stripes"] == stripes_want > 0,
+            f"13a: {launches['mash_shared']} mash_shared launches, the resident counted {work['stripes']}, the "
+            f"partitions' stripes imply {stripes_want}")
+    require(launches["indicator_mm"] == work["secondary_calls"] > 0,
+            f"13a: {launches['indicator_mm']} indicator_mm launches, the reclusters ran {work['secondary_calls']} "
+            f"secondaries")
+    require(tree_digest(fed_dir) == p12["digest"], "13a: the daemon changed the federation's tree")
+    st = srv.snapshot()
+    out["a"] = {"start_s": t_start, "serve_s": t_serve, "batches": st["batches_total"],
+                "batch_sizes": [len(b) for b in batches], "launches": launches, "work": work,
+                "latency_ms": st["latency_ms"], "health": {k: st["partitions"][k] for k in (
+                    "loads", "evictions", "resident_partitions", "resident_bytes", "peak_resident_partitions")}}
+    log(f"13a federated serve: {len(resps)} requests from {SERVE_CLIENTS} clients in {t_serve:.2f} s, "
+        f"{st['batches_total']} batch(es) of {out['a']['batch_sizes']}; start (the spine) {t_start:.2f} s; "
+        f"{json.dumps({k: v for k, v in out['a'].items() if k != 'latency_ms'})}; verdicts equal 12c's separate "
+        f"ones once stripped, full coverage, every partition healthy, the tree unchanged")
+
+    # 13b: two replicas behind a router, scoped then unscoped
+    reps = [serve((ServeConfig, IndexServer), {}, fed_serve_classify_fn(queries, dev, [])) for _ in range(2)]
+    router_kw = {"leg_timeout_s": 120.0, "hedge_delay_s": 60.0, "probe_interval_s": 1.0}
+    try:
+        for mode, specs, batch in (
+                ("scatter", [f"{reps[i][1]}={FED_SERVE_SCOPES[i]}" for i in range(2)], FED_ROUTER_BATCH),
+                ("forward", [reps[0][1], reps[1][1]], INDEX_QUERIES)):
+            before = [(dict(r[0]._resident.work), r[0].stats.legs_total) for r in reps]
+            reset_launches()
+            rt, raddr, rloop, r_start = serve((RouterConfig, RouterServer), {"replicas": specs, **router_kw},
+                                              max_batch=batch)
+            for p in paths:  # the router's sketch cache holds 10c's planted sketches
+                rt._sketch_cache[rt._sketch_key(p)] = queries.results[f"query:{os.path.basename(p)}"]
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                resps = serve_clients(raddr, paths)
+                torch.cuda.synchronize()
+                t_route = time.perf_counter() - t0
+                launches = read_launches()
+            finally:
+                stop(rt, rloop, f"13b {mode}")
+            got = answered(resps, rt, f"13b {mode}")
+            require(got == got_a, f"13b {mode}: routed verdicts != 13a's: "
+                    f"{sorted(g for g in got_a if got.get(g) != got_a[g])[:5]}")
+            rs = rt.snapshot()["router"]
+            rep_work = [{k: r[0]._resident.work[k] - b[0][k] for k in ("stripes", "secondary_calls")}
+                        for r, b in zip(reps, before)]
+            legs = [r[0].stats.legs_total - b[1] for r, b in zip(reps, before)]
+            router_work = rt._resident.work
+            n_q = len(paths)
+            if mode == "scatter":
+                require(rs["scattered"] == n_q and rs["forwarded"] == 0, f"13b scatter: {rs}")
+                require(sum(legs) == rs["legs_total"] > 0 and all(legs), f"13b scatter: legs {legs}, router {rs}")
+            else:
+                require(rs["forwarded"] == n_q and rs["scattered"] == 0 and rs["legs_total"] == 0,
+                        f"13b forward: {rs}")
+            require(rs["leg_failures"] == rs["hedges"] == rs["partial_verdicts"] == rs["reroutes"] == 0,
+                    f"13b {mode}: {rs}")
+            require(router_work["stripes"] == 0 and launches["mash_shared"] == sum(w["stripes"] for w in rep_work) > 0,
+                    f"13b {mode}: mash_shared {launches['mash_shared']}, replicas {rep_work}, router {router_work}")
+            require(launches["indicator_mm"] == router_work["secondary_calls"]
+                    + sum(w["secondary_calls"] for w in rep_work) > 0,
+                    f"13b {mode}: indicator_mm {launches['indicator_mm']}, replicas {rep_work}, router {router_work}")
+            for i, r in enumerate(reps):
+                fed_coverage_full([], r[0]._resident, f"13b {mode} replica {i}")
+            fed_coverage_full([], rt._resident, f"13b {mode} router")
+            out[mode] = {"router_start_s": r_start, "serve_s": t_route, "launches": launches, "router": rs,
+                         "replica_legs": legs, "replica_work": rep_work,
+                         "router_work": {k: router_work[k] for k in ("reclusters", "secondary_calls", "recluster_s")},
+                         "batches": rt.snapshot()["batches_total"], "latency_ms": rt.snapshot()["latency_ms"]}
+            log(f"13b {mode}: {n_q} requests through the router in {t_route:.2f} s (router start {r_start:.2f} s); "
+                f"{json.dumps({k: v for k, v in out[mode].items() if k != 'latency_ms'})}; verdicts equal 13a's "
+                f"full dicts")
+    finally:
+        for srv, _addr, loop, _t in reps:
+            stop(srv, loop, "13b replica")
+    require(tree_digest(fed_dir) == p12["digest"], "13b: the fleet changed the federation's tree")
     out["phase_s"] = time.perf_counter() - t_phase
-    log(f"phase 12: {out['phase_s']:.1f} s")
+    log(f"phase 13: {out['phase_s']:.1f} s")
     return out
 
 
@@ -2933,6 +3217,8 @@ def main() -> int:
         p10 = phase_index(tmp, dev, real)
         p11 = phase_serve(tmp, dev, p10)
         p12 = phase_federation(tmp, dev, real, p10)
+        p13 = phase_fed_serve(tmp, dev, p10, p12)
+        p12.update(phase_federation_maint(tmp, dev, real, p10, p12))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     mash_entry = ring_kernel["mash"]
@@ -2995,6 +3281,18 @@ def main() -> int:
         **{f"{part}_{k}": p12[part][k] for part in ("build", "update") for k in (
             "join_s", "cross_candidates", "walk_s", "cross_pairs", "cross_launches")},
         "pods_s": p12["pods"]["pods_s"], "in_process_s": p12["pods"]["in_process_s"], "phase_s": p12["phase_s"]}
+    # phase 13, serving the federated root: the daemon (13a) and the router
+    # over two replicas (13b), each side's launches and the batch's parts
+    for k, name, work in ((kernels[0], "mash_shared", "stripes"), (kernels[1], "indicator_mm", "secondary_calls")):
+        k["federated_serve"] = {
+            "daemon": {"launches": p13["a"]["launches"][name], "serve_s": p13["a"]["serve_s"],
+                       "start_s": p13["a"]["start_s"], "batches": p13["a"]["batches"],
+                       **{key: p13["a"]["work"][key] for key in ("pack_s", "walk_s", "recluster_s")}},
+            **{mode: {"launches": p13[mode]["launches"][name], "serve_s": p13[mode]["serve_s"],
+                      "replica_launches": [w[work] for w in p13[mode]["replica_work"]],
+                      "router_launches": p13[mode]["router_work"].get(work, 0),
+                      "legs": p13[mode]["replica_legs"]} for mode in ("scatter", "forward")},
+            "phase_s": p13["phase_s"]}
     # phase 11, the serve daemon: the Mash kernel at the resident shape
     # ([N_pad resident rows x the batch's query rows], one launch a batch)
     kernels[0]["serve"] = {**p11["kernel"], **{k: p11[k] for k in (

@@ -20,12 +20,13 @@ stage where the JAX package would run them. The flags in
 durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
 with the JAX defaults, and a run that sets one otherwise raises
 NotImplementedError naming its ROADMAP item (workflows.py).
-`index build|update|classify|serve|split|merge|compact` take the JAX
-CLI's flags plus --device, the federated ones included (`index build
---partitions/--fed_pods`, `index update --fed_pods/--params_file`);
-`index serve` on a federated root and `index serve --events on` raise
-naming their items (11b, 13), and `index route|supervise` parse and raise
-NotImplementedError naming item 11b (:data:`UNPORTED_INDEX_OPS`).
+`index build|update|classify|serve|route|split|merge|compact` take the
+JAX CLI's flags plus --device, the federated ones included (`index build
+--partitions/--fed_pods`, `index update --fed_pods/--params_file`,
+`index serve --resident_mb`); `index serve|route --events on` raise
+naming item 13, `index route --fleet_manifest` naming item 11c, and
+`index supervise` parses and raises NotImplementedError naming item 11c
+(:data:`UNPORTED_INDEX_OPS`).
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
 }
 
 # `index` subcommands of the JAX CLI that the port parses and refuses:
-# the serve fleet
-UNPORTED_INDEX_OPS: dict[str, str] = {"route": "11b", "supervise": "11b"}
+# the fleet supervisor
+UNPORTED_INDEX_OPS: dict[str, str] = {"supervise": "11c"}
 
 
 def refuse_unported_flags(kwargs: dict) -> None:
@@ -311,8 +312,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--poll_generation_s", type=float, default=2.0,
                    help="manifest re-read cadence for the generation hot swap. Default 2 s")
     s.add_argument("--resident_mb", type=int, default=None,
-                   help="a federated index's residency budget (MiB): parsed, unused on a "
-                        "plain root (serving a federated root is item 11b)")
+                   help="a federated root's residency budget (MiB) for partition sketch "
+                        "payloads, evicted least recently used between batches (default: no "
+                        "budget); unused on a plain root")
     s.add_argument("--log_dir", default=None,
                    help="home for the daemon's logs and perf counters; never the index "
                         "directory (default: console-only logging, no files)")
@@ -322,6 +324,74 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu runs their plain "
                         "PyTorch versions and must be asked for)")
+
+    r = isub.add_parser(
+        "route",
+        help="fleet front door (stateless router): speaks the serve protocol in front of N "
+             "`index serve` replicas of a federated root, forwards a query one replica covers, "
+             "scatters the others as per-partition legs and merges them through the federated "
+             "recluster (verdicts byte-identical to one daemon's), generation-fences the fan-out, "
+             "hedges stragglers, and degrades to stamped PARTIAL verdicts under replica loss or "
+             "overload",
+    )
+    r.add_argument("index_directory",
+                   help="the federated root the fleet serves (the router loads its spine and "
+                        "routing bitmaps, no sketch payloads)")
+    r.add_argument("--replica", action="append", default=[], metavar="ADDR[=PIDS]",
+                   help="one serve replica: host:port or socket path, optionally '=' a partition "
+                        "assignment as ids/inclusive ranges (0-2,5); no assignment serves every "
+                        "partition. Repeatable; replicas can also join/leave a running router "
+                        "through the fleet op")
+    r.add_argument("-p", "--processes", type=int, default=1,
+                   help="sketching processes per batch (1 keeps the router single-sketcher)")
+    r.add_argument("-d", "--debug", action="store_true")
+    r.add_argument("--io_retries", type=int, default=None,
+                   help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+    r.add_argument("--socket", default=None, metavar="PATH",
+                   help="serve on a unix-domain socket at PATH instead of TCP")
+    r.add_argument("--host", default="127.0.0.1", help="TCP bind host (default 127.0.0.1)")
+    r.add_argument("--port", type=int, default=0,
+                   help="TCP bind port (default 0 = OS-assigned; printed as the JSON ready line)")
+    r.add_argument("--max_inflight", type=int, default=None,
+                   help="bounded admission: queued classify requests before the router refuses "
+                        "with backpressure. Default 256")
+    r.add_argument("--max_batch", type=int, default=64,
+                   help="most queries routed as one scatter/forward round. Default 64")
+    r.add_argument("--batch_window_ms", type=float, default=5.0,
+                   help="batch-formation window. Default 5 ms")
+    r.add_argument("--poll_generation_s", type=float, default=2.0,
+                   help="meta-manifest re-read cadence of the router's own generation hot swap "
+                        "(a fenced gather reloads sooner when the fleet is ahead). Default 2 s")
+    r.add_argument("--leg_timeout_s", type=float, default=None,
+                   help="socket deadline of one scatter/forward dispatch. Default 30 s")
+    r.add_argument("--hedge_delay_s", type=float, default=None,
+                   help="straggler hedge: duplicate an unanswered leg to a second capable "
+                        "replica after this long (the first answer wins). Default 2 s")
+    r.add_argument("--probe_interval_s", type=float, default=1.0,
+                   help="replica /healthz poll cadence feeding the healthy -> suspect -> "
+                        "ejected table. Default 1 s")
+    r.add_argument("--probe_backoff_s", type=float, default=None,
+                   help="first reprobe delay after an ejection (doubling to 60 s). Default 1 s")
+    r.add_argument("--fleet_manifest", default=None, metavar="PATH",
+                   help="the fleet supervisor's fleet.json: not ported yet (ROADMAP.md queue 1, "
+                        "item 11c); refused before anything is read")
+    r.add_argument("--resident_mb", type=int, default=None,
+                   help="budget (MiB) of the router's own lazily loaded component sketches (the "
+                        "merge's secondary recluster; the rectangles run on the replicas). "
+                        "Default: no budget")
+    r.add_argument("--log_dir", default=None,
+                   help="home for the router's logs and perf counters; never the index directory")
+    r.add_argument("--events", default=None, choices=["off", "on"],
+                   help="event tracing of the router: on is not ported yet (item 13)")
+    r.add_argument("--primary_prune", default="off", choices=["off", "lsh"],
+                   help="LSH candidate pruning, forwarded to every scatter leg so the whole fleet "
+                        "prunes alike")
+    r.add_argument("--prune_bands", type=int, default=0)
+    r.add_argument("--prune_min_shared", type=int, default=0)
+    r.add_argument("--prune_join_chunk", type=int, default=0)
+    r.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="where the router's merge runs its kernels (default cuda; cpu runs their "
+                        "plain PyTorch versions and must be asked for)")
 
     def add_maint_io(p: argparse.ArgumentParser):
         p.add_argument("index_directory", help="the long-lived genome index")

@@ -17,6 +17,7 @@ from drep_tpu_torch.workflows import (
     index_build_wrapper,
     index_classify_wrapper,
     index_maintenance_wrapper,
+    index_route_wrapper,
     index_serve_wrapper,
     index_update_wrapper,
 )
@@ -47,11 +48,11 @@ def check_dependencies() -> list[str]:
 
 
 def index_operation(**kwargs):
-    """`index build|update|classify|serve|split|merge|compact`: classify
-    prints one JSON verdict line per query on stdout, as the JAX CLI
-    does; the others log their summaries; serve blocks until drained
-    (exit 0 is the drain contract). `index route|supervise` raise
-    NotImplementedError naming their ROADMAP item."""
+    """`index build|update|classify|serve|route|split|merge|compact`:
+    classify prints one JSON verdict line per query on stdout, as the JAX
+    CLI does; the others log their summaries; serve and route block until
+    drained (exit 0 is the drain contract). `index supervise` raises
+    NotImplementedError naming its ROADMAP item."""
     sub = kwargs.pop("index_op")
     index_loc = kwargs.pop("index_directory")
     if sub in UNPORTED_INDEX_OPS:
@@ -65,6 +66,8 @@ def index_operation(**kwargs):
         return index_update_wrapper(index_loc, genomes, **kwargs)
     if sub == "serve":
         return index_serve_wrapper(index_loc, **kwargs)
+    if sub == "route":
+        return index_route_wrapper(index_loc, **kwargs)
     if sub in ("split", "merge", "compact"):
         return index_maintenance_wrapper(index_loc, op=sub, **kwargs)
     if sub == "classify":

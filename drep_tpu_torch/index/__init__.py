@@ -15,14 +15,12 @@ full index store, under one atomically published meta-manifest; `update`
 routes a batch by sketch-derived range code and runs one independent
 update per dirty partition (in process or as `--fed_pods` subprocess
 pods); only boundary LSH buckets cross partitions. `load_index`, and so
-`classify`, reads a federated root as the assembled union. The
-maintenance verbs (index/maintenance.py) split and merge partitions and
-compact shard generations as staged transactions that `roll_forward`
-converges.
-
-Not ported yet: the streaming federated resident that `index serve`
-loads on a federated root (``FederatedResident``, ROADMAP.md queue 1
-item 11b).
+one-shot `classify`, reads a federated root as the assembled union; the
+serve tier loads the streaming ``FederatedResident`` instead (the spine,
+partitions' sketches on first consult, partition faults as PARTIAL
+verdicts). The maintenance verbs (index/maintenance.py) split and merge
+partitions and compact shard generations as staged transactions that
+`roll_forward` converges.
 """
 
 from drep_tpu_torch.index.build import build_from_paths, build_from_workdir  # noqa: F401
@@ -34,6 +32,7 @@ from drep_tpu_torch.index.classify import (  # noqa: F401
     sketch_queries,
 )
 from drep_tpu_torch.index.federation import (  # noqa: F401
+    FederatedResident,
     FederationStore,
     build_federated,
     fed_update,

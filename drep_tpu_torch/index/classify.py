@@ -20,12 +20,12 @@ FASTA whose basename is already indexed is a lookup, not a collision.
   resident sketch matrix held on the device (``resident_device.py``),
   or the union rectangle where that path cannot represent the batch.
 
-A federated root is answered from the union of its partitions
-(``load_resident_index(streaming=False)``, what one-shot `index
-classify` loads). Not ported here: the streaming federated resident
-that ``streaming=True`` returns there in the JAX package (ROADMAP.md
-queue 1 item 11b; it raises NotImplementedError before anything is
-read).
+A federated root is answered from the union of its partitions by
+one-shot `index classify` (``load_resident_index(streaming=False)``),
+and by the streaming federated resident (``federation.
+FederatedResident``, the default ``streaming=True``) in the serve tier:
+:func:`classify_batch` hands it to ``classify_batch_federated``, whose
+verdicts equal the union path's plus coverage stamps.
 """
 
 from __future__ import annotations
@@ -44,16 +44,22 @@ from drep_tpu_torch.index.update import STATS, _admit_batch, _rect_edges, reclus
 from drep_tpu_torch.utils.logger import get_logger
 
 
-def load_resident_index(index_loc: str, streaming: bool = True, resident_mb: int | None = None) -> LoadedIndex:
+def load_resident_index(index_loc: str, streaming: bool = True, resident_mb: int | None = None,
+                        device=None) -> LoadedIndex:
     """Load the index once, read-only (``heal=False``: a rotted store is
-    refused, never rewritten). On a federated root ``streaming=False``
-    assembles the union of its partitions; ``streaming=True`` (the
-    serving view, with its residency budget `resident_mb`) raises
-    NotImplementedError (item 11b) before anything is read."""
+    refused, never rewritten). On a federated root ``streaming=True``
+    returns the streaming resident (``federation.FederatedResident``: the
+    union spine, partitions' sketches loaded on first consult under an
+    LRU budget of `resident_mb` MiB, partition failures contained as
+    PARTIAL verdicts), whose compares run on `device` (default cuda; the
+    CPU only when asked); ``streaming=False`` assembles the union of the
+    partitions (the oracle one-shot `index classify` loads)."""
     from drep_tpu_torch.index import meta as fedmeta
 
-    if streaming:
-        fedmeta.refuse_federated_serving(index_loc, "loading the streaming federated resident")
+    if streaming and fedmeta.is_federated(index_loc):
+        from drep_tpu_torch.index.federation import FederatedResident
+
+        return FederatedResident(index_loc, resident_mb=resident_mb, device=device)
     return load_index(index_loc, heal=False)
 
 
@@ -209,9 +215,21 @@ def classify_batch(
 
     ``prune_cfg`` routes the union rectangle through the LSH candidate
     set `index update` uses (recall 1.0 at the retention bound, so the
-    verdicts are the same); the resident rectangle computes every pair."""
-    from drep_tpu_torch.device import resolve_device
+    verdicts are the same); the resident rectangle computes every pair.
 
+    A streaming federated resident takes the same front door: the batch
+    routes to candidate partitions, runs one rectangle each and merges
+    the per-partition edges into the same verdicts, stamped
+    ``partitions_consulted`` / ``partitions_unavailable``
+    (``federation.classify_batch_federated``, on the device the resident
+    was loaded for; another `device` raises)."""
+    from drep_tpu_torch.device import resolve_device
+    from drep_tpu_torch.index.federation import FederatedResident, classify_batch_federated
+
+    if isinstance(resident, FederatedResident):
+        if device is not None and resolve_device(device) != resident.device:
+            raise ValueError(f"classify_batch: the streaming resident runs on {resident.device}, not {device}")
+        return classify_batch_federated(resident, queries, processes=processes, prune_cfg=prune_cfg, joint=joint)
     dev = resolve_device(device)
     if not queries.n:
         return []

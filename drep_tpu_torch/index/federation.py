@@ -25,8 +25,8 @@ families, self-healing as one store does), with one layer above them::
                                      order, union primary/secondary
                                      labels, scores and the winner table.
     routing/summary_g%06d.npz     -- one coarse-code bitmap a partition
-                                     (ops/rangepart.py), for the serving
-                                     router (item 11b).
+                                     (ops/rangepart.py), the serving
+                                     resident's and router's routing.
 
 Update (``index update`` on a federated root): new genomes are sketched
 once, routed by range code, and each dirty partition runs its own K x N
@@ -55,11 +55,16 @@ anywhere leaves readers at the old federation generation:
 :func:`load_federated` truncates every partition to the genome count the
 meta records.
 
-Not ported here: the streaming per-partition serving view
-(``FederatedResident``) and ``classify_batch_federated`` (ROADMAP.md
-queue 1 item 11b), and the JAX package's fault sites and telemetry
-events (items 5.3 and 13). ``STATS`` holds the last federated update's
-seconds, pairs and per-partition launches instead.
+Serving: union assembly (:func:`load_federated`) is the oracle path; a
+serve replica runs the streaming per-partition classify instead
+(:class:`FederatedResident`, :func:`classify_batch_federated`: routing
+by coarse code, LRU partition residency, a partition health state
+machine, PARTIAL verdicts), held to the union path's verdicts.
+
+Not ported here: the JAX package's fault sites and telemetry events
+(items 5.3 and 13). ``STATS`` holds the last federated update's seconds,
+pairs and per-partition launches instead, and a resident's ``work`` its
+compares' and reclusters'.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import pandas as pd
@@ -76,7 +82,7 @@ import pandas as pd
 from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.index import meta as fedmeta
 from drep_tpu_torch.index.store import _STAT_COLS, IndexStore, LoadedIndex, empty_index, load_index
-from drep_tpu_torch.index.update import _retention, index_update, recluster, sketch_batch
+from drep_tpu_torch.index.update import _admit_batch, _retention, index_update, recluster, sketch_batch
 from drep_tpu_torch.utils.logger import get_logger
 
 
@@ -610,6 +616,856 @@ def load_federated(location: str, heal: bool = False, device=None) -> LoadedInde
             idx.admitted[int(e["lo"]): int(e["hi"])] = int(e["generation"])
         idx.state_missing = True  # the caller (fed_update) reclusters the union
     return idx
+
+
+# ---------------------------------------------------------------------------
+# the streaming serving view: FederatedResident
+# ---------------------------------------------------------------------------
+# A serve replica of a federated root holds the cheap spine (meta, union
+# state, cross shards, each partition's names, stats and intra edges: no
+# sketch payloads), routes each query to the partitions whose genomes can
+# share a band code with it (the routing summary, recall 1.0), loads only
+# the consulted partitions' sketches (LRU under a byte budget), runs one
+# rectangle [partition | queries] each (the Mash kernel, one launch a row
+# stripe) and merges the per-partition edges into per-query verdicts
+# through the recluster one-shot classify runs, so the verdicts equal the
+# union-assembled classify's. A partition that fails to load or to
+# compare moves through healthy -> suspect -> quarantined (bounded-backoff
+# reload probes); the queries it touches get PARTIAL verdicts stamped
+# ``partitions_consulted`` / ``partitions_unavailable``, never an
+# exception out of the daemon, and never a CPU or plain-version retry.
+
+PARTITION_HEALTHY = "healthy"
+PARTITION_SUSPECT = "suspect"
+PARTITION_QUARANTINED = "quarantined"
+
+# the JAX package's defaults of its serve knobs (DREP_TPU_SERVE_PROBE_*)
+PROBE_BACKOFF_S = 1.0
+PROBE_MAX_S = 60.0
+
+
+@dataclass
+class _PartitionSlot:
+    """One partition's health + residency bookkeeping in a serve replica."""
+
+    pid: int
+    dir: str
+    range: tuple[int, int]
+    meta_generation: int
+    n: int  # genome count at the federation generation (meta-recorded)
+    state: str = PARTITION_HEALTHY
+    reason: str | None = None  # the partition_refusal text of the last failure
+    failures: int = 0  # consecutive
+    backoff_s: float = 0.0
+    next_probe_mono: float = 0.0
+    last_probe_mono: float | None = None
+    # spine (loaded once): union slots in partition-local order, intra edges
+    u_of_local: np.ndarray | None = None
+    intra: tuple | None = None  # union-coordinate (ii, jj, dd)
+    # the lazily loaded sketch payload
+    resident: bool = False
+    resident_bytes: int = 0
+    last_used: int = 0
+    loads: int = 0
+
+
+class FederatedResident:
+    """The streaming serving view of a federated index.
+
+    Stands in for the resident ``LoadedIndex`` where the serve tier needs
+    it (``.params``, ``.generation``, ``.n``, ``.names``, ``.location``),
+    but holds sketch payloads per partition under an LRU byte budget
+    (`resident_mb`; None or 0: no budget) and contains a partition's
+    failure at the partition boundary. Construction refuses only what
+    leaves nothing answerable: an empty skeleton, a missing or corrupt
+    union state or cross shard. The per-partition compares and the
+    recluster run on `device` (default cuda; the CPU only when asked).
+
+    ``work`` holds this resident's compares (``compares``, ``stripes``:
+    Mash kernel launches, ``pack_s``, ``walk_s``) and reclusters
+    (``reclusters``, ``secondary_calls``: fused indicator launches,
+    ``recluster_s``), read by chip_smoke.py.
+    """
+
+    def __init__(self, location: str, resident_mb: int | None = None, probe_backoff_s: float = PROBE_BACKOFF_S,
+                 probe_max_s: float = PROBE_MAX_S, device=None):
+        from drep_tpu_torch.device import resolve_device
+
+        logger = get_logger()
+        self.device = resolve_device(device)
+        self.store = FederationStore(location)
+        self.location = self.store.location
+        m = self.store.read_meta()
+        if int(m["generation"]) < 0:
+            raise UserInputError(
+                f"federated index at {location} is an empty skeleton "
+                f"(generation -1) — finish the initial `drep-tpu index "
+                f"update {location} -g ...` before serving from it"
+            )
+        self.fed_meta = m
+        self.params = m["params"]
+        self.generation = int(m["generation"])
+        self.budget_bytes = int(resident_mb) << 20 if resident_mb else 0
+        self.probe_backoff_s = float(probe_backoff_s)
+        self.probe_max_s = float(probe_max_s)
+        self.stats = {"loads": 0, "evictions": 0, "recoveries": 0, "peak_resident_partitions": 0}
+        self.work = {"compares": 0, "stripes": 0, "pack_s": 0.0, "walk_s": 0.0, "reclusters": 0,
+                     "secondary_calls": 0, "recluster_s": 0.0}
+        self._tick = 0
+        self._resident_total = 0
+        self._edge_cache: dict[frozenset, tuple] = {}
+
+        # the union state: nothing is answerable without it
+        n = int(m["n_genomes"])
+        state = _read_npz_or_refuse(
+            self.store.abspath(m["state"]), "union state", location, heal=False
+        ) if m.get("state") else None
+        if state is None:
+            raise UserInputError(
+                f"federated index union state under {location} is missing or "
+                f"was never published; serve is read-only — run `drep-tpu "
+                f"index update {location}` to heal the store first"
+            )
+        self.part_of = state["part_of"].astype(np.int64)
+        self.local_of = state["local_of"].astype(np.int64)
+        if len(self.part_of) != n:
+            raise UserInputError(
+                f"federated index at {location}: union mapping covers "
+                f"{len(self.part_of)} genomes but the meta-manifest records {n}"
+            )
+
+        # the cross shards (federation-level, required like the state)
+        cross_ii: list[np.ndarray] = []
+        cross_jj: list[np.ndarray] = []
+        cross_dd: list[np.ndarray] = []
+        for e in m.get("cross_shards", ()):
+            z = _read_npz_or_refuse(self.store.abspath(e["file"]), "cross shard", location, heal=False)
+            if z is None:
+                raise UserInputError(
+                    f"federated index cross shard {self.store.abspath(e['file'])} "
+                    f"is missing; serve is read-only — run `drep-tpu index "
+                    f"update {location}` to heal the store first"
+                )
+            cross_ii.append(z["ii"].astype(np.int64))
+            cross_jj.append(z["jj"].astype(np.int64))
+            cross_dd.append(z["dist"].astype(np.float32))
+        self._cross = (
+            np.concatenate(cross_ii) if cross_ii else np.empty(0, np.int64),
+            np.concatenate(cross_jj) if cross_jj else np.empty(0, np.int64),
+            np.concatenate(cross_dd) if cross_dd else np.empty(0, np.float32),
+        )
+        self._cross_pi = self.part_of[self._cross[0]] if len(self._cross[0]) else np.empty(0, np.int64)
+        self._cross_pj = self.part_of[self._cross[1]] if len(self._cross[1]) else np.empty(0, np.int64)
+
+        # the routing summaries (optional: absent or corrupt -> consult all)
+        self._route_bitmaps = self._route_bits = None
+        if m.get("routing"):
+            try:
+                from drep_tpu_torch.utils import durableio
+
+                z = durableio.load_npz_checked(self.store.abspath(m["routing"]), what="routing summary")
+                self._route_bitmaps = z["bitmaps"].astype(np.uint64)
+                self._route_bits = int(z["bits"])
+            except Exception as err:  # noqa: BLE001 — routing only prunes: losing it consults all
+                logger.warning(
+                    "federated serve: routing summary unreadable (%s) — "
+                    "every query consults every partition until the next "
+                    "`index update` rewrites it", err,
+                )
+
+        # each partition's spine (contained: a failure quarantines it)
+        self._stats_arrays = {c: np.zeros(n, np.int64) for c in _STAT_COLS}
+        names: list[str] = [f"?part?:{int(p)}:{int(l)}" for p, l in zip(self.part_of, self.local_of)]
+        locations: list[str] = [""] * n
+        self._slots: dict[int, _PartitionSlot] = {}
+        for e in m["partitions"]:
+            pid = int(e["pid"])
+            slot = _PartitionSlot(
+                pid=pid, dir=e["dir"], range=(int(e["range"][0]), int(e["range"][1])),
+                meta_generation=int(e["generation"]), n=int(e["n_genomes"]),
+            )
+            self._slots[pid] = slot
+            if slot.n <= 0:
+                continue
+            try:
+                self._load_spine(slot, names, locations)
+            except Exception as err:  # noqa: BLE001 — one damaged partition must not take the replica down
+                self._book_failure(slot, err, during="spine")
+
+        admitted = np.zeros(n, np.int64)
+        for e in m.get("cross_shards", ()):
+            admitted[int(e["lo"]): int(e["hi"])] = int(e["generation"])
+        self.union = LoadedIndex(
+            location=self.location, params=self.params, generation=self.generation,
+            names=names, locations=locations,
+            gdb=pd.DataFrame({"genome": list(names), **self._stats_arrays}),
+            admitted=admitted, bottom=[None] * n, scaled=[None] * n,
+            edges=_empty_edges(),
+            primary=state["primary"].astype(np.int64),
+            suffix=state["suffix"].astype(np.int64),
+            score=state["score"].astype(np.float64),
+            winners=pd.DataFrame(
+                {
+                    "cluster": [str(x) for x in state["winner_cluster"]],
+                    "genome": [str(x) for x in state["winner_genome"]],
+                    "score": state["winner_score"].astype(np.float64),
+                }
+            ),
+        )
+        quarantined = sorted(p for p, s in self._slots.items() if s.state == PARTITION_QUARANTINED)
+        logger.info(
+            "federated serve: generation %d spine resident (%d genomes over "
+            "%d partitions, 0 sketch payloads loaded%s)",
+            self.generation, n, len(self._slots),
+            f"; QUARANTINED at startup: {quarantined}" if quarantined else "",
+        )
+
+    # ---- LoadedIndex-compatible surface ---------------------------------
+    @property
+    def n(self) -> int:
+        return len(self.union.names)
+
+    @property
+    def names(self) -> list[str]:
+        return self.union.names
+
+    # ---- spine / residency loads ----------------------------------------
+    def _partition_manifest(self, slot: _PartitionSlot) -> dict:
+        """The partition's current manifest, re-read on every residency
+        load with the identity checks the union assembly applies: a
+        rollback, an out-of-band swap or rot lands here, at consult time,
+        as a containable failure."""
+        pdir = os.path.join(self.location, slot.dir)
+        manifest = IndexStore(pdir).read_manifest()
+        g_meta = slot.meta_generation
+        actual = int(manifest["generation"])
+        if actual < g_meta:
+            raise UserInputError(
+                f"partition store is at generation {actual} but the "
+                f"meta-manifest recorded {g_meta} — rolled back or restored "
+                f"out of band"
+            )
+        if actual > g_meta + 1:
+            raise UserInputError(
+                f"partition store is {actual - g_meta} generations ahead of "
+                f"the meta-manifest — updated outside `index update` on the "
+                f"federation root"
+            )
+        e = next(e for e in self.fed_meta["partitions"] if int(e["pid"]) == slot.pid)
+        if actual == g_meta and e.get("manifest_crc") is not None:
+            crc = fedmeta.manifest_crc(pdir)
+            if crc is not None and int(crc) != int(e["manifest_crc"]):
+                raise UserInputError(
+                    "partition manifest checksum does not match what the "
+                    "meta-manifest was published against — swapped out from "
+                    "under the federation"
+                )
+        if int(manifest["n_genomes"]) < slot.n:
+            raise UserInputError(
+                f"partition holds {manifest['n_genomes']} genomes but the "
+                f"meta-manifest records {slot.n} — truncated by a stale meta"
+            )
+        return manifest
+
+    def _load_spine(self, slot: _PartitionSlot, names: list, locations: list) -> None:
+        """Names, locations, stats and intra edges of one partition: O(n_p)
+        metadata, no sketch payloads (those load on first consult)."""
+        from drep_tpu_torch.utils import durableio
+
+        pdir = os.path.join(self.location, slot.dir)
+        manifest = self._partition_manifest(slot)
+        state = durableio.load_npz_checked(os.path.join(pdir, manifest["state"]), what="partition state")
+        sel = np.nonzero(self.part_of == slot.pid)[0]
+        locs = self.local_of[sel]
+        u_of_local = np.full(slot.n, -1, np.int64)
+        u_of_local[locs] = sel
+        if (u_of_local < 0).any():
+            raise UserInputError("union mapping does not cover every partition-local genome")
+        p_names = [str(x) for x in state["names"][: slot.n]]
+        p_locs = [str(x) for x in state["locations"][: slot.n]]
+        for loc in range(slot.n):
+            names[int(u_of_local[loc])] = p_names[loc]
+            locations[int(u_of_local[loc])] = p_locs[loc]
+        for c in _STAT_COLS:
+            self._stats_arrays[c][sel] = state[c].astype(np.int64)[locs]
+        ii_l: list[np.ndarray] = []
+        jj_l: list[np.ndarray] = []
+        dd_l: list[np.ndarray] = []
+        for e in manifest["edge_shards"]:
+            if int(e["lo"]) >= slot.n:
+                continue  # published ahead of the meta: truncated out
+            z = durableio.load_npz_checked(os.path.join(pdir, e["file"]), what="partition edge shard")
+            ii, jj, dd = z["ii"].astype(np.int64), z["jj"].astype(np.int64), z["dist"].astype(np.float32)
+            keep = jj < slot.n  # ii < jj: both endpoints inside the prefix
+            ii_l.append(u_of_local[ii[keep]])
+            jj_l.append(u_of_local[jj[keep]])
+            dd_l.append(dd[keep])
+        slot.u_of_local = u_of_local
+        slot.intra = (
+            np.concatenate(ii_l) if ii_l else np.empty(0, np.int64),
+            np.concatenate(jj_l) if jj_l else np.empty(0, np.int64),
+            np.concatenate(dd_l) if dd_l else np.empty(0, np.float32),
+        )
+        self._edge_cache.clear()
+
+    def _load_sketches(self, slot: _PartitionSlot) -> None:
+        from drep_tpu_torch.ingest import unpack_ragged
+        from drep_tpu_torch.utils import durableio
+
+        pdir = os.path.join(self.location, slot.dir)
+        manifest = self._partition_manifest(slot)
+        # stage everything before installing anything: a failure at the
+        # second shard must leave union.bottom as it was (a partial
+        # install would hold bytes outside the residency accounting)
+        staged: list[tuple[int, np.ndarray, np.ndarray]] = []
+        nbytes = 0
+        for e in manifest["sketch_shards"]:
+            lo = int(e["lo"])
+            if lo >= slot.n:
+                continue
+            hi = min(int(e["hi"]), slot.n)
+            z = durableio.load_npz_checked(os.path.join(pdir, e["file"]), what="partition sketch shard")
+            m = int(e["hi"]) - lo
+            bot = unpack_ragged(z["bottom"], z["bottom_offsets"], m)
+            sca = unpack_ragged(z["scaled"], z["scaled_offsets"], m)
+            for loc in range(lo, hi):
+                staged.append((int(slot.u_of_local[loc]), bot[loc - lo], sca[loc - lo]))
+                nbytes += bot[loc - lo].nbytes + sca[loc - lo].nbytes
+        for u, b, s in staged:
+            self.union.bottom[u] = b
+            self.union.scaled[u] = s
+        slot.resident_bytes = nbytes
+
+    # ---- health state machine -------------------------------------------
+    def _book_failure(self, slot: _PartitionSlot, err: BaseException, during: str) -> None:
+        from drep_tpu_torch.utils.profiling import counters
+
+        msg = partition_refusal(slot.pid, slot.range, slot.meta_generation, err)
+        now = time.monotonic()
+        slot.failures += 1
+        slot.reason = msg
+        slot.last_probe_mono = now
+        self._drop_residency(slot)
+        was = slot.state
+        # spine damage goes straight to quarantine (a corrupt manifest
+        # does not heal by an immediate retry); a load or compare failure
+        # gets one suspect retry first
+        if during == "spine" or was in (PARTITION_SUSPECT, PARTITION_QUARANTINED):
+            slot.state = PARTITION_QUARANTINED
+            slot.backoff_s = min(self.probe_max_s, max(self.probe_backoff_s, slot.backoff_s * 2.0))
+            slot.next_probe_mono = now + slot.backoff_s
+            if was != PARTITION_QUARANTINED:
+                counters.add_fault("partition_quarantined")
+        else:
+            slot.state = PARTITION_SUSPECT
+        # the message carries the exception's text: on the card a failed
+        # launch surfaces here (a CUDA error is sticky for the process)
+        get_logger().warning(
+            "federated serve: partition %d %s after a %s failure: %s",
+            slot.pid, slot.state, during, msg,
+        )
+
+    def _mark_recovered(self, slot: _PartitionSlot) -> None:
+        slot.state = PARTITION_HEALTHY
+        slot.failures = 0
+        slot.backoff_s = 0.0
+        slot.reason = None
+        self.stats["recoveries"] += 1
+        get_logger().info(
+            "federated serve: partition %d recovered (probe load succeeded) "
+            "— full coverage restored for its range", slot.pid,
+        )
+
+    def _drop_residency(self, slot: _PartitionSlot) -> None:
+        if not slot.resident:
+            return
+        for u in slot.u_of_local if slot.u_of_local is not None else ():
+            self.union.bottom[int(u)] = None
+            self.union.scaled[int(u)] = None
+        self._resident_total -= slot.resident_bytes
+        slot.resident = False
+        slot.resident_bytes = 0
+
+    def _evict(self, slot: _PartitionSlot) -> None:
+        self._drop_residency(slot)
+        self.stats["evictions"] += 1
+
+    def _evict_to_budget(self, pin: set[int]) -> None:
+        from drep_tpu_torch.utils.profiling import counters
+
+        resident = [s for s in self._slots.values() if s.resident]
+        self.stats["peak_resident_partitions"] = max(self.stats["peak_resident_partitions"], len(resident))
+        if self.budget_bytes:
+            evictable = sorted((s for s in resident if s.pid not in pin), key=lambda s: s.last_used)
+            while self._resident_total > self.budget_bytes and evictable:
+                self._evict(evictable.pop(0))
+        counters.set_gauge("serve_partitions_resident", float(sum(1 for s in self._slots.values() if s.resident)))
+        counters.set_gauge("serve_resident_bytes", float(self._resident_total))
+
+    def ensure_resident(self, pid: int, pin: frozenset | set = frozenset()) -> bool:
+        """Make partition `pid`'s sketch payload resident (loading it on
+        first consult, re-probing a quarantined partition once its backoff
+        elapsed). False, the caller's PARTIAL verdict, when the partition
+        is (or just became) unavailable."""
+        slot = self._slots[pid]
+        if slot.n <= 0:
+            return True
+        if slot.resident:
+            self._tick += 1
+            slot.last_used = self._tick
+            return True
+        now = time.monotonic()
+        if slot.state == PARTITION_QUARANTINED and now < slot.next_probe_mono:
+            return False
+        probing = slot.state != PARTITION_HEALTHY
+        try:
+            if slot.u_of_local is None:
+                self._load_spine(slot, self.union.names, self.union.locations)
+                self.union.gdb = pd.DataFrame({"genome": list(self.union.names), **self._stats_arrays})
+            self._load_sketches(slot)
+        except Exception as err:  # noqa: BLE001 — containment: book and degrade
+            self._book_failure(slot, err, during="load")
+            return False
+        slot.resident = True
+        slot.loads += 1
+        self._tick += 1
+        slot.last_used = self._tick
+        slot.last_probe_mono = now
+        self._resident_total += slot.resident_bytes
+        self.stats["loads"] += 1
+        if probing:
+            self._mark_recovered(slot)
+        self._evict_to_budget(set(pin) | {pid})
+        return True
+
+    # ---- routing + per-partition compare --------------------------------
+    def route_candidates(self, q_bottoms: list[np.ndarray]) -> list[set[int]]:
+        """Each query's candidate partitions: those whose genomes can share
+        a band code with it (the coarse summary's intersection, recall
+        1.0). Without a usable summary every non-empty partition is one."""
+        from drep_tpu_torch.ops import rangepart
+
+        active = [pid for pid, s in self._slots.items() if s.n > 0]
+        if self._route_bitmaps is None:
+            return [set(active) for _ in q_bottoms]
+        out: list[set[int]] = []
+        for b in q_bottoms:
+            codes = rangepart.coarse_codes(b, self._route_bits)
+            out.append({
+                pid for pid in active
+                if pid < len(self._route_bitmaps) and rangepart.bitmap_contains_any(self._route_bitmaps[pid], codes)
+            })
+        return out
+
+    def classify_partition(self, pid: int, q_names: list[str], q_bottoms: list[np.ndarray], prune_cfg: dict | None):
+        """One routed batch against one resident partition: the rectangle
+        [partition | queries] with ``min_col = n_p``. Pair distances do not
+        depend on the pack, so the retained (indexed, query) edges are the
+        union rectangle's slice for this partition. Returns (union_i,
+        query_idx, dist), or None after booking a failure (suspect or
+        quarantined); there is no retry on the CPU or a plain version."""
+        slot = self._slots[pid]
+        try:
+            return self._rect_compare(slot, q_names, q_bottoms, prune_cfg)
+        except Exception as err:  # noqa: BLE001 — mid-classify containment
+            self._book_failure(slot, err, during="classify")
+            return None
+
+    def _rect_compare(self, slot: _PartitionSlot, q_names: list[str], q_bottoms: list[np.ndarray],
+                      prune_cfg: dict | None):
+        from drep_tpu_torch.ops.minhash import pack_sketches
+        from drep_tpu_torch.parallel.streaming import streaming_mash_edges
+
+        p = self.params
+        _, keep = _retention(p)
+        n_p = slot.n
+        t0 = time.perf_counter()
+        part_names = [self.union.names[int(u)] for u in slot.u_of_local]
+        part_bottoms = [self.union.bottom[int(u)] for u in slot.u_of_local]
+        packed = pack_sketches(part_bottoms + list(q_bottoms), part_names + list(q_names), int(p["sketch_size"]))
+        prune = None
+        if prune_cfg and prune_cfg.get("primary_prune", "off") == "lsh":
+            from drep_tpu_torch.ops.lsh import build_candidates
+
+            prune = build_candidates(
+                packed, keep=keep, k=int(p["kmer_size"]),
+                bands=int(prune_cfg.get("prune_bands", 0)),
+                min_shared=int(prune_cfg.get("prune_min_shared", 0)),
+                min_col=n_p, join_chunk=int(prune_cfg.get("prune_join_chunk", 0)),
+            )
+        t1 = time.perf_counter()
+        st: dict = {}
+        ii, jj, dd, _pairs = streaming_mash_edges(
+            packed, int(p["kmer_size"]), keep, block=int(p["streaming_block"]), min_col=n_p, prune=prune,
+            device=self.device, stats_out=st,
+        )
+        self.work["compares"] += 1
+        self.work["stripes"] += st["launches"]
+        self.work["pack_s"] += t1 - t0
+        self.work["walk_s"] += time.perf_counter() - t1
+        sel = (jj >= n_p) & (ii < n_p)  # (indexed, query) pairs only
+        return slot.u_of_local[ii[sel]], jj[sel] - n_p, dd[sel]
+
+    # ---- union edge view -------------------------------------------------
+    def _spineless(self) -> set[int]:
+        return {pid for pid, s in self._slots.items() if s.n > 0 and s.u_of_local is None}
+
+    def edges_excluding(self, excluded: set[int]):
+        """The union retained-edge graph without every edge incident to an
+        excluded (or spine-less) partition's genomes, in the canonical
+        (ii, jj) lexsort order: the degraded graph a PARTIAL verdict
+        reclusters over (the full graph when nothing is excluded)."""
+        eff = frozenset(set(excluded) | self._spineless())
+        hit = self._edge_cache.get(eff)
+        if hit is not None:
+            return hit
+        parts_ii: list[np.ndarray] = []
+        parts_jj: list[np.ndarray] = []
+        parts_dd: list[np.ndarray] = []
+        for pid in sorted(self._slots):
+            slot = self._slots[pid]
+            if pid in eff or slot.intra is None or not len(slot.intra[0]):
+                continue
+            parts_ii.append(slot.intra[0])
+            parts_jj.append(slot.intra[1])
+            parts_dd.append(slot.intra[2])
+        ci, cj, cd = self._cross
+        if len(ci):
+            if eff:
+                bad = np.asarray(sorted(eff), np.int64)
+                mask = ~np.isin(self._cross_pi, bad) & ~np.isin(self._cross_pj, bad)
+                ci, cj, cd = ci[mask], cj[mask], cd[mask]
+            parts_ii.append(ci)
+            parts_jj.append(cj)
+            parts_dd.append(cd)
+        if parts_ii:
+            ii = np.concatenate(parts_ii)
+            jj = np.concatenate(parts_jj)
+            dd = np.concatenate(parts_dd)
+            order = np.lexsort((jj, ii))
+            out = (ii[order], jj[order], dd[order])
+        else:
+            out = _empty_edges()
+        self._edge_cache[eff] = out
+        return out
+
+    def scratch_excluding(self, excluded: set[int]) -> LoadedIndex:
+        """A classify-scratch union copy (fresh containers, shared payloads:
+        classify.py's _scratch_index); the caller installs its own edges.
+
+        Excluded partitions' genomes keep their old primary labels (so
+        unaffected partitions' verdicts stay those of the full union) but
+        are marked ``frozen_rows``: ``recluster`` carries their old suffix
+        and score and never routes them into a secondary, since their
+        sketches are what is unavailable. A split cluster's available
+        remainder still re-clusters (the degraded answer a PARTIAL verdict
+        reports), which is why the component closure loads remainders."""
+        u = self.union
+        sq = LoadedIndex(
+            location=u.location, params=u.params, generation=u.generation,
+            names=list(u.names), locations=list(u.locations), gdb=u.gdb, admitted=u.admitted,
+            bottom=list(u.bottom), scaled=list(u.scaled), edges=u.edges, primary=u.primary,
+            suffix=u.suffix, score=u.score, winners=u.winners,
+        )
+        eff = set(excluded) | self._spineless()
+        if eff:
+            bad = np.isin(self.part_of, np.asarray(sorted(eff), np.int64))
+            sq.frozen_rows = np.nonzero(bad)[0]  # type: ignore[attr-defined]
+        return sq
+
+    # ---- health surface ---------------------------------------------------
+    def retry_hint_s(self) -> float:
+        """A strict refusal's retry_after hint: the soonest any quarantined
+        partition is probed again."""
+        now = time.monotonic()
+        waits = [max(0.0, s.next_probe_mono - now) for s in self._slots.values() if s.state == PARTITION_QUARANTINED]
+        return round(max(0.05, min(waits) if waits else self.probe_backoff_s), 4)
+
+    def health_map(self) -> dict:
+        """The partition health map the daemon's snapshot (``status`` and
+        ``/healthz``) carries: per-partition state, residency and probe
+        schedule, and the replica's residency accounting."""
+        now = time.monotonic()
+        parts: dict[str, dict] = {}
+        for pid in sorted(self._slots):
+            s = self._slots[pid]
+            entry: dict = {
+                "state": s.state if s.n > 0 else "empty",
+                "resident": bool(s.resident),
+                "resident_bytes": int(s.resident_bytes),
+                "n_genomes": int(s.n),
+                "generation": int(s.meta_generation),
+                "loads": int(s.loads),
+                "last_probe_ago_s": round(now - s.last_probe_mono, 3) if s.last_probe_mono is not None else None,
+            }
+            if s.state == PARTITION_QUARANTINED:
+                entry["next_probe_in_s"] = round(max(0.0, s.next_probe_mono - now), 3)
+                entry["heal_hint"] = partition_heal_hint(pid)
+            if s.reason:
+                entry["reason"] = s.reason
+            parts[str(pid)] = entry
+        return {
+            "generation": self.generation,
+            "n_partitions": len(self._slots),
+            "resident_partitions": sum(1 for s in self._slots.values() if s.resident),
+            "resident_bytes": int(self._resident_total),
+            "budget_bytes": int(self.budget_bytes),
+            "peak_resident_partitions": self.stats["peak_resident_partitions"],
+            "loads": self.stats["loads"],
+            "evictions": self.stats["evictions"],
+            "recoveries": self.stats["recoveries"],
+            "quarantined": sorted(p for p, s in self._slots.items() if s.state == PARTITION_QUARANTINED),
+            "suspect": sorted(p for p, s in self._slots.items() if s.state == PARTITION_SUSPECT),
+            "partitions": parts,
+        }
+
+
+# ---------------------------------------------------------------------------
+# streaming classify over a FederatedResident
+# ---------------------------------------------------------------------------
+
+
+def _query_query_edges(fed: FederatedResident, q_names: list[str], q_bottoms: list, device):
+    """Retained query-query edges of the joint mode, from a pack of the
+    queries alone (pair distances do not depend on the pack). Returns
+    pack-local (ti, tj, dd)."""
+    from drep_tpu_torch.ops.minhash import pack_sketches
+    from drep_tpu_torch.parallel.streaming import streaming_mash_edges
+
+    if len(q_names) < 2:
+        return _empty_edges()
+    p = fed.params
+    _, keep = _retention(p)
+    packed = pack_sketches(list(q_bottoms), list(q_names), int(p["sketch_size"]))
+    ii, jj, dd, _ = streaming_mash_edges(packed, int(p["kmer_size"]), keep, block=int(p["streaming_block"]),
+                                         device=device)
+    return ii, jj, dd
+
+
+def _components(n: int, ii: np.ndarray, jj: np.ndarray) -> np.ndarray:
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    graph = coo_matrix((np.ones(len(ii), np.int8), (ii, jj)), shape=(n, n))
+    return connected_components(graph, directed=False)[1]
+
+
+def _component_closure(fed: FederatedResident, q_edges: list[tuple[np.ndarray, np.ndarray]], unavailable: set[int]):
+    """Grow the consulted set until every member of every query's dirty
+    component is sketch-resident (the recluster's secondary needs the
+    co-members' sketches), excluding (and stamping) the partitions that
+    cannot be loaded. Returns (base edge view, per-query filtered direct
+    edges, consulted by the closure, excluded)."""
+    n_old = fed.n
+    k = len(q_edges)
+    excluded = set(unavailable)
+    closure_consulted: set[int] = set()
+    for _ in range(len(fed._slots) + 1):
+        base = fed.edges_excluding(excluded)
+        eff = excluded | fed._spineless()
+        filt: list[tuple[np.ndarray, np.ndarray]] = []
+        for ui, dd in q_edges:
+            if len(ui) and eff:
+                m = ~np.isin(fed.part_of[ui], np.asarray(sorted(eff), np.int64))
+                ui, dd = ui[m], dd[m]
+            filt.append((ui, dd))
+        ii = np.concatenate([base[0]] + [f[0] for f in filt])
+        jj = np.concatenate([base[1]] + [np.full(len(f[0]), n_old + t, np.int64) for t, f in enumerate(filt)])
+        comp = _components(n_old + k, ii, jj)
+        q_comps = {comp[n_old + t] for t in range(k)}
+        members = np.nonzero(np.isin(comp[:n_old], sorted(q_comps)))[0]
+        need = {int(p) for p in np.unique(fed.part_of[members])} if len(members) else set()
+        # a cluster split by the exclusion re-clusters its available
+        # remainder (the degraded answer): a multi-member remainder runs
+        # the secondary, so its sketches must be resident too
+        if eff:
+            bad = np.isin(fed.part_of, np.asarray(sorted(eff), np.int64))
+            for lab in np.unique(fed.union.primary[bad]) if bad.any() else ():
+                rem = np.nonzero((fed.union.primary == lab) & ~bad)[0]
+                if len(rem) >= 2:
+                    need |= {int(p) for p in np.unique(fed.part_of[rem])}
+        need -= excluded
+        missing = set()
+        for pid in sorted(need):
+            if not fed.ensure_resident(pid, pin=need):
+                missing.add(pid)
+        closure_consulted |= need - missing
+        if not missing:
+            return base, filt, closure_consulted, excluded
+        excluded |= missing
+    return base, filt, closure_consulted, excluded  # pragma: no cover — bounded by the partition count
+
+
+def _affected_by_exclusion(fed: FederatedResident, q_edges: list[tuple[np.ndarray, np.ndarray]],
+                           eff: set[int]) -> list[set[int]]:
+    """Per query: the excluded partitions whose genomes are connected to
+    its unfiltered component, the coverage holes the filtered graph no
+    longer sees. A quarantined partition's genome can co-cluster with the
+    query only through dropped edges (an a--b cross edge where the query
+    reaches only `a`); the degraded answer then differs from the full one
+    though the partition was never routed to, so the verdict must still
+    stamp it. Built from every spine-loaded partition's intra edges and
+    the cross edges (a spine-less partition's internal chains are unknown,
+    which can only under-extend a component inside that stamped
+    partition)."""
+    if not eff:
+        return [set() for _ in q_edges]
+    n_old = fed.n
+    k = len(q_edges)
+    parts_ii = [fed._cross[0]]
+    parts_jj = [fed._cross[1]]
+    for pid in sorted(fed._slots):
+        slot = fed._slots[pid]
+        if slot.intra is not None and len(slot.intra[0]):
+            parts_ii.append(slot.intra[0])
+            parts_jj.append(slot.intra[1])
+    ii = np.concatenate(parts_ii + [e[0] for e in q_edges])
+    jj = np.concatenate(parts_jj + [np.full(len(e[0]), n_old + t, np.int64) for t, e in enumerate(q_edges)])
+    comp = _components(n_old + k, ii, jj)
+    out: list[set[int]] = []
+    for t in range(k):
+        members = np.nonzero(comp[:n_old] == comp[n_old + t])[0]
+        pids = {int(p) for p in np.unique(fed.part_of[members])} if len(members) else set()
+        out.append(pids & eff)
+    return out
+
+
+def _stamp(verdict: dict, consulted: set[int], unavailable: set[int]) -> dict:
+    verdict["partitions_consulted"] = sorted(consulted)
+    verdict["partitions_unavailable"] = sorted(unavailable)
+    if unavailable:
+        verdict["partial"] = True
+    return verdict
+
+
+def _recluster(fed: FederatedResident, sq: LoadedIndex, n_old: int, processes: int, device) -> None:
+    st: dict = {}
+    recluster(sq, n_old, processes=processes, device=device, stats_out=st)
+    fed.work["reclusters"] += 1
+    fed.work["secondary_calls"] += st["secondary_calls"]
+    fed.work["recluster_s"] += st["recluster_s"]
+
+
+def classify_batch_federated(fed: FederatedResident, queries, processes: int = 1, prune_cfg: dict | None = None,
+                             joint: bool = True, partition_compare=None, consult_check=None) -> list[dict]:
+    """Streaming per-partition classify: route, one rectangle per
+    (consulted partition x batch), merge the per-partition edges and
+    assemble per-query verdicts through the recluster the union path
+    runs. The verdicts equal the union-assembled ``classify_batch``'s when
+    every consulted partition is healthy, and are PARTIAL (stamped
+    ``partitions_consulted`` / ``partitions_unavailable``) when one is
+    not. Runs on the resident's device.
+
+    ``partition_compare(pid, names, bottoms) -> (ui, qi, dd) | None``
+    replaces the local per-partition rectangle: the fleet router
+    (serve/router.py) injects its gathered remote legs here, so a routed
+    verdict runs the same merge and recluster. None books the partition
+    unavailable, as a local residency failure does.
+
+    ``consult_check() -> bool`` gates each consult up front: False books
+    the partition unavailable without running its compare (the router's
+    batch deadline: a gather whose clients have walked away degrades to
+    an immediate PARTIAL)."""
+    from drep_tpu_torch.index.classify import _assemble_verdicts
+
+    if not queries.n:
+        return []
+    dev = fed.device
+    gen = int(fed.generation)
+    n_old = fed.n
+    q_names = list(queries.admitted["genome"])
+    q_bottoms = [np.asarray(queries.results[g]["bottom"], np.uint64) for g in q_names]
+    k = len(q_names)
+    cand = fed.route_candidates(q_bottoms)
+    consulted: set[int] = set()
+    unavailable: set[int] = set()
+    q_edges: list[tuple[np.ndarray, np.ndarray]] = [
+        (np.empty(0, np.int64), np.empty(0, np.float32)) for _ in range(k)
+    ]
+    for pid in sorted(set().union(*cand) if cand else ()):
+        if consult_check is not None and not consult_check():
+            # the batch's deadline passed mid-merge: every remaining
+            # partition books unavailable and the verdict goes out PARTIAL
+            unavailable.add(pid)
+            continue
+        cols = [t for t in range(k) if pid in cand[t]]
+        if partition_compare is not None:
+            res = partition_compare(pid, [q_names[t] for t in cols], [q_bottoms[t] for t in cols])
+        else:
+            if not fed.ensure_resident(pid, pin={pid}):
+                unavailable.add(pid)
+                continue
+            res = fed.classify_partition(pid, [q_names[t] for t in cols], [q_bottoms[t] for t in cols], prune_cfg)
+        if res is None:
+            unavailable.add(pid)
+            continue
+        consulted.add(pid)
+        ui, qt, dd = res
+        for j, t in enumerate(cols):
+            s = qt == j
+            if s.any():
+                old_ui, old_dd = q_edges[t]
+                q_edges[t] = (np.concatenate([old_ui, ui[s]]), np.concatenate([old_dd, dd[s].astype(np.float32)]))
+
+    routed_unavailable = set(unavailable)
+    base, filt, closure_consulted, excluded = _component_closure(fed, q_edges, unavailable)
+    closure_missing = excluded - routed_unavailable
+    unavailable = excluded  # the closure started from the routed failures
+    # a partition consulted for the compare can fail its closure reload
+    # (evicted, then rot landed): its edges were filtered out again, so
+    # the two stamps stay one or the other
+    consulted = (consulted | closure_consulted) - unavailable
+    closure_consulted -= unavailable
+    # excluded partitions reachable from a query's component only through
+    # dropped edges still degrade its answer and are stamped
+    affected = _affected_by_exclusion(fed, q_edges, unavailable | fed._spineless())
+
+    if joint:
+        sq = fed.scratch_excluding(excluded)
+        _admit_batch(sq, queries.admitted, queries.results, gen + 1)
+        ti, tj, td = _query_query_edges(fed, q_names, q_bottoms, dev)
+        new_ii = np.concatenate([f[0] for f in filt] + [n_old + ti])
+        new_jj = np.concatenate([np.full(len(f[0]), n_old + t, np.int64) for t, f in enumerate(filt)] + [n_old + tj])
+        new_dd = np.concatenate([f[1] for f in filt] + [td])
+        order = np.lexsort((new_jj, new_ii))
+        new_ii, new_jj, new_dd = new_ii[order], new_jj[order], new_dd[order]
+        sq.edges = (
+            np.concatenate([base[0], new_ii]),
+            np.concatenate([base[1], new_jj]),
+            np.concatenate([base[2], new_dd]),
+        )
+        _recluster(fed, sq, n_old, processes, dev)
+        out = _assemble_verdicts(sq, n_old, new_ii, new_jj, new_dd, gen)
+        fed._evict_to_budget(set())  # settle under the budget between batches
+        joint_unavail = unavailable | set().union(*affected)
+        return [_stamp(v, consulted - joint_unavail, joint_unavail) for v in out]
+
+    out: list[dict] = []
+    for t in range(k):
+        sq = fed.scratch_excluding(excluded)
+        _admit_batch(sq, queries.admitted.iloc[[t]], queries.results, gen + 1)
+        ui, dd = filt[t]
+        order = np.argsort(ui, kind="stable")
+        qii, qdd = ui[order], dd[order]
+        qjj = np.full(len(qii), n_old, np.int64)
+        sq.edges = (
+            np.concatenate([base[0], qii]),
+            np.concatenate([base[1], qjj]),
+            np.concatenate([base[2], qdd]),
+        )
+        _recluster(fed, sq, n_old, processes, dev)
+        v = _assemble_verdicts(sq, n_old, qii, qjj, qdd, gen)[0]
+        # this query's coverage: its routed candidates plus whatever the
+        # closure pulled in (closure needs are graph-global, attributed
+        # to every query, erring toward "consulted")
+        unavail_t = (routed_unavailable & cand[t]) | closure_missing | affected[t]
+        consulted_t = ((consulted & cand[t]) | closure_consulted) - unavail_t
+        out.append(_stamp(v, consulted_t, unavail_t))
+    # one batch's working set is pinned above the budget while in flight;
+    # settle back under it before the next batch (residency is an
+    # inter-batch contract, the peak gauge records the in-flight truth)
+    fed._evict_to_budget(set())
+    return out
 
 
 # ---------------------------------------------------------------------------

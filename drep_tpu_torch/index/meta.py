@@ -22,9 +22,6 @@ Routing
     code is uniform over the uint64 space, so equal range splits stay
     balanced. The bounds are the equal split of ``[0, 2^64)`` into P
     ranges, pinned in the meta at creation; routing bisects them.
-
-The streaming federated resident that `index serve` loads on such a root
-is ROADMAP.md queue 1 item 11b (:data:`FEDERATION_ITEM`).
 """
 
 from __future__ import annotations
@@ -40,10 +37,6 @@ META_NAME = "federation.json"
 FED_FORMAT = 1
 MAX_PARTITIONS = 999  # part_%03d naming
 
-# the ROADMAP item that owns serving a federated root (the streaming
-# resident, its router and the daemon's federated ops)
-FEDERATION_ITEM = "ROADMAP.md queue 1, item 11b"
-
 _U64 = 1 << 64
 
 
@@ -53,17 +46,6 @@ def meta_path(location: str) -> str:
 
 def is_federated(location: str) -> bool:
     return os.path.exists(meta_path(location))
-
-
-def refuse_federated_serving(location: str, what: str) -> None:
-    """Raise NotImplementedError when `location` is a federated root:
-    serving one (the streaming resident) is item 11b."""
-    if is_federated(location):
-        raise NotImplementedError(
-            f"{what} on a federated index ({meta_path(location)}): the streaming federated "
-            f"resident is not ported yet ({FEDERATION_ITEM}); one-shot `index classify` "
-            f"answers from the union"
-        )
 
 
 def partition_dir_name(pid: int) -> str:

@@ -170,7 +170,12 @@ def pack_for(resident, device: torch.device) -> DeviceResidentPack | None:
 
 def prewarm_resident(resident, device: torch.device) -> bool:
     """Build and upload the pack ahead of the first batch (daemon start
-    and generation hot swap). Returns True when the path is armed."""
+    and generation hot swap). Returns True when the path is armed; False
+    for a streaming federated resident, which manages its own partitions."""
+    from drep_tpu_torch.index.federation import FederatedResident
+
+    if isinstance(resident, FederatedResident):
+        return False
     return pack_for(resident, device) is not None
 
 

@@ -232,11 +232,21 @@ def _score_clusters(idx: LoadedIndex, parts: list[tuple[list[int], list[str], pd
     return sdb_full["score"].to_numpy(np.float64)
 
 
-def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> dict:
+def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None, stats_out: dict | None = None) -> dict:
     """Recompute the index's derived state after `idx` gained genomes
     beyond `n_old` (sketches and edges already extended in memory), the
     secondary of each changed multi-member primary cluster on `device`.
-    Mutates idx.primary/suffix/score/winners; returns a summary."""
+    Mutates idx.primary/suffix/score/winners; returns a summary. Its
+    secondary calls and seconds land in ``STATS`` and, when given, in
+    `stats_out` (the caller's own copy).
+
+    ``idx.frozen_rows`` (set by the streaming federated resident,
+    index/federation.py) marks genomes whose sketch payloads are
+    unavailable (quarantined partitions): they keep their old primary
+    label, carry their old suffix and score when their cluster is reused
+    whole, and when their cluster is recomputed they ride along with
+    suffix 0 and their old score while only the available members
+    re-cluster, never reaching a secondary their sketches cannot feed."""
     from drep_tpu_torch.cluster.controller import secondary_for_cluster
     from drep_tpu_torch.device import resolve_device
 
@@ -244,6 +254,7 @@ def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> 
     old_primary = idx.primary
     old_suffix = idx.suffix
     old_score = idx.score
+    frozen: set[int] = {int(i) for i in getattr(idx, "frozen_rows", ())}
     # member-set-keyed reuse: a union primary cluster whose member set
     # equals an old one has the old secondary results and scores
     old_groups: dict[frozenset, bool] = {}
@@ -306,6 +317,16 @@ def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> 
                 win_rows.append((f"{pc}_{s_val}", won[0], won[1]))
             continue
         recomputed += 1
+        if frozen:
+            held = [i for i in members if i in frozen]
+            if held:
+                # unavailable members: suffix 0 (never a real secondary),
+                # their old score, no winner row; the rest re-clusters
+                for i in held:
+                    score[i] = old_score[i] if i < len(old_score) else 0.0
+                members = [i for i in members if i not in frozen]
+                if not members:
+                    continue
         if len(members) == 1:
             suffix[members[0]] = 1  # the pipeline's singleton convention ("pc_1")
             to_score.append((list(members), [f"{pc}_1"], no_ndb))
@@ -344,8 +365,11 @@ def recluster(idx: LoadedIndex, n_old: int, processes: int = 1, device=None) -> 
             "score": np.array([r[2] for r in win_rows], np.float64),
         }
     )
-    STATS.update(secondary_calls=secondary_calls, secondary_largest=largest, secondary_s=t_secondary,
-                 recluster_s=time.perf_counter() - t0)
+    timing = {"secondary_calls": secondary_calls, "secondary_largest": largest, "secondary_s": t_secondary,
+              "recluster_s": time.perf_counter() - t0}
+    STATS.update(timing)
+    if stats_out is not None:
+        stats_out.update(timing)
     return {
         "primary_clusters": int(labels.max()) if n else 0,
         "secondary_clusters": len(win_rows),

@@ -20,6 +20,7 @@ build on.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -27,6 +28,9 @@ from drep_tpu_torch.ops import _build
 from drep_tpu_torch.ops.minhash import PAD_ID, widen_ids
 
 LAUNCHES = {"indicator_mm": 0, "indicator_mm_rect": 0}
+# the counts are bumped under a lock: a serve process launches from
+# several threads (a replica's batch loop, a router's merge)
+_LAUNCH_LOCK = threading.Lock()
 ROW_BUCKET_MIN = 64  # smallest row bucket of the containment matmul (pow2 above)
 KC = 256  # csrc/mm_block.cuh: vocabulary ids a chunk
 MAX_V_PAD = 1 << 30  # csrc/indicator_mm.cu keeps chunk bounds in int32
@@ -126,7 +130,8 @@ def _launch(ids: torch.Tensor, v_pad: int, out: torch.Tensor, dense: bool) -> No
     with torch.cuda.device(ids.device):
         rc = fn(ids.data_ptr(), out.data_ptr(), m, width, v_pad, int(dense), _build.stream_handle(ids.device))
     _build.check(rc, "indicator_intersections")
-    LAUNCHES["indicator_mm"] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES["indicator_mm"] += 1
 
 
 def indicator_intersections(ids: torch.Tensor, v_pad: int, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -164,7 +169,8 @@ def _launch_rect(a: torch.Tensor, b: torch.Tensor, v_pad: int, out: torch.Tensor
         rc = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], b.shape[0], a.shape[1], v_pad, int(dense),
                 _build.stream_handle(a.device))
     _build.check(rc, "indicator_rect_intersections")
-    LAUNCHES["indicator_mm_rect"] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES["indicator_mm_rect"] += 1
 
 
 def indicator_rect_intersections(

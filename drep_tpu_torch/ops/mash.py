@@ -20,6 +20,7 @@ them.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -32,6 +33,9 @@ TILE = 128  # both pair-tile dims (csrc/mash_shared.cu TILE)
 _PLAIN_BUDGET_ELEMS = 1 << 26
 
 LAUNCHES = {"mash_shared": 0}
+# the count is bumped under a lock: a serve replica launches from its
+# batch loop and from connection threads (classify_part legs)
+_LAUNCH_LOCK = threading.Lock()
 
 
 def _check_rows(x: torch.Tensor, n: torch.Tensor, what: str) -> None:
@@ -128,7 +132,8 @@ def mash_shared(
         rows_a, rows_b, width, int(s_orig), int(symmetric), _build.stream_handle(a.device),
     )
     _build.check(rc, "mash_shared")
-    LAUNCHES["mash_shared"] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES["mash_shared"] += 1
     return out
 
 

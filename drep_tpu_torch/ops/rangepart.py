@@ -1,8 +1,7 @@
 """Host-side range partitioning of sorted sketch-id rows.
 
-Counterpart of drep_tpu/ops/rangepart.py, but for its serving router's
-``bitmap_contains_any`` (ROADMAP.md queue 1 item 11b). Intersection
-counts are additive over disjoint id ranges:
+Counterpart of drep_tpu/ops/rangepart.py. Intersection counts are
+additive over disjoint id ranges:
 
     |A ∩ B| = Σ_r |A ∩ [b_r, b_{r+1}) ∩ B|
 
@@ -18,7 +17,8 @@ counts sum. Two callers:
   raw uint64 bottom hashes into a shared code space
   (:func:`hash_code_matrix`) and range-shards it with
   :func:`partition_by_range`; every federated publish writes one routing
-  bitmap a partition (:func:`code_summary_bitmap`).
+  bitmap a partition (:func:`code_summary_bitmap`), which the serving
+  resident and the fleet router consult (:func:`bitmap_contains_any`).
 
 Rows hold distinct sorted ids (sketches are sets), so a bucket covering
 `w` consecutive ids holds at most `w` entries a row and the adaptive
@@ -77,6 +77,17 @@ def code_summary_bitmap(hash_rows: list[np.ndarray], bits: int = ROUTE_SUMMARY_B
         c = coarse_codes(r, bits)
         np.bitwise_or.at(bm, c >> 6, np.left_shift(np.uint64(1), (c & 63).astype(np.uint64)))
     return bm
+
+
+def bitmap_contains_any(bitmap: np.ndarray, codes: np.ndarray) -> bool:
+    """Does the summary bitmap hold any of the (distinct int64) coarse
+    codes? The per-(query, partition) consult decision of the serving
+    resident and the fleet router."""
+    if not len(codes):
+        return False
+    codes = np.asarray(codes, np.int64)
+    hits = bitmap[codes >> 6] & np.left_shift(np.uint64(1), (codes & 63).astype(np.uint64))
+    return bool(np.any(hits != 0))
 
 
 def vocab_extent(ids: np.ndarray) -> int:

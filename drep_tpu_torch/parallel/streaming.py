@@ -203,6 +203,7 @@ def streaming_mash_edges(
     min_col: int = 0,
     prune=None,
     device: torch.device | str | None = None,
+    stats_out: dict | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """All unordered pairs (i < j) with Mash distance <= cutoff:
     (ii, jj, dist, pairs_computed), in the JAX package's order (stripe by
@@ -219,7 +220,10 @@ def streaming_mash_edges(
     (resumed shards add 0).
 
     Runs on `device` (default cuda; the CPU only when asked): the Mash
-    kernel on a CUDA device, its plain version on the CPU.
+    kernel on a CUDA device, its plain version on the CPU. The call's
+    counters land in the module's ``STATS`` and, when given, in
+    `stats_out` (the caller's own copy, which threads walking at once do
+    not share).
     """
     from drep_tpu_torch.device import resolve_device
 
@@ -327,9 +331,12 @@ def streaming_mash_edges(
     ii = np.concatenate(all_ii) if all_ii else empty[0]
     jj = np.concatenate(all_jj) if all_jj else empty[1]
     dd = np.concatenate(all_dd) if all_dd else empty[2]
+    final = dict(stats, n=n, block=block, n_blocks=n_blocks, pairs_computed=pairs_computed, edges=len(ii),
+                 seconds=time.perf_counter() - t_start)
     STATS.clear()
-    STATS.update(stats, n=n, block=block, n_blocks=n_blocks, pairs_computed=pairs_computed,
-                 edges=len(ii), seconds=time.perf_counter() - t_start)
+    STATS.update(final)
+    if stats_out is not None:
+        stats_out.update(final)
     sched = stats["tiles_computed"] + stats["tiles_skipped"]
     logger.info(
         "streaming primary: %d genomes, block %d: %d stripes computed in %d Mash launches, "

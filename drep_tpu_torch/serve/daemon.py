@@ -1,18 +1,23 @@
 """The `index serve` daemon: a long-lived, dynamically batching,
-hot-swapping classify front door over one index store.
+hot-swapping classify front door over one index store or a federated
+root.
 
-Counterpart of drep_tpu/serve/daemon.py on a plain (one-store) index.
-One process loads the index once (:func:`load_resident_index`), uploads
-its sketch matrix to the device (``index/resident_device.py``), then
-serves classify requests over a local socket until drained:
+Counterpart of drep_tpu/serve/daemon.py. One process loads the index
+once (:func:`load_resident_index`): a plain store's sketch matrix is
+uploaded to the device (``index/resident_device.py``); a federated
+root's streaming resident (``index/federation.py::FederatedResident``)
+holds the union spine and loads each partition's sketches on first
+consult. It then serves classify requests over a local socket until
+drained:
 
 - **dynamic batching** (serve/batcher.py): concurrent requests coalesce
   into one K x N rectangle, one ``mash_shared`` launch against the
   resident matrix. Each answer is the one-shot `index classify` verdict
   of that genome alone (``classify_batch(joint=False)``).
-- **hot-swap generations**: a poller re-reads ``manifest.json`` every
-  ``poll_generation_s``; a published generation G+1 is loaded into a new
-  resident object, its pack uploaded, and swapped in between batches.
+- **hot-swap generations**: a poller re-reads ``manifest.json`` (or a
+  federated root's ``federation.json``) every ``poll_generation_s``; a
+  published generation G+1 is loaded into a new resident object, a plain
+  store's pack uploaded, and swapped in between batches.
   In-flight batches finish on the generation they started on, and every
   verdict carries the generation that produced it. The daemon never
   writes under the index directory.
@@ -26,14 +31,22 @@ serves classify requests over a local socket until drained:
   queued batch, answers every in-flight client, and exits 0.
 - **observability**: latency histograms and queue/batch gauges through
   utils/profiling.py, served by the ``status`` op and HTTP ``/healthz``
-  and written under ``--log_dir``, never the index directory.
+  and written under ``--log_dir``, never the index directory. On a
+  federated root the snapshot carries the partition health map.
+- **federated ops**: a verdict with a coverage hole (a quarantined
+  partition) is stamped PARTIAL, and a ``strict`` request refuses it
+  with ``partial_coverage`` and the next reload probe as its
+  ``retry_after_s``; ``classify_part`` serves one fleet router leg (the
+  rectangle of one partition, generation-fenced) and ``prewarm`` loads
+  named partitions ahead of the first leg. On a plain root both answer
+  ``not_federated``; ``fleet`` answers ``not_a_router`` (the router is
+  serve/router.py). One compute lock serializes the batch loop and the
+  legs served on connection threads: the resident's residency and health
+  bookkeeping is single-threaded by design.
 
-Not ported: the streaming federated resident (item 11b): on a federated
-root ``start()`` raises NotImplementedError before anything is loaded,
-and ``classify_part`` and ``prewarm`` answer ``not_federated`` as the JAX
-daemon does on a plain root; the router (``fleet`` answers ``not_a_router``; item 11b); event
-tracing (item 13); the snapshot's ``update_pod`` field, which the JAX
-daemon also omits when its pod-status tool is unreachable (item 12b).
+Not ported: event tracing (item 13); the snapshot's ``update_pod`` field,
+which the JAX daemon also omits when its pod-status tool is unreachable
+(item 12b).
 
 The server is equally usable as a library (tests and chip_smoke.py run it
 in-process): ``IndexServer(cfg).start()`` binds and returns the address;
@@ -53,6 +66,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
+
+import numpy as np
 
 from drep_tpu_torch.device import resolve_device
 from drep_tpu_torch.errors import UserInputError
@@ -86,7 +101,8 @@ class ServeConfig:
     processes: int = 1
     prune_cfg: dict | None = None
     log_dir: str | None = None  # metrics home — never the index
-    # the JAX CLI's federated residency budget: parsed, unused on a plain root
+    # a federated root's residency budget (MiB) for partition sketch
+    # payloads; None or 0: no budget
     resident_mb: int | None = None
     device: Any = None  # where the kernels run (default cuda; cpu when asked)
 
@@ -102,8 +118,11 @@ class _ServeStats:
     errors_total: int = 0
     batches_total: int = 0
     swaps_total: int = 0
+    partial_refusals: int = 0  # strict refusals on PARTIAL coverage
+    legs_total: int = 0  # classify_part legs served (the fleet's scatter tier)
+    leg_refusals: int = 0  # legs refused (fence, drain, partition loss)
     deadline_shed: int = 0  # queued entries shed on an expired budget
-    cancels: int = 0  # requests abandoned via the cancel op
+    cancels: int = 0  # requests and legs abandoned via the cancel op
 
 
 class IndexServer:
@@ -126,12 +145,20 @@ class IndexServer:
         # reply time. Bounded — a stream of cancels for ids this daemon
         # never saw must not grow memory.
         self._cancelled: "collections.OrderedDict[str, None]" = collections.OrderedDict()
+        # the tightest remaining deadline of the batch dispatching now (set
+        # by _serve_one_batch, read by the router's leg fan-out)
+        self._batch_deadline: float | None = None
         self._classify_fn = classify_fn or self._classify_paths
         self._resident = None
         self._listener: socket.socket | None = None
         self._threads: list[threading.Thread] = []
         self._stop_poll = threading.Event()
         self._lock = threading.Lock()  # stats + the cancel set
+        # serializes all resident compute: the batch loop's classify and
+        # the classify_part legs served on connection threads (a
+        # FederatedResident's LRU and health bookkeeping is single-threaded
+        # by design)
+        self._compute_lock = threading.Lock()
 
     # ---- lifecycle -------------------------------------------------------
     def start(self) -> str:
@@ -139,10 +166,12 @@ class IndexServer:
         start the acceptor and generation-poller threads. Returns the
         bound address."""
         t0 = time.monotonic()
-        self._resident = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb)
+        self._resident = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb,
+                                             device=self.device)
         counters.set_gauge("serve_generation", float(self._resident.generation))
         # arm the resident rectangle before the first batch: one sketch
-        # matrix upload per generation, not per batch
+        # matrix upload per generation, not per batch (a federated root's
+        # partitions load on first consult instead)
         resident_device.prewarm_resident(self._resident, self.device)
         get_logger().info(
             "index serve: generation %d (%d genomes) resident on %s in %.2fs",
@@ -245,10 +274,16 @@ class IndexServer:
         counters.set_gauge("serve_queue_depth", float(self.queue.depth()))
         counters.set_gauge("serve_batch_size", float(len(batch)))
         by_name: dict = {}
-        # basename -> (message, reason): per-path failures of a poisoned batch
-        path_err: dict[str, tuple[str, str]] = {}
+        # basename -> (message, reason, retry_after_s): per-path failures
+        # keep their refusal (a router's no-replica error carries reason
+        # and retry_after_s attributes the client's backoff needs)
+        path_err: dict[str, tuple[str, str, float | None]] = {}
+        # the batch's tightest remaining budget, visible to the classify
+        # core while it runs: the router decrements it per leg
+        deadlines = [req.deadline for req in batch if req.deadline is not None]
+        self._batch_deadline = min(deadlines) if deadlines else None
         try:
-            with counters.stage("serve_batch"):
+            with counters.stage("serve_batch"), self._compute_lock:
                 by_name = self._classify_fn(resident, paths)
         except Exception as e:  # noqa: BLE001 — a poisoned batch must not kill the daemon
             # isolate the poison: one unreadable query must not fail its
@@ -262,12 +297,15 @@ class IndexServer:
             counters.add_fault("serve_batch_poisoned")
             for p in paths:
                 try:
-                    with counters.stage("serve_batch"):
+                    with counters.stage("serve_batch"), self._compute_lock:
                         by_name.update(self._classify_fn(resident, [p]))
                 except UserInputError as pe:
-                    path_err[os.path.basename(p)] = (str(pe), "classify_failed")
+                    path_err[os.path.basename(p)] = (str(pe), "classify_failed", None)
                 except Exception as pe:  # noqa: BLE001
-                    path_err[os.path.basename(p)] = (f"{type(pe).__name__}: {pe}", "classify_failed")
+                    path_err[os.path.basename(p)] = (
+                        f"{type(pe).__name__}: {pe}", getattr(pe, "reason", None) or "classify_failed",
+                        getattr(pe, "retry_after_s", None),
+                    )
                     get_logger().exception("serve: query %s failed", p)
         batch_ms = (time.monotonic() - t0) * 1000.0
         counters.observe("serve_batch_ms", batch_ms)
@@ -294,10 +332,24 @@ class IndexServer:
             if verdict is None:
                 with self._lock:
                     self.stats.errors_total += 1
-                msg, reason = path_err.get(
-                    base, (f"no verdict produced for {req.genome}", "classify_failed")
+                msg, reason, retry = path_err.get(
+                    base, (f"no verdict produced for {req.genome}", "classify_failed", None)
                 )
-                resp = protocol.error_response(msg, req_id=req.req_id, reason=reason)
+                resp = protocol.error_response(msg, req_id=req.req_id, reason=reason, retry_after_s=retry)
+            elif req.strict and verdict.get("partitions_unavailable"):
+                # --strict: a PARTIAL verdict (a quarantined partition left
+                # a coverage hole) refuses, with the soonest reload probe as
+                # the retry hint, instead of a degraded answer
+                with self._lock:
+                    self.stats.partial_refusals += 1
+                counters.add_fault("serve_partial_refused")
+                resp = protocol.error_response(
+                    f"partial partition coverage: partition(s) "
+                    f"{verdict['partitions_unavailable']} unavailable "
+                    f"(consulted {verdict.get('partitions_consulted', [])})",
+                    req_id=req.req_id, reason="partial_coverage",
+                    retry_after_s=self._partial_retry_hint(),
+                )
             else:
                 resp = protocol.classify_response(
                     verdict, req_id=req.req_id, batch_size=len(batch),
@@ -311,7 +363,8 @@ class IndexServer:
         """Re-read the published generation on a cadence; a bump loads
         into a new resident object, uploads its pack, and swaps in with
         one reference assignment (in-flight batches keep the old object).
-        Polling is a checked JSON read, the reload ``heal=False``."""
+        Polling is a checked JSON read of the store's manifest or the
+        federated root's meta, the reload ``heal=False``."""
         from drep_tpu_torch.index import meta
 
         while not self._stop_poll.wait(max(0.05, float(self.cfg.poll_generation_s))):
@@ -322,7 +375,8 @@ class IndexServer:
             if self._resident is None or gen <= int(self._resident.generation):
                 continue
             try:
-                fresh = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb)
+                fresh = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb,
+                                            device=self.device)
             except Exception as e:  # noqa: BLE001 — keep serving the old generation
                 get_logger().warning(
                     "serve: failed to load generation %d (%s) — still serving %d",
@@ -354,7 +408,7 @@ class IndexServer:
             for name, h in list(counters.hists.items())
             if name.startswith("serve_")
         }
-        return {
+        out = {
             "ok": True,
             "pid": os.getpid(),
             "address": self.cfg.address(),
@@ -372,11 +426,21 @@ class IndexServer:
             "batches_total": self.stats.batches_total,
             "generation_swaps": self.stats.swaps_total,
             "latency_ms": hists,
-            # a plain root never answers PARTIAL (federated serving, item 11b)
-            "partial_refusals": 0,
+            "partial_refusals": self.stats.partial_refusals,
             "deadline_shed": self.stats.deadline_shed,
             "cancels": self.stats.cancels,
         }
+        # a streaming federated resident: the partition health map rides
+        # the same snapshot /healthz serves
+        if hasattr(resident, "health_map"):
+            out["partitions"] = resident.health_map()
+        return out
+
+    def _partial_retry_hint(self) -> float:
+        resident = self._resident
+        if hasattr(resident, "retry_hint_s"):
+            return float(resident.retry_hint_s())
+        return _RETRY_AFTER_FLOOR_S
 
     # ---- connections -----------------------------------------------------
     def _accept_loop(self) -> None:
@@ -474,16 +538,13 @@ class IndexServer:
             send({"ok": True, "op": "status", "status": self.snapshot()})
             return
         if op == "classify_part":
-            send(protocol.error_response(
-                "this replica serves a monolithic index — classify_part needs a federated root",
-                req_id=req.get("id"), reason="not_federated",
-            ))
+            # one scatter leg, served on this connection thread (the router
+            # bounds its own wait); the compute lock serializes it against
+            # the batch loop
+            self._serve_leg(req, send)
             return
         if op == "prewarm":
-            send(protocol.error_response(
-                "this replica serves a monolithic index — prewarm hints need a federated root",
-                req_id=req.get("id"), reason="not_federated",
-            ))
+            self._serve_prewarm(req, send)
             return
         if op == "cancel":
             self._cancel(req, send)
@@ -596,6 +657,149 @@ class IndexServer:
             )
             send(protocol.error_response(msg, req_id=req_id, reason=refused, retry_after_s=retry))
 
+    # ---- federated ops: prewarm and classify_part legs -----------------
+    def _serve_prewarm(self, req: dict, send: Callable[[dict], None]) -> None:
+        """The sketch prefetch hint: make the named partitions' sketch
+        payloads resident now (the router sends it at `fleet join` with the
+        replica's partitions, so the first leg carries no cold load).
+        Best effort: an unknown or unloadable partition is reported under
+        "failed" (the quarantine machinery owns it); the reply is never an
+        error."""
+        req_id = req.get("id")
+        resident = self._resident  # pinned: a swap replaces the object
+        if not hasattr(resident, "ensure_resident"):
+            send(protocol.error_response(
+                "this replica serves a monolithic index — prewarm hints need a federated root",
+                req_id=req_id, reason="not_federated",
+            ))
+            return
+        warmed: list[int] = []
+        failed: list[int] = []
+        for pid in req["partitions"]:
+            pid = int(pid)
+            if pid not in resident._slots:
+                failed.append(pid)
+                continue
+            try:
+                with self._compute_lock:
+                    ok = resident.ensure_resident(pid)
+            except Exception:  # noqa: BLE001 — a hint must not take the replica down
+                ok = False
+            (warmed if ok else failed).append(pid)
+        resp: dict = {"ok": True, "op": "prewarm", "generation": int(resident.generation),
+                      "warmed": warmed, "failed": failed}
+        if req_id is not None:
+            resp["id"] = req_id
+        send(resp)
+
+    def _serve_leg(self, req: dict, send: Callable[[dict], None]) -> None:
+        """One ``classify_part`` leg: the rectangle of one partition
+        against a router's already-sketched query batch. Generation-fenced:
+        a leg for another generation is refused with this replica's, never
+        computed, so a gather cannot merge union rows of two generations."""
+        req_id = req.get("id")
+        resident = self._resident  # pinned: a swap replaces the object
+        if not hasattr(resident, "classify_partition"):
+            send(protocol.error_response(
+                "this replica serves a monolithic index — classify_part needs a federated root",
+                req_id=req_id, reason="not_federated",
+            ))
+            return
+        if self.queue.draining:
+            # leaving: the router reroutes the leg (no dropped query)
+            send(protocol.error_response("replica is draining", req_id=req_id, reason="draining",
+                                         retry_after_s=_RETRY_AFTER_FLOOR_S))
+            return
+        have = int(resident.generation)
+        want = int(req["generation"])
+        if want != have:
+            with self._lock:
+                self.stats.leg_refusals += 1
+            resp = protocol.error_response(
+                f"replica is at generation {have}, leg wants {want}", req_id=req_id,
+                reason="generation_mismatch",
+                retry_after_s=max(_RETRY_AFTER_FLOOR_S, float(self.cfg.poll_generation_s)),
+            )
+            resp["generation"] = have
+            send(resp)
+            return
+        pid = int(req["pid"])
+        if pid not in resident._slots:
+            send(protocol.error_response(f"no partition {pid} at generation {have}", req_id=req_id,
+                                         reason="bad_request"))
+            return
+        names = [str(n) for n in req["names"]]
+        bottoms = [np.asarray(b, np.uint64) for b in req["bottoms"]]
+        prune_cfg = req.get("prune", self.cfg.prune_cfg)
+        t0 = time.monotonic()
+
+        def cancelled_refusal() -> None:
+            # a losing hedge leg queued behind the compute lock sees its
+            # cancel before it spends the card on an answer already given
+            with self._lock:
+                self.stats.cancels += 1
+            counters.add_fault("serve_leg_cancelled")
+            send(protocol.error_response("leg cancelled by the router", req_id=req_id, reason="cancelled"))
+
+        if self._is_cancelled(req_id):
+            cancelled_refusal()
+            return
+        # the remaining per-hop budget (the router decrements it before
+        # sending) bounds the wait for the compute lock: a leg that cannot
+        # start in time refuses instead of computing an unread answer
+        leg_deadline = None if req.get("deadline_ms") is None else t0 + float(req["deadline_ms"]) / 1000.0
+        try:
+            if not self._compute_lock.acquire(
+                timeout=-1 if leg_deadline is None else max(0.0, leg_deadline - time.monotonic())
+            ):
+                with self._lock:
+                    self.stats.deadline_shed += 1
+                    self.stats.leg_refusals += 1
+                counters.add_fault("serve_deadline_shed")
+                send(protocol.error_response(
+                    "leg deadline budget expired waiting for the compute slot", req_id=req_id,
+                    reason="deadline_exceeded", retry_after_s=self._partial_retry_hint(),
+                ))
+                return
+            try:
+                if self._is_cancelled(req_id):
+                    cancelled_refusal()
+                    return
+                if not resident.ensure_resident(pid, pin={pid}):
+                    res = None
+                else:
+                    res = resident.classify_partition(pid, names, bottoms, prune_cfg)
+            finally:
+                self._compute_lock.release()
+        except Exception as e:  # noqa: BLE001 — a leg failure must not take the replica down
+            get_logger().exception("serve: classify_part leg pid=%d failed", pid)
+            with self._lock:
+                self.stats.leg_refusals += 1
+            send(protocol.error_response(f"leg failed: {type(e).__name__}: {e}", req_id=req_id,
+                                         reason="leg_failed", retry_after_s=self._partial_retry_hint()))
+            return
+        if res is None:
+            # this replica's copy of the partition is quarantined: the
+            # router reroutes or stamps PARTIAL, the probe hint as its cue
+            with self._lock:
+                self.stats.leg_refusals += 1
+            counters.add_fault("serve_leg_unavailable")
+            send(protocol.error_response(f"partition {pid} unavailable on this replica", req_id=req_id,
+                                         reason="partition_unavailable", retry_after_s=self._partial_retry_hint()))
+            return
+        ui, qi, dd = res
+        with self._lock:
+            self.stats.legs_total += 1
+        counters.observe("serve_leg_ms", (time.monotonic() - t0) * 1000.0)
+        send({
+            "ok": True, "op": "classify_part", "id": req_id, "pid": pid, "generation": have,
+            "ui": [int(x) for x in ui],
+            "qi": [int(x) for x in qi],
+            # float32 -> float -> JSON -> float32 is exact (a double holds
+            # every float32), so the routed merge sees the same distances
+            "dist": [float(x) for x in dd],
+        })
+
     # ---- HTTP shim -------------------------------------------------------
     def _handle_http(self, conn: socket.socket, first: bytes, reader) -> None:
         try:
@@ -628,7 +832,8 @@ class IndexServer:
         done.wait()
         resp = box.get("resp", protocol.error_response("no response"))
         status = 200 if resp.get("ok") else (
-            503 if resp.get("reason") in ("backpressure", "draining", "deadline_exceeded") else 400
+            503 if resp.get("reason") in ("backpressure", "draining", "partial_coverage", "no_replicas",
+                                          "deadline_exceeded") else 400
         )
         with contextlib.suppress(OSError):
             conn.sendall(protocol.http_response(status, resp, retry_after_s=resp.get("retry_after_s")))

@@ -5,7 +5,7 @@ one-store genome index):
 dereplicate = filter -> cluster -> choose -> evaluate -> analyze;
 compare = cluster -> evaluate -> analyze (no filter/choose);
 index build|update|classify|split|merge|compact = drep_tpu_torch/index;
-index serve = drep_tpu_torch/serve.
+index serve|route = drep_tpu_torch/serve.
 
 All run on `device` (default cuda); a CUDA request on a machine without
 CUDA, or a JAX CLI flag set to a value the port does not run
@@ -185,30 +185,24 @@ def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, dev
     return index_classify(index_loc, genomes, device=dev, **_prune_kwargs(kwargs))
 
 
-def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
-    """`index serve`: the resident serving tier (drep_tpu_torch/serve/):
-    load once, batch dynamically, hot-swap generations, drain on SIGTERM.
-    Blocks until drained; returns run()'s exit status (0).
-
-    What the port does not run is refused before anything is loaded:
-    ``--events on`` (item 13), ``--io_retries`` and ``--fsync`` (item 5),
-    a federated root (the streaming resident, item 11b). The daemon is a
-    pure reader of the
-    index, so its logs and counters live under ``--log_dir`` (or nowhere),
-    never in the index tree."""
+def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
+    """The set-up `index serve` and `index route` share: what the port
+    does not run refuses first (``--events on``, item 13; ``--io_retries``
+    and ``--fsync``, item 5), then the device resolves, the console keeps
+    the controller's verbosity and the counters restart. Both are pure
+    readers of the index, so their logs and counters live under
+    ``--log_dir`` (outside the index tree) or nowhere. Returns (the
+    absolute log_dir or None, the device)."""
     import logging
     import os
 
-    from drep_tpu_torch.index.meta import refuse_federated_serving
-    from drep_tpu_torch.serve import IndexServer, ServeConfig, install_signal_handlers
     from drep_tpu_torch.utils.profiling import counters, start_metrics_flush, stop_metrics_flush
 
     if kwargs.get("events") == "on":
         raise NotImplementedError(
-            "index serve --events on: event tracing is not ported yet (ROADMAP.md queue 1, item 13)"
+            f"index {what} --events on: event tracing is not ported yet (ROADMAP.md queue 1, item 13)"
         )
     refuse_unported_flags(kwargs)
-    refuse_federated_serving(index_loc, "index serve")
     dev = resolve_device(device)
     log_dir = kwargs.get("log_dir") or None
     if log_dir:
@@ -217,7 +211,7 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
         if log_dir == idx_abs or log_dir.startswith(idx_abs + os.sep):
             raise UserInputError(
                 f"--log_dir {log_dir} is inside the index directory — the "
-                f"daemon is read-only by contract; point it elsewhere"
+                f"{'daemon' if what == 'serve' else 'router'} is read-only by contract; point it elsewhere"
             )
         os.makedirs(log_dir, exist_ok=True)
     # keep the console verbosity the controller already set for -d:
@@ -231,27 +225,36 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
     else:
         stop_metrics_flush()
     counters.reset()
-    cfg = ServeConfig(
-        index_loc=index_loc,
-        host=kwargs.get("host", "127.0.0.1") or "127.0.0.1",
-        port=int(kwargs.get("port", 0) or 0),
-        socket_path=kwargs.get("socket") or None,
-        max_queue=int(kwargs.get("max_queue", 256) or 256),
-        max_batch=int(kwargs.get("max_batch", 64) or 64),
-        batch_window_ms=float(kwargs.get("batch_window_ms", 5.0) or 0.0),
-        poll_generation_s=float(kwargs.get("poll_generation_s", 2.0) or 2.0),
-        processes=int(kwargs.get("processes", 1) or 1),
-        prune_cfg={
+    return log_dir, dev
+
+
+def _serve_kwargs(index_loc: str, kwargs: dict, log_dir: str | None, dev) -> dict:
+    """The ServeConfig fields `index serve` and `index route` share."""
+    return {
+        "index_loc": index_loc,
+        "host": kwargs.get("host", "127.0.0.1") or "127.0.0.1",
+        "port": int(kwargs.get("port", 0) or 0),
+        "socket_path": kwargs.get("socket") or None,
+        "max_batch": int(kwargs.get("max_batch", 64) or 64),
+        "batch_window_ms": float(kwargs.get("batch_window_ms", 5.0) or 0.0),
+        "poll_generation_s": float(kwargs.get("poll_generation_s", 2.0) or 2.0),
+        "processes": int(kwargs.get("processes", 1) or 1),
+        "prune_cfg": {
             "primary_prune": kwargs.get("primary_prune", "off") or "off",
             "prune_bands": int(kwargs.get("prune_bands", 0) or 0),
             "prune_min_shared": int(kwargs.get("prune_min_shared", 0) or 0),
             "prune_join_chunk": int(kwargs.get("prune_join_chunk", 0) or 0),
         },
-        log_dir=log_dir,
-        resident_mb=kwargs.get("resident_mb"),
-        device=dev,
-    )
-    server = IndexServer(cfg)
+        "log_dir": log_dir,
+        "resident_mb": kwargs.get("resident_mb"),
+        "device": dev,
+    }
+
+
+def _run_server(server, log_dir: str | None) -> int:
+    from drep_tpu_torch.serve import install_signal_handlers
+    from drep_tpu_torch.utils.profiling import counters, stop_metrics_flush
+
     install_signal_handlers(server)
     try:
         return server.run()
@@ -259,3 +262,50 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
         stop_metrics_flush(final=bool(log_dir))
         if log_dir:
             counters.write(log_dir)
+
+
+def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
+    """`index serve`: the resident serving tier (drep_tpu_torch/serve/):
+    load once, batch dynamically, hot-swap generations, drain on SIGTERM.
+    Blocks until drained; returns run()'s exit status (0). On a federated
+    root it loads the streaming resident, whose residency budget is
+    ``--resident_mb``.
+
+    What the port does not run is refused before anything is loaded:
+    ``--events on`` (item 13), ``--io_retries`` and ``--fsync`` (item 5)."""
+    from drep_tpu_torch.serve import IndexServer, ServeConfig
+
+    log_dir, dev = _serve_front_door(index_loc, kwargs, "serve", device)
+    cfg = ServeConfig(max_queue=int(kwargs.get("max_queue", 256) or 256),
+                      **_serve_kwargs(index_loc, kwargs, log_dir, dev))
+    return _run_server(IndexServer(cfg), log_dir)
+
+
+def index_route_wrapper(index_loc: str, device=None, **kwargs) -> int:
+    """`index route`: the fleet front door (drep_tpu_torch/serve/router.py),
+    a stateless scatter/gather router over `index serve` replicas of a
+    federated root. Blocks until drained; returns run()'s exit status (0).
+    An empty ``--replica`` list is legal (replicas may join through the
+    ``fleet`` op); queries before a join are refused with ``no_replicas``.
+
+    Refused before anything is read: ``--fleet_manifest`` (the
+    supervisor's manifest, ROADMAP.md queue 1 item 11c), ``--events on``
+    (item 13) and ``--io_retries`` (item 5)."""
+    from drep_tpu_torch.serve.router import RouterConfig, RouterServer, refuse_fleet_manifest
+
+    refuse_fleet_manifest(kwargs.get("fleet_manifest"))
+    log_dir, dev = _serve_front_door(index_loc, kwargs, "route", device)
+    replicas = list(kwargs.get("replica") or [])
+    if not replicas:
+        get_logger().warning(
+            "index route starting with an empty replica table — queries "
+            "will be refused (no_replicas) until a `fleet` join arrives"
+        )
+    # flags left unset keep RouterConfig's defaults (the JAX package's knobs)
+    knobs = {k: kwargs[k] for k in ("max_inflight", "leg_timeout_s", "hedge_delay_s", "probe_backoff_s")
+             if kwargs.get(k) is not None}
+    cfg = RouterConfig(
+        **_serve_kwargs(index_loc, kwargs, log_dir, dev), replicas=replicas,
+        probe_interval_s=float(kwargs.get("probe_interval_s", 1.0) or 1.0), **knobs,
+    )
+    return _run_server(RouterServer(cfg), log_dir)

@@ -521,7 +521,8 @@ def test_port_sources_import_no_jax_or_drep_tpu():
                     bad.append((path, node.module))
     assert len(_port_sources()) > 20
     scanned = {os.path.relpath(p, os.path.join(REPO, "drep_tpu_torch")) for p in _port_sources()}
-    assert {os.path.join("serve", f) for f in ("daemon.py", "protocol.py", "batcher.py", "client.py")} <= scanned
+    assert {os.path.join("serve", f) for f in ("daemon.py", "protocol.py", "batcher.py", "client.py",
+                                               "router.py")} <= scanned
     assert {os.path.join("index", f) for f in ("federation.py", "maintenance.py", "meta.py")} <= scanned
     assert bad == []
 

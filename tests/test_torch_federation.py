@@ -16,6 +16,7 @@ import json
 import os
 import shutil
 import sys
+import time
 
 import numpy as np
 import pandas as pd
@@ -342,24 +343,45 @@ def test_heal_equals_jax(tmp_path, lifecycle, fault):
     assert_stores_match(loc, src)
 
 
-# ---- 6. what still refuses on a federated root ---------------------------
+# ---- 6. serving a federated root ------------------------------------------
 
 
-def test_serving_a_federated_root_refuses_before_reading(tmp_path, lifecycle):
-    """The streaming federated resident is item 11b: the daemon's start
-    and load_resident_index(streaming=True) raise NotImplementedError
-    naming it before anything is read; the generation poller's read and
-    the union load (streaming=False) run."""
-    from drep_tpu_torch.index import load_resident_index
-    from drep_tpu_torch.serve import IndexServer, ServeConfig
+def test_daemon_serves_a_federated_root(tmp_path, lifecycle, planted):
+    """The daemon on a federated root loads the streaming resident (the
+    spine, no sketch payload until a consult) and answers each query with
+    the union-assembled classify verdict plus full coverage stamps; the
+    generation poller's read runs; nothing under the root is written."""
+    import threading
+
+    from drep_tpu_torch.index import classify_batch, load_resident_index, sketch_queries
+    from drep_tpu_torch.index.federation import FederatedResident
+    from drep_tpu_torch.serve import IndexServer, ServeClient, ServeConfig
 
     loc = lifecycle[("torch", 1)]
     before = lib.tree_digest(loc, exclude_dirs=())
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        load_resident_index(loc, resident_mb=64)
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        IndexServer(ServeConfig(index_loc=loc, socket_path=str(tmp_path / "s.sock"), device=CPU)).start()
-    assert not os.path.exists(tmp_path / "s.sock")
+    queries = planted[SCHEDULE[-1][1]:SCHEDULE[-1][1] + 3]
+    union = load_resident_index(loc, streaming=False)
+    assert union.n == SCHEDULE[1][1]
+    want = classify_batch(union, sketch_queries(union, queries), joint=False, device=CPU)
+    srv = IndexServer(ServeConfig(index_loc=loc, socket_path=str(tmp_path / "s.sock"), poll_generation_s=0.1,
+                                  resident_mb=64, device=CPU))
+    srv.start()
+    loop = threading.Thread(target=srv.serve_batches, daemon=True)
+    loop.start()
+    try:
+        assert isinstance(srv._resident, FederatedResident) and srv._resident.budget_bytes == 64 << 20
+        assert srv.snapshot()["partitions"]["resident_partitions"] == 0
+        with ServeClient(str(tmp_path / "s.sock"), timeout_s=300) as c:
+            resps = c.classify_many(queries)
+        time.sleep(0.3)  # a few generation polls
+        assert srv.stats.swaps_total == 0
+    finally:
+        srv.request_drain()
+        loop.join(timeout=60)
+        srv.close()
+    got = [r["verdict"] for r in resps]
+    for v in got:
+        assert v.pop("partitions_unavailable") == [] and v.pop("partitions_consulted")
+    assert got == want
     assert meta.current_generation(loc) == 1 == jax_meta.current_generation(loc)
-    assert load_resident_index(loc, streaming=False).n == SCHEDULE[1][1]
     assert lib.tree_digest(loc, exclude_dirs=()) == before

@@ -437,10 +437,10 @@ def test_update_resumes_jax_pending_shards(tmp_path, lifecycle, planted, monkeyp
 
 
 def test_federated_root_and_arguments_refuse(tmp_path, genome_paths, monkeypatch):
-    """A federated root loads, updates and classifies as the union; what
-    still refuses there is the streaming resident of `index serve`
-    (NotImplementedError naming item 11b before anything is read) and a
-    partition pod's --params_file (the JAX package's UserInputError).
+    """A federated root loads, updates and classifies as the union, and
+    loads as the streaming resident by default (read-only); what refuses
+    there is a partition pod's --params_file (the JAX package's
+    UserInputError).
     On a plain root --fed_pods is ignored and a --params_file handoff
     materializes a missing store's generation 0; a build over an
     existing index raises the JAX package's UserInputError."""
@@ -451,8 +451,10 @@ def test_federated_root_and_arguments_refuse(tmp_path, genome_paths, monkeypatch
     fed = str(tmp_path / "fed")
     build_federated(fed, genome_paths[:3], 2, processes=1, device=CPU)
     before = lib.tree_digest(fed, exclude_dirs=())
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        load_resident_index(fed)
+    from drep_tpu_torch.index.federation import FederatedResident
+
+    streaming = load_resident_index(fed, device=CPU)
+    assert isinstance(streaming, FederatedResident) and streaming.n == 3
     assert lib.tree_digest(fed, exclude_dirs=()) == before
     union = load_resident_index(fed, streaming=False)
     assert union.n == 3 and load_index(fed, heal=True).n == 3

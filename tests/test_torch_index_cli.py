@@ -84,7 +84,7 @@ def test_cli_classify_writes_nothing(tmp_path, cli_runs, genome_paths):
     assert lib.tree_digest(loc, exclude_dirs=()) == before
 
 
-@pytest.mark.parametrize("op", ["build", "update", "classify", "serve"])
+@pytest.mark.parametrize("op", ["build", "update", "classify", "serve", "route"])
 def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monkeypatch, op):
     """Without --device the index entry points want cuda; on a machine
     without it they raise asking for cpu, before anything is written."""
@@ -92,7 +92,7 @@ def test_cli_without_device_asks_for_cpu(tmp_path, genome_paths, cli_runs, monke
     loc = str(tmp_path / "new") if op == "build" else cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=()) if op != "build" else None
     with pytest.raises(RuntimeError, match="--device cpu"):
-        torch_main(["index", op, loc, *(["-g", genome_paths[0]] if op != "serve" else []), "-p", "1"])
+        torch_main(["index", op, loc, *(["-g", genome_paths[0]] if op not in ("serve", "route") else []), "-p", "1"])
     if op == "build":
         assert not os.path.exists(loc)
     else:
@@ -154,8 +154,7 @@ def test_cli_federated_lifecycle_equals_jax(fed_cli_runs, op):
 
 
 @pytest.mark.parametrize("op,args,item", [
-    ("route", ["--replica", "127.0.0.1:1"], "11b"),
-    ("supervise", ["--replica", "2"], "11b"),
+    ("supervise", ["--replica", "2"], "11c"),
 ])
 def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
     loc = cli_runs["torch"][0]
@@ -169,19 +168,134 @@ def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
     (["--events", "on", "--log_dir", "LOG"], "13"),
     (["--io_retries", "3"], "5"),
     (["--fsync"], "5"),
-    ([], "11b"),
 ])
-def test_cli_serve_refusals(tmp_path, cli_runs, fed_cli_runs, flags, item):
+def test_cli_serve_refusals(tmp_path, cli_runs, flags, item):
     """`index serve` refuses what the port does not run before anything
-    is loaded, naming its item: event tracing, the durable-I/O flags, a
-    federated root (the last case: the streaming resident)."""
-    loc = fed_cli_runs[("torch", "update")] if item == "11b" else cli_runs["torch"][0]
+    is loaded, naming its item: event tracing, the durable-I/O flags."""
+    loc = cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=())
     argv = [str(tmp_path / "log") if a == "LOG" else a for a in flags]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         torch_main(["index", "serve", loc, "--device", "cpu", *argv])
     assert lib.tree_digest(loc, exclude_dirs=()) == before
     assert not os.path.exists(tmp_path / "log")
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--fleet_manifest", "FLEET", "--log_dir", "LOG"], "11c"),
+    (["--events", "on", "--log_dir", "LOG"], "13"),
+    (["--io_retries", "3"], "5"),
+])
+def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item):
+    """`index route` refuses what the port does not run before anything
+    is read, bound or written, naming its item: the supervisor's fleet
+    manifest, event tracing, the durable-I/O flag."""
+    loc = fed_cli_runs[("torch", "update")]
+    before = lib.tree_digest(loc, exclude_dirs=())
+    sub = {"LOG": str(tmp_path / "log"), "FLEET": str(tmp_path / "fleet.json")}
+    argv = [sub.get(a, a) for a in flags]
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        torch_main(["index", "route", loc, "--replica", "127.0.0.1:1", "--device", "cpu",
+                    "--socket", str(tmp_path / "r.sock"), *argv])
+    assert lib.tree_digest(loc, exclude_dirs=()) == before
+    assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "r.sock")
+
+
+def _spawn_cli(tmp_path, name: str, argv: list[str]):
+    """`python -m drep_tpu_torch <argv>` in the background, its stderr in a
+    file (a daemon's pipe must not fill); returns (process, ready line
+    dict, a reader of the stderr's tail)."""
+    err_path = tmp_path / f"{name}.err"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "drep_tpu_torch", *argv], stdout=subprocess.PIPE,
+                                stderr=err, text=True, cwd=REPO)
+
+    def tail() -> str:
+        return err_path.read_text()[-3000:]
+
+    line = proc.stdout.readline()
+    if not line:
+        proc.wait(timeout=60)
+        raise AssertionError(f"{name} died before its ready line (exit {proc.returncode}): {tail()}")
+    return proc, json.loads(line), tail
+
+
+def _sigterm(proc) -> int:
+    import signal
+
+    try:
+        proc.send_signal(signal.SIGTERM)
+        return proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def test_cli_serves_a_federated_root(tmp_path, fed_cli_runs, planted):
+    """`index serve` on a federated root loads the streaming resident: its
+    verdict is the union-assembled `index classify` verdict of that genome
+    with full coverage stamps, SIGTERM drains it to exit 0, and the root's
+    tree is unchanged."""
+    from drep_tpu_torch.index import index_classify
+    from drep_tpu_torch.serve import ServeClient
+
+    loc = fed_cli_runs[("torch", "update")]
+    before = lib.tree_digest(loc, exclude_dirs=())
+    want = index_classify(loc, planted[:1], device="cpu")[0]
+    sock = str(tmp_path / "s.sock")
+    proc, ready, tail = _spawn_cli(tmp_path, "serve", ["index", "serve", loc, "--device", "cpu", "--socket", sock,
+                                                       "--resident_mb", "64"])
+    try:
+        assert ready["serving"] == sock and ready["generation"] == 1 and ready["n_genomes"] == 38
+        with ServeClient(sock, timeout_s=300) as c:
+            got = c.classify(planted[0])["verdict"]
+            status = c.status()
+    finally:
+        rc = _sigterm(proc)
+    assert rc == 0, tail()
+    assert got.pop("partitions_unavailable") == [] and got.pop("partitions_consulted")
+    assert got == want
+    assert status["partitions"]["n_partitions"] == 3 and status["partitions"]["budget_bytes"] == 64 << 20
+    assert lib.tree_digest(loc, exclude_dirs=()) == before
+
+
+def test_cli_route_starts_and_answers(tmp_path, fed_cli_runs, planted):
+    """`index route` parses its flags and starts in front of a replica: its
+    verdict is the replica's, SIGTERM drains it to exit 0."""
+    import threading
+
+    from drep_tpu_torch.index import classify_batch, load_resident_index, sketch_queries
+    from drep_tpu_torch.serve import IndexServer, ServeClient, ServeConfig
+
+    loc = fed_cli_runs[("torch", "update")]
+    fed = load_resident_index(loc, device="cpu")
+    want = classify_batch(fed, sketch_queries(fed, planted[:1]), joint=False)[0]
+    replica = IndexServer(ServeConfig(index_loc=loc, poll_generation_s=60.0, device="cpu"))
+    addr = replica.start()
+    loop = threading.Thread(target=replica.serve_batches, daemon=True)
+    loop.start()
+    sock = str(tmp_path / "r.sock")
+    try:
+        proc, ready, tail = _spawn_cli(tmp_path, "route", [
+            "index", "route", loc, "--replica", addr, "--device", "cpu", "--socket", sock, "--leg_timeout_s", "120",
+            "--hedge_delay_s", "60", "--probe_interval_s", "0.2", "--max_inflight", "32",
+        ])
+        try:
+            assert ready["serving"] == sock and ready["generation"] == 1
+            with ServeClient(sock, timeout_s=300) as c:
+                got = c.classify(planted[0])["verdict"]
+                status = c.status()
+        finally:
+            rc = _sigterm(proc)
+        assert rc == 0, tail()
+    finally:
+        replica.request_drain()
+        loop.join(timeout=60)
+        replica.close()
+    assert got == want and got["partitions_unavailable"] == []
+    assert status["role"] == "router" and status["max_queue"] == 32 and status["router"]["forwarded"] == 1
+    assert replica.stats.requests_total == 1
 
 
 @pytest.mark.parametrize("op,flags,item", [
@@ -328,11 +442,12 @@ def test_cli_serve_parser_takes_every_jax_flag():
     assert {o: got[o] for o in want} == want
 
 
-@pytest.mark.parametrize("op", ["build", "update", "split", "merge", "compact"])
+@pytest.mark.parametrize("op", ["build", "update", "split", "merge", "compact", "route"])
 def test_cli_index_parsers_take_every_jax_flag(op):
-    """`index build|update` (their federated flags among them) and `index
-    split|merge|compact` take every flag of the JAX CLI's, with its dest,
-    default, choices, nargs and requiredness, plus --device."""
+    """`index build|update` (their federated flags among them), `index
+    split|merge|compact` and `index route` take every flag of the JAX
+    CLI's, with its dest, default, choices, nargs and requiredness, plus
+    --device."""
     from drep_tpu.argparser import build_parser as jax_build_parser
     from drep_tpu_torch.argparser import build_parser
 
