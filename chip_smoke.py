@@ -189,7 +189,27 @@ Phases (any failure exits nonzero; nothing is caught):
    no leg failed, hedged or rerouted, the legs counted, the Mash launches
    all on the replicas' side and the indicator launches split between
    the router's reclusters and the replicas';
-14. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+14. resilience on the card (ROADMAP queue 1 item 5; faults injected
+   through ``drep_tpu_torch/utils/faults.py``): 14a d_cluster_wrapper on
+   phase 9's PREFIX_OPTION_GENOMES prefix of phase 5's genomes, first with
+   ``secondary_batch:raise:max=1`` (one retry, Cdb equal to phase 5's
+   rows, one ``indicator_mm`` launch a secondary call), then in a fresh
+   workdir with ``secondary_batch:raise:skip=2`` and ``fault_retries=1``,
+   which must raise FaultTolError with exactly the first two calls'
+   clusters checkpointed, then a clean rerun there that resumes exactly
+   those clusters, launches ``indicator_mm`` for the calls left, and
+   writes Cdb and Ndb byte-identical to the first run's; 14b
+   ``streaming_mash_edges`` on the same genomes with
+   ``streaming_tile:raise:skip=1:max=1`` (launches = stripes + 1, one
+   retry), then with ``streaming_tile:hang:secs=20:max=1`` under a 5 s
+   watchdog (one trip, launches = stripes + 1), the edges both times
+   bit-identical to 8b's inside the prefix; 14c phase 4's dereplicate
+   again on its workdir with Cdb and Ndb removed: both multi-member
+   clusters resumed from their checkpoints, no ``indicator_mm`` launch,
+   the winners A, C, D. The fault counters must be empty through phases
+   1-13 (read after phase 10, before phase 11 restarts them, and after
+   phase 13): no real launch was retried or stopped by the watchdog;
+15. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -202,8 +222,14 @@ Phases (any failure exits nonzero; nothing is caught):
    ``serve_launches``, phase 12's under ``federation_launches``; the Mash
    kernel its resident-shape time and bound under ``serve`` and phase
    12's times, cross-join pairs and launches under ``federation``; both
-   phase 13's launches and times under ``federated_serve``);
-15. the last line: ``{"ok": true, "device": {...}}``.
+   phase 13's launches and times under ``federated_serve``; both phase
+   14's launches under ``resilience_launches``);
+16. the last line: ``{"ok": true, "device": {...}}``.
+
+Phase 5's and phase 8a's planted sketches are made in two spawned
+processes started before phase 2 (the same seeds, so the same sketches),
+beside the phases before them; each is joined, and stopped on any
+failure, before the script ends.
 
 It exits nonzero without a result when no CUDA device is present, or when
 the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
@@ -309,6 +335,53 @@ def cuda_timed(fn):
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _plant_to_file(path: str, n: int, seed: int, s_scaled: int) -> None:
+    """A planting process: (planted_sketches(n, seed, MASH_sketch 1000,
+    s_scaled), its seconds) pickled to `path`."""
+    import pickle
+
+    from drep_tpu_torch.utils.synth import planted_sketches
+
+    t0 = time.perf_counter()
+    out = planted_sketches(n, seed=seed, s_bottom=1000, s_scaled=s_scaled)
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump((out, time.perf_counter() - t0), f, protocol=pickle.HIGHEST_PROTOCOL)
+    os.replace(path + ".tmp", path)
+
+
+class Planting:
+    """The planted sketches of a later phase, made in a spawned process
+    while the phases before it run: the host's planting (phase 5's 10 000
+    genomes at depth 10 000, 8a's 30 000) would otherwise take ~80 s of
+    the script's time limit. The same seed gives the same sketches."""
+
+    def __init__(self, tmp: str, name: str, n: int, seed: int, s_scaled: int) -> None:
+        import multiprocessing
+
+        self.path = os.path.join(tmp, f"{name}.pkl")
+        self.proc = multiprocessing.get_context("spawn").Process(
+            target=_plant_to_file, args=(self.path, n, seed, s_scaled), name=f"plant-{name}")
+        self.proc.start()
+
+    def result(self):
+        """((GenomeSketches, planted ids), seconds the planting took, seconds
+        waited for it here)."""
+        import pickle
+
+        t0 = time.perf_counter()
+        self.proc.join()
+        require(self.proc.exitcode == 0, f"{self.proc.name} exited with {self.proc.exitcode}")
+        with open(self.path, "rb") as f:  # written by this run's own process
+            out, t_plant = pickle.load(f)
+        os.remove(self.path)
+        return out, t_plant, time.perf_counter() - t0
+
+    def stop(self) -> None:
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
 
 
 def mash_ops(shared: np.ndarray, na: np.ndarray, nb: np.ndarray, s_orig: int) -> int:
@@ -821,10 +894,11 @@ def phase_cli(tmp: str, dev) -> dict:
     require(winners == ["genome_A.fasta", "genome_C.fasta", "genome_D.fasta"], f"fixture winners {winners}")
     require(all(launches[k] > 0 for k in PRIMARY_PATH_KERNELS), f"fixture run skipped a kernel: {launches}")
     log(f"cli dereplicate: winners {winners} in {dt:.2f} s, launches {launches}")
-    return launches
+    return {"launches": launches, "argv": ["dereplicate", wd, "-g", *genomes, "--genomeInfo", q, "--skip_plots",
+                                           "-p", "1", "--device", dev.type], "wd": wd, "winners": winners}
 
 
-def phase_real_size(tmp: str, dev) -> dict:
+def phase_real_size(tmp: str, dev, plant: "Planting") -> dict:
     import pandas as pd
     import torch
 
@@ -834,13 +908,11 @@ def phase_real_size(tmp: str, dev) -> dict:
     from drep_tpu_torch.ingest import save_sketch_cache
     from drep_tpu_torch.ops import containment, mash
     from drep_tpu_torch.ops.minhash import pack_sketches
-    from drep_tpu_torch.utils.synth import planted_sketches
     from drep_tpu_torch.workdir import WorkDirectory
 
     n = REAL_GENOMES
-    t0 = time.perf_counter()
-    gs, planted = planted_sketches(n, seed=2, s_bottom=1000, s_scaled=REAL_SCALED_DEPTH)
-    t_plant = time.perf_counter() - t0
+    (gs, planted), t_plant, t_wait = plant.result()
+    t0 = time.perf_counter() - t_plant
     wd = WorkDirectory(os.path.join(tmp, "real_wd"))
     gdir = os.path.join(tmp, "real_genomes")
     os.makedirs(gdir)
@@ -852,7 +924,8 @@ def phase_real_size(tmp: str, dev) -> dict:
     save_sketch_cache(wd, gs)
     wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
     log(f"real size: planted {n} genomes (MASH_sketch 1000, scaled width up to "
-        f"{max(len(s) for s in gs.scaled)}): planting {t_plant:.1f} s, placeholder files "
+        f"{max(len(s) for s in gs.scaled)}): planting {t_plant:.1f} s (in its own process beside phases 1-4; "
+        f"waited {t_wait:.1f} s for it), placeholder files "
         f"{t_files:.1f} s, sketch cache {time.perf_counter() - t0 - t_plant - t_files:.1f} s")
 
     # each one-shot secondary batch's operand, as the main path hands it to
@@ -1510,7 +1583,7 @@ def phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond: dict) -> dict:
     return {"shapes": shapes, "rings": rings}
 
 
-def phase_streaming_auto(tmp: str, dev) -> dict:
+def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
     """Phase 8a: STREAM_GENOMES planted genomes through d_cluster_wrapper
     with default arguments (the streaming switch), choose and evaluate;
     then the kernel on stripe 0 timed beside its bound and held against
@@ -1525,13 +1598,11 @@ def phase_streaming_auto(tmp: str, dev) -> dict:
     from drep_tpu_torch.ops import mash
     from drep_tpu_torch.ops.minhash import pad_packed_rows
     from drep_tpu_torch.parallel import streaming
-    from drep_tpu_torch.utils.synth import planted_sketches
     from drep_tpu_torch.workdir import WorkDirectory
 
     n = STREAM_GENOMES
-    t0 = time.perf_counter()
-    gs, planted = planted_sketches(n, seed=21, s_bottom=1000, s_scaled=STREAM_SCALED_DEPTH)
-    t_plant = time.perf_counter() - t0
+    (gs, planted), t_plant, t_wait = plant.result()
+    t0 = time.perf_counter() - t_plant
     wd = WorkDirectory(os.path.join(tmp, "stream_wd"))
     gdir = os.path.join(tmp, "stream_genomes")
     os.makedirs(gdir)
@@ -1542,7 +1613,8 @@ def phase_streaming_auto(tmp: str, dev) -> dict:
     save_sketch_cache(wd, gs)
     wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
     log(f"streaming: planted {n} genomes (MASH_sketch 1000, scaled depth {STREAM_SCALED_DEPTH}) in "
-        f"{t_plant:.1f} s, workdir {time.perf_counter() - t0 - t_plant:.1f} s")
+        f"{t_plant:.1f} s in its own process beside phases 1-7 (waited {t_wait:.1f} s for it), workdir "
+        f"{time.perf_counter() - t0 - t_plant:.1f} s")
 
     # the pack and retention bound the main path hands the edge walk (the
     # spy calls the real function)
@@ -1690,7 +1762,8 @@ def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
         f"{again[3]} pairs (the deleted stripes' {want}), edges identical")
     return {"edges": len(ii), "walk_s": t_walk, "dense_s": t_dense, "candidates_s": t_cand,
             "pruned_walk_s": t_pruned, "tiles_computed": st_pruned["tiles_computed"],
-            "tiles_skipped": st_pruned["tiles_skipped"], "resume_s": t_resume, "resume_pairs": again[3]}
+            "tiles_skipped": st_pruned["tiles_skipped"], "resume_s": t_resume, "resume_pairs": again[3],
+            "keep": keep, "edge_arrays": dense[:3]}
 
 
 # phase 9: the options of ROADMAP queue 1 item 9a on phases 5's and 6's
@@ -3125,8 +3198,11 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
             finally:
                 stop(rt, rloop, f"13b {mode}")
             got = answered(resps, rt, f"13b {mode}")
-            require(got == got_a, f"13b {mode}: routed verdicts != 13a's: "
-                    f"{sorted(g for g in got_a if got.get(g) != got_a[g])[:5]}")
+            differ = sorted(g for g in got_a if got.get(g) != got_a[g])
+            if differ:  # the first difference in full, for the diagnosis
+                log(f"13b {mode}: {differ[0]}: 13a {json.dumps(got_a[differ[0]], default=str)}; routed "
+                    f"{json.dumps(got.get(differ[0]), default=str)}; router {json.dumps(rt.snapshot()['router'])}")
+            require(not differ, f"13b {mode}: routed verdicts != 13a's: {differ[:5]}")
             rs = rt.snapshot()["router"]
             rep_work = [{k: r[0]._resident.work[k] - b[0][k] for k in ("stripes", "secondary_calls")}
                         for r, b in zip(reps, before)]
@@ -3165,6 +3241,189 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
     return out
 
 
+# phase 14: the main path survives failures (ROADMAP queue 1 item 5):
+# faults injected through utils/faults.py on phase 9's prefix of phase 5's
+# genomes, then a resume of phase 4's workdir. The counters the fault
+# layer books; none may move before phase 14
+FAULT_COUNTERS = ("retries", "watchdog_trips", "io_retries", "io_unrecoverable",
+                  "corrupt_shards_healed")
+
+
+def require_no_faults(what: str) -> None:
+    """No launch was retried or stopped by the watchdog, no I/O retried
+    and nothing injected: a retry must not hide a kernel that fails."""
+    from drep_tpu_torch.utils.profiling import counters
+
+    acted = {k: v for k, v in counters.faults.items() if k in FAULT_COUNTERS or k.startswith("injected_")}
+    require(not acted, f"{what}: the fault layer acted: {acted}")
+    log(f"{what}: the fault counters are empty")
+
+
+def secondary_calls(cdb) -> list[list[int]]:
+    """The primary clusters of each secondary engine call of a run, in
+    order, from its Cdb: each large cluster alone, then the small ones in
+    the controller's row-bounded batches."""
+    from drep_tpu_torch.cluster import controller
+
+    sizes = cdb.groupby("primary_cluster").size()
+    multi = [(int(pc), int(m)) for pc, m in sizes.items() if m > 1]
+    large = [[pc] for pc, m in multi if m > controller.SMALL_CLUSTER_MAX]
+    small = [(pc, list(range(m))) for pc, m in multi if m <= controller.SMALL_CLUSTER_MAX]
+    return large + [[pc for pc, _ in batch] for batch in controller.batch_small_clusters(small)]
+
+
+def phase_resilience_secondary(tmp: str, dev, real: dict) -> dict:
+    """Phase 14a: the secondary stage under injected failures, on phase
+    5's first PREFIX_OPTION_GENOMES genomes."""
+    from drep_tpu_torch.cluster import controller
+    from drep_tpu_torch.parallel.faulttol import FaultTolError
+    from drep_tpu_torch.utils import faults
+    from drep_tpu_torch.utils.profiling import counters
+
+    m = PREFIX_OPTION_GENOMES
+    t_phase = time.perf_counter()
+    want_cdb = real["cdb"].iloc[:m].to_csv(index=False)
+
+    # one injected failure of the first engine call, retried
+    wd1, bdb = prefix_workdir(tmp, "p14a_retry_wd", real, m)
+    counters.reset()
+    faults.configure("secondary_batch:raise:max=1")
+    try:
+        cdb1, launches1, _, _, dt1 = run_option(wd1, bdb, dev, "14a one injected secondary failure")
+    finally:
+        faults.reset()
+    calls = secondary_calls(cdb1)
+    n_calls = len(calls)
+    require(counters.faults.get("retries") == 1 and counters.faults.get("injected_secondary_batch_raise") == 1,
+            f"14a: fault counters {counters.faults}, expected one injected raise and one retry")
+    require(cdb1.to_csv(index=False) == want_cdb, f"14a: Cdb of the retried run != phase 5's first {m} rows")
+    require(launches1["indicator_mm"] == n_calls >= 3,
+            f"14a: {launches1['indicator_mm']} indicator_mm launches for {n_calls} secondary calls")
+    log(f"14a: one injected failure retried; {n_calls} secondary calls, {launches1['indicator_mm']} indicator_mm "
+        f"launches, Cdb equal to phase 5's first {m} rows")
+
+    # the third engine call fails past --fault_retries 1: the run raises
+    wd2, _ = prefix_workdir(tmp, "p14a_kill_wd", real, m)
+    counters.reset()
+    reset_launches()
+    faults.configure("secondary_batch:raise:skip=2")
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        controller.d_cluster_wrapper(wd2, bdb, device=dev, mesh_shape=1, fault_retries=1)
+    except FaultTolError as e:  # the expected outcome, required below
+        raised = e
+    finally:
+        faults.reset()
+    dt2 = time.perf_counter() - t0
+    killed_launches = read_launches()
+    require(raised is not None, "14a: the run with its third secondary call failing did not raise FaultTolError")
+    ckpt_dir = os.path.join(wd2.location, "data", "secondary_checkpoints")
+    saved = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+    want_saved = sorted(f"pc_{pc:06d}.npz" for call in calls[:2] for pc in call)
+    require(saved == want_saved, f"14a: {len(saved)} checkpoints after the failure, expected the first two "
+            f"calls' {len(want_saved)} clusters")
+    require(killed_launches["indicator_mm"] == 2 and counters.faults.get("retries") == 1,
+            f"14a: the failing run launched {killed_launches['indicator_mm']} indicator_mm, counters {counters.faults}")
+    log(f"14a: FaultTolError after the first two secondary calls ({raised}); {len(saved)} clusters checkpointed "
+        f"in {dt2:.2f} s")
+
+    # a clean rerun resumes exactly those clusters
+    counters.reset()
+    cdb3, launches3, _, _, dt3 = run_option(wd2, bdb, dev, "14a rerun after the failure")
+    resumed = dict(controller.SECONDARY_RESUMED)
+    require(resumed["resumed"] == len(want_saved), f"14a: the rerun resumed {resumed}, expected {len(want_saved)}")
+    require(launches3["indicator_mm"] == n_calls - 2,
+            f"14a: the rerun launched {launches3['indicator_mm']} indicator_mm for {n_calls - 2} calls left")
+    for table in ("Cdb", "Ndb"):
+        with open(os.path.join(wd1.location, "data_tables", f"{table}.csv"), "rb") as f, \
+                open(os.path.join(wd2.location, "data_tables", f"{table}.csv"), "rb") as g:
+            require(f.read() == g.read(), f"14a: the resumed {table} != the first run's")
+    require_no_faults("14a rerun")
+    log(f"14a: the rerun resumed {resumed['resumed']} of {resumed['clusters']} multi-member clusters, "
+        f"{launches3['indicator_mm']} indicator_mm launches, Cdb and Ndb byte-identical to the first run")
+    return {"secondary_calls": n_calls, "launches_retried": launches1["indicator_mm"],
+            "launches_killed": killed_launches["indicator_mm"], "launches_resumed": launches3["indicator_mm"],
+            "checkpointed": len(saved), "resumed": resumed, "retried_s": dt1, "killed_s": dt2, "resumed_s": dt3,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def phase_resilience_streaming(dev, real: dict, edges_8b: tuple, keep: float) -> dict:
+    """Phase 14b: streaming_mash_edges on phase 5's first
+    PREFIX_OPTION_GENOMES genomes, once with the second stripe's launch
+    failing once, once with the first stripe hanging past the watchdog."""
+    from drep_tpu_torch.ops.minhash import pack_sketches
+    from drep_tpu_torch.parallel import streaming
+    from drep_tpu_torch.parallel.faulttol import FaultTolConfig
+    from drep_tpu_torch.utils import faults
+    from drep_tpu_torch.utils.profiling import counters
+
+    m = PREFIX_OPTION_GENOMES
+    t_phase = time.perf_counter()
+    gs = real["gs"]
+    packed = pack_sketches(gs.bottom[:m], gs.names[:m], gs.sketch_size)
+    ii, jj, dd = edges_8b
+    sel = jj < m  # i < j: the pairs inside the prefix
+    order = np.lexsort((jj[sel], ii[sel]))
+    want = [x[sel][order].tobytes() for x in (ii, jj, dd)]
+    out = {}
+    for name, spec, cfg, counter in (
+        ("raise", "streaming_tile:raise:skip=1:max=1", FaultTolConfig(), "retries"),
+        ("hang", "streaming_tile:hang:secs=20:max=1", FaultTolConfig(dispatch_timeout_s=5.0), "watchdog_trips"),
+    ):
+        counters.reset()
+        reset_launches()
+        faults.configure(spec)
+        t0 = time.perf_counter()
+        try:
+            got = streaming.streaming_mash_edges(packed, real["k"], keep, device=dev, ft_config=cfg)
+        finally:
+            faults.reset()
+        dt = time.perf_counter() - t0
+        st = dict(streaming.STATS)
+        launches = read_launches()["mash_shared"]
+        require(launches == st["launches"] == st["stripes"] + 1,
+                f"14b {name}: {launches} mash_shared launches for {st['stripes']} stripes, expected one more")
+        require(counters.faults.get(counter) == 1 and counters.faults.get("retries") == 1,
+                f"14b {name}: fault counters {counters.faults}")
+        o = np.lexsort((got[1], got[0]))
+        require([x[o].tobytes() for x in got[:3]] == want,
+                f"14b {name}: the edges != phase 8b's edges inside the first {m} genomes")
+        log(f"14b {name}: {spec}: {launches} mash_shared launches for {st['stripes']} stripes, "
+            f"{counter} {counters.faults[counter]}, {len(got[0])} edges identical to 8b's in {dt:.2f} s")
+        out[name] = {"launches": launches, "stripes": st["stripes"], "s": dt, "edges": len(got[0])}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_resilience_resume(cli: dict) -> dict:
+    """Phase 14c: phase 4's dereplicate again on its own workdir with Cdb
+    and Ndb removed: the secondary resumes from its checkpoints."""
+    import pandas as pd
+
+    from drep_tpu_torch.cluster import controller
+    from drep_tpu_torch.controller import main as cli_main
+    from drep_tpu_torch.utils.profiling import counters
+
+    t0 = time.perf_counter()
+    counters.reset()
+    for table in ("Cdb", "Ndb"):
+        os.remove(os.path.join(cli["wd"], "data_tables", f"{table}.csv"))
+    reset_launches()
+    cli_main(cli["argv"])
+    launches = read_launches()
+    resumed = dict(controller.SECONDARY_RESUMED)
+    winners = sorted(pd.read_csv(os.path.join(cli["wd"], "data_tables", "Wdb.csv"))["genome"])
+    require(resumed == {"resumed": 2, "clusters": 2}, f"14c: resumed {resumed}, expected both multi-member clusters")
+    require(launches["indicator_mm"] == 0 and launches["mash_shared"] > 0, f"14c: launches {launches}")
+    require(winners == cli["winners"], f"14c: winners {winners} != phase 4's {cli['winners']}")
+    dt = time.perf_counter() - t0
+    require_no_faults("14c")
+    log(f"14c: dereplicate resumed {resumed['resumed']} multi-member clusters from checkpoints, 0 indicator_mm "
+        f"launches, winners {winners} in {dt:.2f} s")
+    return {"launches": launches, "resumed": resumed, "s": dt}
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3179,6 +3438,21 @@ def main() -> int:
     card = gpu_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    plants = [Planting(tmp, "real", REAL_GENOMES, 2, REAL_SCALED_DEPTH),
+              Planting(tmp, "stream", STREAM_GENOMES, 21, STREAM_SCALED_DEPTH)]
+    try:
+        return run_phases(dev, card, tmp, *plants)
+    finally:
+        for p in plants:
+            p.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(dev, card: str, tmp: str, plant_real: Planting, plant_stream: Planting) -> int:
+    """Phases 2-16 (main has printed phase 1 and started the plantings)."""
+    import torch
 
     from drep_tpu_torch.native import get_library
     from drep_tpu_torch.ops import _build
@@ -3197,30 +3471,35 @@ def main() -> int:
     log(f"beyond budget: planted {len(gs_beyond.names)} genomes in {time.perf_counter() - t0:.1f} s")
     kernels = [phase_mash(dev), phase_indicator(dev, gs_beyond, planted_beyond),
                *phase_intersect(dev, gs_beyond, planted_beyond)]
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        phase_cli(tmp, dev)
-        real = phase_real_size(tmp, dev)
-        beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond)
-        ring_kernel = phase_ring_kernel(dev, real["packed"], gs_beyond, planted_beyond)
-        ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
-        ring_path = phase_ring_path(tmp, dev, gs_beyond, planted_beyond, beyond)
-        ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
-        stream = phase_streaming_auto(tmp, dev)
-        stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
-        t9 = time.perf_counter()
-        p9a = phase_matmul_estimator(tmp, dev, real)
-        p9b = phase_multiround(tmp, dev, real)
-        p9c = phase_greedy(tmp, dev, real, gs_beyond, planted_beyond, beyond)
-        p9d = phase_tertiary(tmp, dev, real)
-        log(f"phase 9: {time.perf_counter() - t9:.1f} s")
-        p10 = phase_index(tmp, dev, real)
-        p11 = phase_serve(tmp, dev, p10)
-        p12 = phase_federation(tmp, dev, real, p10)
-        p13 = phase_fed_serve(tmp, dev, p10, p12)
-        p12.update(phase_federation_maint(tmp, dev, real, p10, p12))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    cli = phase_cli(tmp, dev)
+    real = phase_real_size(tmp, dev, plant_real)
+    beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond)
+    ring_kernel = phase_ring_kernel(dev, real["packed"], gs_beyond, planted_beyond)
+    ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
+    ring_path = phase_ring_path(tmp, dev, gs_beyond, planted_beyond, beyond)
+    ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
+    stream = phase_streaming_auto(tmp, dev, plant_stream)
+    stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
+    edges_8b = stream_edges.pop("edge_arrays")
+    t9 = time.perf_counter()
+    p9a = phase_matmul_estimator(tmp, dev, real)
+    p9b = phase_multiround(tmp, dev, real)
+    p9c = phase_greedy(tmp, dev, real, gs_beyond, planted_beyond, beyond)
+    p9d = phase_tertiary(tmp, dev, real)
+    log(f"phase 9: {time.perf_counter() - t9:.1f} s")
+    p10 = phase_index(tmp, dev, real)
+    require_no_faults("phases 1-10")  # phase 11 restarts the counters
+    p11 = phase_serve(tmp, dev, p10)
+    p12 = phase_federation(tmp, dev, real, p10)
+    p13 = phase_fed_serve(tmp, dev, p10, p12)
+    p12.update(phase_federation_maint(tmp, dev, real, p10, p12))
+    require_no_faults("phases 11-13")
+    t14 = time.perf_counter()
+    p14 = {"a": phase_resilience_secondary(tmp, dev, real),
+           "b": phase_resilience_streaming(dev, real, edges_8b, stream_edges["keep"]),
+           "c": phase_resilience_resume(cli)}
+    p14["phase_s"] = time.perf_counter() - t14
+    log(f"phase 14: {p14['phase_s']:.1f} s")
     mash_entry = ring_kernel["mash"]
     kernels.append({
         "name": "ring_step", "route": "cuda", "source": "drep_tpu_torch/csrc/ring_step.cu",
@@ -3293,6 +3572,17 @@ def main() -> int:
                       "router_launches": p13[mode]["router_work"].get(work, 0),
                       "legs": p13[mode]["replica_legs"]} for mode in ("scatter", "forward")},
             "phase_s": p13["phase_s"]}
+    # phase 14, resilience: the launches of each faulted or resumed run
+    kernels[0]["resilience_launches"] = {"14b_raise": p14["b"]["raise"]["launches"],
+                                         "14b_hang": p14["b"]["hang"]["launches"],
+                                         "14b_stripes": p14["b"]["raise"]["stripes"],
+                                         "14c": p14["c"]["launches"]["mash_shared"]}
+    kernels[1]["resilience_launches"] = {
+        "14a_retried": p14["a"]["launches_retried"], "14a_killed": p14["a"]["launches_killed"],
+        "14a_resumed": p14["a"]["launches_resumed"], "14a_calls": p14["a"]["secondary_calls"],
+        "14c": p14["c"]["launches"]["indicator_mm"]}
+    kernels[0]["resilience"] = {"14a_s": p14["a"]["phase_s"], "14b_s": p14["b"]["phase_s"], "14c_s": p14["c"]["s"],
+                                "phase_s": p14["phase_s"]}
     # phase 11, the serve daemon: the Mash kernel at the resident shape
     # ([N_pad resident rows x the batch's query rows], one launch a batch)
     kernels[0]["serve"] = {**p11["kernel"], **{k: p11[k] for k in (

@@ -15,11 +15,14 @@ do --primary_estimator matmul, --multiround_primary_clustering,
 --greedy_secondary_clustering and --run_tertiary_clustering. The
 subprocess engines (--primary_algorithm mash, --S_algorithm fastANI and
 the ANI programs) parse and then raise NotImplementedError in the cluster
-stage where the JAX package would run them. The flags in
-:data:`UNPORTED_FLAGS` (fault tolerance,
-durable I/O, event tracing, profiling, the elastic pod, taxonomy) parse
-with the JAX defaults, and a run that sets one otherwise raises
-NotImplementedError naming its ROADMAP item (workflows.py).
+stage where the JAX package would run them. The fault-tolerance and
+durable-I/O flags run as in the JAX package for one process
+(--fault_retries, --dispatch_timeout, --io_retries, --fsync,
+--no_overlap_ingest; the `index` verbs take --io_retries and --fsync).
+The flags in :data:`UNPORTED_FLAGS` (event tracing, profiling, the
+elastic pod, taxonomy) parse with the JAX defaults, and a run that sets
+one otherwise raises NotImplementedError naming its ROADMAP item
+(workflows.py).
 `index build|update|classify|serve|route|split|merge|compact` take the
 JAX CLI's flags plus --device, the federated ones included (`index build
 --partitions/--fed_pods`, `index update --fed_pods/--params_file`,
@@ -40,14 +43,9 @@ from drep_tpu_torch import __version__
 # 1 item that ports the others); the first value is the JAX default, and
 # --events off is what the port does anyway
 UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
-    "events": ((None, "off"), "5"),
-    "fsync": ((False,), "5"),
-    "io_retries": ((None,), "5"),
-    "profile": ((None,), "5"),
-    "fault_retries": ((2,), "5"),
-    "dispatch_timeout": ((0.0,), "5"),
-    "max_dead_processes": ((1,), "5"),
-    "overlap_ingest": ((True,), "5"),
+    "events": ((None, "off"), "13"),
+    "profile": ((None,), "13"),
+    "max_dead_processes": ((1,), "12b"),
     "max_joins": ((0,), "12b"),
     "drain_grace_s": ((30.0,), "12b"),
     "run_tax": ((False,), "9b"),
@@ -149,16 +147,26 @@ def build_parser() -> argparse.ArgumentParser:
         ex.add_argument("--ring_vmem_mb", type=int, default=None,
                         help="accepted for the JAX CLI's argv (a TPU VMEM budget); ignored")
         ex.add_argument("--skip_plots", action="store_true")
-        # the JAX CLI's fault-tolerance, durable-I/O, tracing and elastic-pod
-        # flags: the port runs their defaults (UNPORTED_FLAGS)
-        ex.add_argument("--no_overlap_ingest", dest="overlap_ingest", action="store_false", default=True)
-        ex.add_argument("--fault_retries", type=int, default=2)
-        ex.add_argument("--dispatch_timeout", type=float, default=0.0)
+        ex.add_argument("--no_overlap_ingest", dest="overlap_ingest", action="store_false", default=True,
+                        help="do not build the kernels and start the CUDA context on a thread while "
+                             "ingest sketches")
+        ex.add_argument("--fault_retries", type=int, default=2,
+                        help="retries of a failed launch (a streaming stripe, a secondary engine call) "
+                             "before the run raises FaultTolError")
+        ex.add_argument("--dispatch_timeout", type=float, default=0.0,
+                        help="watchdog in seconds on each streaming stripe and secondary engine call; "
+                             "0 derives one for the streaming stripes from their own latencies (the "
+                             "other launches run without), a negative value turns it off")
+        ex.add_argument("--io_retries", type=int, default=None,
+                        help="retries of a transient shared-filesystem error (EIO, ESTALE, ETIMEDOUT) "
+                             "per durable read or write (default 3)")
+        ex.add_argument("--fsync", action="store_true",
+                        help="fsync every durable publish (the file, then its directory)")
+        # the JAX CLI's tracing and elastic-pod flags: the port runs their
+        # defaults (UNPORTED_FLAGS)
         ex.add_argument("--max_dead_processes", type=int, default=1)
         ex.add_argument("--max_joins", type=int, default=0)
         ex.add_argument("--drain_grace_s", type=float, default=30.0)
-        ex.add_argument("--io_retries", type=int, default=None)
-        ex.add_argument("--fsync", action="store_true")
         ex.add_argument("--events", default=None, choices=["off", "on"])
         ex.add_argument("--profile", nargs="?", const="auto", default=None)
 
@@ -193,9 +201,10 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("-p", "--processes", type=int, default=6)
         p.add_argument("-d", "--debug", action="store_true")
         p.add_argument("--io_retries", type=int, default=None,
-                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+                       help="transient shared-filesystem I/O retry budget (utils/durableio.py; "
+                            "same knob as the pipeline)")
         p.add_argument("--fsync", action="store_true",
-                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+                       help="fsync every durable publish")
         p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                        help="where the kernels run (default cuda; cpu runs their plain "
                             "PyTorch versions and must be asked for)")
@@ -290,9 +299,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-sketcher)")
     s.add_argument("-d", "--debug", action="store_true")
     s.add_argument("--io_retries", type=int, default=None,
-                   help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
-    s.add_argument("--fsync", action="store_true",
-                   help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+                   help="transient shared-filesystem I/O retry budget (same knob as the pipeline)")
+    s.add_argument("--fsync", action="store_true", help="fsync every durable publish")
     s.add_argument("--socket", default=None, metavar="PATH",
                    help="serve on a unix-domain socket at PATH instead of TCP")
     s.add_argument("--host", default="127.0.0.1",
@@ -346,7 +354,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="sketching processes per batch (1 keeps the router single-sketcher)")
     r.add_argument("-d", "--debug", action="store_true")
     r.add_argument("--io_retries", type=int, default=None,
-                   help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+                   help="transient shared-filesystem I/O retry budget (same knob as the pipeline)")
     r.add_argument("--socket", default=None, metavar="PATH",
                    help="serve on a unix-domain socket at PATH instead of TCP")
     r.add_argument("--host", default="127.0.0.1", help="TCP bind host (default 127.0.0.1)")
@@ -398,9 +406,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("-p", "--processes", type=int, default=6)
         p.add_argument("-d", "--debug", action="store_true")
         p.add_argument("--io_retries", type=int, default=None,
-                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
-        p.add_argument("--fsync", action="store_true",
-                       help="accepted for the JAX CLI's argv; the port runs the default (item 5)")
+                       help="transient shared-filesystem I/O retry budget (same knob as the pipeline)")
+        p.add_argument("--fsync", action="store_true", help="fsync every durable publish")
         p.add_argument("--device", default=None, choices=["cuda", "cpu"],
                        help="where the kernels run (default cuda; cpu runs their plain "
                             "PyTorch versions and must be asked for)")

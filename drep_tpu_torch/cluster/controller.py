@@ -32,24 +32,36 @@ Counterpart of drep_tpu/cluster/controller.py, trimmed to one process
   clusters' representatives (cluster/tertiary.py);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 
+Failures, as in the JAX package for one process: ingest publishes sketch
+shards as it goes (ingest.py); each primary cluster's secondary result is
+checkpointed the moment it finishes (cluster/secondary_ckpt.py), so a
+rerun of a killed run resumes at the first unfinished cluster; each
+secondary engine call (a cluster, or a batch of small ones) runs under
+``retrying_call``, as does each streaming stripe (parallel/faulttol.py:
+--fault_retries, --dispatch_timeout), and the
+run's durable-I/O policy is --io_retries and --fsync. Spent retries raise
+FaultTolError: nothing recomputes on the CPU. With the device cuda and
+sketching to do, the kernels build and the CUDA context starts on a
+thread while ingest runs (--no_overlap_ingest turns it off). The dense
+ring's block store is ROADMAP item 12b: a failure there stops the run.
+
 Where the JAX package would run a subprocess engine (ROADMAP.md queue 1,
 item 9b), the run raises NotImplementedError naming it before ingest;
 where the JAX package ignores such a flag (an engine under --SkipMash or
---SkipSecondary), so does the port. The JAX package's per-cluster
-secondary checkpoints, the ring's block store and the device-failure
-retries are not ported: a failure stops the run, and a rerun starts the
-stage over (the streaming primary's finished stripes excepted).
+--SkipSecondary), so does the port.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import threading
 import time
 from typing import Any
 
 import numpy as np
 import pandas as pd
+import torch
 
 from drep_tpu_torch import schemas
 from drep_tpu_torch.cluster import dispatch, engines, pairs
@@ -57,10 +69,18 @@ from drep_tpu_torch.cluster.greedy import greedy_assign_from_matrices, greedy_se
 from drep_tpu_torch.cluster.multiround import multiround_primary_clustering
 from drep_tpu_torch.cluster.tertiary import run_tertiary_clustering
 from drep_tpu_torch.device import resolve_device
-from drep_tpu_torch.ingest import DEFAULT_SCALE, DEFAULT_SKETCH_SIZE, GenomeSketches, sketch_genomes
+from drep_tpu_torch.cluster.secondary_ckpt import SecondaryCheckpoint
+from drep_tpu_torch.ingest import (
+    DEFAULT_SCALE,
+    DEFAULT_SKETCH_SIZE,
+    GenomeSketches,
+    sketch_cache_will_hit,
+    sketch_genomes,
+)
 from drep_tpu_torch.ops.kmers import DEFAULT_K
 from drep_tpu_torch.ops.linkage import cluster_hierarchical, single_linkage_device
-from drep_tpu_torch.utils.durableio import atomic_write
+from drep_tpu_torch.parallel.faulttol import FaultTolConfig, configure_defaults, retrying_call
+from drep_tpu_torch.utils import durableio
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.workdir import WorkDirectory
 
@@ -92,6 +112,13 @@ CLUSTER_DEFAULTS: dict[str, Any] = {
     "prune_bands": 0,
     "prune_min_shared": 0,
     "prune_join_chunk": 0,
+    # how failures are survived, never what is computed: none of these is
+    # a _RESUME_KEY (parallel/faulttol.py, utils/durableio.py)
+    "overlap_ingest": True,
+    "fault_retries": 2,
+    "dispatch_timeout": 0.0,
+    "io_retries": None,
+    "fsync": False,
 }
 
 _RESUME_KEYS = [
@@ -133,6 +160,9 @@ STAGE_SECONDS: dict[str, float] = {}
 # package's counters: the greedy secondary counts its Ndb rows, the
 # comparisons its scan made, on both its routes)
 STAGE_PAIRS: dict[str, int] = {}
+# multi-member primary clusters of the last run's secondary stage, and
+# how many of them it resumed from the checkpoint store
+SECONDARY_RESUMED: dict[str, int] = {}
 
 
 def _fill_defaults(kwargs: dict[str, Any]) -> dict[str, Any]:
@@ -178,6 +208,64 @@ def _warn_dist(kw: dict[str, Any]) -> float:
 
     v = kw.get("warn_dist")
     return EVALUATE_DEFAULTS["warn_dist"] if v is None else float(v)
+
+
+def _ft_config(kw: dict[str, Any]) -> FaultTolConfig:
+    """The fault-tolerance flags -> the retry config, installed as the
+    process default too (workflows.py's front door installs the durable-I/O
+    flags). --dispatch_timeout 0 derives the streaming stripes' watchdog
+    from the run's own launch latencies, a positive value bounds every
+    watched launch, a negative one turns the watchdog off."""
+    timeout = float(kw["dispatch_timeout"])
+    cfg = FaultTolConfig(
+        max_retries=int(kw["fault_retries"]),
+        dispatch_timeout_s=max(0.0, timeout),
+        auto_timeout=timeout == 0.0,
+    )
+    configure_defaults(cfg)
+    return cfg
+
+
+class _KernelWarmup:
+    """Builds the CUDA kernels (``ops/_build.py::build_all``) and starts
+    the CUDA context on a thread while ingest sketches on the host. The
+    caller joins it whatever ingest did, then calls :meth:`raise_error`:
+    a failed build is raised, never swallowed."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.error: BaseException | None = None
+        self._thread = threading.Thread(target=self._run, args=(device,), name="drep-kernel-warmup")
+        self._thread.start()
+
+    def _run(self, device: torch.device) -> None:
+        try:
+            from drep_tpu_torch.ops import _build
+
+            _build.build_all()
+            torch.zeros(1, device=device)
+            torch.cuda.synchronize(device)
+        except BaseException as e:  # noqa: BLE001 — raised by the caller after the join
+            self.error = e
+
+    def join(self) -> None:
+        self._thread.join()
+        if self.error is not None:
+            get_logger().error("kernel warmup failed: %r", self.error)
+
+    def raise_error(self) -> None:
+        if self.error is not None:
+            raise self.error
+
+
+def _start_kernel_warmup(kw: dict[str, Any], wd: WorkDirectory, bdb: pd.DataFrame) -> _KernelWarmup | None:
+    """The warmup thread, where the device is cuda, --no_overlap_ingest is
+    not given and ingest will sketch (no cache or shard store covers the
+    genomes: otherwise there is nothing to hide the build behind)."""
+    if kw["device"].type != "cuda" or not kw["overlap_ingest"]:
+        return None
+    if sketch_cache_will_hit(wd, bdb["genome"], kw["kmer_size"], kw["MASH_sketch"], kw["scale"], kw["hash"]):
+        return None
+    return _KernelWarmup(kw["device"])
 
 
 def _mdb_from_dist(
@@ -232,7 +320,7 @@ def _resolve_estimator_for_run(n: int, kw: dict[str, Any]) -> str:
 
 
 def _streaming_primary(
-    gs: GenomeSketches, kw: dict[str, Any], wd: WorkDirectory
+    gs: GenomeSketches, kw: dict[str, Any], wd: WorkDirectory, ft_cfg: FaultTolConfig
 ) -> tuple[np.ndarray, tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """The streaming primary of the JAX package's branch: (labels, edges)."""
     from drep_tpu_torch.ops.minhash import pack_sketches
@@ -269,6 +357,7 @@ def _streaming_primary(
         prune_min_shared=kw["prune_min_shared"],
         prune_join_chunk=kw["prune_join_chunk"],
         device=kw["device"],
+        ft_config=ft_cfg,
     )
     st = streaming.STATS
     STAGE_SECONDS.update(
@@ -279,7 +368,7 @@ def _streaming_primary(
 
 
 def _primary_clusters(
-    gs: GenomeSketches, bdb: pd.DataFrame, kw: dict[str, Any], wd: WorkDirectory
+    gs: GenomeSketches, bdb: pd.DataFrame, kw: dict[str, Any], wd: WorkDirectory, ft_cfg: FaultTolConfig
 ) -> tuple[np.ndarray, np.ndarray | None, np.ndarray, pd.DataFrame | None]:
     """Returns (labels 1..C, dist matrix or None, linkage, sparse Mdb of
     the streaming primary or None)."""
@@ -293,7 +382,7 @@ def _primary_clusters(
         STAGE_SECONDS.update(primary_compare=time.perf_counter() - t0)
         return labels, None, np.empty((0, 4)), None
     if _streams(kw, n):
-        labels, edges = _streaming_primary(gs, kw, wd)
+        labels, edges = _streaming_primary(gs, kw, wd, ft_cfg)
         return labels, None, np.empty((0, 4)), _streaming_mdb(edges, gs.names)
     if kw["primary_prune"] != "off":
         # the JAX package's warning: pruning exists only on the streaming schedule
@@ -359,11 +448,37 @@ def secondary_for_cluster(
     return _secondary_postprocess(gs, indices, pc, kw, ani, cov)
 
 
+def batch_small_clusters(small: list[tuple[int, list[int]]]) -> list[list[tuple[int, list[int]]]]:
+    """The small clusters in row-bounded batches, in order: a batch closes
+    before a cluster that would take it past BATCH_ROWS_MAX rows."""
+    batches: list[list[tuple[int, list[int]]]] = []
+    rows = BATCH_ROWS_MAX + 1  # force a new batch on the first item
+    for item in small:
+        if rows + len(item[1]) > BATCH_ROWS_MAX:
+            batches.append([])
+            rows = 0
+        batches[-1].append(item)
+        rows += len(item[1])
+    return batches
+
+
 def _secondary_clusters(
-    gs: GenomeSketches, bdb: pd.DataFrame, primary: np.ndarray, kw: dict[str, Any]
+    gs: GenomeSketches,
+    bdb: pd.DataFrame,
+    primary: np.ndarray,
+    kw: dict[str, Any],
+    ckpt: SecondaryCheckpoint,
+    ft_cfg: FaultTolConfig,
 ) -> tuple[dict[int, tuple[pd.DataFrame, np.ndarray, np.ndarray]], list[tuple[int, list[int]]], dict[str, str]]:
     """Secondary stage over every primary cluster: (results by primary
-    cluster, multi-member clusters in order, names of singleton clusters)."""
+    cluster, multi-member clusters in order, names of singleton clusters).
+    A cluster `ckpt` holds is resumed before any launch; every other
+    cluster's result is handed to its writer as soon as its call returns,
+    a batch's clusters together (``STAGE_SECONDS["checkpoint_write"]`` the
+    writer's seconds, ``["checkpoint_wait"]`` this thread's waits on it),
+    and each
+    engine call (one large cluster, or one batch of small ones) runs under
+    ``retrying_call`` at the ``secondary_batch`` fault site."""
     n_primary = int(primary.max()) if len(primary) else 0
     members: dict[int, list[int]] = {}
     for i, pc in enumerate(primary):
@@ -387,38 +502,50 @@ def _secondary_clusters(
     results: dict[int, tuple[pd.DataFrame, np.ndarray, np.ndarray]] = {}
     small: list[tuple[int, list[int]]] = []
     pairs_done = 0
-    for pc, indices in multi:
-        m = len(indices)
-        if batched_fn is not None and m <= SMALL_CLUSTER_MAX:
-            small.append((pc, indices))  # one device call for many
-        elif greedy:
-            ndb, labels = greedy_secondary_cluster(gs, bdb, indices, pc, kw)
-            pairs_done += len(ndb)  # the comparisons the greedy scan made
-            results[pc] = (ndb, labels, np.empty((0, 4)))
-        else:
-            pairs_done += m * (m - 1) // 2
-            results[pc] = secondary_for_cluster(gs, bdb, indices, pc, kw)
-
-    # flush the small clusters in row-bounded batches
-    batches: list[list[tuple[int, list[int]]]] = []
-    rows = BATCH_ROWS_MAX + 1  # force a new batch on the first item
-    for item in small:
-        if rows + len(item[1]) > BATCH_ROWS_MAX:
-            batches.append([])
-            rows = 0
-        batches[-1].append(item)
-        rows += len(item[1])
-    for batch in batches:
-        outs = batched_fn(gs, [ix for _, ix in batch], device=kw["device"], mesh_shape=kw["mesh_shape"])
-        for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
-            if greedy:
-                ndb, labels = greedy_assign_from_matrices(gs, indices, pc, kw, ani, cov)
-                pairs_done += len(ndb)
+    try:
+        if multi:
+            ckpt.start()  # the writer processes start while the first clusters compute
+        for pc, indices in multi:
+            m = len(indices)
+            cached = ckpt.load(pc)
+            if cached is not None:
+                results[pc] = cached  # resumed: no pairs counted
+            elif batched_fn is not None and m <= SMALL_CLUSTER_MAX:
+                small.append((pc, indices))  # one device call for many
+            elif greedy:
+                ndb, labels = greedy_secondary_cluster(gs, bdb, indices, pc, kw)
+                pairs_done += len(ndb)  # the comparisons the greedy scan made
                 results[pc] = (ndb, labels, np.empty((0, 4)))
+                ckpt.save(pc, *results[pc])
             else:
-                pairs_done += len(indices) * (len(indices) - 1) // 2
-                results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+                pairs_done += m * (m - 1) // 2
+                results[pc] = retrying_call(
+                    lambda indices=indices, pc=pc: secondary_for_cluster(gs, bdb, indices, pc, kw),
+                    site="secondary_batch", config=ft_cfg,
+                )
+                ckpt.save(pc, *results[pc])
+
+        for batch in batch_small_clusters(small):
+            outs = retrying_call(
+                lambda batch=batch: batched_fn(gs, [ix for _, ix in batch], device=kw["device"],
+                                               mesh_shape=kw["mesh_shape"]),
+                site="secondary_batch", config=ft_cfg,
+            )
+            for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
+                if greedy:
+                    ndb, labels = greedy_assign_from_matrices(gs, indices, pc, kw, ani, cov)
+                    pairs_done += len(ndb)
+                    results[pc] = (ndb, labels, np.empty((0, 4)))
+                else:
+                    pairs_done += len(indices) * (len(indices) - 1) // 2
+                    results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+            ckpt.save_many([(pc, *results[pc]) for pc, _ in batch])
+    finally:
+        ckpt.close()  # what was handed to the writer is on disk, whether or not the stage failed
     STAGE_PAIRS["secondary_compare"] = pairs_done
+    SECONDARY_RESUMED.update(resumed=ckpt.n_resumed, clusters=len(multi))
+    ckpt.finish(n_primary)
+    STAGE_SECONDS.update(checkpoint_write=ckpt.write_s, checkpoint_wait=ckpt.wait_s)
     return results, multi, singles
 
 
@@ -431,6 +558,7 @@ def d_cluster_wrapper(
     kw = _fill_defaults(kwargs)
     _refuse_unported(kw, len(bdb))
     kw["device"] = resolve_device(device)
+    ft_cfg = _ft_config(kw)  # installed before anything is read or written
     snapshot = {k: kw.get(k) for k in _RESUME_KEYS if k != "genomes"}
     # normalize: CLI passes 0.25 explicitly, library callers omit it
     snapshot["warn_dist"] = _warn_dist(kw)
@@ -454,23 +582,31 @@ def d_cluster_wrapper(
 
     STAGE_SECONDS.clear()
     STAGE_PAIRS.clear()
+    SECONDARY_RESUMED.clear()
     t0 = time.perf_counter()
-    gs = sketch_genomes(
-        bdb,
-        k=kw["kmer_size"],
-        sketch_size=kw["MASH_sketch"],
-        scale=kw["scale"],
-        processes=kw["processes"],
-        wd=wd,
-        hash_name=kw["hash"],
-    )
+    warmup = _start_kernel_warmup(kw, wd, bdb)
+    try:
+        gs = sketch_genomes(
+            bdb,
+            k=kw["kmer_size"],
+            sketch_size=kw["MASH_sketch"],
+            scale=kw["scale"],
+            processes=kw["processes"],
+            wd=wd,
+            hash_name=kw["hash"],
+        )
+    finally:
+        if warmup is not None:
+            warmup.join()
+    if warmup is not None:
+        warmup.raise_error()
     n = len(gs.names)
     logger.info(
         "clustering %d genomes on %s (primary=%s, secondary=%s)",
         n, kw["device"], kw["primary_algorithm"], kw["S_algorithm"],
     )
     t1 = time.perf_counter()
-    primary, pdist, plink, sparse_mdb = _primary_clusters(gs, bdb, kw, wd)
+    primary, pdist, plink, sparse_mdb = _primary_clusters(gs, bdb, kw, wd, ft_cfg)
     t2 = time.perf_counter()
     n_primary = int(primary.max()) if n else 0
     logger.info("primary clustering: %d clusters from %d genomes", n_primary, n)
@@ -494,7 +630,12 @@ def d_cluster_wrapper(
         for i, g in enumerate(gs.names):
             secondary_names[g] = f"{primary[i]}_0"
     else:
-        results, multi, singles = _secondary_clusters(gs, bdb, primary, kw)
+        # warn_dist shapes only the Mdb's retention and the resolved
+        # estimator never touches ANI: neither keys the store
+        sec_snapshot = {k: v for k, v in snapshot.items() if k not in ("warn_dist", "primary_estimator_resolved")}
+        ckpt = SecondaryCheckpoint(wd.get_dir(os.path.join("data", "secondary_checkpoints")), sec_snapshot,
+                                   primary, gs.names)
+        results, multi, singles = _secondary_clusters(gs, bdb, primary, kw, ckpt, ft_cfg)
         secondary_names.update(singles)
         for pc, indices in multi:  # assemble in cluster order (deterministic)
             ndb, labels, link = results[pc]
@@ -538,7 +679,7 @@ def d_cluster_wrapper(
         with open(tmp, "wb") as f:
             pickle.dump(clustering_files, f)
 
-    atomic_write(os.path.join(cf_dir, "clustering.pickle"), _dump)
+    durableio.atomic_write(os.path.join(cf_dir, "clustering.pickle"), _dump)
     wd.store_arguments("cluster", snapshot)
     STAGE_SECONDS.update(
         ingest_or_cache=t1 - t0, primary=t2 - t1, mdb=t3 - t2, secondary=t4 - t3,

@@ -23,12 +23,22 @@ path never does:
   connected components, which at a distance cutoff is exactly
   single-linkage fcluster.
 
+- each stripe's launch runs through parallel/faulttol.py's
+  ``retrying_call`` (fault site ``streaming_tile``, fired after the
+  launch, on device slot 0): a failed launch retries with backoff on the same device, a
+  hung one trips the watchdog (the run's
+  ``ft_config``; ``dispatch_timeout_s`` 0 with ``auto_timeout`` derives
+  it from the stripes' own latencies, reported as the gauge
+  ``derived_dispatch_timeout_s``), and spent retries raise FaultTolError.
+  No stripe is recomputed on the host: the JAX package's CPU fallback tile
+  is not ported. A shard publish is the ``shard_write`` site, so a torn
+  shard reads corrupt on resume and its stripe is recomputed.
+
 Not ported here: the JAX package's multi-process stripe dealing, elastic
-pod and edge allgather (ROADMAP item 12b), its retrying tile executor and
-watchdog (item 5; a failed launch raises, and there is no CPU fallback
-tile), its telemetry (items 5 and 13), and its compile warmup (nothing is
-compiled per run: the kernels build once into ``_build/``). Its per-tile
-readback budget does not apply: exactly the survivors are read back.
+pod and edge allgather (ROADMAP item 12b), its telemetry (item 13), and
+its compile warmup (nothing is compiled per run: the kernels build once
+into ``_build/``). Its per-tile readback budget does not apply: exactly
+the survivors are read back.
 """
 
 from __future__ import annotations
@@ -42,6 +52,9 @@ import torch
 
 from drep_tpu_torch.ops.mash import TILE, distance_table, stripe_survivors
 from drep_tpu_torch.ops.minhash import PackedSketches, pad_packed_rows
+from drep_tpu_torch.parallel import faulttol
+from drep_tpu_torch.parallel.faulttol import AutoTimeout, FaultTolConfig, retrying_call
+from drep_tpu_torch.utils import faults
 from drep_tpu_torch.utils.logger import get_logger
 
 DEFAULT_BLOCK = 1024
@@ -204,6 +217,7 @@ def streaming_mash_edges(
     prune=None,
     device: torch.device | str | None = None,
     stats_out: dict | None = None,
+    ft_config: FaultTolConfig | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
     """All unordered pairs (i < j) with Mash distance <= cutoff:
     (ii, jj, dist, pairs_computed), in the JAX package's order (stripe by
@@ -220,10 +234,12 @@ def streaming_mash_edges(
     (resumed shards add 0).
 
     Runs on `device` (default cuda; the CPU only when asked): the Mash
-    kernel on a CUDA device, its plain version on the CPU. The call's
-    counters land in the module's ``STATS`` and, when given, in
-    `stats_out` (the caller's own copy, which threads walking at once do
-    not share).
+    kernel on a CUDA device, its plain version on the CPU. Each stripe's
+    launch runs through ``retrying_call`` under `ft_config` (default the
+    process's ``faulttol.DEFAULT_CONFIG``). The call's counters land in
+    the module's ``STATS`` and, when given, in `stats_out` (the caller's
+    own copy, which threads walking at once do not share); ``launches``
+    counts every launch, retries included.
     """
     from drep_tpu_torch.device import resolve_device
 
@@ -272,6 +288,8 @@ def streaming_mash_edges(
             )
         return res
 
+    ft_config = ft_config if ft_config is not None else faulttol.DEFAULT_CONFIG
+    watchdog = AutoTimeout(ft_config)
     stats = {"stripes": 0, "stripes_resumed": 0, "launches": 0, "tiles_computed": 0,
              "tiles_total": 0, "tiles_skipped": 0}
     pairs_computed = 0
@@ -297,8 +315,14 @@ def streaming_mash_edges(
                 (np.asarray(cols)[:, None] * block + np.arange(block)[None, :]).ravel()
             ).to(dev)
             b, nb = r["ids"].index_select(0, rows), r["counts"].index_select(0, rows)
-        surv = stripe_survivors(a, na, b, nb, width, r["keep"], diag=cols[0] == bi)
-        stats["launches"] += 1
+
+        def launch() -> np.ndarray:
+            stats["launches"] += 1
+            value = stripe_survivors(a, na, b, nb, width, r["keep"], diag=cols[0] == bi)
+            faults.fire("streaming_tile", device=0)  # the one device's slot, as the JAX package's
+            return value
+
+        surv = retrying_call(launch, "streaming_tile", ft_config, auto=watchdog, fire=False)
         stats["tiles_computed"] += len(cols)
         pairs_computed += sum(_real_pairs_in_tile(i0, bj * block, block, n) for bj in cols)
         gi = surv[:, 1] + i0
@@ -328,6 +352,13 @@ def streaming_mash_edges(
         all_jj.append(loaded[1])
         all_dd.append(loaded[2])
 
+    derived = watchdog.derived()
+    if derived is not None:
+        # the deadline this run derived from its own stripes, for an
+        # operator to pin --dispatch_timeout from evidence
+        from drep_tpu_torch.utils.profiling import counters
+
+        counters.set_gauge("derived_dispatch_timeout_s", round(derived, 3))
     ii = np.concatenate(all_ii) if all_ii else empty[0]
     jj = np.concatenate(all_jj) if all_jj else empty[1]
     dd = np.concatenate(all_dd) if all_dd else empty[2]
@@ -362,6 +393,7 @@ def streaming_primary_clusters(
     prune_min_shared: int = 0,
     prune_join_chunk: int = 0,
     device: torch.device | str | None = None,
+    ft_config: FaultTolConfig | None = None,
 ) -> tuple[np.ndarray, tuple[np.ndarray, np.ndarray, np.ndarray], int]:
     """Streaming primary clustering: (labels 1..C, retained edges (ii, jj,
     dist), pairs computed by this call).
@@ -404,6 +436,7 @@ def streaming_primary_clusters(
     t1 = time.perf_counter()
     ii, jj, dd, pairs_computed = streaming_mash_edges(
         packed, k, keep, block=block, checkpoint_dir=checkpoint_dir, prune=prune, device=device,
+        ft_config=ft_config,
     )
     t2 = time.perf_counter()
     if cluster_alg == "single":

@@ -9,7 +9,9 @@ index serve|route = drep_tpu_torch/serve.
 
 All run on `device` (default cuda); a CUDA request on a machine without
 CUDA, or a JAX CLI flag set to a value the port does not run
-(argparser.UNPORTED_FLAGS), raises before any work is done.
+(argparser.UNPORTED_FLAGS), raises before any work is done. Each
+installs the run's durable-I/O policy (--io_retries, --fsync) before its
+first write.
 """
 
 from __future__ import annotations
@@ -26,6 +28,17 @@ from drep_tpu_torch.filter import d_filter_wrapper
 from drep_tpu_torch.ingest import make_bdb
 from drep_tpu_torch.utils.logger import get_logger, setup_logger
 from drep_tpu_torch.workdir import WorkDirectory
+
+
+def _configure_io(kwargs: dict) -> None:
+    """--io_retries / --fsync -> utils/durableio.py, for every publish and
+    read of the run (unset flags keep the defaults); and the
+    DREP_TORCH_FAULTS spec parsed now, so that a malformed or unported
+    one raises before anything is written."""
+    from drep_tpu_torch.utils import durableio, faults
+
+    durableio.configure(retries=kwargs.get("io_retries"), fsync=bool(kwargs.get("fsync")) or None)
+    faults.active()
 
 
 def _init(wd_loc: str, genomes: list[str]) -> tuple[WorkDirectory, pd.DataFrame]:
@@ -47,6 +60,7 @@ def compare_wrapper(
     """`compare`: cluster + evaluate + analyze. Returns Cdb."""
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
+    _configure_io(kwargs)
     wd, bdb = _init(wd_loc, genomes or [])
     cdb = d_cluster_wrapper(wd, bdb, device=dev, **kwargs)
     # per-genome stats for downstream stages come from the ingest pass's Gdb
@@ -68,6 +82,7 @@ def dereplicate_wrapper(
     Returns Wdb (the winners)."""
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
+    _configure_io(kwargs)
     wd, bdb = _init(wd_loc, genomes or [])
     filtered = d_filter_wrapper(wd, bdb, genomeInfo=kwargs.pop("genomeInfo", None), **kwargs)
     d_cluster_wrapper(wd, filtered, device=dev, **kwargs)
@@ -91,6 +106,7 @@ def _init_index(index_loc: str, device, kwargs: dict, write_logs: bool = True):
 
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
+    _configure_io(kwargs)
     setup_logger(os.path.join(os.path.abspath(index_loc), "log") if write_logs else None)
     return dev
 
@@ -187,9 +203,9 @@ def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, dev
 
 def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
     """The set-up `index serve` and `index route` share: what the port
-    does not run refuses first (``--events on``, item 13; ``--io_retries``
-    and ``--fsync``, item 5), then the device resolves, the console keeps
-    the controller's verbosity and the counters restart. Both are pure
+    does not run refuses first (``--events on``, item 13), then the device
+    resolves, the durable-I/O policy is installed, the console keeps the
+    controller's verbosity and the counters restart. Both are pure
     readers of the index, so their logs and counters live under
     ``--log_dir`` (outside the index tree) or nowhere. Returns (the
     absolute log_dir or None, the device)."""
@@ -204,6 +220,7 @@ def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
         )
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
+    _configure_io(kwargs)
     log_dir = kwargs.get("log_dir") or None
     if log_dir:
         log_dir = os.path.abspath(log_dir)
@@ -272,7 +289,7 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
     ``--resident_mb``.
 
     What the port does not run is refused before anything is loaded:
-    ``--events on`` (item 13), ``--io_retries`` and ``--fsync`` (item 5)."""
+    ``--events on`` (item 13)."""
     from drep_tpu_torch.serve import IndexServer, ServeConfig
 
     log_dir, dev = _serve_front_door(index_loc, kwargs, "serve", device)
@@ -289,8 +306,8 @@ def index_route_wrapper(index_loc: str, device=None, **kwargs) -> int:
     ``fleet`` op); queries before a join are refused with ``no_replicas``.
 
     Refused before anything is read: ``--fleet_manifest`` (the
-    supervisor's manifest, ROADMAP.md queue 1 item 11c), ``--events on``
-    (item 13) and ``--io_retries`` (item 5)."""
+    supervisor's manifest, ROADMAP.md queue 1 item 11c) and ``--events
+    on`` (item 13)."""
     from drep_tpu_torch.serve.router import RouterConfig, RouterServer, refuse_fleet_manifest
 
     refuse_fleet_manifest(kwargs.get("fleet_manifest"))

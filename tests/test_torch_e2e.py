@@ -447,31 +447,58 @@ def test_streaming_argvs_equal_jax_bytes(tmp_path, genome_paths, operation, flag
 
 
 # the JAX CLI's flags that the port parses and runs only at their JAX
-# defaults: a value to refuse, and the ROADMAP item that ports it
+# defaults: a value to refuse, and the ROADMAP item that ports it; None
+# where the port now runs the value (the fault-tolerance and durable-I/O
+# flags, item 5): it reaches the cluster stage's _ft_config
 _UNPORTED_FLAG_VALUES = [
-    (["--events", "on"], "item 5"),
-    (["--fsync"], "item 5"),
-    (["--io_retries", "5"], "item 5"),
-    (["--profile"], "item 5"),
-    (["--fault_retries", "0"], "item 5"),
-    (["--dispatch_timeout", "10"], "item 5"),
-    (["--max_dead_processes", "0"], "item 5"),
-    (["--no_overlap_ingest"], "item 5"),
+    (["--events", "on"], "item 13"),
+    (["--fsync"], None),
+    (["--io_retries", "5"], None),
+    (["--profile"], "item 13"),
+    (["--fault_retries", "0"], None),
+    (["--dispatch_timeout", "10"], None),
+    (["--max_dead_processes", "0"], "item 12b"),
+    (["--no_overlap_ingest"], None),
     (["--max_joins", "1"], "item 12b"),
     (["--drain_grace_s", "5"], "item 12b"),
     (["--run_tax"], "item 9"),
     (["--cent_index", "idx"], "item 9"),
 ]
+_FLAG_KW = {"--fsync": ("fsync", True), "--io_retries": ("io_retries", 5), "--fault_retries": ("fault_retries", 0),
+            "--dispatch_timeout": ("dispatch_timeout", 10.0), "--no_overlap_ingest": ("overlap_ingest", False)}
+
+
+class _ReachedFtConfig(Exception):
+    pass
 
 
 @pytest.mark.parametrize("flag,item", _UNPORTED_FLAG_VALUES)
-def test_jax_cli_flags_off_default_raise(tmp_path, genome_paths, flag, item):
+def test_jax_cli_flags_off_default_raise(tmp_path, genome_paths, flag, item, monkeypatch):
     """A JAX CLI flag set to a value the port does not run raises naming
-    its ROADMAP item before any work: the workdir is not even made."""
+    its ROADMAP item before any work: the workdir is not even made. A
+    flag the port runs reaches the cluster stage's _ft_config with its
+    value, before ingest."""
+    from drep_tpu_torch.cluster import controller
+
     wd = tmp_path / "wd"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        torch_main(["dereplicate", str(wd), "-g", *genome_paths, "--device", "cpu", "--skip_plots", *flag])
-    assert not wd.exists()
+    argv = ["dereplicate", str(wd), "-g", *genome_paths, "--device", "cpu", "--skip_plots", *flag]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            torch_main(argv)
+        assert not wd.exists()
+        return
+    seen = {}
+
+    def reached(kw):
+        seen.update(kw)
+        raise _ReachedFtConfig
+
+    monkeypatch.setattr(controller, "_ft_config", reached)
+    with pytest.raises(_ReachedFtConfig):
+        torch_main(argv)
+    key, value = _FLAG_KW[flag[0]]
+    assert seen[key] == value
+    assert not (wd / "data" / "sketch_shards").exists()  # before ingest
 
 
 def test_jax_cli_flags_at_defaults_run(dereplicated, genome_paths, tmp_path):

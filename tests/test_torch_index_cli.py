@@ -164,19 +164,43 @@ def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
     assert lib.tree_digest(loc, exclude_dirs=()) == before
 
 
+def _accepts_durable_io(monkeypatch, argv: list[str], io: dict) -> None:
+    """Run an `index serve|route` argv up to the server's run loop (not
+    entered): the durable-I/O flags reach utils/durableio.py, read back
+    where the server would start serving."""
+    from drep_tpu_torch import workflows
+    from drep_tpu_torch.utils import durableio
+
+    seen = []
+    monkeypatch.setattr(workflows, "_run_server",
+                        lambda server, log_dir: seen.append((durableio.io_retries(), durableio.fsync_enabled())) or 0)
+    try:
+        torch_main(argv)
+    finally:
+        durableio.configure()
+    assert seen == [(io.get("retries", durableio.DEFAULT_IO_RETRIES), io.get("fsync", False))]
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--events", "on", "--log_dir", "LOG"], "13"),
-    (["--io_retries", "3"], "5"),
-    (["--fsync"], "5"),
+    (["--io_retries", "5"], None),
+    (["--fsync"], None),
 ])
-def test_cli_serve_refusals(tmp_path, cli_runs, flags, item):
+def test_cli_serve_refusals(tmp_path, cli_runs, flags, item, monkeypatch):
     """`index serve` refuses what the port does not run before anything
-    is loaded, naming its item: event tracing, the durable-I/O flags."""
+    is loaded, naming its item (event tracing), and takes the durable-I/O
+    flags (item = None) as the JAX CLI does; nothing under the index
+    changes either way."""
     loc = cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=())
     argv = [str(tmp_path / "log") if a == "LOG" else a for a in flags]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        torch_main(["index", "serve", loc, "--device", "cpu", *argv])
+    if item is None:
+        io = {"retries": 5} if "--io_retries" in flags else {"fsync": True}
+        _accepts_durable_io(monkeypatch, ["index", "serve", loc, "--device", "cpu",
+                                          "--socket", str(tmp_path / "s.sock"), *argv], io)
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            torch_main(["index", "serve", loc, "--device", "cpu", *argv])
     assert lib.tree_digest(loc, exclude_dirs=()) == before
     assert not os.path.exists(tmp_path / "log")
 
@@ -184,19 +208,22 @@ def test_cli_serve_refusals(tmp_path, cli_runs, flags, item):
 @pytest.mark.parametrize("flags,item", [
     (["--fleet_manifest", "FLEET", "--log_dir", "LOG"], "11c"),
     (["--events", "on", "--log_dir", "LOG"], "13"),
-    (["--io_retries", "3"], "5"),
+    (["--io_retries", "5"], None),
 ])
-def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item):
+def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item, monkeypatch):
     """`index route` refuses what the port does not run before anything
     is read, bound or written, naming its item: the supervisor's fleet
-    manifest, event tracing, the durable-I/O flag."""
+    manifest, event tracing; it takes the durable-I/O flag (item = None)."""
     loc = fed_cli_runs[("torch", "update")]
     before = lib.tree_digest(loc, exclude_dirs=())
     sub = {"LOG": str(tmp_path / "log"), "FLEET": str(tmp_path / "fleet.json")}
-    argv = [sub.get(a, a) for a in flags]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        torch_main(["index", "route", loc, "--replica", "127.0.0.1:1", "--device", "cpu",
-                    "--socket", str(tmp_path / "r.sock"), *argv])
+    argv = ["index", "route", loc, "--replica", "127.0.0.1:1", "--device", "cpu",
+            "--socket", str(tmp_path / "r.sock"), *[sub.get(a, a) for a in flags]]
+    if item is None:
+        _accepts_durable_io(monkeypatch, argv, {"retries": 5})
+    else:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            torch_main(argv)
     assert lib.tree_digest(loc, exclude_dirs=()) == before
     assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "r.sock")
 
@@ -299,17 +326,38 @@ def test_cli_route_starts_and_answers(tmp_path, fed_cli_runs, planted):
 
 
 @pytest.mark.parametrize("op,flags,item", [
-    ("update", ["--io_retries", "3"], "5"),
-    ("classify", ["--fsync"], "5"),
+    ("update", ["--io_retries", "5"], None),
+    ("classify", ["--fsync"], None),
 ])
-def test_cli_unported_flags_raise(tmp_path, genome_paths, op, flags, item):
-    """Execution flags the port does not run raise NotImplementedError
-    naming their item before anything is sketched or written (the index
-    directory is not even created)."""
+def test_cli_unported_flags_raise(tmp_path, genome_paths, op, flags, item, monkeypatch):
+    """The index verbs take the JAX CLI's durable-I/O flags (item = None:
+    now run, ROADMAP item 5): the policy is installed before the verb
+    runs. A flag the port does not run would raise NotImplementedError
+    naming its item before anything is sketched or written."""
+    from drep_tpu_torch import index as index_pkg
+    from drep_tpu_torch.utils import durableio
+
     loc = str(tmp_path / "idx")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        torch_main(["index", op, loc, "-g", *genome_paths, "--device", "cpu", *flags])
-    assert not os.path.exists(loc)
+    argv = ["index", op, loc, "-g", *genome_paths, "--device", "cpu", *flags]
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            torch_main(argv)
+        assert not os.path.exists(loc)
+        return
+    seen = []
+    name = {"update": "index_update", "classify": "index_classify"}[op]
+
+    def verb(*a, **k):
+        seen.append((durableio.io_retries(), durableio.fsync_enabled()))
+        return [] if op == "classify" else {}
+
+    monkeypatch.setattr(index_pkg, name, verb)
+    try:
+        torch_main(argv)
+    finally:
+        durableio.configure()
+    want = (5, False) if op == "update" else (durableio.DEFAULT_IO_RETRIES, True)
+    assert seen == [want]
 
 
 @pytest.mark.parametrize("op,flags", [
