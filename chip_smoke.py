@@ -53,8 +53,6 @@ Phases (any failure exits nonzero; nothing is caught):
    route builds (A's [16, 2048, 2048] buckets, B's [1408, 2048] rows) and
    timed beside its bound, with the seconds of each part of the route
    (`ops/intersect.py::STAGE_SECONDS`, then host ani/cov and Ndb rows);
-   last, the scaled pack's rank map (`ops/minhash.py::dense_ranks`) and a
-   searchsorted into the vocabulary timed on cluster B's hashes;
 7. the dense ring over RING_POSITIONS positions of one card (as many as
    there are cards): the fused ring-step kernel against its plain version
    (`torch.equal` on the tile and on the copied ids and counts, the step
@@ -69,13 +67,13 @@ Phases (any failure exits nonzero; nothing is caught):
    10 000 genomes, bit-identical to the single-device matrix (both timed);
    where there are two cards or more, the kernel check with the copy
    landing on the second card;
-   7c: phase 6's clusters B and C again with ``mesh_shape=4`` (A cut for
-   the time limit): both must take ``mesh_ring``, whose steps run the
+   7c: phase 6's cluster C again with ``mesh_shape=4`` (A and B cut for
+   the time limit): it must take ``mesh_ring``, whose steps run the
    matmul step where the cluster's v_pad is at most
-   MATMUL_MAX_VPAD_PER_WIDTH times its width (C) and the merge step
-   elsewhere (B), as the Mash primary does, with Cdb/Ndb equal to phase
-   6's rows of those genomes (primary clusters renumbered) and Mdb within
-   1e-7 (d_cluster_wrapper only: choose and evaluate read nothing else);
+   MATMUL_MAX_VPAD_PER_WIDTH times its width (C), while the Mash primary
+   ring runs the merge step, with Cdb/Ndb equal to phase 6's rows of
+   those genomes (primary clusters renumbered) and Mdb within 1e-7
+   (d_cluster_wrapper only: choose and evaluate read nothing else);
    7d: the matmul ring step (``csrc/ring_step_mm.cu``) against its plain
    version (tile, copied operand, no-copy step, every timed launch's
    tile) and the merge step on
@@ -87,10 +85,10 @@ Phases (any failure exits nonzero; nothing is caught):
 8. the streaming primary (``parallel/streaming.py``): 8a: 30 000 planted
    genomes (MASH_sketch 1000, scaled depth 1 200, cut from phase 5's 10 000
    for the time limit) through d_cluster_wrapper with default arguments, so
-   the JAX package's switch at --streaming_threshold decides, then
-   d_choose_wrapper and d_evaluate_wrapper; checks the ``streaming_sort``
-   route, one ``mash_shared`` launch a stripe, every planted cluster one
-   primary and one secondary cluster with one winner, and logs the stage
+   the JAX package's switch at --streaming_threshold decides (its choose
+   and evaluate cut for the time limit); checks the
+   ``streaming_sort`` route, one ``mash_shared`` launch a stripe, every
+   planted cluster one primary and one secondary cluster, and logs the stage
    seconds and pairs/s; the kernel on stripe 0's whole column range timed
    beside its bound, with a random 512x512 block of it equal to the plain
    version; 8b: on phase 5's 10 000 genomes, ``streaming_mash_edges`` at
@@ -209,7 +207,24 @@ Phases (any failure exits nonzero; nothing is caught):
    the winners A, C, D. The fault counters must be empty through phases
    1-13 (read after phase 10, before phase 11 restarts them, and after
    phase 13): no real launch was retried or stopped by the watchdog;
-15. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+15. the subprocess engines and the taxonomy (``cluster/external.py``,
+   ``cluster/anim.py``, ``bonus.py``, ROADMAP queue 1 item 9b) with
+   stand-ins for their binaries first on $PATH (``write_fake_tools``:
+   small Python scripts that write each tool's format from the FASTA
+   files, log their calls and fail on request): SUB_BASES x 4 genomes of
+   SUB_LENGTH bases in SUB_BASES primary clusters, d_cluster_wrapper on
+   the card with each of fastANI, ANImf, ANIn, gANI and goANI under the
+   jax_mash primary and with ``--primary_algorithm mash --S_algorithm
+   fastANI``, and a ``dereplicate --run_tax``, each with Cdb, Ndb and Mdb
+   (Wdb, Tdb) byte-identical to its twin run with the CPU device; the
+   ``mash_shared`` launches exactly the jax_mash primary's (0 under
+   ``mash``), no ``indicator_mm`` launch under a subprocess secondary, the
+   stand-ins' calls exactly those the engine implies (for ANImf m(m-1) a
+   cluster); fastANI failing once on one cluster is retried (one retry),
+   failing twice under ``fault_retries=1`` raises FaultTolError with the
+   clusters before it checkpointed, and the rerun calls fastANI for the
+   unfinished clusters alone, with the clean run's Cdb and Ndb;
+16. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -223,8 +238,9 @@ Phases (any failure exits nonzero; nothing is caught):
    kernel its resident-shape time and bound under ``serve`` and phase
    12's times, cross-join pairs and launches under ``federation``; both
    phase 13's launches and times under ``federated_serve``; both phase
-   14's launches under ``resilience_launches``);
-16. the last line: ``{"ok": true, "device": {...}}``.
+   14's launches under ``resilience_launches`` and phase 15's under
+   ``subprocess_launches``);
+17. the last line: ``{"ok": true, "device": {...}}``.
 
 Phase 5's and phase 8a's planted sketches are made in two spawned
 processes started before phase 2 (the same seeds, so the same sketches),
@@ -337,15 +353,16 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def _plant_to_file(path: str, n: int, seed: int, s_scaled: int) -> None:
+def _plant_to_file(path: str, n: int | None, seed: int, s_scaled: int) -> None:
     """A planting process: (planted_sketches(n, seed, MASH_sketch 1000,
-    s_scaled), its seconds) pickled to `path`."""
+    s_scaled), its seconds) pickled to `path`; with `n` None, (sketches,
+    planted cluster per genome) of plant_beyond()."""
     import pickle
 
     from drep_tpu_torch.utils.synth import planted_sketches
 
     t0 = time.perf_counter()
-    out = planted_sketches(n, seed=seed, s_bottom=1000, s_scaled=s_scaled)
+    out = plant_beyond() if n is None else planted_sketches(n, seed=seed, s_bottom=1000, s_scaled=s_scaled)
     with open(path + ".tmp", "wb") as f:
         pickle.dump((out, time.perf_counter() - t0), f, protocol=pickle.HIGHEST_PROTOCOL)
     os.replace(path + ".tmp", path)
@@ -353,11 +370,13 @@ def _plant_to_file(path: str, n: int, seed: int, s_scaled: int) -> None:
 
 class Planting:
     """The planted sketches of a later phase, made in a spawned process
-    while the phases before it run: the host's planting (phase 5's 10 000
-    genomes at depth 10 000, 8a's 30 000) would otherwise take ~80 s of
-    the script's time limit. The same seed gives the same sketches."""
+    while the phases before it run: the host's planting (the beyond-budget
+    slice's 4 324 genomes, phase 5's 10 000 genomes at depth 10 000, 8a's
+    30 000) would otherwise take ~100 s of the script's time limit. The
+    same seed gives the same sketches; `n` None plants the beyond-budget
+    slice."""
 
-    def __init__(self, tmp: str, name: str, n: int, seed: int, s_scaled: int) -> None:
+    def __init__(self, tmp: str, name: str, n: int | None, seed: int = 0, s_scaled: int = 0) -> None:
         import multiprocessing
 
         self.path = os.path.join(tmp, f"{name}.pkl")
@@ -1109,7 +1128,7 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         matmul_vocab_pad,
     )
     from drep_tpu_torch.ops.mash import _wrap_symmetric_plain
-    from drep_tpu_torch.ops.minhash import dense_ranks, ids_to_device, widen_ids
+    from drep_tpu_torch.ops.minhash import ids_to_device, widen_ids
 
     t0 = time.perf_counter()
     wd, bdb = beyond_workdir(tmp, "beyond_wd", gs)
@@ -1161,10 +1180,11 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         t = time.perf_counter()
         directional_ndb(pack.names, ani, cov, 1)
         merge_parts["ndb_rows"] = time.perf_counter() - t
-        pos = pd.Series(np.arange(pack.n), index=pack.names)
-        rows = ndb[ndb["querry"].isin(pos.index)]
+        pos = pd.Index(pack.names)
+        rows = ndb[ndb["querry"].isin(pos)]
         require(len(rows) == n * (n - 1), f"cluster {key}: {len(rows)} Ndb rows, expected {n * (n - 1)}")
-        qi, ri = pos[rows["querry"]].to_numpy(), pos[rows["reference"]].to_numpy()
+        qi, ri = pos.get_indexer(rows["querry"]), pos.get_indexer(rows["reference"])
+        require(min(qi.min(), ri.min()) >= 0, f"cluster {key}: Ndb rows pair genomes of other clusters")
         require(np.array_equal(rows["ani"].to_numpy().astype(np.float32), ani[qi, ri])
                 and np.array_equal(rows["alignment_coverage"].to_numpy().astype(np.float32), cov[qi, ri]),
                 f"cluster {key}: the run's Ndb ani/coverage != the counts checked across both routes")
@@ -1192,22 +1212,8 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
         }
         log(f"beyond budget: cluster {key} {kernel.__name__} on the route's whole operand "
             f"{tuple(op.shape)} {op.dtype} equals the plain version; {json.dumps(parts[key])}")
-
-    # the scaled pack's rank map (one sort with its inverse) against a
-    # searchsorted into the sorted vocabulary, on the same hashes (cluster
-    # B's), in the order searchsorted, sort, sort, searchsorted
-    flat = np.concatenate([gs.scaled[i] for i in np.flatnonzero(planted == list(BEYOND).index("B"))])
-    rank_map = {"hashes": int(flat.size), "searchsorted_s": [], "sort_inverse_s": []}
-    want = dense_ranks(flat)[1]
-    for name in ("searchsorted_s", "sort_inverse_s", "sort_inverse_s", "searchsorted_s"):
-        t = time.perf_counter()
-        ranks = (np.searchsorted(np.unique(flat), flat).astype(np.int32) if name == "searchsorted_s"
-                 else dense_ranks(flat)[1])
-        rank_map[name].append(time.perf_counter() - t)
-        require(np.array_equal(ranks, want), f"rank map {name} disagrees")
-    log(f"beyond budget: rank map on cluster B's hashes {json.dumps(rank_map)}")
-    return {"launches": launches, "routes": routes, "parts": parts, "rank_map": rank_map,
-            "wd": wd.location, "d_cluster_s": t_cluster, "ani_cov": ani_cov}
+    return {"launches": launches, "routes": routes, "parts": parts, "wd": wd.location, "d_cluster_s": t_cluster,
+            "ani_cov": ani_cov}
 
 
 def ring_cost(kind: str, na: np.ndarray, nb: np.ndarray, tile: np.ndarray, width: int, copy: bool):
@@ -1411,11 +1417,14 @@ def phase_ring_primary(dev, packed, k: int) -> dict:
     return {"ring_s": t_ring, "single_s": t_single}
 
 
-# the beyond-budget clusters phases 7c and 9c re-run: B and C, cut from A,
-# B and C for the time limit (A's 2000 genomes hold ~4 M of phase 6's
-# ~6.7 M Ndb and Mdb rows, whose CSV sets those phases' pace); B's ring
-# runs the merge step and C's the matmul step, as A's and B's did
+# the beyond-budget clusters phase 9c re-runs: B and C, cut from A, B and
+# C for the time limit (A's 2000 genomes hold ~4 M of phase 6's ~6.7 M Ndb
+# and Mdb rows, whose CSV sets those phases' pace)
 BEYOND_RERUN = ("B", "C")
+# and phase 7c: C alone, cut from B and C for the time limit: its
+# Mash primary ring runs the merge step and its containment ring the
+# matmul step, so both ring kernels still launch on the path
+RING_RERUN = ("C",)
 
 
 def beyond_subset(gs, planted, keys):
@@ -1430,10 +1439,34 @@ def beyond_subset(gs, planted, keys):
     return sub, planted[keep]
 
 
-def phase6_rows(root: str, names: list[str]) -> dict:
+def read_csv_tail(path: str, first_fields: list[str], **kw):
+    """A CSV's header and its lines from the first whose first field is one
+    of `first_fields` on (the whole table where none is): the rows of a
+    later cluster parsed without the millions of rows before them."""
+    import io
+
+    import pandas as pd
+
+    with open(path, "rb") as f:
+        data = f.read()
+    head = data.index(b"\n") + 1
+    hits = [h for h in (data.find(b"\n" + s.encode() + b",", head - 1) for s in first_fields) if h >= 0]
+    at = min(hits) + 1 if hits else head
+    return pd.read_csv(io.BytesIO(data[:head] + data[at:]), **kw)
+
+
+def phase6_rows(root: str, names: list[str], cdb_only: bool = False) -> dict:
     """Phase 6's Cdb, Ndb and Mdb rows of the genomes `names` (as strings,
-    as its CSV holds them), primary clusters renumbered by first
-    appearance: the tables a run on those genomes alone writes."""
+    as its CSV holds them; `names` in phase 6's order), primary clusters
+    renumbered by first appearance: the tables a run on those genomes
+    alone writes. With `cdb_only`, Cdb alone. Phase 6's Ndb and Mdb hold
+    ~6.7 M rows each, tens of seconds to parse on the chip machine's host,
+    so each is parsed from the first line that can hold a row of `names`
+    on: Mdb is ordered by genome1 in the run's genome order (names[0] is
+    its own first row's genome1, the diagonal); Ndb by primary cluster,
+    each cluster's first row (query 0, reference 1) naming names[1], or
+    names[0] as its reference. Where the Ndb tail lacks rows a cluster
+    must have (m (m - 1) a cluster of m), the whole table is read."""
     import pandas as pd
 
     cdb = pd.read_csv(os.path.join(root, "data_tables", "Cdb.csv"), dtype=str)
@@ -1441,27 +1474,34 @@ def phase6_rows(root: str, names: list[str]) -> dict:
     renum = {p: str(i) for i, p in enumerate(dict.fromkeys(cdb["primary_cluster"]), start=1)}
     cdb["secondary_cluster"] = [f"{renum[p]}_{s.rsplit('_', 1)[1]}"
                                 for p, s in zip(cdb["primary_cluster"], cdb["secondary_cluster"])]
+    sizes = cdb["primary_cluster"].value_counts()
     cdb["primary_cluster"] = cdb["primary_cluster"].map(renum)
-    ndb = pd.read_csv(os.path.join(root, "data_tables", "Ndb.csv"), dtype=str)
-    ndb = ndb[ndb["primary_cluster"].isin(set(renum))].reset_index(drop=True)
+    if cdb_only:
+        return {"Cdb": cdb}
+    path = os.path.join(root, "data_tables", "Ndb.csv")
+    for ndb in (read_csv_tail(path, names[:2], dtype=str), None):
+        ndb = pd.read_csv(path, dtype=str) if ndb is None else ndb
+        ndb = ndb[ndb["primary_cluster"].isin(set(renum))].reset_index(drop=True)
+        if len(ndb) == int((sizes * (sizes - 1)).sum()):
+            break
     ndb["primary_cluster"] = ndb["primary_cluster"].map(renum)
-    mdb = pd.read_csv(os.path.join(root, "data_tables", "Mdb.csv"))
+    mdb = read_csv_tail(os.path.join(root, "data_tables", "Mdb.csv"), names[:1])
     mdb = mdb[mdb["genome1"].isin(set(names)) & mdb["genome2"].isin(set(names))].reset_index(drop=True)
     return {"Cdb": cdb, "Ndb": ndb, "Mdb": mdb}
 
 
 def phase_ring_path(tmp: str, dev, gs, planted, beyond: dict) -> dict:
     """Phase 7c: phase 6's d_cluster_wrapper again on clusters
-    BEYOND_RERUN with mesh_shape=RING_POSITIONS (choose and evaluate read
+    RING_RERUN with mesh_shape=RING_POSITIONS (choose and evaluate read
     only tables held equal here, so they are not run again)."""
     import pandas as pd
 
-    sub, _ = beyond_subset(gs, planted, BEYOND_RERUN)
+    sub, _ = beyond_subset(gs, planted, RING_RERUN)
     wd, bdb = beyond_workdir(tmp, "beyond_mesh_wd", sub)
     _, launches, paths, stages, t_cluster = run_beyond(
-        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS}, clusters {BEYOND_RERUN})", choose=False,
+        wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS}, clusters {RING_RERUN})", choose=False,
         mesh_shape=RING_POSITIONS)
-    require(paths == {"mesh_ring": len(BEYOND_RERUN)}, f"mesh run's secondary routes {paths}")
+    require(paths == {"mesh_ring": len(RING_RERUN)}, f"mesh run's secondary routes {paths}")
     require(launches["ring_step"] > 0 and launches["ring_step_mm"] > 0,
             f"mesh run launched no merge or no matmul ring step: {launches}")
     want = phase6_rows(beyond["wd"], sub.names)
@@ -1475,10 +1515,10 @@ def phase_ring_path(tmp: str, dev, gs, planted, beyond: dict) -> dict:
     require(got[["genome1", "genome2"]].equals(want["Mdb"][["genome1", "genome2"]]), "mesh run's Mdb pairs differ")
     err = float(np.abs(got["dist"].to_numpy() - want["Mdb"]["dist"].to_numpy()).max()) if len(got) else 0.0
     require(err <= 1e-7, f"mesh run's Mdb distances differ by {err}")
-    log(f"ring path: Cdb and Ndb equal to phase 6's rows of clusters {BEYOND_RERUN} (primary clusters renumbered), "
+    log(f"ring path: Cdb and Ndb equal to phase 6's rows of clusters {RING_RERUN} (primary clusters renumbered), "
         f"Mdb max |diff| {err}; d_cluster_wrapper {t_cluster:.2f} s")
     return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err,
-            "clusters": list(BEYOND_RERUN)}
+            "clusters": list(RING_RERUN)}
 
 
 def mm_library_tile(a, b, v_pad: int):
@@ -1585,15 +1625,14 @@ def phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond: dict) -> dict:
 
 def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
     """Phase 8a: STREAM_GENOMES planted genomes through d_cluster_wrapper
-    with default arguments (the streaming switch), choose and evaluate;
+    with default arguments (the streaming switch; choose and evaluate cut
+    for the time limit: they read only the tables held here);
     then the kernel on stripe 0 timed beside its bound and held against
     its plain version on a 512x512 block."""
     import pandas as pd
     import torch
 
-    from drep_tpu_torch.choose import d_choose_wrapper
     from drep_tpu_torch.cluster import controller
-    from drep_tpu_torch.evaluate import d_evaluate_wrapper
     from drep_tpu_torch.ingest import save_sketch_cache
     from drep_tpu_torch.ops import mash
     from drep_tpu_torch.ops.minhash import pad_packed_rows
@@ -1604,14 +1643,10 @@ def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
     (gs, planted), t_plant, t_wait = plant.result()
     t0 = time.perf_counter() - t_plant
     wd = WorkDirectory(os.path.join(tmp, "stream_wd"))
-    gdir = os.path.join(tmp, "stream_genomes")
-    os.makedirs(gdir)
-    for g in gs.names:
-        open(os.path.join(gdir, g), "wb").close()  # winners are copied; contents unused
-    bdb = pd.DataFrame({"genome": gs.names, "location": [os.path.join(gdir, g) for g in gs.names]})
+    # the sketch cache covers every genome: no FASTA is read
+    bdb = pd.DataFrame({"genome": gs.names, "location": [os.path.join(tmp, "stream_genomes", g) for g in gs.names]})
     wd.store_db(bdb, "Bdb")
     save_sketch_cache(wd, gs)
-    wd.store_db(gs.gdb[["genome", "length", "N50", "contigs"]], "genomeInformation")
     log(f"streaming: planted {n} genomes (MASH_sketch 1000, scaled depth {STREAM_SCALED_DEPTH}) in "
         f"{t_plant:.1f} s in its own process beside phases 1-7 (waited {t_wait:.1f} s for it), workdir "
         f"{time.perf_counter() - t0 - t_plant:.1f} s")
@@ -1631,18 +1666,15 @@ def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         cdb = controller.d_cluster_wrapper(wd, bdb, device=dev)
-        t_cluster = time.perf_counter() - t1
-        wdb = d_choose_wrapper(wd, bdb)
-        d_evaluate_wrapper(wd)
         torch.cuda.synchronize()
-        t_total = time.perf_counter() - t1
+        t_cluster = time.perf_counter() - t1
         launches = read_launches()
     finally:
         streaming.streaming_mash_edges = real_fn
     st = dict(streaming.STATS)
     stages = dict(controller.STAGE_SECONDS)
     resolved = wd.get_arguments("cluster")["primary_estimator_resolved"]
-    log(f"streaming: d_cluster_wrapper {t_cluster:.2f} s, with choose+evaluate {t_total:.2f} s; stages "
+    log(f"streaming: d_cluster_wrapper {t_cluster:.2f} s; stages "
         f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}; route {resolved}; walk {json.dumps(st)}; "
         f"launches {launches}")
     log(f"streaming: primary compare {st['pairs_computed']} pairs in {st['seconds']:.3f} s = "
@@ -1663,9 +1695,7 @@ def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
     n_planted = len(np.unique(planted))
     require(cdb["primary_cluster"].nunique() == cdb["secondary_cluster"].nunique() == n_planted,
             "primary or secondary clusters != planted clusters")
-    require(len(wdb) == n_planted, "one winner per planted cluster expected")
-    log(f"streaming: {n_planted} planted clusters recovered as one primary and one secondary cluster each, "
-        "one winner each")
+    log(f"streaming: {n_planted} planted clusters recovered as one primary and one secondary cluster each")
 
     # stripe 0: the kernel over its whole column range, as the walk launched it
     packed, k, cutoff = calls[0]
@@ -1695,7 +1725,7 @@ def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
            "stripe0_bound_by": "operations" if bound_ops_ms >= bound_bytes_ms else "bytes",
            "stripe0_steps": steps, "stripe0_bytes": nbytes, "stripe0_with_compaction_ms": stripe_ms,
            "edge_walk_s": st["seconds"], "pairs_per_s": st["pairs_computed"] / st["seconds"],
-           "d_cluster_s": t_cluster, "with_choose_evaluate_s": t_total, "stages": stages}
+           "d_cluster_s": t_cluster, "stages": stages}
     log(f"streaming: stripe 0 [{block} x {ids.shape[0]}] at width {width}: a 512x512 block equals the plain "
         f"version; {json.dumps({k: v for k, v in out.items() if k != 'stages'})}")
     return out
@@ -2008,7 +2038,7 @@ def phase_greedy(tmp: str, dev, real: dict, gs_beyond, planted_beyond, beyond: d
         sec = by.loc[np.array(gs6.names)[planted6 == i], "secondary_cluster"]
         want = n if route == "pallas_range" else 1
         require(sec.nunique() == want, f"9c: cluster {key} in {sec.nunique()} greedy clusters, expected {want}")
-    want_primary = phase6_rows(beyond["wd"], gs6.names)["Cdb"]["primary_cluster"].astype(int).tolist()
+    want_primary = phase6_rows(beyond["wd"], gs6.names, cdb_only=True)["Cdb"]["primary_cluster"].astype(int).tolist()
     require(cdb6["primary_cluster"].tolist() == want_primary, "9c: phase 6's primary changed")
 
     # cluster B on the host: the port's own CPU run, byte for byte
@@ -2433,6 +2463,12 @@ def classify_10c(resident, queries, pre_gpu: str, qres: dict, dev, classify: dic
 # store: concurrent clients, each sending its share of the 64 queries
 SERVE_CLIENTS = 8
 SERVE_WINDOW_MS = 400.0
+# the budget every phase 11 and 13 request carries: a request without
+# deadline_ms gets the daemon's default of 30 s, which 13b's second router
+# batch of 32 can spend waiting behind the first on a slow host; past it
+# the router merges with the remaining partitions unavailable and answers
+# PARTIAL, by contract (ROADMAP queue 3, F7). No phase can spend 600 s
+SERVE_DEADLINE_MS = 600_000.0
 
 
 def serve_classify_fn(queries, dev, rect_s: list):
@@ -2458,7 +2494,8 @@ def serve_classify_fn(queries, dev, rect_s: list):
 
 def serve_clients(addr: str, paths: list[str]) -> list[dict]:
     """SERVE_CLIENTS concurrent ServeClients, each pipelining its share of
-    `paths`; the replies in the order of `paths`."""
+    `paths` with a budget of SERVE_DEADLINE_MS; the replies in the order
+    of `paths`."""
     import threading
 
     from drep_tpu_torch.serve import ServeClient
@@ -2472,7 +2509,7 @@ def serve_clients(addr: str, paths: list[str]) -> list[dict]:
         try:
             with ServeClient(addr, timeout_s=600) as cl:
                 barrier.wait()
-                got[c] = cl.classify_many(shares[c])
+                got[c] = cl.classify_many(shares[c], deadline_ms=SERVE_DEADLINE_MS)
         except Exception as e:  # noqa: BLE001 — reported below
             errors.append(repr(e))
 
@@ -2664,7 +2701,7 @@ def phase_serve(tmp: str, dev, p10: dict) -> dict:
 # genomes and phase 10's batch and queries, then its maintenance verbs
 FED_PARTITIONS = 4
 FED_MAINT_QUERIES = 8  # queries re-answered after each maintenance verb
-FED_PODS = 2
+FED_PODS = 4  # a pod a partition, all at once (2 at a time cost a second ~15-18 s round)
 
 
 def fed_kwargs(params: dict) -> dict:
@@ -3177,7 +3214,10 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
 
     # 13b: two replicas behind a router, scoped then unscoped
     reps = [serve((ServeConfig, IndexServer), {}, fed_serve_classify_fn(queries, dev, [])) for _ in range(2)]
-    router_kw = {"leg_timeout_s": 120.0, "hedge_delay_s": 60.0, "probe_interval_s": 1.0}
+    # no hedging: a forward group hedges on its first pass whenever the
+    # batch's budget exceeds the hedge delay (both packages; ROADMAP queue
+    # 3, F8), so the delay is set past SERVE_DEADLINE_MS
+    router_kw = {"leg_timeout_s": 120.0, "hedge_delay_s": 2 * SERVE_DEADLINE_MS / 1000.0, "probe_interval_s": 1.0}
     try:
         for mode, specs, batch in (
                 ("scatter", [f"{reps[i][1]}={FED_SERVE_SCOPES[i]}" for i in range(2)], FED_ROUTER_BATCH),
@@ -3198,6 +3238,9 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
             finally:
                 stop(rt, rloop, f"13b {mode}")
             got = answered(resps, rt, f"13b {mode}")
+            partial = sorted(g for g, v in got.items() if v.get("partial") or v.get("partitions_unavailable"))
+            require(not partial, f"13b {mode}: budget expired: {len(partial)} PARTIAL (first {partial[:5]}; "
+                    f"router {json.dumps(rt.snapshot()['router'])})")
             differ = sorted(g for g in got_a if got.get(g) != got_a[g])
             if differ:  # the first difference in full, for the diagnosis
                 log(f"13b {mode}: {differ[0]}: 13a {json.dumps(got_a[differ[0]], default=str)}; routed "
@@ -3239,6 +3282,305 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 13: {out['phase_s']:.1f} s")
     return out
+
+
+# stand-ins for the external binaries of the subprocess engines (mash,
+# fastANI, nucmer, prodigal, ANIcalculator, nsimscan, centrifuge), for
+# machines without them: phase 15 puts them first on $PATH; the CPU tests
+# of both packages run the same ones
+FAKE_TOOL_SOURCE = r'''"""A stand-in for one external binary of dRep's subprocess engines: mash,
+fastANI, nucmer, prodigal, ANIcalculator, nsimscan or centrifuge, chosen
+by the name it is called under. It writes its tool's own output format,
+with numbers computed deterministically from the FASTA files it is given
+(shared 16-mers), logs each call to calls.log beside itself, and fails
+the calls fail.json asks it to fail."""
+import os
+import sys
+import zlib
+
+K = 16
+HERE = os.path.dirname(os.path.abspath(__file__))
+TOOL = os.path.basename(sys.argv[0])
+VERSIONS = {"mash": "2.3", "fastANI": "version 1.33", "nucmer": "4.0.0rc1",
+            "prodigal": "Prodigal V2.6.3: February, 2016", "centrifuge": "centrifuge-class version 1.0.4"}
+TAXA = (("Escherichia coli", 562), ("Salmonella enterica", 28901), ("Bacillus subtilis", 1423))
+
+
+def log_call(fields):
+    fd = os.open(os.path.join(HERE, "calls.log"), os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    try:
+        os.write(fd, ("\t".join([TOOL] + fields) + "\n").encode())
+    finally:
+        os.close(fd)
+
+
+def maybe_fail(text):
+    """fail.json {"tool": t, "match": s, "times": n}: the next n calls of
+    tool t whose argv or list files mention s exit 3."""
+    path = os.path.join(HERE, "fail.json")
+    if not os.path.exists(path):
+        return
+    import json  # only here and in mash: a call's start is most of its time
+
+    with open(path) as f:
+        plan = json.load(f)
+    if plan["tool"] != TOOL or plan["match"] not in text or plan["times"] <= 0:
+        return
+    plan["times"] -= 1
+    with open(path + ".tmp", "w") as f:
+        json.dump(plan, f)
+    os.replace(path + ".tmp", path)
+    sys.stderr.write(f"{TOOL}: injected failure\n")
+    sys.exit(3)
+
+
+def read_fasta(path):
+    out, name, parts = [], None, []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith(">"):
+                if name is not None:
+                    out.append((name, "".join(parts).upper()))
+                name, parts = line[1:].split()[0], []
+            elif line:
+                parts.append(line)
+    if name is not None:
+        out.append((name, "".join(parts).upper()))
+    return out
+
+
+def kmers(seq):
+    return {seq[i:i + K] for i in range(len(seq) - K + 1)}
+
+
+def genome_kmers(path):
+    out = set()
+    for _, seq in read_fasta(path):
+        out |= kmers(seq)
+    return out
+
+
+def identity(c):
+    """Containment of one k-mer set in another -> an identity (ANI ~ 1 - p
+    for point mutations at rate p)."""
+    return c ** (1.0 / K) if c > 0 else 0.0
+
+
+def arg(args, flag):
+    return args[args.index(flag) + 1]
+
+
+def mash(args):
+    import json
+    import math
+
+    if args[0] == "sketch":
+        with open(arg(args, "-o") + ".msh", "w") as f:
+            json.dump({"s": int(arg(args, "-s")), "paths": args[args.index("-o") + 2:]}, f)
+        return
+    with open(args[-2]) as f:
+        ref = json.load(f)
+    with open(args[-1]) as f:
+        qry = json.load(f)
+    s = ref["s"]
+    bottom = {p: sorted({zlib.crc32(km.encode()) for km in genome_kmers(p)})[:s]
+              for p in dict.fromkeys(ref["paths"] + qry["paths"])}
+    holders = {}  # hash -> the sketches holding it: only pairs sharing one are merged
+    for p, hashes in bottom.items():
+        for h in hashes:
+            holders.setdefault(h, set()).add(p)
+    lines = []
+    for q in qry["paths"]:
+        near = set()
+        for h in bottom[q]:
+            near |= holders[h]
+        for r in ref["paths"]:
+            shared = 0
+            if r in near:
+                a, b = set(bottom[r]), set(bottom[q])
+                shared = sum(1 for h in sorted(a | b)[:s] if h in a and h in b)
+            j = shared / s
+            d = 1.0 if j == 0 else min(1.0, -math.log(2 * j / (1 + j)) / K)
+            lines.append(f"{r}\t{q}\t{d:.6g}\t0\t{shared}/{s}\n")
+    sys.stdout.write("".join(lines))
+
+
+def fastani(args):
+    with open(arg(args, "--ql")) as f:
+        ql = [ln.strip() for ln in f if ln.strip()]
+    with open(arg(args, "--rl")) as f:
+        rl = [ln.strip() for ln in f if ln.strip()]
+    km = {p: genome_kmers(p) for p in dict.fromkeys(ql + rl)}
+    size = {p: sum(len(s) for _, s in read_fasta(p)) for p in ql}
+    with open(arg(args, "-o"), "w") as out:
+        for q in ql:
+            for r in rl:
+                c = len(km[q] & km[r]) / max(len(km[q]), 1)
+                ani = 100.0 * identity(c)
+                if ani < 80.0:
+                    continue  # fastANI reports no pair below ~80%
+                total = max(1, size[q] // 3000)
+                out.write(f"{q}\t{r}\t{ani:.4f}\t{round(total * c ** 0.25)}\t{total}\n")
+
+
+def nucmer(args):
+    prefix, ref, qry = arg(args, "-p"), args[-2], args[-1]
+    lines = [f"{ref} {qry}\n", "NUCMER\n"]
+    window = 2000
+    for rname, rseq in read_fasta(ref):
+        pos = {}
+        for i in range(len(rseq) - K + 1):
+            pos.setdefault(rseq[i:i + K], i + 1)
+        for qname, qseq in read_fasta(qry):
+            alns = []
+            for s in range(0, max(len(qseq) - K + 1, 0), window):
+                win = qseq[s:s + window]
+                hits = [(i, pos[win[i:i + K]]) for i in range(len(win) - K + 1) if win[i:i + K] in pos]
+                frac = len(hits) / max(len(win) - K + 1, 1)
+                if frac < 0.2:
+                    continue
+                rs = max(1, hits[0][1] - hits[0][0])
+                re_ = min(len(rseq), rs + len(win) - 1)
+                err = round(len(win) * (1.0 - identity(frac)))
+                alns.append(f"{rs} {re_} {s + 1} {s + len(win)} {err} {err} 0\n1\n0\n")
+                if frac > 0.5:  # a repeat over the window's last three quarters: ANImf drops it
+                    alns.append(f"{rs} {re_} {s + len(win) // 4 + 1} {s + len(win)} {err + 5} {err + 5} 0\n0\n")
+            if alns:
+                lines.append(f">{rname} {qname} {len(rseq)} {len(qseq)}\n")
+                lines += alns
+    with open(prefix + ".delta", "w") as f:
+        f.write("".join(lines))
+
+
+def prodigal(args):
+    out = []
+    for name, seq in read_fasta(arg(args, "-i")):
+        for n, s in enumerate(range(0, len(seq) - 900 + 1, 1000)):
+            out.append(f">{name}_{n + 1} # {s + 1} # {s + 900} # 1 # ID={name}_{n + 1}\n{seq[s:s + 900]}\n")
+    with open(arg(args, "-d"), "w") as f:
+        f.write("".join(out))
+    with open(arg(args, "-o"), "w") as f:
+        f.write("##gff-version 3\n")
+
+
+def gene_direction(genes_a, genes_b):
+    """(ANI %, AF) of a's genes against b's: a gene aligns where >= 30% of
+    its k-mers are b's."""
+    kb = set()
+    for _, seq in genes_b:
+        kb |= kmers(seq)
+    aligned = ident = total = 0
+    for _, seq in genes_a:
+        ka = kmers(seq)
+        total += len(seq)
+        c = len(ka & kb) / max(len(ka), 1)
+        if c >= 0.3:
+            aligned += len(seq)
+            ident += len(seq) * identity(c)
+    return (100.0 * ident / aligned if aligned else 0.0), (aligned / total if total else 0.0)
+
+
+def anicalculator(args):
+    g1, g2 = arg(args, "-genome1fna"), arg(args, "-genome2fna")
+    a, b = read_fasta(g1), read_fasta(g2)
+    ani12, af12 = gene_direction(a, b)
+    ani21, af21 = gene_direction(b, a)
+    out_dir = arg(args, "-outdir")
+    os.makedirs(out_dir, exist_ok=True)
+    n1, n2 = (os.path.basename(g).rsplit(".fna", 1)[0] for g in (g1, g2))
+    with open(os.path.join(out_dir, arg(args, "-outfile")), "w") as f:
+        f.write("GENOME1\tGENOME2\tANI(1->2)\tANI(2->1)\tAF(1->2)\tAF(2->1)\n")
+        f.write(f"{n1}\t{n2}\t{ani12:.4f}\t{ani21:.4f}\t{af12:.4f}\t{af21:.4f}\n")
+
+
+def nsimscan(args):
+    qry, sbj, out_path = args[-3], args[-2], args[-1]
+    owner = {}
+    for sname, seq in read_fasta(sbj):
+        for km in kmers(seq):
+            owner.setdefault(km, []).append(sname)
+    rows = ["Q_id\tS_id\tAL_LEN\tP_INDEN\n"]
+    for qname, seq in read_fasta(qry):
+        ka = kmers(seq)
+        hits = {}
+        for km in ka:
+            for sname in owner.get(km, ()):
+                hits[sname] = hits.get(sname, 0) + 1
+        for sname in sorted(hits):
+            c = hits[sname] / max(len(ka), 1)
+            if c >= 0.2:
+                rows.append(f"{qname}\t{sname}\t{round(len(seq) * c ** 0.25)}\t{100.0 * identity(c):.3f}\n")
+    rows.append("# end of hits\n")
+    with open(out_path, "w") as f:
+        f.write("".join(rows))
+
+
+def centrifuge(args):
+    counts = [[0, 0] for _ in TAXA]
+    for _, seq in read_fasta(arg(args, "-U")):
+        for s in range(0, len(seq), 1000):
+            h = zlib.crc32(seq[s:s + 32].encode())
+            t = 0 if h % 8 < 5 else 1 + h % 2
+            counts[t][0] += 1
+            counts[t][1] += h % 7 != 0
+    with open(arg(args, "-S"), "w") as f:
+        f.write("readID\tseqID\ttaxID\n")
+    with open(arg(args, "--report-file"), "w") as f:
+        f.write("name\ttaxID\ttaxRank\tgenomeSize\tnumReads\tnumUniqueReads\tabundance\n")
+        total = max(sum(c[0] for c in counts), 1)
+        for (name, taxid), (reads, unique) in zip(TAXA, counts):
+            f.write(f"{name}\t{taxid}\tspecies\t0\t{reads}\t{unique}\t{reads / total:.4f}\n")
+
+
+def main():
+    args = sys.argv[1:]
+    if args in (["--version"], ["-v"]):
+        (sys.stderr if TOOL == "prodigal" else sys.stdout).write(VERSIONS.get(TOOL, TOOL) + "\n")
+        return
+    listed = []  # the genomes of fastANI's list files
+    for flag in ("--ql", "--rl"):
+        if flag in args:
+            with open(arg(args, flag)) as f:
+                listed += [ln.strip() for ln in f if ln.strip()]
+    log_call(args + ([",".join(listed)] if listed else []))
+    maybe_fail(" ".join(args + listed))
+    {"mash": mash, "fastANI": fastani, "nucmer": nucmer, "prodigal": prodigal, "ANIcalculator": anicalculator,
+     "nsimscan": nsimscan, "centrifuge": centrifuge}[TOOL](args)
+'''
+
+FAKE_TOOLS = ("mash", "fastANI", "nucmer", "prodigal", "ANIcalculator", "nsimscan", "centrifuge")
+
+
+def write_fake_tools(directory: str) -> str:
+    """Write the stand-in binaries into `directory`: the module
+    ``_fake_tool.py``, compiled here once, and one executable a tool that
+    runs it under this interpreter. Returns `directory`, for
+    the head of $PATH."""
+    import py_compile
+
+    os.makedirs(directory, exist_ok=True)
+    module = os.path.join(directory, "_fake_tool.py")
+    with open(module, "w") as f:
+        f.write(FAKE_TOOL_SOURCE)
+    py_compile.compile(module, doraise=True)  # read by every call, where bytecode writing may be off
+    for tool in FAKE_TOOLS:
+        path = os.path.join(directory, tool)
+        with open(path, "w") as f:
+            f.write(f"#!{sys.executable} -S\nimport sys\nsys.path.insert(0, {directory!r})\n"
+                    "import _fake_tool\n_fake_tool.main()\n")
+        os.chmod(path, 0o755)
+    return directory
+
+
+def fake_calls(directory: str) -> list[list[str]]:
+    """The calls the stand-ins logged, each [tool, *argv], fastANI's with
+    the paths of its list files joined by commas last."""
+    path = os.path.join(directory, "calls.log")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [ln.rstrip("\n").split("\t") for ln in f if ln.strip()]
 
 
 # phase 14: the main path survives failures (ROADMAP queue 1 item 5):
@@ -3424,6 +3766,312 @@ def phase_resilience_resume(cli: dict) -> dict:
     return {"launches": launches, "resumed": resumed, "s": dt}
 
 
+# phase 15: the subprocess engines and the taxonomy (ROADMAP queue 1 item
+# 9b) with the stand-ins first on $PATH: SUB_BASES random genomes of
+# SUB_LENGTH bases in two contigs, each with copies at SUB_RATES point
+# mutations (the stand-ins' ANI ~ 1 - rate straddles S_ani 0.95; every
+# pair stays within P_ani 0.9), so SUB_BASES primary clusters of
+# 1 + len(SUB_RATES) members
+SUB_BASES = 25
+SUB_LENGTH = 6_000
+SUB_RATES = (0.01, 0.025, 0.05)
+SUB_ENGINES = ("fastANI", "ANImf", "ANIn", "gANI", "goANI")
+SUB_THREADS = 8
+
+
+def write_sub_genomes(gdir: str, seed: int) -> list[str]:
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    os.makedirs(gdir)
+    paths = []
+    for b in range(SUB_BASES):
+        seq = bases[rng.integers(0, 4, SUB_LENGTH)]
+        for r, rate in enumerate((0.0, *SUB_RATES)):
+            s = seq.copy()
+            pos = np.nonzero(rng.random(len(s)) < rate)[0]
+            s[pos] = bases[(np.searchsorted(bases, s[pos]) + rng.integers(1, 4, len(pos))) % 4]
+            cut = SUB_LENGTH * 3 // 5
+            path = os.path.join(gdir, f"sub{b:02d}_{r}.fasta")
+            with open(path, "w") as f:
+                f.write(f">sub{b:02d}_{r}_c1\n{s[:cut].tobytes().decode()}\n"
+                        f">sub{b:02d}_{r}_c2\n{s[cut:].tobytes().decode()}\n")
+            paths.append(path)
+    return paths
+
+
+def sub_implied_calls(engine: str, sizes: list[int]) -> dict:
+    """The binary calls an engine's code makes for multi-member primary
+    clusters of these sizes (fastANI one a cluster, ANImf and goANI both
+    directions of each pair, ANIn and gANI one a pair, gANI and goANI a
+    prodigal a genome)."""
+    pairs = sum(m * (m - 1) for m in sizes)
+    out = {"fastANI": {"fastANI": len(sizes)}, "ANImf": {"nucmer": pairs}, "ANIn": {"nucmer": pairs // 2},
+           "gANI": {"ANIcalculator": pairs // 2}, "goANI": {"nsimscan": pairs}}[engine]
+    if engine in ("gANI", "goANI"):
+        out["prodigal"] = sum(sizes)
+    return out
+
+
+def calls_by_tool(fakes: str, since: int, until: int | None = None) -> dict:
+    """The stand-ins' calls [since:until] of their log, counted by tool."""
+    out: dict = {}
+    for call in fake_calls(fakes)[since:until]:
+        out[call[0]] = out.get(call[0], 0) + 1
+    return out
+
+
+def sub_runs() -> list[tuple[str, dict]]:
+    """Phase 15's d_cluster_wrapper runs: (name, arguments)."""
+    return [(e, {"S_algorithm": e}) for e in SUB_ENGINES] + [
+        ("mash", {"primary_algorithm": "mash", "S_algorithm": "fastANI"})]
+
+
+def _sub_cpu_twins(root: str, paths: list[str], fakes: str) -> None:
+    """Phase 15's twin runs with the CPU device, in a spawned process while
+    the card's run (the runs are host work, mostly the stand-ins' starts):
+    each of sub_runs() and the dereplicate --run_tax, in workdirs that
+    already hold the sketch cache, with their own stand-ins; the calls
+    each run made and its seconds to ``cpu_twins.json`` under `root`."""
+    import torch
+
+    from drep_tpu_torch.cluster import controller
+    from drep_tpu_torch.ingest import make_bdb
+    from drep_tpu_torch.workdir import WorkDirectory
+    from drep_tpu_torch.workflows import dereplicate_wrapper
+
+    os.environ["PATH"] = fakes + os.pathsep + os.environ["PATH"]
+    cpu = torch.device("cpu")
+    bdb = make_bdb(paths)
+    out = {}
+    for name, kw in sub_runs():
+        n0, t0 = len(fake_calls(fakes)), time.perf_counter()
+        controller.d_cluster_wrapper(WorkDirectory(os.path.join(root, f"{name}_cpu")), bdb, device=cpu,
+                                     mesh_shape=1, processes=SUB_THREADS, **kw)
+        out[name] = {"calls": calls_by_tool(fakes, n0), "s": time.perf_counter() - t0}
+    n0, t0 = len(fake_calls(fakes)), time.perf_counter()
+    dereplicate_wrapper(os.path.join(root, "tax_cpu"), paths, device=cpu, length=0, skip_plots=True,
+                        processes=SUB_THREADS, run_tax=True, cent_index=os.path.join(root, "cent_idx"))
+    out["run_tax"] = {"calls": calls_by_tool(fakes, n0), "s": time.perf_counter() - t0}
+    path = os.path.join(root, "cpu_twins.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(out, f)
+    os.replace(path + ".tmp", path)
+
+
+# processes a phase starts ahead of itself, stopped by main on the way out
+CHILDREN: list = []
+
+
+def start_subprocess_phase(tmp: str) -> dict:
+    """Phase 15's genomes, stand-ins and sketch caches, and its CPU twins
+    started in a spawned process: called after phase 8, once the plantings'
+    processes are done, so that the twins' host work runs beside phases
+    9-14 rather than in phase 15's time."""
+    import multiprocessing
+
+    from drep_tpu_torch.ingest import make_bdb, save_sketch_cache, sketch_genomes
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "subprocess")
+    paths = write_sub_genomes(os.path.join(root, "genomes"), seed=15)
+    fakes = write_fake_tools(os.path.join(root, "bin"))
+    bdb = make_bdb(paths)
+    gs = sketch_genomes(bdb)
+    for name in [n for n, _ in sub_runs()] + ["tax"]:  # every workdir's ingest loads the cache
+        save_sketch_cache(WorkDirectory(os.path.join(root, f"{name}_cpu")), gs)
+        save_sketch_cache(WorkDirectory(os.path.join(root, f"{name}_card")), gs)
+    twins = multiprocessing.get_context("spawn").Process(
+        target=_sub_cpu_twins, args=(root, paths, write_fake_tools(os.path.join(root, "bin_cpu"))),
+        name="phase15-cpu-twins")
+    twins.start()
+    CHILDREN.append(twins)
+    return {"root": root, "paths": paths, "fakes": fakes, "bdb": bdb, "gs": gs, "twins": twins,
+            "prep_s": time.perf_counter() - t0}
+
+
+def phase_subprocess(dev, prep: dict) -> dict:
+    """Phase 15: d_cluster_wrapper on the card with each subprocess
+    secondary under the jax_mash primary and with the mash primary, and a
+    dereplicate --run_tax, each against its twin with --device cpu (Cdb,
+    Ndb, Mdb / Wdb, Tdb byte-identical; the twins were started by
+    start_subprocess_phase); the primary's mash_shared launches only where
+    jax_mash runs it, no indicator_mm launch under a subprocess secondary,
+    the stand-ins' calls as the engines imply; a fastANI call that fails
+    once is retried, one that fails past --fault_retries stops the run,
+    whose rerun calls fastANI for the unfinished clusters only."""
+    import pandas as pd
+    import torch
+
+    from drep_tpu_torch.cluster import controller, engines
+    from drep_tpu_torch.ingest import save_sketch_cache
+    from drep_tpu_torch.parallel.faulttol import FaultTolError
+    from drep_tpu_torch.utils.profiling import counters
+    from drep_tpu_torch.workdir import WorkDirectory
+    from drep_tpu_torch.workflows import dereplicate_wrapper
+
+    t_phase = time.perf_counter()
+    root, paths, fakes, bdb, gs, twins = (prep[k] for k in ("root", "paths", "fakes", "bdb", "gs", "twins"))
+    old_path = os.environ["PATH"]
+    os.environ["PATH"] = fakes + os.pathsep + old_path
+    out: dict = {"genomes": len(paths), "runs": {}}
+
+    def tables(wd, names) -> dict:
+        got = {}
+        for t in names:
+            with open(os.path.join(wd.location, "data_tables", f"{t}.csv"), "rb") as f:
+                got[t] = f.read()
+        return got
+
+    def run(name: str, **kw):
+        """d_cluster_wrapper on the card in `name`'s workdir: (workdir,
+        Cdb, launches, the stand-ins' calls by tool, seconds)."""
+        wd = WorkDirectory(os.path.join(root, name))
+        if not wd.has_arrays("sketches"):
+            save_sketch_cache(wd, gs)
+        n0 = len(fake_calls(fakes))
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cdb = controller.d_cluster_wrapper(wd, bdb, device=dev, mesh_shape=1, processes=SUB_THREADS, **kw)
+        torch.cuda.synchronize()
+        return wd, cdb, read_launches(), calls_by_tool(fakes, n0), time.perf_counter() - t0
+
+    try:
+        # the primary's launches alone, on the card
+        reset_launches()
+        engines.primary_jax_mash(gs, device=dev, mesh_shape=1)
+        torch.cuda.synchronize()
+        primary_launches = read_launches()["mash_shared"]
+        require(primary_launches > 0, "15: the jax_mash primary launched no mash_shared")
+
+        card = {}
+        for engine, kw in sub_runs():
+            wd, cdb, launches, calls, dt = run(f"{engine}_card", **kw)
+            stages = {k: round(v, 3) for k, v in controller.STAGE_SECONDS.items()}
+            sizes = [int(m) for m in cdb.groupby("primary_cluster").size() if m > 1]
+            require(len(sizes) == SUB_BASES and set(sizes) == {1 + len(SUB_RATES)},
+                    f"15 {engine}: primary clusters of sizes {sizes}")
+            n_sec = cdb["secondary_cluster"].nunique()
+            require(SUB_BASES < n_sec < len(paths), f"15 {engine}: {n_sec} secondary clusters do not split "
+                    f"the {SUB_BASES} primary ones")
+            want = sub_implied_calls(kw["S_algorithm"], sizes)
+            if engine == "mash":
+                want["mash"] = 2
+            require(calls == want, f"15 {engine}: the stand-ins logged {calls}, the engine implies {want}")
+            want_mash = 0 if engine == "mash" else primary_launches
+            require(launches["mash_shared"] == want_mash and launches["indicator_mm"] == 0
+                    and sum(launches.values()) == want_mash,
+                    f"15 {engine}: launches {launches}, expected {want_mash} mash_shared and nothing else")
+            card[engine] = wd
+            out["runs"][engine] = {"s": dt, "launches": {k: v for k, v in launches.items() if v},
+                                   "calls": calls, "secondary_clusters": n_sec, "stages": stages}
+            log(f"15 {engine}: d_cluster_wrapper {dt:.2f} s on the card (stages {json.dumps(stages)}); "
+                f"{n_sec} secondary clusters; calls {calls}; launches {out['runs'][engine]['launches']}")
+
+        # dereplicate --run_tax with a stand-in centrifuge index
+        n0 = len(fake_calls(fakes))
+        reset_launches()
+        t0 = time.perf_counter()
+        dereplicate_wrapper(os.path.join(root, "tax_card"), paths, device=dev, length=0, skip_plots=True,
+                            processes=SUB_THREADS, run_tax=True, cent_index=os.path.join(root, "cent_idx"))
+        l_g, c_g, dt_g = read_launches(), calls_by_tool(fakes, n0), time.perf_counter() - t0
+        wd_g = WorkDirectory(os.path.join(root, "tax_card"))
+        tdb = pd.read_csv(os.path.join(wd_g.location, "data_tables", "Tdb.csv"))
+        require(len(tdb) == len(paths) and c_g == {"centrifuge": len(paths)},
+                f"15 --run_tax: Tdb of {len(tdb)} rows, centrifuge calls {c_g}")
+        require(l_g["mash_shared"] == primary_launches and l_g["indicator_mm"] > 0,
+                f"15 --run_tax: launches {l_g}")
+        out["run_tax"] = {"s": dt_g, "launches": {k: v for k, v in l_g.items() if v},
+                          "taxa": tdb["taxonomy"].value_counts().to_dict()}
+        log(f"15 --run_tax: dereplicate {dt_g:.2f} s on the card; Tdb {out['run_tax']['taxa']}; launches "
+            f"{out['run_tax']['launches']}")
+
+        # the twins with the CPU device: the same tables and calls
+        t0 = time.perf_counter()
+        twins.join()
+        t_wait = time.perf_counter() - t0
+        require(twins.exitcode == 0, f"15: the CPU twins' process exited with {twins.exitcode}")
+        with open(os.path.join(root, "cpu_twins.json")) as f:  # written by this run's own process
+            cpu_runs = json.load(f)
+        for engine, _kw in sub_runs():
+            wd_cpu = WorkDirectory(os.path.join(root, f"{engine}_cpu"))
+            require(tables(card[engine], ("Cdb", "Ndb", "Mdb")) == tables(wd_cpu, ("Cdb", "Ndb", "Mdb")),
+                    f"15 {engine}: Cdb, Ndb or Mdb on the card != with --device cpu")
+            require(cpu_runs[engine]["calls"] == out["runs"][engine]["calls"],
+                    f"15 {engine}: the CPU run's calls {cpu_runs[engine]['calls']} != the card run's")
+            out["runs"][engine]["cpu_s"] = cpu_runs[engine]["s"]
+        got = tables(wd_g, ("Cdb", "Ndb", "Wdb", "Tdb"))
+        require(got == tables(WorkDirectory(os.path.join(root, "tax_cpu")), got)
+                and cpu_runs["run_tax"]["calls"] == c_g, "15 --run_tax: the card's tables or calls != the CPU run's")
+        out["run_tax"]["cpu_s"] = cpu_runs["run_tax"]["s"]
+        log(f"15: every run's Cdb, Ndb, Mdb (Wdb, Tdb) and calls equal its twin's with the CPU device (waited "
+            f"{t_wait:.2f} s for them; CPU seconds {json.dumps({k: round(v['s'], 2) for k, v in cpu_runs.items()})})")
+
+        # a fastANI call failing once is retried; failing twice with
+        # --fault_retries 1 stops the run; the rerun resumes
+        ref = tables(card["fastANI"], ("Cdb", "Ndb"))
+        cdb = pd.read_csv(os.path.join(card["fastANI"].location, "data_tables", "Cdb.csv"))
+        clusters = [sorted(g["genome"]) for _pc, g in cdb.groupby("primary_cluster") if len(g) > 1]
+        k = len(clusters) // 2
+        plan = os.path.join(fakes, "fail.json")
+
+        def fail(times: int) -> None:
+            with open(plan, "w") as f:
+                json.dump({"tool": "fastANI", "match": clusters[k][0], "times": times}, f)
+
+        fail(1)
+        counters.reset()
+        wd1, _cdb, launches1, calls1, dt1 = run("retry", S_algorithm="fastANI")
+        require(counters.faults.get("retries") == 1 and calls1 == {"fastANI": len(clusters) + 1},
+                f"15 retry: counters {counters.faults}, calls {calls1}")
+        require(tables(wd1, ("Cdb", "Ndb")) == ref, "15 retry: tables != the clean fastANI run's")
+        fail(2)
+        counters.reset()
+        n0 = len(fake_calls(fakes))
+        wd2 = WorkDirectory(os.path.join(root, "killed"))
+        save_sketch_cache(wd2, gs)
+        raised = None
+        try:
+            controller.d_cluster_wrapper(wd2, bdb, device=dev, mesh_shape=1, processes=SUB_THREADS,
+                                         S_algorithm="fastANI", fault_retries=1)
+        except FaultTolError as e:  # the expected outcome, required below
+            raised = e
+        killed_calls = calls_by_tool(fakes, n0)
+        ckpt_dir = os.path.join(wd2.location, "data", "secondary_checkpoints")
+        saved = sorted(f for f in os.listdir(ckpt_dir) if f.endswith(".npz"))
+        require(raised is not None and len(saved) == k and killed_calls == {"fastANI": k + 2},
+                f"15 killed: raised {raised!r}, {len(saved)} clusters checkpointed (want {k}), calls {killed_calls}")
+        n0 = len(fake_calls(fakes))
+        counters.reset()
+        controller.d_cluster_wrapper(wd2, bdb, device=dev, mesh_shape=1, processes=SUB_THREADS,
+                                     S_algorithm="fastANI", fault_retries=1)
+        rerun = fake_calls(fakes)[n0:]
+        resumed = dict(controller.SECONDARY_RESUMED)
+        invoked = sorted(sorted({os.path.basename(p) for p in call[-1].split(",")}) for call in rerun)
+        require(resumed == {"resumed": k, "clusters": len(clusters)} and invoked == sorted(clusters[k:]),
+                f"15 resumed: {resumed}, the rerun invoked fastANI on {len(invoked)} clusters, want the "
+                f"{len(clusters) - k} unfinished")
+        require(tables(wd2, ("Cdb", "Ndb")) == ref, "15 resumed: tables != the clean fastANI run's")
+        require_no_faults("15 rerun")
+        out["faults"] = {"retried_s": dt1, "retried_calls": calls1["fastANI"], "checkpointed": len(saved),
+                         "killed_calls": killed_calls["fastANI"], "resumed": resumed,
+                         "rerun_calls": len(rerun), "launches_retried": launches1["mash_shared"]}
+        log(f"15 faults: fastANI retried once ({calls1['fastANI']} calls); FaultTolError after {k} clusters "
+            f"checkpointed ({killed_calls['fastANI']} calls); the rerun resumed {k} and called fastANI on the "
+            f"{len(rerun)} unfinished clusters; Cdb and Ndb equal the clean run's")
+    finally:
+        os.environ["PATH"] = old_path
+        if twins.is_alive():
+            twins.terminate()
+        twins.join()
+    out["primary_launches"] = primary_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["prep_s"] = prep["prep_s"]
+    log(f"phase 15: {out['phase_s']:.1f} s (and {prep['prep_s']:.1f} s of set-up after phase 8)")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -3440,18 +4088,24 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    plants = [Planting(tmp, "real", REAL_GENOMES, 2, REAL_SCALED_DEPTH),
+    plants = [Planting(tmp, "beyond", None),
+              Planting(tmp, "real", REAL_GENOMES, 2, REAL_SCALED_DEPTH),
               Planting(tmp, "stream", STREAM_GENOMES, 21, STREAM_SCALED_DEPTH)]
     try:
         return run_phases(dev, card, tmp, *plants)
     finally:
         for p in plants:
             p.stop()
+        for proc in CHILDREN:
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def run_phases(dev, card: str, tmp: str, plant_real: Planting, plant_stream: Planting) -> int:
-    """Phases 2-16 (main has printed phase 1 and started the plantings)."""
+def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Planting,
+               plant_stream: Planting) -> int:
+    """Phases 2-17 (main has printed phase 1 and started the plantings)."""
     import torch
 
     from drep_tpu_torch.native import get_library
@@ -3466,9 +4120,9 @@ def run_phases(dev, card: str, tmp: str, plant_real: Planting, plant_stream: Pla
         log(f"build {name}: " + " | ".join(ln.strip() for ln in out.splitlines()
                                            if "ptxas info" in ln and ("Used" in ln or "spill" in ln)))
 
-    t0 = time.perf_counter()
-    gs_beyond, planted_beyond = plant_beyond()
-    log(f"beyond budget: planted {len(gs_beyond.names)} genomes in {time.perf_counter() - t0:.1f} s")
+    (gs_beyond, planted_beyond), t_plant, t_wait = plant_beyond_.result()
+    log(f"beyond budget: planted {len(gs_beyond.names)} genomes in {t_plant:.1f} s (in its own process beside the "
+        f"build; waited {t_wait:.1f} s for it)")
     kernels = [phase_mash(dev), phase_indicator(dev, gs_beyond, planted_beyond),
                *phase_intersect(dev, gs_beyond, planted_beyond)]
     cli = phase_cli(tmp, dev)
@@ -3481,6 +4135,7 @@ def run_phases(dev, card: str, tmp: str, plant_real: Planting, plant_stream: Pla
     stream = phase_streaming_auto(tmp, dev, plant_stream)
     stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
     edges_8b = stream_edges.pop("edge_arrays")
+    sub_prep = start_subprocess_phase(tmp)
     t9 = time.perf_counter()
     p9a = phase_matmul_estimator(tmp, dev, real)
     p9b = phase_multiround(tmp, dev, real)
@@ -3500,6 +4155,7 @@ def run_phases(dev, card: str, tmp: str, plant_real: Planting, plant_stream: Pla
            "c": phase_resilience_resume(cli)}
     p14["phase_s"] = time.perf_counter() - t14
     log(f"phase 14: {p14['phase_s']:.1f} s")
+    p15 = phase_subprocess(dev, sub_prep)
     mash_entry = ring_kernel["mash"]
     kernels.append({
         "name": "ring_step", "route": "cuda", "source": "drep_tpu_torch/csrc/ring_step.cu",
@@ -3583,6 +4239,14 @@ def run_phases(dev, card: str, tmp: str, plant_real: Planting, plant_stream: Pla
         "14c": p14["c"]["launches"]["indicator_mm"]}
     kernels[0]["resilience"] = {"14a_s": p14["a"]["phase_s"], "14b_s": p14["b"]["phase_s"], "14c_s": p14["c"]["s"],
                                 "phase_s": p14["phase_s"]}
+    # phase 15, the subprocess engines: each run's launches (the jax_mash
+    # primary's alone, none under the mash primary or a subprocess secondary)
+    for k in kernels[:2]:
+        k["subprocess_launches"] = {**{e: r["launches"].get(k["name"], 0) for e, r in p15["runs"].items()},
+                                    "run_tax": p15["run_tax"]["launches"].get(k["name"], 0)}
+    kernels[0]["subprocess"] = {"primary_launches": p15["primary_launches"], "phase_s": p15["phase_s"],
+                                "prep_s": p15["prep_s"], "runs_s": {e: r["s"] for e, r in p15["runs"].items()},
+                                "faults": p15["faults"]}
     # phase 11, the serve daemon: the Mash kernel at the resident shape
     # ([N_pad resident rows x the batch's query rows], one launch a batch)
     kernels[0]["serve"] = {**p11["kernel"], **{k: p11[k] for k in (

@@ -12,15 +12,15 @@ The streaming primary (--streaming_primary, --streaming_threshold,
 --streaming_block) and its LSH pruning (--primary_prune lsh, --prune_bands,
 --prune_min_shared, --prune_join_chunk) run as in the JAX package, and so
 do --primary_estimator matmul, --multiround_primary_clustering,
---greedy_secondary_clustering and --run_tertiary_clustering. The
-subprocess engines (--primary_algorithm mash, --S_algorithm fastANI and
-the ANI programs) parse and then raise NotImplementedError in the cluster
-stage where the JAX package would run them. The fault-tolerance and
+--greedy_secondary_clustering and --run_tertiary_clustering, the
+subprocess engines (--primary_algorithm mash, --S_algorithm
+fastANI|ANImf|ANIn|gANI|goANI) and dereplicate's taxonomy (--run_tax
+--cent_index). The fault-tolerance and
 durable-I/O flags run as in the JAX package for one process
 (--fault_retries, --dispatch_timeout, --io_retries, --fsync,
 --no_overlap_ingest; the `index` verbs take --io_retries and --fsync).
 The flags in :data:`UNPORTED_FLAGS` (event tracing, profiling, the
-elastic pod, taxonomy) parse with the JAX defaults, and a run that sets
+elastic pod) parse with the JAX defaults, and a run that sets
 one otherwise raises NotImplementedError naming its ROADMAP item
 (workflows.py).
 `index build|update|classify|serve|route|split|merge|compact` take the
@@ -48,8 +48,6 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
     "max_dead_processes": ((1,), "12b"),
     "max_joins": ((0,), "12b"),
     "drain_grace_s": ((30.0,), "12b"),
-    "run_tax": ((False,), "9b"),
-    "cent_index": ((None,), "9b"),
 }
 
 # `index` subcommands of the JAX CLI that the port parses and refuses:
@@ -85,14 +83,15 @@ def build_parser() -> argparse.ArgumentParser:
 
         comp = p.add_argument_group("GENOME COMPARISON")
         comp.add_argument("--primary_algorithm", default="jax_mash",
-                          help="primary (coarse) comparison engine [jax_mash]")
+                          help="primary (coarse) comparison engine [jax_mash|mash]")
         comp.add_argument("--primary_estimator", default="auto",
                           choices=["auto", "sort", "matmul"],
                           help="jax_mash Jaccard estimator: sort=union-bottom-s "
                                "(reference Mash; auto resolves to it), matmul=common-threshold "
                                "on the fused indicator kernel (csrc/indicator_mm.cu)")
         comp.add_argument("--S_algorithm", default="jax_ani",
-                          help="secondary (ANI) comparison engine [jax_ani]")
+                          help="secondary (ANI) comparison engine "
+                               "[jax_ani|fastANI|ANImf|ANIn|gANI|goANI]")
         comp.add_argument("-ms", "--MASH_sketch", type=int, default=1000)
         comp.add_argument("--scale", type=int, default=200,
                           help="FracMinHash scale for jax_ani (smaller = more precise)")

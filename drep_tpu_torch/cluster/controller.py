@@ -45,10 +45,13 @@ sketching to do, the kernels build and the CUDA context starts on a
 thread while ingest runs (--no_overlap_ingest turns it off). The dense
 ring's block store is ROADMAP item 12b: a failure there stops the run.
 
-Where the JAX package would run a subprocess engine (ROADMAP.md queue 1,
-item 9b), the run raises NotImplementedError naming it before ingest;
-where the JAX package ignores such a flag (an engine under --SkipMash or
---SkipSecondary), so does the port.
+The subprocess engines (cluster/external.py, cluster/anim.py) run
+exactly where the JAX package runs them: ``--primary_algorithm mash`` on
+the dense primary branch, ``--S_algorithm fastANI|ANImf|ANIn|gANI|goANI``
+for every secondary call (the tertiary's too) unless --SkipSecondary.
+Their calls go through the same ``retrying_call`` and checkpoints as
+``jax_ani``'s; a failed binary is retried, spent retries raise
+FaultTolError, and a rerun resumes the finished clusters.
 """
 
 from __future__ import annotations
@@ -143,12 +146,6 @@ _RESUME_KEYS = [
     "genomes",
 ]
 
-# the ROADMAP item that owns the paths this controller does not run yet
-_NOT_PORTED = "the subprocess comparison engines (ROADMAP.md queue 1, item 9b)"
-# the JAX package's subprocess engines (drep_tpu/cluster/external.py, anim.py)
-SUBPROCESS_PRIMARY = ("mash",)
-SUBPROCESS_SECONDARY = ("fastANI", "ANImf", "ANIn", "gANI", "goANI")
-
 # batching of small clusters: one device call replaces hundreds of
 # latency-bound round trips (most primary clusters are tiny at scale)
 SMALL_CLUSTER_MAX = 32
@@ -183,22 +180,6 @@ def _multiround(kw: dict[str, Any], n: int) -> bool:
     package's branch: --multiround_primary_clustering above
     --primary_chunksize, ahead of streaming)?"""
     return kw["multiround_primary_clustering"] and n > kw["primary_chunksize"]
-
-
-def _refuse_unported(kw: dict[str, Any], n: int) -> None:
-    """Raise for a subprocess engine the JAX package's d_cluster_wrapper
-    would run on these arguments and `n` genomes, and only there: the
-    primary engine on its dense branch (not under SkipMash or for one
-    genome, not multiround, not streaming), the secondary engine unless
-    --SkipSecondary."""
-    def refuse(what: str) -> None:
-        raise NotImplementedError(f"{what}: {_NOT_PORTED} is not ported yet")
-
-    if not (kw["SkipMash"] or n == 1 or _multiround(kw, n) or _streams(kw, n)):
-        if kw["primary_algorithm"] in SUBPROCESS_PRIMARY:
-            refuse(f"--primary_algorithm {kw['primary_algorithm']}")
-    if not kw["SkipSecondary"] and kw["S_algorithm"] in SUBPROCESS_SECONDARY:
-        refuse(f"--S_algorithm {kw['S_algorithm']}")
 
 
 def _warn_dist(kw: dict[str, Any]) -> float:
@@ -556,7 +537,6 @@ def d_cluster_wrapper(
     cuda; a CUDA request without CUDA raises); returns Cdb."""
     logger = get_logger()
     kw = _fill_defaults(kwargs)
-    _refuse_unported(kw, len(bdb))
     kw["device"] = resolve_device(device)
     ft_cfg = _ft_config(kw)  # installed before anything is read or written
     snapshot = {k: kw.get(k) for k in _RESUME_KEYS if k != "genomes"}

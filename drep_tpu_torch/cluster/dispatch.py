@@ -1,12 +1,13 @@
 """Comparison-algorithm dispatch (the reference's `--primary_algorithm` /
-`--S_algorithm` registry, SURVEY.md §2 "algorithm dispatch"; reference mount
-empty).
+`--S_algorithm` registry; counterpart of drep_tpu/cluster/dispatch.py).
 
-The port registers only the device engines, `jax_mash` and `jax_ani`
-(the JAX package's names, so that an argv runs unchanged). The JAX
-package's subprocess engines (`mash`, `fastANI`, `ANImf`, `ANIn`, `gANI`,
-`goANI`) are not ported: cluster/controller.py refuses them before ingest
-(ROADMAP.md queue 1, item 9b).
+The port registers the JAX package's engine names, so that an argv runs
+unchanged: the device engines `jax_mash` and `jax_ani`
+(cluster/engines.py, on the CUDA kernels), and the subprocess engines
+around external binaries, `mash` and `fastANI` (cluster/external.py),
+`ANImf`, `ANIn`, `gANI` and `goANI` (cluster/anim.py). engines.py imports
+the last two modules, so importing it fills the registry; they load only
+the standard library beside numpy and pandas.
 
 A primary algorithm maps a GenomeSketches + kwargs to a full [N, N] distance
 matrix. A secondary algorithm maps a subset of genomes to directional

@@ -225,3 +225,9 @@ def secondary_jax_ani_batched(
         out.append((ani_all[o : o + m, o : o + m], cov_all[o : o + m, o : o + m]))
         o += m
     return out
+
+
+# the subprocess engines register themselves on import (the JAX package's
+# registry holds all eight names once its engines module is loaded)
+from drep_tpu_torch.cluster import anim as _anim  # noqa: E402,F401
+from drep_tpu_torch.cluster import external as _external  # noqa: E402,F401

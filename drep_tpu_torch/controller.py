@@ -24,12 +24,13 @@ from drep_tpu_torch.workflows import (
 
 
 def check_dependencies() -> list[str]:
-    """Log (and return) the torch build, the CUDA cards it sees and the
-    nvcc that builds the kernels. The JAX package also probes the external
-    binaries of its subprocess engines, which the port does not run
-    (ROADMAP.md queue 1, item 9b)."""
+    """Log (and return) the torch build, the CUDA cards it sees, the nvcc
+    that builds the kernels, and then, as the JAX package does, each
+    external binary of the subprocess engines and the bonus stage
+    (cluster/external.py::EXTERNAL_SUITE) with its path and version."""
     import torch
 
+    from drep_tpu_torch.cluster.external import EXTERNAL_SUITE, find_program
     from drep_tpu_torch.ops import _build
 
     n = torch.cuda.device_count()
@@ -39,8 +40,13 @@ def check_dependencies() -> list[str]:
         lines.append(f"  nvcc {_build.nvcc_path()}")
     except RuntimeError as e:
         lines.append(f"  nvcc NOT FOUND ({e})")
-    lines.append("  subprocess engines (mash, fastANI, ANImf, ANIn, gANI, goANI): not ported "
-                 "(ROADMAP.md queue 1, item 9b)")
+    for name in sorted(EXTERNAL_SUITE):
+        path, version = find_program(name)
+        if path is None:
+            status = "NOT FOUND (subprocess engine unavailable; the CUDA engines unaffected)"
+        else:
+            status = f"{path}  ({version})" if version else path
+        lines.append(f"  external {name:<14} {status}")
     setup_logger(None)
     for line in lines:
         get_logger().info("%s", line)

@@ -96,19 +96,14 @@ def pack_sketches(sketches: list[np.ndarray], names: list[str], sketch_size: int
     if len(sketches) != len(names):
         raise ValueError("sketches and names length mismatch")
     trimmed = [s[:sketch_size] for s in sketches]
-    vocab = np.unique(np.concatenate(trimmed)) if trimmed else np.empty(0, np.uint64)
-    if vocab.size >= np.iinfo(np.int32).max:
-        raise ValueError("id space overflow: >2^31 distinct sketch hashes")
     n = len(trimmed)
     ids = np.full((n, sketch_size), PAD_ID, dtype=np.int32)
     lens = np.array([len(s) for s in trimmed], dtype=np.int64)
-    # one searchsorted over the concatenation (the monotone rank map)
-    flat = np.concatenate(trimmed) if trimmed else np.empty(0, np.uint64)
-    ranks = np.searchsorted(vocab, flat).astype(np.int32)
-    rows = np.repeat(np.arange(n), lens)
-    offs = np.concatenate([[0], np.cumsum(lens)[:-1]]) if n else np.empty(0, np.int64)
-    cols = np.arange(len(flat)) - np.repeat(offs, lens)
-    ids[rows, cols] = ranks
+    if n:
+        # the monotone rank map from one sort (dense_ranks); each row's
+        # valid prefix takes its ranks in row-major order
+        _, ranks = dense_ranks(np.concatenate(trimmed))
+        ids[np.arange(sketch_size)[None, :] < lens[:, None]] = ranks
     return PackedSketches(ids=ids, counts=lens.astype(np.int32), names=list(names))
 
 

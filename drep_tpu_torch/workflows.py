@@ -1,8 +1,8 @@
 """Top-level workflows composing the pipeline stages.
 
 Counterpart of drep_tpu/workflows.py (compare, dereplicate and the
-one-store genome index):
-dereplicate = filter -> cluster -> choose -> evaluate -> analyze;
+genome index):
+dereplicate = filter -> cluster -> choose -> [bonus] -> evaluate -> analyze;
 compare = cluster -> evaluate -> analyze (no filter/choose);
 index build|update|classify|split|merge|compact = drep_tpu_torch/index;
 index serve|route = drep_tpu_torch/serve.
@@ -19,7 +19,9 @@ from __future__ import annotations
 import pandas as pd
 
 from drep_tpu_torch.argparser import UNPORTED_FLAGS, refuse_unported_flags
+from drep_tpu_torch.bonus import d_bonus_wrapper, validate_bonus_args
 from drep_tpu_torch.choose import d_choose_wrapper
+from drep_tpu_torch.cluster.anim import reset_run_state
 from drep_tpu_torch.cluster.controller import d_cluster_wrapper
 from drep_tpu_torch.device import resolve_device
 from drep_tpu_torch.errors import UserInputError
@@ -44,6 +46,7 @@ def _configure_io(kwargs: dict) -> None:
 def _init(wd_loc: str, genomes: list[str]) -> tuple[WorkDirectory, pd.DataFrame]:
     wd = WorkDirectory(wd_loc)
     setup_logger(wd.get_dir("log"))
+    reset_run_state()  # a second run in this process warns again, as a second CLI run would
     if genomes:
         bdb = make_bdb(genomes)
         wd.store_db(bdb, "Bdb")
@@ -78,15 +81,18 @@ def compare_wrapper(
 def dereplicate_wrapper(
     wd_loc: str, genomes: list[str] | None = None, device=None, **kwargs
 ) -> pd.DataFrame:
-    """`dereplicate`: filter + cluster + choose + evaluate + analyze.
-    Returns Wdb (the winners)."""
+    """`dereplicate`: filter + cluster + choose (+ taxonomy under
+    --run_tax) + evaluate + analyze. Returns Wdb (the winners)."""
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
+    validate_bonus_args(kwargs)  # centrifuge and its index, before any table is written
     _configure_io(kwargs)
     wd, bdb = _init(wd_loc, genomes or [])
     filtered = d_filter_wrapper(wd, bdb, genomeInfo=kwargs.pop("genomeInfo", None), **kwargs)
     d_cluster_wrapper(wd, filtered, device=dev, **kwargs)
     wdb = d_choose_wrapper(wd, filtered, **kwargs)
+    if kwargs.get("run_tax"):
+        d_bonus_wrapper(wd, filtered, cent_index=kwargs.get("cent_index"), processes=kwargs.get("processes", 1))
     d_evaluate_wrapper(wd, **kwargs)
     if not kwargs.get("skip_plots", False):
         from drep_tpu_torch.analyze import plot_all

@@ -332,22 +332,42 @@ def test_entry_points_refuse_cpu_without_being_asked(tmp_path, genome_paths, mon
     assert not os.path.exists(tmp_path / "a" / "data_tables" / "Cdb.csv")
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--primary_algorithm", "mash"], "item 9"),
-    (["--S_algorithm", "fastANI"], "item 9"),
-    (["--S_algorithm", "ANImf"], "item 9"),
-    (["--S_algorithm", "ANIn"], "item 9"),
-    (["--S_algorithm", "gANI"], "item 9"),
-    (["--S_algorithm", "goANI"], "item 9"),
+@pytest.fixture()
+def fake_binaries(tmp_path, monkeypatch):
+    """chip_smoke.py's stand-ins for the subprocess engines' binaries,
+    first on $PATH."""
+    from chip_smoke import write_fake_tools
+
+    d = write_fake_tools(str(tmp_path / "bin"))
+    monkeypatch.setenv("PATH", d + os.pathsep + os.environ["PATH"])
+    return d
+
+
+@pytest.mark.parametrize("flag,kwargs", [
+    (["--primary_algorithm", "mash"], {"primary_algorithm": "mash"}),
+    (["--S_algorithm", "fastANI"], {"S_algorithm": "fastANI"}),
+    (["--S_algorithm", "ANImf"], {"S_algorithm": "ANImf"}),
+    (["--S_algorithm", "ANIn"], {"S_algorithm": "ANIn"}),
+    (["--S_algorithm", "gANI"], {"S_algorithm": "gANI"}),
+    (["--S_algorithm", "goANI"], {"S_algorithm": "goANI"}),
 ])
-def test_unported_paths_raise(tmp_path, genome_paths, flag, item):
-    """A path not ported raises NotImplementedError naming its ROADMAP
-    item before ingest: no table but the input list (Bdb) is written."""
-    wd = tmp_path / "wd"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        torch_main(["compare", str(wd), "-g", *genome_paths, "--device", "cpu",
-                    "--skip_plots", *flag])
-    assert sorted(os.listdir(wd / "data_tables")) == ["Bdb.csv"]
+def test_subprocess_engine_argvs_equal_jax_bytes(tmp_path, genome_paths, fake_binaries, flag, kwargs):
+    """Each subprocess engine through the CLI's compare, the binaries
+    stood in for on $PATH: Bdb, Cdb and Ndb byte-identical to the JAX
+    package's on the same argv; Mdb too under the mash primary (its
+    distances are the binary's), within the sort estimator's 1e-7 under
+    jax_mash."""
+    wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    torch_main(["compare", wd, "-g", *genome_paths, "--skip_plots", "-p", "2", "--device", "cpu", *flag])
+    jax_compare(jwd, genome_paths, skip_plots=True, processes=2, **kwargs)
+    for table in ("Bdb", "Cdb", "Ndb"):
+        assert _table(wd, table) == _table(jwd, table)
+    if "mash" in flag:
+        assert _table(wd, "Mdb") == _table(jwd, "Mdb")
+    else:
+        _assert_mdb_close(wd, jwd)
+        cdb = pd.read_csv(os.path.join(wd, "data_tables", "Cdb.csv"))
+        assert set(cdb["comparison_algorithm"]) == {kwargs["S_algorithm"]}
 
 
 @pytest.mark.parametrize("operation,flags,kwargs", [
@@ -403,11 +423,11 @@ def test_item_9a_argvs_equal_jax_bytes(tmp_path, genome_paths, operation, flags,
     (["--primary_algorithm", "mash", "--SkipMash"], {"primary_algorithm": "mash", "SkipMash": True}),
 ])
 def test_flags_jax_ignores_here_equal_jax_bytes(tmp_path, genome_paths, flags, kwargs):
-    """Flags of unported paths on argvs where the JAX package does not take
-    the path (multiround at or below --primary_chunksize, pruning on the
-    dense primary, greedy/tertiary/an external S engine under
-    --SkipSecondary, an external primary engine under --SkipMash) run, and
-    the dereplicate tables are byte-identical to the JAX package's."""
+    """Flags on argvs where the JAX package does not take their path
+    (multiround at or below --primary_chunksize, pruning on the dense
+    primary, greedy/tertiary/an external S engine under --SkipSecondary,
+    an external primary engine under --SkipMash, its binary absent) run,
+    and the dereplicate tables are byte-identical to the JAX package's."""
     q = tmp_path / "q.csv"
     q.write_text(QUALITY)
     wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
@@ -461,8 +481,6 @@ _UNPORTED_FLAG_VALUES = [
     (["--no_overlap_ingest"], None),
     (["--max_joins", "1"], "item 12b"),
     (["--drain_grace_s", "5"], "item 12b"),
-    (["--run_tax"], "item 9"),
-    (["--cent_index", "idx"], "item 9"),
 ]
 _FLAG_KW = {"--fsync": ("fsync", True), "--io_retries": ("io_retries", 5), "--fault_retries": ("fault_retries", 0),
             "--dispatch_timeout": ("dispatch_timeout", 10.0), "--no_overlap_ingest": ("overlap_ingest", False)}
@@ -518,10 +536,41 @@ def test_jax_cli_flags_at_defaults_run(dereplicated, genome_paths, tmp_path):
         assert _table(wd, table) == _table(jwd, table)
 
 
-def test_check_dependencies_runs():
-    """The check_dependencies subcommand exists and reports the cards."""
+@pytest.mark.parametrize("flags,kwargs", [
+    (["--run_tax", "--cent_index", "idx", "--S_algorithm", "fastANI"],
+     {"run_tax": True, "cent_index": "idx", "S_algorithm": "fastANI"}),
+    (["--cent_index", "idx"], {"cent_index": "idx"}),
+])
+def test_taxonomy_argvs_equal_jax_bytes(tmp_path, genome_paths, fake_binaries, flags, kwargs):
+    """dereplicate with the taxonomy flags, centrifuge (and fastANI) stood
+    in for on $PATH: the tables (Tdb where --run_tax asks for it, and
+    only there) byte-identical to the JAX package's on the same argv."""
+    q = tmp_path / "q.csv"
+    q.write_text(QUALITY)
+    wd, jwd = str(tmp_path / "torch"), str(tmp_path / "jax")
+    torch_main(["dereplicate", wd, "-g", *genome_paths, "--genomeInfo", str(q), "--skip_plots", "-p", "2",
+                "--device", "cpu", *flags])
+    jax_dereplicate(jwd, genome_paths, genomeInfo=str(q), skip_plots=True, processes=2, **kwargs)
+    has_tdb = os.path.exists(os.path.join(wd, "data_tables", "Tdb.csv"))
+    assert has_tdb == os.path.exists(os.path.join(jwd, "data_tables", "Tdb.csv")) == ("--run_tax" in flags)
+    for table in ("Cdb", "Ndb", "Sdb", "Wdb") + (("Tdb",) if has_tdb else ()):
+        assert _table(wd, table) == _table(jwd, table)
+
+
+def test_check_dependencies_runs(fake_binaries):
+    """The check_dependencies subcommand exists and reports the cards,
+    then each external binary of EXTERNAL_SUITE: the stand-ins with their
+    path and version, checkm (no stand-in) not found."""
+    from drep_tpu_torch.cluster.external import EXTERNAL_SUITE
+
     torch_main(["check_dependencies"])
-    assert "CUDA device(s)" in check_dependencies()[0]
+    lines = check_dependencies()
+    assert "CUDA device(s)" in lines[0]
+    ext = {ln.split()[1]: ln for ln in lines if ln.startswith("  external ")}
+    assert sorted(ext) == sorted(EXTERNAL_SUITE)
+    assert "NOT FOUND" in ext["checkm"]
+    assert os.path.join(fake_binaries, "mash") in ext["mash"] and "(2.3)" in ext["mash"]
+    assert os.path.join(fake_binaries, "nsimscan") in ext["nsimscan"] and "(" not in ext["nsimscan"]
 
 
 def _is_forbidden(module: str) -> bool:

@@ -523,3 +523,87 @@ def test_fleet_manifest_refused_before_loading(fleet_store, tmp_path):
                                   socket_path=str(tmp_path / "r.sock"), device=CPU))
     assert not os.path.exists(tmp_path / "r.sock")
     assert lib.tree_digest(loc, exclude_dirs=()) == before
+
+
+# ---- F7: a batch whose budget runs out between its legs and its merge -----
+
+F7_DEFAULT_MS = 5000.0  # the daemon's default budget, cut from 30 s
+
+
+def _hold_past_short_budgets(srv, monkeypatch) -> None:
+    """Wrap the router's leg gather: the legs run and answer, then, where
+    the batch's budget ends within F7_DEFAULT_MS, the gather returns only
+    once it has passed (a slow host between 13b's legs and its merge)."""
+    gather = srv._gather_legs
+
+    def held(*args):
+        out = gather(*args)
+        deadline = args[-1]  # budget_deadline, the last argument in both packages
+        if deadline is not None and deadline - time.monotonic() < F7_DEFAULT_MS / 1000.0:
+            time.sleep(max(0.0, deadline - time.monotonic()) + 0.05)
+        return out
+
+    monkeypatch.setattr(srv, "_gather_legs", held)
+
+
+def test_expired_default_budget_gives_stamped_partial_as_jax(fleet_store, monkeypatch):
+    """F7's cause on the CPU. Clients that send no deadline_ms get the
+    daemon's default budget; a router batch whose budget runs out after
+    its legs have answered merges with every partition booked
+    unavailable: verdicts stamped PARTIAL (``partitions_unavailable``
+    non-empty), never a full verdict that differs from the daemon's, in
+    the port's router and the JAX package's alike, with the replicas'
+    walks done. The same queries stamped with a budget the batch cannot
+    spend (600 000 ms, as chip_smoke's 13a/13b now send) equal the
+    single daemon's verdicts."""
+    from drep_tpu.serve.router import RouterConfig as JaxRouterConfig
+    from drep_tpu.serve.router import RouterServer as JaxRouterServer
+    from drep_tpu.utils.profiling import counters as jax_counters
+    from drep_tpu_torch.serve import daemon
+    from drep_tpu_torch.utils.profiling import counters
+
+    loc, _paths, queries, oracle, jax_oracle = fleet_store
+    monkeypatch.setattr(daemon, "DEADLINE_DEFAULT_MS", F7_DEFAULT_MS)
+    stamps = {}
+    for pkg in ("torch", "jax"):
+        r1, a1, t1 = _start_replica(loc, jax=pkg == "jax")
+        r2, a2, t2 = _start_replica(loc, jax=pkg == "jax")
+        specs = [f"{a1}=0,1", f"{a2}=2"]
+        if pkg == "torch":
+            rt, ra, trt = _start_router(loc, specs)
+        else:
+            rt = JaxRouterServer(JaxRouterConfig(
+                index_loc=loc, replicas=specs, batch_window_ms=20.0, max_batch=16, poll_generation_s=60.0,
+                leg_timeout_s=120.0, hedge_delay_s=60.0, probe_interval_s=0.2, probe_backoff_s=0.2,
+                probe_max_s=0.5))
+            rt._deadline_default_ms = F7_DEFAULT_MS
+            ra = rt.start()
+            trt = threading.Thread(target=rt.serve_batches, daemon=True)
+            trt.start()
+        _hold_past_short_budgets(rt, monkeypatch)
+        # admission refuses a budget below the queue's ETA, which the
+        # process's earlier batches (the oracles') would set past 3 s
+        (counters if pkg == "torch" else jax_counters).reset()
+        client = ServeClient if pkg == "torch" else JaxServeClient
+        try:
+            with client(ra, timeout_s=600) as c:
+                resps = c.classify_many(queries)  # no deadline_ms: the default budget
+                walks = r1.stats.legs_total + r2.stats.legs_total
+                stamped = c.classify_many(queries, deadline_ms=600_000.0)
+            stats = rt.snapshot()["router"]
+        finally:
+            for srv, t in ((rt, trt), (r1, t1), (r2, t2)):
+                _stop(srv, t)
+        want = oracle if pkg == "torch" else jax_oracle
+        assert all(r.get("ok") for r in resps + stamped), resps + stamped
+        verdicts = [r["verdict"] for r in resps]
+        assert walks > 0  # the legs ran: the verdicts are PARTIAL at the merge
+        for q, v in zip(queries, verdicts):
+            assert v.get("partial") is True and v["partitions_unavailable"], (pkg, q, v)
+            assert v != want[q]  # a PARTIAL verdict reads as a wrong one when compared unstripped
+        # a leg that waited past the budget for its replica's compute slot
+        # fails too (fewer walks): PARTIAL all the same
+        assert stats["partial_verdicts"] == len(queries)
+        assert [r["verdict"] for r in stamped] == [want[q] for q in queries]
+        stamps[pkg] = [(v["partitions_consulted"], v["partitions_unavailable"]) for v in verdicts]
+    assert stamps["torch"] == stamps["jax"]
