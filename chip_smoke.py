@@ -205,8 +205,9 @@ Phases (any failure exits nonzero; nothing is caught):
    again on its workdir with Cdb and Ndb removed: both multi-member
    clusters resumed from their checkpoints, no ``indicator_mm`` launch,
    the winners A, C, D. The fault counters must be empty through phases
-   1-13 (read after phase 10, before phase 11 restarts them, and after
-   phase 13): no real launch was retried or stopped by the watchdog;
+   1-13 (read after phase 10, before phase 11 restarts them, after phase
+   13, and after 12d-e, whose CLI verbs restart them): no real launch was
+   retried or stopped by the watchdog;
 15. the subprocess engines and the taxonomy (``cluster/external.py``,
    ``cluster/anim.py``, ``bonus.py``, ROADMAP queue 1 item 9b) with
    stand-ins for their binaries first on $PATH (``write_fake_tools``:
@@ -224,7 +225,25 @@ Phases (any failure exits nonzero; nothing is caught):
    failing twice under ``fault_retries=1`` raises FaultTolError with the
    clusters before it checkpointed, and the rerun calls fastANI for the
    unfinished clusters alone, with the clean run's Cdb and Ndb;
-16. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+16. event tracing and ``--profile`` (ROADMAP queue 1 item 13): 16a phase
+   4's dereplicate again, in a new workdir, with ``--events on --profile``:
+   the event log parses line by line through the port's reader
+   (``utils/telemetry.py::read_events``), every span closes, the stage
+   spans come in the JAX package's order (TRACE_STAGES) and
+   ``run_finished`` ends it, and the Chrome trace of ``torch.profiler``
+   under ``<wd>/log/torch_trace`` holds ``mash_shared_kernel`` and
+   ``indicator_mm_kernel`` events exactly as many times as the run's launch
+   counters say; 16b tracing on in runs made anyway: 14a's retried
+   secondary (one ``fault`` instant for the retry, one for the injected
+   raise), 11a's daemon (``serve_load``, ``serve_start``, one
+   ``serve_batch`` span a batch, ``serve_drain``, ``serve_stop``) and
+   13b's scatter router with its replicas (``route_start``, one
+   ``partition_classify`` span a leg, no replica transition or fault),
+   each log's event count and its run's seconds printed; 16c one
+   recommend-only ``FleetAutoscaleController`` tick against 13b's live
+   scatter router: one decision record a partition range, the JAX keys,
+   nothing placed or drained;
+17. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -239,8 +258,10 @@ Phases (any failure exits nonzero; nothing is caught):
    12's times, cross-join pairs and launches under ``federation``; both
    phase 13's launches and times under ``federated_serve``; both phase
    14's launches under ``resilience_launches`` and phase 15's under
-   ``subprocess_launches``);
-17. the last line: ``{"ok": true, "device": {...}}``.
+   ``subprocess_launches``; both phase 16a's launches and profiled kernel
+   events under ``profiled``, the Mash kernel phase 16's seconds and event
+   counts under ``trace``);
+18. the last line: ``{"ok": true, "device": {...}}``.
 
 Phase 5's and phase 8a's planted sketches are made in two spawned
 processes started before phase 2 (the same seeds, so the same sketches),
@@ -253,6 +274,7 @@ the ``drep_tpu_torch`` package is not beside it. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -2554,33 +2576,39 @@ def phase_serve(tmp: str, dev, p10: dict) -> dict:
         os.makedirs(os.path.dirname(p), exist_ok=True)
         open(p, "wb").close()
 
-    # 11a: the daemon on the card
+    # 11a: the daemon on the card, traced (phase 16b)
     resident_device.reset_for_tests()
     counters.reset()
     rect_s: list = []
-    t0 = time.perf_counter()
-    srv = IndexServer(ServeConfig(index_loc=idx_dir, max_batch=INDEX_QUERIES, batch_window_ms=SERVE_WINDOW_MS,
-                                  poll_generation_s=60.0, device=dev),
-                      classify_fn=serve_classify_fn(queries, dev, rect_s))
-    addr = srv.start()
-    t_start = time.perf_counter() - t0
-    upload_s = resident_device.STATS["upload_s"]
-    loop = threading.Thread(target=srv.serve_batches, daemon=True)
-    loop.start()
-    try:
-        reset_launches()
-        torch.cuda.synchronize()
+    trace_dir = os.path.join(tmp, "trace_11a")
+    with traced(trace_dir):
         t0 = time.perf_counter()
-        resps = serve_clients(addr, paths)
-        torch.cuda.synchronize()
-        t_serve = time.perf_counter() - t0
-        launches = read_launches()
-    finally:
-        srv.request_drain()
-        loop.join(timeout=300)
-        srv.close()
+        srv = IndexServer(ServeConfig(index_loc=idx_dir, max_batch=INDEX_QUERIES, batch_window_ms=SERVE_WINDOW_MS,
+                                      poll_generation_s=60.0, device=dev),
+                          classify_fn=serve_classify_fn(queries, dev, rect_s))
+        addr = srv.start()
+        t_start = time.perf_counter() - t0
+        upload_s = resident_device.STATS["upload_s"]
+        loop = threading.Thread(target=srv.serve_batches, daemon=True)
+        loop.start()
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resps = serve_clients(addr, paths)
+            torch.cuda.synchronize()
+            t_serve = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            srv.request_drain()
+            loop.join(timeout=300)
+            srv.close()
     require(not loop.is_alive(), "11a: the batch loop did not drain")
     st = srv.snapshot()
+    tc = read_trace(trace_dir, "11a", t_start + t_serve)["counts"]
+    require(tc.get("serve_load:B") == tc.get("serve_load:E") == tc.get("serve_start:i") == 1
+            and tc.get("serve_batch:E") == st["batches_total"] and tc.get("serve_drain:i") == 1
+            and tc.get("serve_stop:i") == 1, f"16b 11a: events {tc}, {st['batches_total']} batches")
     log(f"11a serve: {len(resps)} requests from {SERVE_CLIENTS} clients in {t_serve:.2f} s, "
         f"{st['batches_total']} batches; start {t_start:.2f} s (resident upload {upload_s:.2f} s); per-batch "
         f"rectangle seconds {rect_s}; launches { {k: v for k, v in launches.items() if v} }; latency_ms "
@@ -3224,19 +3252,26 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
                 ("forward", [reps[0][1], reps[1][1]], INDEX_QUERIES)):
             before = [(dict(r[0]._resident.work), r[0].stats.legs_total) for r in reps]
             reset_launches()
-            rt, raddr, rloop, r_start = serve((RouterConfig, RouterServer), {"replicas": specs, **router_kw},
-                                              max_batch=batch)
-            for p in paths:  # the router's sketch cache holds 10c's planted sketches
-                rt._sketch_cache[rt._sketch_key(p)] = queries.results[f"query:{os.path.basename(p)}"]
-            try:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                resps = serve_clients(raddr, paths)
-                torch.cuda.synchronize()
-                t_route = time.perf_counter() - t0
-                launches = read_launches()
-            finally:
-                stop(rt, rloop, f"13b {mode}")
+            # phase 16b: the scatter run traced (the router and its replicas
+            # share this process's event log); 16c: one recommend-only
+            # autoscale tick against the live router
+            trace_dir = os.path.join(tmp, f"trace_13b_{mode}")
+            with traced(trace_dir) if mode == "scatter" else contextlib.nullcontext():
+                rt, raddr, rloop, r_start = serve((RouterConfig, RouterServer), {"replicas": specs, **router_kw},
+                                                  max_batch=batch)
+                for p in paths:  # the router's sketch cache holds 10c's planted sketches
+                    rt._sketch_cache[rt._sketch_key(p)] = queries.results[f"query:{os.path.basename(p)}"]
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    resps = serve_clients(raddr, paths)
+                    torch.cuda.synchronize()
+                    t_route = time.perf_counter() - t0
+                    launches = read_launches()
+                    if mode == "scatter":
+                        out["autoscale"] = autoscale_tick(tmp, raddr, specs)
+                finally:
+                    stop(rt, rloop, f"13b {mode}")
             got = answered(resps, rt, f"13b {mode}")
             partial = sorted(g for g, v in got.items() if v.get("partial") or v.get("partitions_unavailable"))
             require(not partial, f"13b {mode}: budget expired: {len(partial)} PARTIAL (first {partial[:5]}; "
@@ -3255,6 +3290,11 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
             if mode == "scatter":
                 require(rs["scattered"] == n_q and rs["forwarded"] == 0, f"13b scatter: {rs}")
                 require(sum(legs) == rs["legs_total"] > 0 and all(legs), f"13b scatter: legs {legs}, router {rs}")
+                tc = read_trace(trace_dir, "13b", r_start + t_route)["counts"]
+                require(tc.get("route_start:i") == 1 and tc.get("partition_classify:E") == sum(legs)
+                        and tc.get("fleet_autoscale_decision:i") == len(FED_SERVE_SCOPES)
+                        and not any(k.startswith(("replica_", "fault:")) for k in tc),
+                        f"16b 13b: events {tc}, {sum(legs)} legs")
             else:
                 require(rs["forwarded"] == n_q and rs["scattered"] == 0 and rs["legs_total"] == 0,
                         f"13b forward: {rs}")
@@ -3630,10 +3670,15 @@ def phase_resilience_secondary(tmp: str, dev, real: dict) -> dict:
     wd1, bdb = prefix_workdir(tmp, "p14a_retry_wd", real, m)
     counters.reset()
     faults.configure("secondary_batch:raise:max=1")
+    trace_dir = os.path.join(tmp, "trace_14a")
     try:
-        cdb1, launches1, _, _, dt1 = run_option(wd1, bdb, dev, "14a one injected secondary failure")
+        with traced(trace_dir):  # phase 16b
+            cdb1, launches1, _, _, dt1 = run_option(wd1, bdb, dev, "14a one injected secondary failure")
     finally:
         faults.reset()
+    recs = read_trace(trace_dir, "14a", dt1)["records"]
+    require(fault_events(recs, "retries") == fault_events(recs, "injected_secondary_batch_raise") == 1,
+            f"16b 14a: fault instants {[r['args'] for r in recs if r['ev'] == 'fault']}")
     calls = secondary_calls(cdb1)
     n_calls = len(calls)
     require(counters.faults.get("retries") == 1 and counters.faults.get("injected_secondary_batch_raise") == 1,
@@ -4072,6 +4117,139 @@ def phase_subprocess(dev, prep: dict) -> dict:
     return out
 
 
+# phase 16: event tracing and --profile (ROADMAP queue 1 item 13). The
+# stage spans of a dereplicate in the JAX package's order (first "B" of
+# each), and the CUDA kernels the Chrome trace must hold, by the launch
+# counter each must equal
+TRACE_STAGES = ("stage:filter", "stage:cluster", "stage:ingest_or_cache", "stage:primary_compare",
+                "stage:secondary_compare", "stage:secondary_postprocess", "stage:assembly_io", "stage:choose",
+                "stage:evaluate")
+PROFILED_KERNELS = {"mash_shared": "mash_shared_kernel", "indicator_mm": "indicator_mm_kernel",
+                    "indicator_mm_rect": "indicator_mm_rect_kernel"}
+TRACES: dict = {}  # phase 16b's event counts and seconds, by the run traced
+
+
+@contextlib.contextmanager
+def traced(log_dir: str):
+    """Event tracing on into `log_dir` around a block (phase 16b), off after."""
+    from drep_tpu_torch.utils import telemetry
+
+    require(telemetry.configure(log_dir=log_dir, enabled=True), f"tracing into {log_dir} did not turn on")
+    try:
+        yield
+    finally:
+        telemetry.configure()
+
+
+def read_trace(log_dir: str, what: str, seconds: float) -> dict:
+    """The event log of `log_dir` through the port's reader: every line
+    parses, every span closed; returns the counts by (ev, ph) and keeps
+    them, with the traced run's seconds, for the phase 16 line."""
+    from drep_tpu_torch.utils import telemetry
+
+    recs = telemetry.read_events(log_dir)
+    with open(os.path.join(log_dir, "events.p0.jsonl")) as f:
+        lines = sum(1 for _ in f)
+    require(recs and len(recs) == lines, f"16 {what}: {len(recs)} records parsed of {lines} lines")
+    unclosed = telemetry.open_spans(recs)
+    require(not unclosed, f"16 {what}: unclosed or unopened spans {unclosed}")
+    counts: dict = {}
+    for r in recs:
+        key = f"{r['ev']}:{r['ph']}"
+        counts[key] = counts.get(key, 0) + 1
+    TRACES[what] = {"events": len(recs), "s": seconds, "counts": counts}
+    return {"records": recs, "counts": counts}
+
+
+def fault_events(recs: list, kind: str) -> int:
+    return sum(int(r["args"]["n"]) for r in recs if r["ev"] == "fault" and r["args"]["kind"] == kind)
+
+
+def profiled_kernels(trace_path: str) -> dict:
+    """The CUDA kernel events of a torch.profiler Chrome trace, counted by
+    PROFILED_KERNELS' names (a name is matched as a whole word, so
+    indicator_mm_kernel does not count the _rect_ kernel's)."""
+    import re
+
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    out = {}
+    for counter, name in PROFILED_KERNELS.items():
+        word = re.compile(rf"(^|[^A-Za-z0-9_]){name}([^A-Za-z0-9_]|$)")
+        out[counter] = sum(1 for e in kernels if word.search(e.get("name", "")))
+    out["all_kernels"] = len(kernels)
+    return out
+
+
+def autoscale_tick(tmp: str, raddr: str, specs: list[str]) -> dict:
+    """Phase 16c: one recommend-only FleetAutoscaleController tick against
+    phase 13b's live router: one decision record a partition range, with
+    the JAX package's keys, and nothing placed or drained."""
+    from drep_tpu_torch.autoscale import FleetAutoscaleController, Targets
+    from drep_tpu_torch.serve import ServeClient
+
+    log_path = os.path.join(tmp, "autoscale.jsonl")
+    t0 = time.perf_counter()
+    with ServeClient(raddr, timeout_s=120) as client:
+        ctl = FleetAutoscaleController(client, Targets(max_procs=4), queue_deadline_s=5.0, svc_s=0.2,
+                                       decision_log=log_path)
+        ctl.poll_once()
+    dt = time.perf_counter() - t0
+    with open(log_path) as f:
+        records = [json.loads(line) for line in f]
+    ranges = sorted(spec.split("=", 1)[1] for spec in specs)
+    keys = {"at", "range", "verdict", "delta", "reason", "inputs", "actuation"}
+    require(sorted(r["range"] for r in records) == ranges and all(set(r) == keys for r in records)
+            and all(r["actuation"] == "" or r["actuation"].startswith("skipped") for r in records)
+            and not ctl.history, f"16c: decision records {records}")
+    out = {"s": dt, "decisions": [{k: r[k] for k in ("range", "verdict", "reason")} for r in records]}
+    log(f"16c: one recommend-only autoscale tick in {dt:.3f} s: {out['decisions']}")
+    return out
+
+
+def phase_trace(tmp: str, cli: dict) -> dict:
+    """Phase 16a: phase 4's fixture dereplicate again, in a new workdir,
+    with ``--events on --profile``: the event log parses line by line, its
+    spans close, the stage spans come in the JAX package's order and
+    ``run_finished`` ends it; the Chrome trace under
+    ``<wd>/log/torch_trace`` holds the hand-written kernels, each as many
+    times as its launch counter says."""
+    from drep_tpu_torch.controller import main as cli_main
+
+    wd = os.path.join(tmp, "fixture_traced_wd")
+    argv = [cli["argv"][0], wd, *cli["argv"][2:], "--events", "on", "--profile"]
+    reset_launches()
+    t0 = time.perf_counter()
+    cli_main(argv)
+    dt = time.perf_counter() - t0
+    launches = read_launches()
+    import pandas as pd
+
+    winners = sorted(pd.read_csv(os.path.join(wd, "data_tables", "Wdb.csv"))["genome"])
+    require(winners == cli["winners"], f"16a: winners {winners} != phase 4's {cli['winners']}")
+    tr = read_trace(os.path.join(wd, "log"), "16a", dt)
+    recs = tr["records"]
+    order = []
+    for r in recs:
+        if r["ph"] == "B" and r["ev"].startswith("stage:") and r["ev"] not in order:
+            order.append(r["ev"])
+    require(tuple(order) == TRACE_STAGES, f"16a: stage spans in the order {order}, expected {TRACE_STAGES}")
+    require(tr["counts"].get("stage_open:i") == tr["counts"].get("stage_close:i") == 1,
+            f"16a: secondary stage_open/stage_close {tr['counts']}")
+    require(recs[-1]["ev"] == "run_finished", f"16a: the log ends with {recs[-1]['ev']}, not run_finished")
+    trace_path = os.path.join(wd, "log", "torch_trace", "trace.json")
+    seen = profiled_kernels(trace_path)
+    want = {k: launches[k] for k in PROFILED_KERNELS}
+    require({k: seen[k] for k in PROFILED_KERNELS} == want and want["mash_shared"] > 0 and want["indicator_mm"] > 0,
+            f"16a: the Chrome trace holds kernels {seen}, the launch counters say {want}")
+    out = {"s": dt, "launches": want, "profiled": seen, "events": len(recs),
+           "trace_bytes": os.path.getsize(trace_path)}
+    log(f"16a: traced and profiled dereplicate in {dt:.2f} s: {len(recs)} events, stage spans in the JAX order, "
+        f"the Chrome trace's kernels {seen} equal the launch counters {want}")
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "drep_tpu_torch")):
         print("chip_smoke.py: the drep_tpu_torch package is not beside this script", file=sys.stderr)
@@ -4105,7 +4283,7 @@ def main() -> int:
 
 def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Planting,
                plant_stream: Planting) -> int:
-    """Phases 2-17 (main has printed phase 1 and started the plantings)."""
+    """Phases 2-18 (main has printed phase 1 and started the plantings)."""
     import torch
 
     from drep_tpu_torch.native import get_library
@@ -4147,8 +4325,9 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     p11 = phase_serve(tmp, dev, p10)
     p12 = phase_federation(tmp, dev, real, p10)
     p13 = phase_fed_serve(tmp, dev, p10, p12)
+    require_no_faults("phases 11-13")  # the maintenance verbs' CLI restarts the counters
     p12.update(phase_federation_maint(tmp, dev, real, p10, p12))
-    require_no_faults("phases 11-13")
+    require_no_faults("12d-e")
     t14 = time.perf_counter()
     p14 = {"a": phase_resilience_secondary(tmp, dev, real),
            "b": phase_resilience_streaming(dev, real, edges_8b, stream_edges["keep"]),
@@ -4156,6 +4335,10 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     p14["phase_s"] = time.perf_counter() - t14
     log(f"phase 14: {p14['phase_s']:.1f} s")
     p15 = phase_subprocess(dev, sub_prep)
+    t16 = time.perf_counter()
+    p16 = phase_trace(tmp, cli)
+    p16["phase_s"] = time.perf_counter() - t16
+    log(f"phase 16: {json.dumps({'16a': p16, '16b': TRACES})}")
     mash_entry = ring_kernel["mash"]
     kernels.append({
         "name": "ring_step", "route": "cuda", "source": "drep_tpu_torch/csrc/ring_step.cu",
@@ -4226,7 +4409,8 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
             **{mode: {"launches": p13[mode]["launches"][name], "serve_s": p13[mode]["serve_s"],
                       "replica_launches": [w[work] for w in p13[mode]["replica_work"]],
                       "router_launches": p13[mode]["router_work"].get(work, 0),
-                      "legs": p13[mode]["replica_legs"]} for mode in ("scatter", "forward")},
+                      "legs": p13[mode]["replica_legs"], "traced": mode == "scatter"}
+               for mode in ("scatter", "forward")},
             "phase_s": p13["phase_s"]}
     # phase 14, resilience: the launches of each faulted or resumed run
     kernels[0]["resilience_launches"] = {"14b_raise": p14["b"]["raise"]["launches"],
@@ -4237,13 +4421,23 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
         "14a_retried": p14["a"]["launches_retried"], "14a_killed": p14["a"]["launches_killed"],
         "14a_resumed": p14["a"]["launches_resumed"], "14a_calls": p14["a"]["secondary_calls"],
         "14c": p14["c"]["launches"]["indicator_mm"]}
-    kernels[0]["resilience"] = {"14a_s": p14["a"]["phase_s"], "14b_s": p14["b"]["phase_s"], "14c_s": p14["c"]["s"],
+    kernels[0]["resilience"] = {"14a_s": p14["a"]["phase_s"], "14a_traced": True, "14b_s": p14["b"]["phase_s"], "14c_s": p14["c"]["s"],
                                 "phase_s": p14["phase_s"]}
     # phase 15, the subprocess engines: each run's launches (the jax_mash
     # primary's alone, none under the mash primary or a subprocess secondary)
     for k in kernels[:2]:
         k["subprocess_launches"] = {**{e: r["launches"].get(k["name"], 0) for e, r in p15["runs"].items()},
                                     "run_tax": p15["run_tax"]["launches"].get(k["name"], 0)}
+    # phase 16, tracing: 16a's profiled run (its launches and the Chrome
+    # trace's kernel events), 16b's traced runs, 16c's autoscale tick
+    for k in kernels[:2]:
+        k["profiled"] = {"launches": p16["launches"][k["name"]], "trace_events": p16["profiled"][k["name"]]}
+    # 16b traces runs made anyway, so 11a's, 13b scatter's and 14a's
+    # seconds and latencies above are taken with tracing on ("traced")
+    kernels[0]["trace"] = {"16a_s": p16["s"], "16a_events": p16["events"], "16a_trace_bytes": p16["trace_bytes"],
+                           "phase_s": p16["phase_s"], "16b": {w: {"events": t["events"], "s": t["s"]}
+                                                             for w, t in TRACES.items()},
+                           "16c": p13["autoscale"]}
     kernels[0]["subprocess"] = {"primary_launches": p15["primary_launches"], "phase_s": p15["phase_s"],
                                 "prep_s": p15["prep_s"], "runs_s": {e: r["s"] for e, r in p15["runs"].items()},
                                 "faults": p15["faults"]}
@@ -4251,7 +4445,7 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     # ([N_pad resident rows x the batch's query rows], one launch a batch)
     kernels[0]["serve"] = {**p11["kernel"], **{k: p11[k] for k in (
         "batches", "requests", "upload_s", "rect_s", "resident_rect_s", "union_pack_s", "union_walk_s", "serve_s",
-        "start_s")}}
+        "start_s")}, "traced": True}
     # the merge kernels on the operands their route built in phase 6 (B:
     # width 2048, A: stacked buckets), and the other route on the same pack
     # in place of a library call

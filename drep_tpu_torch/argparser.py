@@ -19,15 +19,16 @@ fastANI|ANImf|ANIn|gANI|goANI) and dereplicate's taxonomy (--run_tax
 durable-I/O flags run as in the JAX package for one process
 (--fault_retries, --dispatch_timeout, --io_retries, --fsync,
 --no_overlap_ingest; the `index` verbs take --io_retries and --fsync).
-The flags in :data:`UNPORTED_FLAGS` (event tracing, profiling, the
-elastic pod) parse with the JAX defaults, and a run that sets
-one otherwise raises NotImplementedError naming its ROADMAP item
-(workflows.py).
+Event tracing (--events, default DREP_TORCH_EVENTS) and --profile [DIR]
+(a torch.profiler Chrome trace of the cluster stage) run as in the JAX
+package (workflows.py). The flags in :data:`UNPORTED_FLAGS` (the elastic
+pod) parse with the JAX defaults, and a run that sets one otherwise
+raises NotImplementedError naming its ROADMAP item.
 `index build|update|classify|serve|route|split|merge|compact` take the
 JAX CLI's flags plus --device, the federated ones included (`index build
 --partitions/--fed_pods`, `index update --fed_pods/--params_file`,
-`index serve --resident_mb`); `index serve|route --events on` raise
-naming item 13, `index route --fleet_manifest` naming item 11c, and
+`index serve --resident_mb`, `index serve|route --events`); `index
+route --fleet_manifest` raises naming item 11c, and
 `index supervise` parses and raises NotImplementedError naming item 11c
 (:data:`UNPORTED_INDEX_OPS`).
 """
@@ -40,11 +41,8 @@ from drep_tpu_torch import __version__
 
 
 # flag (its argparse dest) -> (the values the port runs, ROADMAP.md queue
-# 1 item that ports the others); the first value is the JAX default, and
-# --events off is what the port does anyway
+# 1 item that ports the others); the first value is the JAX default
 UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
-    "events": ((None, "off"), "13"),
-    "profile": ((None,), "13"),
     "max_dead_processes": ((1,), "12b"),
     "max_joins": ((0,), "12b"),
     "drain_grace_s": ((30.0,), "12b"),
@@ -161,13 +159,17 @@ def build_parser() -> argparse.ArgumentParser:
                              "per durable read or write (default 3)")
         ex.add_argument("--fsync", action="store_true",
                         help="fsync every durable publish (the file, then its directory)")
-        # the JAX CLI's tracing and elastic-pod flags: the port runs their
-        # defaults (UNPORTED_FLAGS)
+        # the JAX CLI's elastic-pod flags: the port runs their defaults
+        # (UNPORTED_FLAGS)
         ex.add_argument("--max_dead_processes", type=int, default=1)
         ex.add_argument("--max_joins", type=int, default=0)
         ex.add_argument("--drain_grace_s", type=float, default=30.0)
-        ex.add_argument("--events", default=None, choices=["off", "on"])
-        ex.add_argument("--profile", nargs="?", const="auto", default=None)
+        ex.add_argument("--events", default=None, choices=["off", "on"],
+                        help="structured event tracing into <wd>/log/events.p0.jsonl "
+                             "(default DREP_TORCH_EVENTS, off)")
+        ex.add_argument("--profile", nargs="?", const="auto", default=None, metavar="DIR",
+                        help="profile the cluster stage with torch.profiler (CPU and CUDA) into a "
+                             "Chrome trace, DIR/trace.json (bare flag: <wd>/log/torch_trace)")
 
         if with_filter:
             tax = p.add_argument_group("TAXONOMY")
@@ -326,7 +328,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="home for the daemon's logs and perf counters; never the index "
                         "directory (default: console-only logging, no files)")
     s.add_argument("--events", default=None, choices=["off", "on"],
-                   help="event tracing of the serve timeline: on is not ported yet (item 13)")
+                   help="event tracing of the serve timeline into --log_dir (default DREP_TORCH_EVENTS)")
     add_prune(s)
     s.add_argument("--device", default=None, choices=["cuda", "cpu"],
                    help="where the kernels run (default cuda; cpu runs their plain "
@@ -389,7 +391,7 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--log_dir", default=None,
                    help="home for the router's logs and perf counters; never the index directory")
     r.add_argument("--events", default=None, choices=["off", "on"],
-                   help="event tracing of the router: on is not ported yet (item 13)")
+                   help="event tracing of the router into --log_dir (default DREP_TORCH_EVENTS)")
     r.add_argument("--primary_prune", default="off", choices=["off", "lsh"],
                    help="LSH candidate pruning, forwarded to every scatter leg so the whole fleet "
                         "prunes alike")

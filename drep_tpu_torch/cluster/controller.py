@@ -52,6 +52,13 @@ for every secondary call (the tertiary's too) unless --SkipSecondary.
 Their calls go through the same ``retrying_call`` and checkpoints as
 ``jax_ani``'s; a failed binary is retried, spent retries raise
 FaultTolError, and a rerun resumes the finished clusters.
+
+Stage accounting, as in the JAX package: ``ingest_or_cache``,
+``primary_compare`` (pairs and seconds), ``secondary_compare`` a call,
+``secondary_postprocess`` a batch and ``assembly_io`` go to
+utils/profiling.py's counters (``perf_counters.json``), each a
+``stage:<name>`` span when tracing is on; the secondary loop is bracketed
+by ``stage_open`` / ``stage_close`` instants.
 """
 
 from __future__ import annotations
@@ -83,8 +90,9 @@ from drep_tpu_torch.ingest import (
 from drep_tpu_torch.ops.kmers import DEFAULT_K
 from drep_tpu_torch.ops.linkage import cluster_hierarchical, single_linkage_device
 from drep_tpu_torch.parallel.faulttol import FaultTolConfig, configure_defaults, retrying_call
-from drep_tpu_torch.utils import durableio
+from drep_tpu_torch.utils import durableio, telemetry
 from drep_tpu_torch.utils.logger import get_logger
+from drep_tpu_torch.utils.profiling import counters
 from drep_tpu_torch.workdir import WorkDirectory
 
 CLUSTER_DEFAULTS: dict[str, Any] = {
@@ -325,7 +333,7 @@ def _streaming_primary(
     t0 = time.perf_counter()
     packed = pack_sketches(gs.bottom, gs.names, gs.sketch_size)
     t1 = time.perf_counter()
-    labels, edges, _pairs = streaming.streaming_primary_clusters(
+    labels, edges, STAGE_PAIRS["primary_compare"] = streaming.streaming_primary_clusters(
         packed,
         gs.k,
         kw["P_ani"],
@@ -494,33 +502,41 @@ def _secondary_clusters(
             elif batched_fn is not None and m <= SMALL_CLUSTER_MAX:
                 small.append((pc, indices))  # one device call for many
             elif greedy:
-                ndb, labels = greedy_secondary_cluster(gs, bdb, indices, pc, kw)
+                with counters.stage("secondary_compare"):
+                    ndb, labels = greedy_secondary_cluster(gs, bdb, indices, pc, kw)
+                counters.stages["secondary_compare"].pairs += len(ndb)
                 pairs_done += len(ndb)  # the comparisons the greedy scan made
                 results[pc] = (ndb, labels, np.empty((0, 4)))
                 ckpt.save(pc, *results[pc])
             else:
                 pairs_done += m * (m - 1) // 2
-                results[pc] = retrying_call(
-                    lambda indices=indices, pc=pc: secondary_for_cluster(gs, bdb, indices, pc, kw),
-                    site="secondary_batch", config=ft_cfg,
-                )
+                with counters.stage("secondary_compare", pairs=m * (m - 1) // 2):
+                    results[pc] = retrying_call(
+                        lambda indices=indices, pc=pc: secondary_for_cluster(gs, bdb, indices, pc, kw),
+                        site="secondary_batch", config=ft_cfg,
+                    )
                 ckpt.save(pc, *results[pc])
 
         for batch in batch_small_clusters(small):
-            outs = retrying_call(
-                lambda batch=batch: batched_fn(gs, [ix for _, ix in batch], device=kw["device"],
-                                               mesh_shape=kw["mesh_shape"]),
-                site="secondary_batch", config=ft_cfg,
-            )
-            for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
-                if greedy:
-                    ndb, labels = greedy_assign_from_matrices(gs, indices, pc, kw, ani, cov)
-                    pairs_done += len(ndb)
-                    results[pc] = (ndb, labels, np.empty((0, 4)))
-                else:
-                    pairs_done += len(indices) * (len(indices) - 1) // 2
-                    results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
-            ckpt.save_many([(pc, *results[pc]) for pc, _ in batch])
+            # under greedy the batch's pairs are the greedy scan's, counted below
+            pairs_in_batch = 0 if greedy else sum(len(ix) * (len(ix) - 1) // 2 for _, ix in batch)
+            with counters.stage("secondary_compare", pairs=pairs_in_batch):
+                outs = retrying_call(
+                    lambda batch=batch: batched_fn(gs, [ix for _, ix in batch], device=kw["device"],
+                                                   mesh_shape=kw["mesh_shape"]),
+                    site="secondary_batch", config=ft_cfg,
+                )
+            with counters.stage("secondary_postprocess"):
+                for (pc, indices), (ani, cov) in zip(batch, outs, strict=True):
+                    if greedy:
+                        ndb, labels = greedy_assign_from_matrices(gs, indices, pc, kw, ani, cov)
+                        counters.stages["secondary_compare"].pairs += len(ndb)
+                        pairs_done += len(ndb)
+                        results[pc] = (ndb, labels, np.empty((0, 4)))
+                    else:
+                        pairs_done += len(indices) * (len(indices) - 1) // 2
+                        results[pc] = _secondary_postprocess(gs, indices, pc, kw, ani, cov)
+                ckpt.save_many([(pc, *results[pc]) for pc, _ in batch])
     finally:
         ckpt.close()  # what was handed to the writer is on disk, whether or not the stage failed
     STAGE_PAIRS["secondary_compare"] = pairs_done
@@ -566,15 +582,16 @@ def d_cluster_wrapper(
     t0 = time.perf_counter()
     warmup = _start_kernel_warmup(kw, wd, bdb)
     try:
-        gs = sketch_genomes(
-            bdb,
-            k=kw["kmer_size"],
-            sketch_size=kw["MASH_sketch"],
-            scale=kw["scale"],
-            processes=kw["processes"],
-            wd=wd,
-            hash_name=kw["hash"],
-        )
+        with counters.stage("ingest_or_cache"):
+            gs = sketch_genomes(
+                bdb,
+                k=kw["kmer_size"],
+                sketch_size=kw["MASH_sketch"],
+                scale=kw["scale"],
+                processes=kw["processes"],
+                wd=wd,
+                hash_name=kw["hash"],
+            )
     finally:
         if warmup is not None:
             warmup.join()
@@ -586,8 +603,11 @@ def d_cluster_wrapper(
         n, kw["device"], kw["primary_algorithm"], kw["S_algorithm"],
     )
     t1 = time.perf_counter()
-    primary, pdist, plink, sparse_mdb = _primary_clusters(gs, bdb, kw, wd, ft_cfg)
+    # the span keeps when the stage ran; its pairs are known only after it
+    with telemetry.span("stage:primary_compare"):
+        primary, pdist, plink, sparse_mdb = _primary_clusters(gs, bdb, kw, wd, ft_cfg)
     t2 = time.perf_counter()
+    counters.add("primary_compare", pairs=STAGE_PAIRS.get("primary_compare", 0), seconds=t2 - t1)
     n_primary = int(primary.max()) if n else 0
     logger.info("primary clustering: %d clusters from %d genomes", n_primary, n)
     if pdist is not None:
@@ -615,6 +635,8 @@ def d_cluster_wrapper(
         sec_snapshot = {k: v for k, v in snapshot.items() if k not in ("warn_dist", "primary_estimator_resolved")}
         ckpt = SecondaryCheckpoint(wd.get_dir(os.path.join("data", "secondary_checkpoints")), sec_snapshot,
                                    primary, gs.names)
+        # an open with no close is the crash evidence: a run that died in the stage
+        telemetry.event("stage_open", stage="secondary")
         results, multi, singles = _secondary_clusters(gs, bdb, primary, kw, ckpt, ft_cfg)
         secondary_names.update(singles)
         for pc, indices in multi:  # assemble in cluster order (deterministic)
@@ -626,6 +648,7 @@ def d_cluster_wrapper(
             }
             for idx, lab in zip(indices, labels):
                 secondary_names[gs.names[idx]] = f"{pc}_{lab}"
+        telemetry.event("stage_close", stage="secondary")
     t4 = time.perf_counter()
 
     ndb = pd.concat(ndb_parts, ignore_index=True) if ndb_parts else schemas.empty("Ndb")
@@ -651,15 +674,16 @@ def d_cluster_wrapper(
                 ndb = pd.concat([ndb, tertiary_ndb], ignore_index=True)
             STAGE_SECONDS["tertiary"] = time.perf_counter() - t4
     t5 = time.perf_counter()
-    wd.store_db(schemas.validate(ndb, "Ndb"), "Ndb")
-    wd.store_db(schemas.validate(cdb, "Cdb"), "Cdb")
-    cf_dir = wd.get_dir(os.path.join("data", "Clustering_files"))
+    with counters.stage("assembly_io"):
+        wd.store_db(schemas.validate(ndb, "Ndb"), "Ndb")
+        wd.store_db(schemas.validate(cdb, "Cdb"), "Cdb")
+        cf_dir = wd.get_dir(os.path.join("data", "Clustering_files"))
 
-    def _dump(tmp: str) -> None:
-        with open(tmp, "wb") as f:
-            pickle.dump(clustering_files, f)
+        def _dump(tmp: str) -> None:
+            with open(tmp, "wb") as f:
+                pickle.dump(clustering_files, f)
 
-    durableio.atomic_write(os.path.join(cf_dir, "clustering.pickle"), _dump)
+        durableio.atomic_write(os.path.join(cf_dir, "clustering.pickle"), _dump)
     wd.store_arguments("cluster", snapshot)
     STAGE_SECONDS.update(
         ingest_or_cache=t1 - t0, primary=t2 - t1, mdb=t3 - t2, secondary=t4 - t3,

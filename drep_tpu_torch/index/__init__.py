@@ -45,6 +45,8 @@ from drep_tpu_torch.index.maintenance import (  # noqa: F401
     fed_compact,
     fed_merge,
     fed_split,
+    maintenance_snapshot,
+    maintenance_targets_from_env,
     roll_forward,
 )
 from drep_tpu_torch.index.store import IndexStore, LoadedIndex, load_index  # noqa: F401

@@ -35,6 +35,7 @@ from drep_tpu_torch.index.update import (
     sketch_batch,
 )
 from drep_tpu_torch.utils.logger import get_logger
+from drep_tpu_torch.utils.profiling import counters
 
 # the scoring weights an index pins at build (choose.py SCORE_DEFAULTS
 # minus S_ani, which rides in params directly)
@@ -285,7 +286,9 @@ def build_from_paths(
         raise UserInputError("no genomes survived the length filter — nothing to index")
     STATS.clear()
     _admit_batch(idx, batch, results, 0)
-    ii, jj, dd, _pairs = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    with counters.stage("index_rect_compare"):
+        ii, jj, dd, pairs = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    counters.stages["index_rect_compare"].pairs += pairs
     order = np.lexsort((jj, ii))
     idx.edges = (ii[order], jj[order], dd[order])
     summary = recluster(idx, 0, processes=processes, device=dev)

@@ -61,10 +61,20 @@ serve replica runs the streaming per-partition classify instead
 by coarse code, LRU partition residency, a partition health state
 machine, PARTIAL verdicts), held to the union path's verdicts.
 
-Not ported here: the JAX package's fault sites and telemetry events
-(items 5.3 and 13). ``STATS`` holds the last federated update's seconds,
-pairs and per-partition launches instead, and a resident's ``work`` its
-compares' and reclusters'.
+The JAX package's fault sites fire at its points: ``partition_update``
+before each partition's in-process update or pod launch (a failure there
+leaves that partition at its old generation and the publish partial),
+``partition_load`` and ``partition_classify`` inside a served
+partition's load and consult (a failure books the partition suspect,
+then quarantined). With tracing on, the resident's load and consult are
+``partition_load`` / ``partition_classify`` spans and its health
+transitions instants, as are each partition's update
+(``federation_partition``) and a partial meta's publish and clearing.
+Knobs: ``DREP_TORCH_FED_PODS``, ``_FED_SHARD_MAX``,
+``_SERVE_RESIDENT_MB``, ``_SERVE_PROBE_BACKOFF_S``, ``_SERVE_PROBE_MAX_S``.
+``STATS`` holds the last federated update's seconds, pairs and
+per-partition launches, and a resident's ``work`` its compares' and
+reclusters'.
 """
 
 from __future__ import annotations
@@ -83,12 +93,12 @@ from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.index import meta as fedmeta
 from drep_tpu_torch.index.store import _STAT_COLS, IndexStore, LoadedIndex, empty_index, load_index
 from drep_tpu_torch.index.update import _admit_batch, _retention, index_update, recluster, sketch_batch
+from drep_tpu_torch.utils import envknobs, faults, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 
 
 # the boundary join's widest repacked band-code bucket a range shard
 # (pow2; rangepart.partition_by_range), the JAX package's default
-FED_SHARD_MAX = 4096
 
 # the last federated update's (or build's) seconds, pairs and launches:
 # load_s, join_s, cross_candidates, walk_s, cross_pairs, cross_launches,
@@ -242,7 +252,7 @@ def cross_candidates(bottoms: list[np.ndarray], part_of: np.ndarray, min_col: in
 
     def shard_partials():
         # one iteration = one disjoint band-code range = one join shard
-        for _origin, buckets in rangepart.partition_by_range(mats, FED_SHARD_MAX):
+        for _origin, buckets in rangepart.partition_by_range(mats, envknobs.env_int("DREP_TORCH_FED_SHARD_MAX")):
             flat_codes: list[np.ndarray] = []
             flat_owner: list[np.ndarray] = []
             for b, own in zip(buckets, owners):
@@ -639,9 +649,6 @@ PARTITION_HEALTHY = "healthy"
 PARTITION_SUSPECT = "suspect"
 PARTITION_QUARANTINED = "quarantined"
 
-# the JAX package's defaults of its serve knobs (DREP_TPU_SERVE_PROBE_*)
-PROBE_BACKOFF_S = 1.0
-PROBE_MAX_S = 60.0
 
 
 @dataclass
@@ -687,8 +694,8 @@ class FederatedResident:
     ``recluster_s``), read by chip_smoke.py.
     """
 
-    def __init__(self, location: str, resident_mb: int | None = None, probe_backoff_s: float = PROBE_BACKOFF_S,
-                 probe_max_s: float = PROBE_MAX_S, device=None):
+    def __init__(self, location: str, resident_mb: int | None = None, probe_backoff_s: float | None = None,
+                 probe_max_s: float | None = None, device=None):
         from drep_tpu_torch.device import resolve_device
 
         logger = get_logger()
@@ -705,9 +712,13 @@ class FederatedResident:
         self.fed_meta = m
         self.params = m["params"]
         self.generation = int(m["generation"])
+        # None: the DREP_TORCH_SERVE_* knob
+        if resident_mb is None:
+            resident_mb = envknobs.env_int("DREP_TORCH_SERVE_RESIDENT_MB")
         self.budget_bytes = int(resident_mb) << 20 if resident_mb else 0
-        self.probe_backoff_s = float(probe_backoff_s)
-        self.probe_max_s = float(probe_max_s)
+        self.probe_backoff_s = (envknobs.env_float("DREP_TORCH_SERVE_PROBE_BACKOFF_S")
+                                if probe_backoff_s is None else float(probe_backoff_s))
+        self.probe_max_s = envknobs.env_float("DREP_TORCH_SERVE_PROBE_MAX_S") if probe_max_s is None else float(probe_max_s)
         self.stats = {"loads": 0, "evictions": 0, "recoveries": 0, "peak_resident_partitions": 0}
         self.work = {"compares": 0, "stripes": 0, "pack_s": 0.0, "walk_s": 0.0, "reclusters": 0,
                      "secondary_calls": 0, "recluster_s": 0.0}
@@ -956,6 +967,10 @@ class FederatedResident:
             slot.next_probe_mono = now + slot.backoff_s
             if was != PARTITION_QUARANTINED:
                 counters.add_fault("partition_quarantined")
+            telemetry.event(
+                "partition_quarantine", pid=slot.pid, during=during, reason=msg,
+                heal_hint=partition_heal_hint(slot.pid), backoff_s=round(slot.backoff_s, 3),
+            )
         else:
             slot.state = PARTITION_SUSPECT
         # the message carries the exception's text: on the card a failed
@@ -971,6 +986,7 @@ class FederatedResident:
         slot.backoff_s = 0.0
         slot.reason = None
         self.stats["recoveries"] += 1
+        telemetry.event("partition_recovered", pid=slot.pid, loads=slot.loads)
         get_logger().info(
             "federated serve: partition %d recovered (probe load succeeded) "
             "— full coverage restored for its range", slot.pid,
@@ -987,8 +1003,10 @@ class FederatedResident:
         slot.resident_bytes = 0
 
     def _evict(self, slot: _PartitionSlot) -> None:
+        nbytes = slot.resident_bytes
         self._drop_residency(slot)
         self.stats["evictions"] += 1
+        telemetry.event("partition_evict", pid=slot.pid, bytes=nbytes)
 
     def _evict_to_budget(self, pin: set[int]) -> None:
         from drep_tpu_torch.utils.profiling import counters
@@ -1019,10 +1037,12 @@ class FederatedResident:
             return False
         probing = slot.state != PARTITION_HEALTHY
         try:
-            if slot.u_of_local is None:
-                self._load_spine(slot, self.union.names, self.union.locations)
-                self.union.gdb = pd.DataFrame({"genome": list(self.union.names), **self._stats_arrays})
-            self._load_sketches(slot)
+            with telemetry.span("partition_load", pid=pid, probe=probing):
+                faults.fire("partition_load")
+                if slot.u_of_local is None:
+                    self._load_spine(slot, self.union.names, self.union.locations)
+                    self.union.gdb = pd.DataFrame({"genome": list(self.union.names), **self._stats_arrays})
+                self._load_sketches(slot)
         except Exception as err:  # noqa: BLE001 — containment: book and degrade
             self._book_failure(slot, err, during="load")
             return False
@@ -1066,7 +1086,9 @@ class FederatedResident:
         quarantined); there is no retry on the CPU or a plain version."""
         slot = self._slots[pid]
         try:
-            return self._rect_compare(slot, q_names, q_bottoms, prune_cfg)
+            with telemetry.span("partition_classify", pid=pid, k=len(q_names)):
+                faults.fire("partition_classify")
+                return self._rect_compare(slot, q_names, q_bottoms, prune_cfg)
         except Exception as err:  # noqa: BLE001 — mid-classify containment
             self._book_failure(slot, err, during="classify")
             return None
@@ -1620,6 +1642,12 @@ def _run_pods(jobs: list[tuple[int, str, str, dict]], pods: int, processes: int,
     while queue or running:
         while queue and len(running) < max(1, pods):
             pid, part_dir, handoff, prune_flags = queue.pop(0)
+            try:
+                faults.fire("partition_update")
+            except Exception as e:  # noqa: BLE001 — a partition's failure is tolerated, as in process
+                results[pid] = f"{type(e).__name__}: {e}"
+                logger.error("federated update: partition %d pod launch failed: %s", pid, e)
+                continue
             cmd = [sys.executable, "-m", "drep_tpu_torch", "index", "update", part_dir,
                    "--params_file", handoff, "-p", str(processes), "--device", device.type]
             for flag, val in prune_flags.items():
@@ -1673,6 +1701,8 @@ def _publish_unavailable_meta(store: FederationStore, m: dict, pid: int, reason:
     m2 = dict(m)
     m2["partial"] = partial
     store.publish_meta(m2)
+    telemetry.event("federation_partial_meta", partitions_unavailable=unavailable,
+                    unadmitted=len(partial.get("unadmitted", ())))
     logger.error(
         "federated update: partition %d is unreadable — publishing a "
         "DEGRADED meta at generation %d (partitions_unavailable=%s, %d "
@@ -1726,7 +1756,7 @@ def fed_update(location: str, genome_paths: list[str] | None, processes: int = 1
     params = m["params"]
     gen = int(m["generation"])
     gen_new = gen + 1
-    fed_pods = int(fed_pods or 0)
+    fed_pods = envknobs.env_int("DREP_TORCH_FED_PODS") if fed_pods is None else int(fed_pods)
     try:
         union = load_federated(location, heal=True, device=dev)
     except UserInputError as err:
@@ -1752,6 +1782,7 @@ def fed_update(location: str, genome_paths: list[str] | None, processes: int = 1
             m2.pop("partial", None)
         store.publish_meta(m2)
         m = m2
+        telemetry.event("federation_partial_cleared", partitions_recovered=stale_unavail)
         logger.warning(
             "federated index: previously unavailable partition(s) %s are "
             "readable again — PARTIAL stamp cleared at generation %d "
@@ -1883,10 +1914,13 @@ def fed_update(location: str, genome_paths: list[str] | None, processes: int = 1
         for pid, rc in rcs.items():
             if rc != 0:
                 failed[pid] = f"pod exited rc={rc}" if isinstance(rc, int) else str(rc)
+            else:
+                telemetry.event("federation_partition", pid=pid, op="pod", n=len(routed[pid]))
     else:
         for pid, pdir, kind in dirty:
             tp = time.perf_counter()
             try:
+                faults.fire("partition_update")
                 if kind == "build":
                     _build_partition(pdir, params, routed[pid], results, processes, device=dev)
                 else:
@@ -1895,6 +1929,7 @@ def fed_update(location: str, genome_paths: list[str] | None, processes: int = 1
                         prune_bands=prune_bands, prune_min_shared=prune_min_shared,
                         prune_join_chunk=prune_join_chunk, presketched=(routed[pid], results), device=dev,
                     )
+                telemetry.event("federation_partition", pid=pid, op=kind, n=len(routed[pid]))
             except Exception as e:  # noqa: BLE001 — a partition's failure is tolerated: it
                 # stays at its old generation (or absent) and the publish is partial
                 failed[pid] = f"{type(e).__name__}: {e}"

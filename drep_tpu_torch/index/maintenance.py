@@ -47,10 +47,16 @@ COMPACTION, merge-and-supersede over generation families
 ``roll_forward(location)`` is the convergence point: every verb here and
 ``fed_update`` call it first.
 
-Not ported here: the autoscale hooks ``maintenance_snapshot`` and
-``maintenance_targets_from_env`` (ROADMAP.md queue 1 item 13), and the JAX
-package's fault sites and telemetry events; the gc grace delays are their
-defaults, 0 s.
+The JAX package's fault sites fire at its kill points: ``partition_split``
+(split and merge) when staged, before the meta commit and before the gc;
+``compaction`` the same three. With tracing on, each commit is an
+``index_maintenance`` instant. The gc grace delays are the knobs
+``DREP_TORCH_SPLIT_GC_GRACE_S`` / ``_COMPACT_GC_GRACE_S``.
+
+The maintenance scheduler's inputs: :func:`maintenance_snapshot` (a
+read-only per-partition view) and :func:`maintenance_targets_from_env`
+(``DREP_TORCH_COMPACT_MIN_SHARDS``, ``_SPLIT_MAX_GENOMES``), for
+``autoscale.policy.maintenance_decide``.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import os
 import shutil
+import time
 
 import numpy as np
 import pandas as pd
@@ -66,6 +73,7 @@ from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.index import meta as fedmeta
 from drep_tpu_torch.index.federation import FederationStore, _partition_generation, load_federated
 from drep_tpu_torch.index.store import _STAT_COLS, IndexStore, LoadedIndex, build_manifest, load_index
+from drep_tpu_torch.utils import envknobs, faults, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 
 
@@ -231,7 +239,13 @@ def _adopt_ahead_partitions(store: FederationStore) -> dict | None:
 
 
 def _gc_after_commit(store: FederationStore, doc: dict) -> None:
-    """Phase 4, strictly after the meta publish; idempotent."""
+    """Phase 4, strictly after the meta publish; idempotent. Delayed by
+    the op's gc grace knob, so live replicas still on the old meta
+    hot-swap before the parents vanish."""
+    knob = "DREP_TORCH_COMPACT_GC_GRACE_S" if doc.get("op") == "compact" else "DREP_TORCH_SPLIT_GC_GRACE_S"
+    grace = envknobs.env_float(knob)
+    if grace > 0:
+        time.sleep(grace)
     m = store.read_meta()
     live_dirs = {e["dir"] for e in m.get("partitions", ())}
     if doc.get("op") == "compact":
@@ -396,6 +410,7 @@ def _run_range_txn(store: FederationStore, m: dict, union: LoadedIndex, txn: dic
         dst = os.path.join(staged_root, str(child["dir"]))
         shutil.rmtree(dst, ignore_errors=True)
         _build_child_store(union, dst, rows, processes=processes, device=device)
+    faults.fire("partition_split")  # kill point: staged
 
     # -- phase 2: INSTALL -------------------------------------------------
     # children to their dirs, pids renumbered densely by range order (the
@@ -467,9 +482,13 @@ def _run_range_txn(store: FederationStore, m: dict, union: LoadedIndex, txn: dic
         "state": st_rel,
         "routing": rt_rel,
     }
+    faults.fire("partition_split")  # kill point: before the commit
 
     # -- phase 3: COMMIT --------------------------------------------------
     store.publish_meta(meta_new)
+    telemetry.event("index_maintenance", op=op, generation=gen_new, parents=sorted(parent_pids),
+                    n_partitions=len(entries))
+    faults.fire("partition_split")  # kill point: before the gc
 
     # -- phase 4: GC ------------------------------------------------------
     _gc_after_commit(store, txn)
@@ -647,7 +666,12 @@ def compact_store(location: str, processes: int = 1, device=None) -> dict:
         return {"op": "compact", "generation": int(pm["generation"]), "compacted": [],
                 "skipped": ["single-generation store"]}
     manifest, healed = _stage_compact(st.location, device=dev)
+    faults.fire("compaction")  # kill point: staged
+    faults.fire("compaction")  # kill point: before the commit
     st.publish_manifest(manifest)
+    telemetry.event("index_maintenance", op="compact", generation=int(manifest["generation"]),
+                    n_genomes=int(manifest["n_genomes"]))
+    faults.fire("compaction")  # kill point: before the gc
     _gc_unreferenced(st.location)
     return {"op": "compact", "generation": int(manifest["generation"]),
             "compacted": [os.path.basename(st.location)], "healed": healed, "skipped": []}
@@ -710,6 +734,7 @@ def fed_compact(location: str, pid: int | None = None, processes: int = 1, min_g
         doc, h = _stage_compact(store.abspath(e["dir"]), device=dev)
         manifests[str(e["dir"])] = doc
         healed += h
+    faults.fire("compaction")  # kill point: staged
     # the partition commits, each its own manifest publish: a kill between
     # them and the meta publish is the state roll_forward adopts
     for e in targets:
@@ -723,7 +748,10 @@ def fed_compact(location: str, pid: int | None = None, processes: int = 1, min_g
     meta_new = dict(m)
     meta_new["partitions"] = entries
     meta_new["generation"] = gen + 1
+    faults.fire("compaction")  # kill point: before the commit
     store.publish_meta(meta_new)
+    telemetry.event("index_maintenance", op="compact", generation=gen + 1, parents=sorted(target_pids))
+    faults.fire("compaction")  # kill point: before the gc
     _gc_after_commit(store, txn)
     get_logger().info(
         "index compact: folded %d partition(s) %s -> federation generation %d (%d skipped already-compact)",
@@ -759,3 +787,54 @@ def _resume_compact(store: FederationStore, doc: dict, device=None) -> dict:
     get_logger().info("index maintenance: resumed interrupted compaction -> federation generation %d", gen_new)
     return {"op": "compact", "rolled": "forward", "generation": gen_new,
             "parents": [int(p["pid"]) for p in doc.get("parents", ())]}
+
+
+# ---------------------------------------------------------------------------
+# the maintenance scheduler's inputs (the pure policy is autoscale/policy.py)
+# ---------------------------------------------------------------------------
+
+
+def maintenance_snapshot(location: str) -> dict:
+    """Read-only input of ``autoscale.policy.maintenance_decide``: each
+    partition's genome count and shard-family generations, stamped with
+    the monotonic clock. Never writes."""
+    out: dict = {"observed_at": time.monotonic(), "location": location}
+    if not fedmeta.is_federated(location):
+        out["error"] = "not a federated index"
+        return out
+    try:
+        m = fedmeta.read_meta(location)
+    except UserInputError as e:
+        out["error"] = str(e)
+        return out
+    store = FederationStore(location)
+    parts = []
+    for e in m["partitions"]:
+        entry = {"pid": int(e["pid"]), "n_genomes": int(e["n_genomes"]), "generations": 0}
+        if int(e["n_genomes"]) > 0:
+            try:
+                pm = IndexStore(store.abspath(e["dir"])).read_manifest()
+                entry["generations"] = _family_generations(pm)
+            except UserInputError:
+                entry["generations"] = -1  # unreadable: the scheduler holds
+        parts.append(entry)
+    out.update({
+        "generation": int(m["generation"]),
+        "n_partitions": int(m["n_partitions"]),
+        "maintenance_pending": os.path.exists(maint_path(location)),
+        "partitions": parts,
+    })
+    return out
+
+
+def maintenance_targets_from_env():
+    """The operator's maintenance envelope, read once from the knobs (the
+    pure policy reads no environment): compaction proposed at
+    ``DREP_TORCH_COMPACT_MIN_SHARDS`` generations, a split past
+    ``DREP_TORCH_SPLIT_MAX_GENOMES`` genomes (0: never)."""
+    from drep_tpu_torch.autoscale.policy import MaintenanceTargets
+
+    return MaintenanceTargets(
+        compact_min_shards=envknobs.env_int("DREP_TORCH_COMPACT_MIN_SHARDS"),
+        split_max_genomes=envknobs.env_int("DREP_TORCH_SPLIT_MAX_GENOMES"),
+    )

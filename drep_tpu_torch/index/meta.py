@@ -115,12 +115,23 @@ def read_meta(location: str) -> dict:
 
 
 def publish_meta(location: str, meta: dict) -> None:
-    """THE federation commit point: every partition publish and every
-    federation-level shard written before it is invisible to federated
-    readers until it lands."""
+    """The federation commit point: every partition publish before it is
+    invisible to federated readers; after it, the recorded (range,
+    generation, checksum) triples are the federation generation. The
+    ``meta_publish`` fault site fires just before the write (a raise
+    there keeps the prior generation), and a traced run records a
+    ``federation_generation`` instant after it."""
+    from drep_tpu_torch.utils import faults, telemetry
     from drep_tpu_torch.utils.durableio import atomic_write_json
 
+    faults.fire("meta_publish")
     atomic_write_json(meta_path(location), meta)
+    telemetry.event(
+        "federation_generation",
+        generation=int(meta.get("generation", -1)),
+        n_genomes=int(meta.get("n_genomes", 0)),
+        n_partitions=int(meta.get("n_partitions", 0)),
+    )
 
 
 def manifest_crc(part_location: str) -> int | None:

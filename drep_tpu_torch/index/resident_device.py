@@ -32,6 +32,9 @@ error raises.
 Only the separate-mode (``joint=False``) classify uses this module, the
 daemon's mode: the query-query edges, which the anchored id space does
 not preserve across query rows, are exactly the edges it never reads.
+``DREP_TORCH_SERVE_DEVICE_RESIDENT=0`` pins every batch to the union
+path, as the JAX package's knob does; each such batch is counted in
+:func:`fallback_count`, so a check that wants the device path sees it.
 """
 
 from __future__ import annotations
@@ -44,8 +47,11 @@ import torch
 
 from drep_tpu_torch.ops.mash import TILE, distance_table, rect_survivors
 from drep_tpu_torch.ops.minhash import PAD_ID, pad_packed_rows
+from drep_tpu_torch.utils import envknobs
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.utils.profiling import counters
+
+RESIDENT_ENV = "DREP_TORCH_SERVE_DEVICE_RESIDENT"
 
 # module counters: tests and chip_smoke.py hold the daemon to one upload
 # per generation
@@ -171,9 +177,12 @@ def pack_for(resident, device: torch.device) -> DeviceResidentPack | None:
 def prewarm_resident(resident, device: torch.device) -> bool:
     """Build and upload the pack ahead of the first batch (daemon start
     and generation hot swap). Returns True when the path is armed; False
-    for a streaming federated resident, which manages its own partitions."""
+    for a streaming federated resident, which manages its own partitions,
+    and where ``DREP_TORCH_SERVE_DEVICE_RESIDENT`` is off."""
     from drep_tpu_torch.index.federation import FederatedResident
 
+    if not envknobs.env_bool(RESIDENT_ENV):
+        return False
     if isinstance(resident, FederatedResident):
         return False
     return pack_for(resident, device) is not None
@@ -217,7 +226,11 @@ def rect_edges_device(resident, queries, n_old: int, device: torch.device):
     matrix — the edges the union path's ``_rect_edges`` emits with
     ``ii < n_old`` — from one ``mash_shared`` launch, without re-packing
     or re-uploading the N resident rows. Returns None when the batch must
-    take the union path (counted in :func:`fallback_count`)."""
+    take the union path (counted in :func:`fallback_count`, also where
+    ``DREP_TORCH_SERVE_DEVICE_RESIDENT`` is off)."""
+    if not envknobs.env_bool(RESIDENT_ENV):
+        _count_fallback(f"{RESIDENT_ENV} is off")
+        return None
     pack = pack_for(resident, device)
     if pack is None:
         _count_fallback("resident pack unsupported (empty index or id space too dense)")

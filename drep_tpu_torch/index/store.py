@@ -47,10 +47,8 @@ Self-heal matrix (update-time; classify is read-only and refuses):
 - manifest corrupt, or state AND a sketch shard both rotted -> fatal.
 
 A federated root (index/federation.py) loads as the assembled union of
-its partitions.
-
-Not ported here: the JAX package's telemetry event at each publish
-(ROADMAP items 5.3 and 13).
+its partitions. With tracing on, each manifest publish is an
+``index_generation`` instant (utils/telemetry.py).
 """
 
 from __future__ import annotations
@@ -185,11 +183,18 @@ class IndexStore:
         return m
 
     def publish_manifest(self, manifest: dict) -> None:
-        """THE generation commit point: everything before this is
-        invisible to readers, everything after is durable."""
+        """The generation commit point: everything before it is invisible
+        to readers, everything after it durable; a traced run stamps it
+        as an ``index_generation`` instant."""
+        from drep_tpu_torch.utils import telemetry
         from drep_tpu_torch.utils.durableio import atomic_write_json
 
         atomic_write_json(self.manifest_path, manifest)
+        telemetry.event(
+            "index_generation",
+            generation=int(manifest.get("generation", -1)),
+            n_genomes=int(manifest.get("n_genomes", 0)),
+        )
 
     # ---- shard serialization --------------------------------------------
     def write_sketch_shard(self, rel: str, names, locations, gdb_rows: pd.DataFrame,

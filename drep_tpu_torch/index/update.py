@@ -31,9 +31,11 @@ update on its own store, in process or as a pod fed by a
 ``--params_file`` handoff (which also materializes an empty partition's
 generation 0 under the federation's pinned params).
 
-Not ported here: the JAX package's chaos hooks and stage counters (items
-5.3 and 13). ``STATS`` holds the last update's seconds and launch counts
-instead.
+The ``index_update`` fault site fires where the JAX package's does: at
+batch admission and just before the manifest publish (a raise there
+leaves the prior generation). ``STATS`` holds the last update's seconds
+and launch counts; the rectangle is also counted as the JAX package's
+``index_rect_compare`` stage (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ import pandas as pd
 from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.index import meta as fedmeta
 from drep_tpu_torch.index.store import IndexStore, LoadedIndex, build_manifest, empty_index, load_index
+from drep_tpu_torch.utils import faults
 from drep_tpu_torch.utils.logger import get_logger
+from drep_tpu_torch.utils.profiling import counters
 
 _STAT_COLS = ("length", "N50", "contigs", "n_kmers")
 
@@ -464,6 +468,7 @@ def publish_generation(
     idx.edge_shards = idx.edge_shards + [
         {"file": ed_rel, "lo": n_old, "hi": idx.n, "generation": gen_new}
     ]
+    faults.fire("index_update")  # the pre-publish point (skip=1 targets it)
     store.publish_manifest(build_manifest(idx, st_rel))
     store.gc_states(st_rel)
     STATS["publish_s"] = time.perf_counter() - t0
@@ -489,7 +494,9 @@ def materialize_generation0(
     t0 = time.perf_counter()
     idx = empty_index(dict(params), location=store.location)
     _admit_batch(idx, batch, results, 0)
-    ii, jj, dd, pairs = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    with counters.stage("index_rect_compare"):
+        ii, jj, dd, pairs = _rect_edges(idx, 0, store.pending_dir(0), device=dev)
+    counters.stages["index_rect_compare"].pairs += pairs
     order = np.lexsort((jj, ii))
     idx.edges = (ii[order], jj[order], dd[order])
     summary = recluster(idx, 0, processes=processes, device=dev)
@@ -567,6 +574,7 @@ def index_update(
             f"store at {index_loc} — the handoff belongs to a different "
             f"federation (or generation); refuse rather than drift numerics"
         )
+    faults.fire("index_update")  # the batch admission point
     gen_new = idx.generation + 1
 
     batch = results = None
@@ -603,9 +611,11 @@ def index_update(
     # the pending dir is the rectangle's shard store: its meta (with the
     # walk's min_col_block) is the JAX package's, so an update killed in
     # either package resumes its finished stripes here in the other
-    ii, jj, dd, pairs = _rect_edges(
-        idx, n_old, store.pending_dir(gen_new), prune_cfg=prune_cfg, device=dev
-    )
+    with counters.stage("index_rect_compare"):
+        ii, jj, dd, pairs = _rect_edges(
+            idx, n_old, store.pending_dir(gen_new), prune_cfg=prune_cfg, device=dev
+        )
+    counters.stages["index_rect_compare"].pairs += pairs
     # canonical (ii, jj) order before the edges are used or stored: the
     # nearest-neighbour argmin and the linkage merge order break ties on it
     order = np.lexsort((jj, ii))

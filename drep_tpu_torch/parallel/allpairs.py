@@ -28,9 +28,13 @@ after the step that wrote its B operand. The JAX package's one-program (monolith
 and its rotation backends are not carried over: the port has this one
 ring, whose matrices are held against the single-device ones.
 
+With tracing on (utils/telemetry.py) each step is a ``ring_step`` span
+around its launches (the JAX package's span waits on the step; here the
+launches are asynchronous, so the span covers their enqueueing).
+
 Not carried over yet: the per-block shard store under ``data/dense_ring``,
 resume and per-block recovery, the elastic pod protocol and multi-host
-rings (ROADMAP.md queue 1, item 12b).
+rings, with their spans and instants (ROADMAP.md queue 1, item 12b).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from drep_tpu_torch.ops.ring import (
     ring_step_matmul,
 )
 from drep_tpu_torch.parallel.mesh import Mesh
+from drep_tpu_torch.utils import telemetry
 
 def half_ring_steps(n_devices: int) -> int:
     """Ring steps the triangular schedule runs: ceil((D+1)/2) of D."""
@@ -176,27 +181,28 @@ def _ring_matrix(packed, kind: str, mesh: Mesh, half: bool, variant: str | None)
     done: list = [None] * D  # event after each position's previous step
     tiles = []
     for i in range(n_steps):
-        nxt: list = [None] * D
-        ev: list = [None] * D
-        for m, dev in enumerate(mesh.devices):
-            if (m, (m - i) % D) not in keep:
-                continue  # the even-D middle step's second half: its twin is kept
-            dst = recv[i][m] if i < n_steps - 1 else None
-            with _on(dev):
-                src_dev = mesh.devices[(m - 1) % D]
-                if multi and done[(m - 1) % D] is not None and src_dev != dev:
-                    torch.cuda.current_stream(dev).wait_event(done[(m - 1) % D])
-                if variant == "matmul":
-                    tile = ring_step_matmul(*blocks[m], *b[m], v_pad, *(dst or (None, None)))
-                else:
-                    tile = ring_step(kind, *blocks[m], *b[m], *(dst or (None, None)))
-                tiles.append((m, (m - i) % D, tile))
-                if multi:
-                    ev[m] = torch.cuda.Event()
-                    ev[m].record(torch.cuda.current_stream(dev))
-            if dst is not None:
-                nxt[(m + 1) % D] = dst
-        b, done = nxt, ev
+        with telemetry.span("ring_step", step=i, steps=n_steps):
+            nxt: list = [None] * D
+            ev: list = [None] * D
+            for m, dev in enumerate(mesh.devices):
+                if (m, (m - i) % D) not in keep:
+                    continue  # the even-D middle step's second half: its twin is kept
+                dst = recv[i][m] if i < n_steps - 1 else None
+                with _on(dev):
+                    src_dev = mesh.devices[(m - 1) % D]
+                    if multi and done[(m - 1) % D] is not None and src_dev != dev:
+                        torch.cuda.current_stream(dev).wait_event(done[(m - 1) % D])
+                    if variant == "matmul":
+                        tile = ring_step_matmul(*blocks[m], *b[m], v_pad, *(dst or (None, None)))
+                    else:
+                        tile = ring_step(kind, *blocks[m], *b[m], *(dst or (None, None)))
+                    tiles.append((m, (m - i) % D, tile))
+                    if multi:
+                        ev[m] = torch.cuda.Event()
+                        ev[m].record(torch.cuda.current_stream(dev))
+                if dst is not None:
+                    nxt[(m + 1) % D] = dst
+            b, done = nxt, ev
     mat = np.zeros((n_local * D, n_local * D), np.int32)
     for a, c, tile in tiles:
         mat[a * n_local : (a + 1) * n_local, c * n_local : (c + 1) * n_local] = tile.cpu().numpy()

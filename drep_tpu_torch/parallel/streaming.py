@@ -34,8 +34,13 @@ path never does:
   is not ported. A shard publish is the ``shard_write`` site, so a torn
   shard reads corrupt on resume and its stripe is recomputed.
 
+With tracing on (utils/telemetry.py), each computed stripe is a
+``stripe`` span holding its launch and its shard's publish, each publish a
+``shard_publish`` instant (``pruned`` where no tile held a candidate), and
+a resume a ``resume`` instant, as in the JAX package's single-process walk.
+
 Not ported here: the JAX package's multi-process stripe dealing, elastic
-pod and edge allgather (ROADMAP item 12b), its telemetry (item 13), and
+pod and edge allgather (ROADMAP item 12b), their telemetry, and
 its compile warmup (nothing is compiled per run: the kernels build once
 into ``_build/``). Its per-tile readback budget does not apply: exactly
 the survivors are read back.
@@ -54,7 +59,7 @@ from drep_tpu_torch.ops.mash import TILE, distance_table, stripe_survivors
 from drep_tpu_torch.ops.minhash import PackedSketches, pad_packed_rows
 from drep_tpu_torch.parallel import faulttol
 from drep_tpu_torch.parallel.faulttol import AutoTimeout, FaultTolConfig, retrying_call
-from drep_tpu_torch.utils import faults
+from drep_tpu_torch.utils import faults, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 
 DEFAULT_BLOCK = 1024
@@ -339,18 +344,27 @@ def streaming_mash_edges(
         found = _find_shard(checkpoint_dir, bi) if resume else None
         loaded = _load_shard(found) if found is not None else None
         if loaded is None:
-            loaded = _compute_stripe(bi)
-            if checkpoint_dir is not None:
-                from drep_tpu_torch.utils.durableio import atomic_savez
+            epoch = _shard_epoch(found) if found is not None else 0
+            # an unclosed "B" is the crash evidence: the stripe in flight
+            with telemetry.span("stripe", bi=bi, epoch=epoch):
+                launches = stats["launches"]
+                loaded = _compute_stripe(bi)
+                if checkpoint_dir is not None:
+                    from drep_tpu_torch.utils.durableio import atomic_savez
 
-                epoch = _shard_epoch(found) if found is not None else 0
-                atomic_savez(os.path.join(checkpoint_dir, _shard_name(bi, epoch)),
-                             ii=loaded[0], jj=loaded[1], dist=loaded[2])
+                    name = _shard_name(bi, epoch)
+                    atomic_savez(os.path.join(checkpoint_dir, name), ii=loaded[0], jj=loaded[1], dist=loaded[2])
+                    if stats["launches"] == launches:  # no tile held a candidate: nothing launched
+                        telemetry.event("shard_publish", shard=name, edges=0, pruned=True)
+                    else:
+                        telemetry.event("shard_publish", shard=name, edges=len(loaded[0]))
         else:
             stats["stripes_resumed"] += 1
         all_ii.append(loaded[0])
         all_jj.append(loaded[1])
         all_dd.append(loaded[2])
+    if stats["stripes_resumed"]:
+        telemetry.event("resume", stripes=stats["stripes_resumed"], owned=n_blocks)
 
     derived = watchdog.derived()
     if derived is not None:

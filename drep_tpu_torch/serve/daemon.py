@@ -44,9 +44,13 @@ drained:
   legs served on connection threads: the resident's residency and health
   bookkeeping is single-threaded by design.
 
-Not ported: event tracing (item 13); the snapshot's ``update_pod`` field,
-which the JAX daemon also omits when its pod-status tool is unreachable
-(item 12b).
+With tracing on (utils/telemetry.py) the daemon leaves the JAX daemon's
+timeline: a ``serve_load`` span, ``serve_start``, a ``serve_batch`` span a
+batch, ``generation_load`` / ``generation_swap`` on a hot swap, and
+``serve_drain`` / ``serve_stop``. The default budget of a request that
+carries no ``deadline_ms`` is ``DREP_TORCH_SERVE_DEADLINE_DEFAULT_MS``.
+Not ported: the snapshot's ``update_pod`` field, which the JAX daemon
+also omits when its pod-status tool is unreachable (item 12b).
 
 The server is equally usable as a library (tests and chip_smoke.py run it
 in-process): ``IndexServer(cfg).start()`` binds and returns the address;
@@ -75,6 +79,7 @@ from drep_tpu_torch.index import resident_device
 from drep_tpu_torch.index.classify import classify_batch, load_resident_index, sketch_queries
 from drep_tpu_torch.serve import protocol
 from drep_tpu_torch.serve.batcher import AdmissionQueue, PendingRequest, queue_eta_s
+from drep_tpu_torch.utils import envknobs, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.utils.profiling import counters
 
@@ -84,8 +89,10 @@ from drep_tpu_torch.utils.profiling import counters
 _RETRY_AFTER_FLOOR_S = 0.05
 
 # the end-to-end budget stamped onto requests that carry no deadline_ms
-# (the JAX package's default): legacy clients are bounded too
-DEADLINE_DEFAULT_MS = 30_000.0
+# (legacy clients are bounded too): the knob, read when a server is made,
+# and this fallback where it is unset; <= 0 disables the default
+DEADLINE_ENV = "DREP_TORCH_SERVE_DEADLINE_DEFAULT_MS"
+DEADLINE_DEFAULT_MS = envknobs.knob(DEADLINE_ENV).default
 
 
 @dataclass
@@ -141,6 +148,7 @@ class IndexServer:
         self.device = resolve_device(cfg.device)
         self.queue = AdmissionQueue(cfg.max_queue, on_shed=self._shed_expired)
         self.stats = _ServeStats()
+        self._deadline_default_ms = envknobs.env_float(DEADLINE_ENV, default=DEADLINE_DEFAULT_MS)
         # request ids cancelled while in flight: the result is discarded at
         # reply time. Bounded — a stream of cancels for ids this daemon
         # never saw must not grow memory.
@@ -166,8 +174,9 @@ class IndexServer:
         start the acceptor and generation-poller threads. Returns the
         bound address."""
         t0 = time.monotonic()
-        self._resident = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb,
-                                             device=self.device)
+        with telemetry.span("serve_load", index=self.cfg.index_loc):
+            self._resident = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb,
+                                                 device=self.device)
         counters.set_gauge("serve_generation", float(self._resident.generation))
         # arm the resident rectangle before the first batch: one sketch
         # matrix upload per generation, not per batch (a federated root's
@@ -194,6 +203,8 @@ class IndexServer:
         self._threads = [acceptor, poller]
         for t in self._threads:
             t.start()
+        telemetry.event("serve_start", address=self.cfg.address(), generation=int(self._resident.generation),
+                        n=self._resident.n)
         return self.cfg.address()
 
     def run(self) -> int:
@@ -224,6 +235,7 @@ class IndexServer:
     def request_drain(self) -> None:
         """The programmatic SIGTERM: refuse new admissions, let the batch
         loop finish what is queued, stop the poller."""
+        telemetry.event("serve_drain", queued=self.queue.depth())
         self._stop_poll.set()
         self.queue.drain()
         # stop accepting new connections (in-flight sockets finish)
@@ -239,6 +251,7 @@ class IndexServer:
         if self.cfg.socket_path:
             with contextlib.suppress(OSError):
                 os.unlink(self.cfg.socket_path)  # the daemon's own socket node
+        telemetry.event("serve_stop", requests=self.stats.requests_total)
 
     # ---- the batch loop --------------------------------------------------
     def serve_batches(self) -> None:
@@ -283,7 +296,9 @@ class IndexServer:
         deadlines = [req.deadline for req in batch if req.deadline is not None]
         self._batch_deadline = min(deadlines) if deadlines else None
         try:
-            with counters.stage("serve_batch"), self._compute_lock:
+            with counters.stage("serve_batch"), telemetry.span(
+                "serve_batch", n=len(batch), unique=len(paths), generation=int(resident.generation)
+            ), self._compute_lock:
                 by_name = self._classify_fn(resident, paths)
         except Exception as e:  # noqa: BLE001 — a poisoned batch must not kill the daemon
             # isolate the poison: one unreadable query must not fail its
@@ -375,8 +390,10 @@ class IndexServer:
             if self._resident is None or gen <= int(self._resident.generation):
                 continue
             try:
-                fresh = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb,
-                                            device=self.device)
+                t0 = time.monotonic()
+                with telemetry.span("generation_load", generation=gen):
+                    fresh = load_resident_index(self.cfg.index_loc, resident_mb=self.cfg.resident_mb,
+                                                device=self.device)
             except Exception as e:  # noqa: BLE001 — keep serving the old generation
                 get_logger().warning(
                     "serve: failed to load generation %d (%s) — still serving %d",
@@ -391,6 +408,8 @@ class IndexServer:
             with self._lock:
                 self.stats.swaps_total += 1
             counters.set_gauge("serve_generation", float(fresh.generation))
+            telemetry.event("generation_swap", old=old, new=int(fresh.generation), n=fresh.n,
+                            load_s=round(time.monotonic() - t0, 4))
             get_logger().info(
                 "serve: hot-swapped generation %d -> %d (%d genomes)", old, fresh.generation, fresh.n,
             )
@@ -561,6 +580,14 @@ class IndexServer:
         self._admit_classify(req, reply_classify)
 
     # ---- deadline budgets + cancellation ---------------------------------
+    def _budget_ms(self, req: dict) -> float | None:
+        """The request's end-to-end budget: its own ``deadline_ms``, else
+        the default when that is > 0, else none (no ETA refusal, no shed)."""
+        d = req.get("deadline_ms")
+        if d is not None:
+            return float(d)
+        return self._deadline_default_ms if self._deadline_default_ms > 0 else None
+
     def _eta_s(self) -> float:
         """Histogram-derived dispatch ETA for a request admitted now: the
         admission check's refusal threshold and a deadline refusal's
@@ -624,25 +651,28 @@ class IndexServer:
                 f"no such genome file: {genome}", req_id=req_id, reason="bad_request",
             ))
             return
-        budget_ms = float(req["deadline_ms"]) if req.get("deadline_ms") is not None else DEADLINE_DEFAULT_MS
-        budget_s = budget_ms / 1000.0
-        eta_s = self._eta_s()
-        if eta_s > budget_s:
-            # the queue's dispatch ETA already exceeds the budget: refuse
-            # now rather than admit a request we would shed after it aged
-            with self._lock:
-                self.stats.deadline_shed += 1
-                self.stats.rejected_total += 1
-            counters.add_fault("serve_deadline_shed")
-            send(protocol.error_response(
-                f"queue ETA {eta_s * 1000.0:.0f} ms exceeds the {budget_ms:.0f} ms deadline budget",
-                req_id=req_id, reason="deadline_exceeded",
-                retry_after_s=max(_RETRY_AFTER_FLOOR_S, eta_s),
-            ))
-            return
+        budget_ms = self._budget_ms(req)
+        deadline = None
+        if budget_ms is not None:
+            budget_s = budget_ms / 1000.0
+            eta_s = self._eta_s()
+            if eta_s > budget_s:
+                # the queue's dispatch ETA already exceeds the budget: refuse
+                # now rather than admit a request we would shed after it aged
+                with self._lock:
+                    self.stats.deadline_shed += 1
+                    self.stats.rejected_total += 1
+                counters.add_fault("serve_deadline_shed")
+                send(protocol.error_response(
+                    f"queue ETA {eta_s * 1000.0:.0f} ms exceeds the {budget_ms:.0f} ms deadline budget",
+                    req_id=req_id, reason="deadline_exceeded",
+                    retry_after_s=max(_RETRY_AFTER_FLOOR_S, eta_s),
+                ))
+                return
+            deadline = time.monotonic() + budget_s
         pending = PendingRequest(
             genome=genome, reply=send, req_id=req_id,
-            strict=bool(req.get("strict", False)), deadline=time.monotonic() + budget_s,
+            strict=bool(req.get("strict", False)), deadline=deadline,
         )
         refused = self.queue.submit(pending)
         if refused is not None:

@@ -46,9 +46,14 @@ The router writes nothing anywhere: kill and restart it and the fleet
 re-forms from the replica specs and the probes. Not ported: the fleet
 supervisor and its durable membership manifest (``index supervise``,
 ``--fleet_manifest``), and the wire-chaos proxy (ROADMAP.md queue 1 item
-11c); the JAX package's fault sites and telemetry events (items 5.3 and
-13). The JAX package's router env knobs are the field defaults of
-:class:`RouterConfig`.
+11c). The defaults of :class:`RouterConfig`'s fleet fields are the
+``DREP_TORCH_ROUTER_*`` / ``DREP_TORCH_SERVE_PROBE_MAX_S`` knobs, read when
+a config is made (an explicit field wins). The ``router_leg`` fault site
+fires at each scatter leg and forward group, ``replica_health`` at each
+replica probe; with tracing on, the replica table's transitions, the
+fleet op, the fence reload and the router's start are instants
+(``replica_<state>``, ``replica_breaker_*``, ``fleet_*``,
+``generation_swap``, ``route_start``).
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.serve import protocol
 from drep_tpu_torch.serve.client import ServeClient
 from drep_tpu_torch.serve.daemon import _RETRY_AFTER_FLOOR_S, IndexServer, ServeConfig
+from drep_tpu_torch.utils import envknobs, faults, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.utils.profiling import counters
 
@@ -165,20 +171,23 @@ def parse_replica_spec(spec: str) -> tuple[str, frozenset | None]:
 @dataclass
 class RouterConfig(ServeConfig):
     """ServeConfig plus the fleet surface. ``replicas`` are
-    :func:`parse_replica_spec` strings; the defaults are the JAX
-    package's router knobs. ``fleet_manifest`` (the supervisor's, item
-    11c) makes the router refuse to start."""
+    :func:`parse_replica_spec` strings; each knob field defaults to its
+    ``DREP_TORCH_*`` knob, read when the config is made.
+    ``fleet_manifest`` (the supervisor's, item 11c) makes the router
+    refuse to start."""
 
     replicas: list[str] = field(default_factory=list)
-    leg_timeout_s: float = 30.0
-    hedge_delay_s: float = 2.0
+    leg_timeout_s: float = field(default_factory=lambda: envknobs.env_float("DREP_TORCH_ROUTER_LEG_TIMEOUT_S"))
+    hedge_delay_s: float = field(default_factory=lambda: envknobs.env_float("DREP_TORCH_ROUTER_HEDGE_DELAY_S"))
     probe_interval_s: float = 1.0
-    probe_backoff_s: float = 1.0
-    probe_max_s: float = 60.0
-    max_inflight: int = 256  # the admission bound (it sets max_queue)
-    breaker_errs: int = 5
-    breaker_window_s: float = 30.0
-    breaker_halfopen_s: float = 5.0
+    probe_backoff_s: float = field(default_factory=lambda: envknobs.env_float("DREP_TORCH_ROUTER_PROBE_BACKOFF_S"))
+    probe_max_s: float = field(default_factory=lambda: envknobs.env_float("DREP_TORCH_SERVE_PROBE_MAX_S"))
+    # the admission bound (it sets max_queue)
+    max_inflight: int = field(default_factory=lambda: envknobs.env_int("DREP_TORCH_ROUTER_MAX_INFLIGHT"))
+    breaker_errs: int = field(default_factory=lambda: envknobs.env_int("DREP_TORCH_ROUTER_BREAKER_ERRS"))
+    breaker_window_s: float = field(default_factory=lambda: envknobs.env_float("DREP_TORCH_ROUTER_BREAKER_WINDOW_S"))
+    breaker_halfopen_s: float = field(
+        default_factory=lambda: envknobs.env_float("DREP_TORCH_ROUTER_BREAKER_HALFOPEN_S"))
     fleet_manifest: str | None = None
 
 
@@ -322,8 +331,10 @@ class ReplicaTable:
                 slot.next_probe = now + slot.backoff_s
             state = slot.state
         counters.add_fault(f"router_replica_{state}")
+        telemetry.event(f"replica_{state}", address=address, error=f"{err}"[:200])
         if tripped:
             counters.add_fault("router_breaker_open")
+            telemetry.event("replica_breaker_open", address=address)
 
     def book_success(self, address: str, status: dict | None = None) -> None:
         breaker_closed = False
@@ -360,8 +371,10 @@ class ReplicaTable:
                     slot.resident = frozenset()
         if recovered:
             counters.add_fault("router_replica_recovered")
+            telemetry.event("replica_recovered", address=address)
         if breaker_closed:
             counters.add_fault("router_breaker_closed")
+            telemetry.event("replica_breaker_closed", address=address)
 
     # ---- routing views ---------------------------------------------------
     def _breaker_allows(self, s: ReplicaSlot, now: float) -> bool:
@@ -519,12 +532,15 @@ class RouterServer(IndexServer):
         prober = threading.Thread(target=self._probe_loop, daemon=True, name="drep-route-probe")
         self._threads.append(prober)
         prober.start()
+        telemetry.event("route_start", address=address, replicas=len(self.table),
+                        generation=int(self._resident.generation))
         return address
 
     # ---- replica health polling -----------------------------------------
     def _probe_once(self) -> None:
         for addr, _state in self.table.probe_due(time.monotonic()):
             try:
+                faults.fire("replica_health")
                 with ServeClient(addr, timeout_s=min(5.0, self.leg_timeout_s)) as c:
                     status = c.status()
                 self.table.book_success(addr, status)
@@ -567,6 +583,8 @@ class RouterServer(IndexServer):
             "route: fleet %s %s%s (%d replica(s) routable)", action, addr,
             f" partitions={sorted(assigned)}" if assigned is not None else "", len(self.table),
         )
+        telemetry.event("fleet_" + action, address=addr,
+                        partitions=sorted(assigned) if assigned is not None else None)
         send({"ok": True, "op": "fleet", "action": action, "address": addr, "known": known,
               "replicas": len(self.table), "id": req.get("id")})
 
@@ -595,6 +613,7 @@ class RouterServer(IndexServer):
             "route: prewarmed joining replica %s — partitions %s resident%s", addr, report.get("warmed"),
             f", {report['failed']} failed" if report.get("failed") else "",
         )
+        telemetry.event("fleet_prewarm", address=addr, warmed=report.get("warmed"), failed=report.get("failed"))
 
     # ---- status ----------------------------------------------------------
     def snapshot(self) -> dict:
@@ -631,6 +650,7 @@ class RouterServer(IndexServer):
                 self.stats.swaps_total += 1
                 self.router_stats["fence_reloads"] += 1
             counters.set_gauge("serve_generation", float(fresh.generation))
+            telemetry.event("generation_swap", old=old, new=int(fresh.generation), n=fresh.n, fenced=True)
             get_logger().info("route: generation fence reload %d -> %d", old, fresh.generation)
             return fresh
 
@@ -787,6 +807,7 @@ class RouterServer(IndexServer):
 
     def _run_leg(self, pid, gen, names, bottoms, legs, ahead, budget_deadline=None) -> None:
         try:
+            faults.fire("router_leg")
             res = self._leg_dispatch(pid, gen, names, bottoms, ahead, budget_deadline)
         except Exception as e:  # noqa: BLE001 — a leg never raises out of the router: PARTIAL instead
             get_logger().warning("route: leg pid=%d failed: %s", pid, e)
@@ -946,6 +967,11 @@ class RouterServer(IndexServer):
         failure leaves the queries' slots empty and the caller falls back
         to the scatter merge, which degrades by partition instead of by
         query. No cancel here: classify_many owns its request ids."""
+        try:
+            faults.fire("router_leg")
+        except Exception as e:  # noqa: BLE001 — an injected fault: the same contract
+            get_logger().warning("route: forward to %s failed: %s", addr, e)
+            return
         deadline = time.monotonic() + self._leg_budget_s()
         if budget_deadline is not None:
             deadline = min(deadline, budget_deadline)

@@ -22,10 +22,11 @@ missing shard: counted (``corrupt_shards_healed``), removed, recomputed.
 
 The ``io`` fault site (utils/faults.py) fires inside the retried
 regions, and ``shard_write:torn`` / ``io:corrupt`` act in
-:func:`atomic_savez`, so the layer is testable on the CPU. The JAX
-package's environment knobs for these defaults (``DREP_TPU_IO_*``,
-``DREP_TPU_FSYNC``) are ROADMAP item 13; the port holds their defaults
-as constants.
+:func:`atomic_savez`, so the layer is testable on the CPU. The defaults
+are the knobs ``DREP_TORCH_IO_RETRIES``, ``_IO_BACKOFF_S``, ``_FSYNC``
+and ``_IO_CRC`` (utils/envknobs.py); the CLI's --io_retries and --fsync
+win over them. With tracing on, a spent retry budget leaves an
+``io_unrecoverable`` instant and a healed shard an ``io_heal`` one.
 """
 
 from __future__ import annotations
@@ -42,13 +43,16 @@ from typing import Any, Callable
 
 import numpy as np
 
+from drep_tpu_torch.utils import envknobs, telemetry
+
 CRC_KEY = "__crc__"
 JSON_CRC_KEY = "crc"
 
-# the JAX package's knob defaults (DREP_TPU_IO_RETRIES, _IO_BACKOFF_S,
-# _FSYNC)
-DEFAULT_IO_RETRIES = 3
-DEFAULT_IO_BACKOFF_S = 0.05
+IO_RETRIES_ENV = "DREP_TORCH_IO_RETRIES"
+IO_BACKOFF_ENV = "DREP_TORCH_IO_BACKOFF_S"
+FSYNC_ENV = "DREP_TORCH_FSYNC"
+CRC_ENV = "DREP_TORCH_IO_CRC"
+DEFAULT_IO_RETRIES = envknobs.knob(IO_RETRIES_ENV).default
 
 # errnos retried as transient (NFS, FUSE object stores): a flaky backend,
 # a handle a server-side rename invalidated, a slow metadata server.
@@ -56,7 +60,7 @@ DEFAULT_IO_BACKOFF_S = 0.05
 TRANSIENT_ERRNOS = frozenset({errno.EIO, errno.ESTALE, errno.ETIMEDOUT})
 
 # the run's overrides, installed by the CLI (--io_retries, --fsync);
-# None = the default
+# None = the knob
 _CONFIG: dict[str, Any] = {"retries": None, "fsync": None}
 
 
@@ -68,15 +72,23 @@ def configure(retries: int | None = None, fsync: bool | None = None) -> None:
 
 
 def io_retries() -> int:
-    return max(0, int(DEFAULT_IO_RETRIES if _CONFIG["retries"] is None else _CONFIG["retries"]))
+    if _CONFIG["retries"] is not None:
+        return max(0, int(_CONFIG["retries"]))
+    return max(0, envknobs.env_int(IO_RETRIES_ENV))
 
 
 def io_backoff_s() -> float:
-    return DEFAULT_IO_BACKOFF_S
+    return envknobs.env_float(IO_BACKOFF_ENV)
 
 
 def fsync_enabled() -> bool:
-    return bool(_CONFIG["fsync"])
+    if _CONFIG["fsync"] is not None:
+        return bool(_CONFIG["fsync"])
+    return envknobs.env_bool(FSYNC_ENV)
+
+
+def crc_enabled() -> bool:
+    return envknobs.env_bool(CRC_ENV)
 
 
 class StoreFullError(OSError):
@@ -126,6 +138,8 @@ def retry_io(fn: Callable[[], Any], what: str, path: str, bytes_needed: int | No
             get_logger().warning("%s: transient I/O error (%s) on %s — attempt %d/%d", what,
                                  errno.errorcode.get(e.errno, e.errno), path, attempt + 1, retries + 1)
     _count("io_unrecoverable")
+    # which payload ran out of budget (the generic fault instant rides add_fault)
+    telemetry.event("io_unrecoverable", what=what, path=path)
     raise last  # type: ignore[misc]  # the loop ran at least once on a transient error
 
 
@@ -201,6 +215,8 @@ def with_checksum(arrays: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
     """The arrays plus their in-band ``__crc__`` member."""
     if CRC_KEY in arrays:
         raise ValueError(f"npz payload already carries the reserved member {CRC_KEY!r}")
+    if not crc_enabled():
+        return arrays
     out = dict(arrays)
     out[CRC_KEY] = np.array([checksum_arrays(arrays)], dtype=np.uint32)
     return out
@@ -231,7 +247,7 @@ def load_npz_checked(path: str, what: str = "payload") -> dict[str, np.ndarray]:
         stored = int(np.asarray(loaded.pop(CRC_KEY)).ravel()[0])
     except (IndexError, TypeError, ValueError) as e:
         raise CorruptPayloadError(f"{what} {path}: unreadable in-band checksum ({e!r})") from e
-    if checksum_arrays(loaded) != stored:
+    if crc_enabled() and checksum_arrays(loaded) != stored:
         raise CorruptPayloadError(f"{what} {path}: in-band checksum mismatch")
     return loaded
 
@@ -317,6 +333,7 @@ def quarantine_corrupt(path: str) -> None:
     recomputes) and remove the payload where the filesystem lets it: the
     recompute's atomic rewrite replaces it either way."""
     _count("corrupt_shards_healed")
+    telemetry.event("io_heal", path=path)
     with contextlib.suppress(OSError):
         os.remove(path)
 
@@ -326,8 +343,9 @@ def dump_json_checked(obj: dict[str, Any], default=str) -> bytes:
     if JSON_CRC_KEY in obj:
         raise ValueError(f"JSON payload already carries the reserved key {JSON_CRC_KEY!r}")
     body = dict(obj)
-    canon = json.dumps(body, sort_keys=True, default=default).encode()
-    body[JSON_CRC_KEY] = zlib.crc32(json.dumps(json.loads(canon), sort_keys=True).encode()) & 0xFFFFFFFF
+    if crc_enabled():
+        canon = json.dumps(body, sort_keys=True, default=default).encode()
+        body[JSON_CRC_KEY] = zlib.crc32(json.dumps(json.loads(canon), sort_keys=True).encode()) & 0xFFFFFFFF
     return json.dumps(body, sort_keys=True, default=default).encode()
 
 
@@ -364,6 +382,8 @@ def read_json_checked(path: str, what: str = "note"):
     if not isinstance(body, dict) or JSON_CRC_KEY not in body:
         return body
     stored = body.pop(JSON_CRC_KEY)
+    if not crc_enabled():
+        return body
     try:
         want = int(stored)
     except (TypeError, ValueError) as e:

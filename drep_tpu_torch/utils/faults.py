@@ -16,13 +16,21 @@ package's grammar unchanged::
 
     DREP_TORCH_FAULTS="streaming_tile:raise:0.05:seed=7,shard_write:torn"
 
-- ``site``: the injection point. The port threads four of the JAX
-  package's sites: ``streaming_tile`` (each streaming stripe's launch,
-  parallel/streaming.py), ``secondary_batch`` (each secondary engine
-  call, cluster/controller.py), ``shard_write`` (each npz shard publish,
-  utils/durableio.py) and ``io`` (every durable read and write). The
-  other sites of the JAX package parse and raise NotImplementedError
-  naming the ROADMAP item that threads them.
+- ``site``: the injection point. The port threads thirteen of the JAX
+  package's sites at the JAX package's fire points: ``streaming_tile``
+  (each streaming stripe's launch, parallel/streaming.py),
+  ``secondary_batch`` (each secondary engine call, cluster/controller.py),
+  ``shard_write`` (each npz shard publish, utils/durableio.py), ``io``
+  (every durable read and write), ``index_update`` (an update's tail
+  rectangle and its publish, index/update.py), ``meta_publish`` (the
+  generation commit, index/meta.py), ``partition_load`` /
+  ``partition_classify`` (a served partition's load and consult) and
+  ``partition_update`` (a federated update's partition and its commit,
+  index/federation.py), ``partition_split`` and ``compaction``
+  (index/maintenance.py's transactions), and ``router_leg`` /
+  ``replica_health`` (a routed leg and a replica probe,
+  serve/router.py). The other sites of the JAX package parse and raise
+  NotImplementedError naming the ROADMAP item that threads them.
 - ``mode``: ``raise`` (InjectedFault), ``hang`` (sleep ``secs``, default
   3600, then raise: trips the watchdog), ``sleep`` (sleep ``secs``, then
   go on), ``torn`` (``shard_write`` only: publish a truncated file in
@@ -47,10 +55,11 @@ no spec, :func:`fire` costs one falsy check.
 from __future__ import annotations
 
 import errno
-import os
 import random
 import time
 from dataclasses import dataclass, field
+
+from drep_tpu_torch.utils import envknobs
 
 ENV = "DREP_TORCH_FAULTS"
 
@@ -64,10 +73,9 @@ SITES = (
     "partition_split", "compaction", "wire", "supervisor_spawn", "supervisor_tick",
 )
 UNPORTED_SITES: dict[str, str] = {
-    **dict.fromkeys(("ring_dispatch", "ring_step", "allgather", "barrier", "process_death"), "12b"),
-    **dict.fromkeys(("index_update", "partition_update", "meta_publish", "partition_load",
-                     "partition_classify", "autoscale_decide", "router_leg", "replica_health",
-                     "partition_split", "compaction"), "13"),
+    # autoscale_decide fires only in the elastic pod's controller
+    **dict.fromkeys(("ring_dispatch", "ring_step", "allgather", "barrier", "process_death",
+                     "autoscale_decide"), "12b"),
     **dict.fromkeys(("wire", "supervisor_spawn", "supervisor_tick"), "11c"),
 }
 
@@ -200,7 +208,7 @@ def reset() -> None:
 def _rules() -> dict[str, list[_Rule]]:
     global _RULES
     if _RULES is None:
-        _RULES = _parse(os.environ.get(ENV, ""))
+        _RULES = _parse(envknobs.env_str(ENV))
     return _RULES
 
 

@@ -1,11 +1,17 @@
-"""Stage counters, latency histograms and the Prometheus textfile flush.
+"""Stage counters, latency histograms, the Prometheus textfile flush and
+the device profiler.
 
-Counterpart of the part of drep_tpu/utils/profiling.py that the serve
-daemon reads: :class:`Histogram`, :class:`Counters` (stage, observe,
-set_gauge, add_fault, report, write, reset), :func:`prom_text` and the
-periodic flush. The JAX package's event tracing (telemetry spans inside
-``stage`` and ``add_fault``) is item 13 and not ported; the counters are
-the same, and so is the Prometheus text a scraper reads.
+Counterpart of drep_tpu/utils/profiling.py: :class:`Histogram`,
+:class:`Counters` (stage, add, add_fault, set_gauge, observe, note_epoch,
+report, write, reset), :func:`prom_text`, the periodic flush and
+:func:`trace`. ``stage`` traces a ``stage:<name>`` span and ``add_fault``
+a ``fault`` instant (utils/telemetry.py; free with tracing off); the
+flush cadence is ``DREP_TORCH_METRICS_FLUSH_S`` (0, the default: no
+thread, no file). :func:`trace` is the ``--profile`` hook:
+``torch.profiler`` over the CPU and the card, exported as a Chrome
+trace, where the JAX package runs ``jax.profiler.trace``. The JAX
+package's tile accounting (``add_tiles``) and notes are not ported: no
+port path records them.
 """
 
 from __future__ import annotations
@@ -18,10 +24,11 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Iterator
 
-# the JAX package's default DREP_TPU_METRICS_FLUSH_S: 0 = no periodic
-# flush (no thread, no file)
-METRICS_FLUSH_S = 0.0
+from drep_tpu_torch.utils import envknobs, telemetry
+
+METRICS_FLUSH_ENV = "DREP_TORCH_METRICS_FLUSH_S"
 METRICS_NAME = "metrics.prom"
+TRACE_NAME = "trace.json"
 
 
 @dataclass
@@ -87,22 +94,37 @@ class Counters:
     stages: dict[str, _Stage] = field(default_factory=dict)
     faults: dict[str, int] = field(default_factory=dict)
     gauges: dict[str, float] = field(default_factory=dict)
+    # ownership-epoch bumps in order (with their reasons); a single
+    # process records none until the elastic pod (item 12b) bumps them
+    epoch_history: list = field(default_factory=list)
     hists: dict[str, Histogram] = field(default_factory=dict)
 
     @contextlib.contextmanager
     def stage(self, name: str, pairs: int = 0) -> Iterator[None]:
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            st = self.stages.setdefault(name, _Stage())
-            st.pairs += int(pairs)
-            st.seconds += time.perf_counter() - t0
-            st.calls += 1
+        # the one hook that traces every counted stage block
+        with telemetry.span("stage:" + name):
+            try:
+                yield
+            finally:
+                st = self.stages.setdefault(name, _Stage())
+                st.pairs += int(pairs)
+                st.seconds += time.perf_counter() - t0
+                st.calls += 1
+
+    def add(self, name: str, pairs: int, seconds: float) -> None:
+        """Record one stage call measured by the caller (where the pairs
+        are known only after the call)."""
+        st = self.stages.setdefault(name, _Stage())
+        st.pairs += int(pairs)
+        st.seconds += float(seconds)
+        st.calls += 1
 
     def add_fault(self, kind: str, n: int = 1) -> None:
-        """Count one event of `kind` (a refusal, a shed, a poisoned batch)."""
+        """Count one event of `kind` (a retry, a refusal, a shed, an
+        injected fault) and, with tracing on, stamp when it happened."""
         self.faults[kind] = self.faults.get(kind, 0) + int(n)
+        telemetry.event("fault", kind=kind, n=int(n))
 
     def set_gauge(self, name: str, value: float) -> None:
         self.gauges[name] = float(value)
@@ -113,6 +135,14 @@ class Counters:
         if h is None:
             h = self.hists[name] = Histogram()
         h.observe(value)
+
+    def note_epoch(self, epoch: int, reason: str) -> None:
+        """Record one ownership-epoch bump: the history, the ``pod_epoch``
+        gauge, the event stream's stamped epoch and an ``epoch`` instant."""
+        self.epoch_history.append({"epoch": int(epoch), "reason": str(reason), "at": round(time.time(), 3)})
+        self.set_gauge("pod_epoch", float(epoch))
+        telemetry.set_epoch(int(epoch))
+        telemetry.event("epoch", epoch=int(epoch), reason=str(reason))
 
     def report(self) -> dict[str, Any]:
         import torch
@@ -141,6 +171,8 @@ class Counters:
             out["fault_tolerance"] = dict(sorted(self.faults.items()))
         if self.gauges:
             out["gauges"] = dict(sorted(self.gauges.items()))
+        if self.epoch_history:
+            out["epoch_history"] = list(self.epoch_history)
         if self.hists:
             out["histograms"] = {name: h.summary() for name, h in sorted(self.hists.items())}
         return out
@@ -157,6 +189,7 @@ class Counters:
         self.stages.clear()
         self.faults.clear()
         self.gauges.clear()
+        self.epoch_history.clear()
         self.hists.clear()
 
 
@@ -195,6 +228,8 @@ def prom_text(c: Counters | None = None) -> str:
             for n, h in sorted(c.hists.items())
             for stat, v in h.summary().items()
         ),
+        "# TYPE drep_tpu_epoch_bumps_total counter",
+        f"drep_tpu_epoch_bumps_total {len(c.epoch_history)}",
         "# TYPE drep_tpu_metrics_flush_timestamp_seconds gauge",
         f"drep_tpu_metrics_flush_timestamp_seconds {round(time.time(), 3)}",
     ]
@@ -214,12 +249,17 @@ def flush_metrics(log_dir: str, c: Counters | None = None) -> str:
 _METRICS: dict[str, Any] = {"stop": None, "thread": None, "log_dir": None}
 
 
-def start_metrics_flush(log_dir: str, cadence_s: float = METRICS_FLUSH_S) -> bool:
-    """Start a daemon thread that flushes the counters every `cadence_s`
-    seconds; at the default (0) no thread starts and no file is written.
-    A second start replaces the first."""
+def metrics_flush_cadence_s() -> float:
+    return envknobs.env_float(METRICS_FLUSH_ENV)
+
+
+def start_metrics_flush(log_dir: str) -> bool:
+    """Start a daemon thread that flushes the counters every
+    ``DREP_TORCH_METRICS_FLUSH_S`` seconds; at 0, the default, no thread
+    starts and no file is written. A second start replaces the first."""
     stop_metrics_flush()
     _METRICS["log_dir"] = log_dir
+    cadence_s = metrics_flush_cadence_s()
     if cadence_s <= 0:
         return False
     stop = threading.Event()
@@ -250,3 +290,23 @@ def stop_metrics_flush(final: bool = False) -> None:
     if final and stop is not None and _METRICS["log_dir"]:
         with contextlib.suppress(OSError):
             flush_metrics(_METRICS["log_dir"])
+
+
+@contextlib.contextmanager
+def trace(trace_dir: str | None) -> Iterator[None]:
+    """``torch.profiler`` over the block, CPU and CUDA activities, exported
+    as a Chrome trace to ``<trace_dir>/trace.json``, when a directory is
+    given; a no-op otherwise. A trace that cannot be written raises."""
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_NAME))

@@ -12,6 +12,17 @@ CUDA, or a JAX CLI flag set to a value the port does not run
 (argparser.UNPORTED_FLAGS), raises before any work is done. Each
 installs the run's durable-I/O policy (--io_retries, --fsync) before its
 first write.
+
+Observability, as in the JAX package: ``--events on`` (or
+``DREP_TORCH_EVENTS``) traces the run into ``<wd>/log/events.p0.jsonl``
+(utils/telemetry.py): the ``stage:filter|cluster|choose|evaluate`` spans,
+the cluster stage's own, and ``run_finished``; ``--profile [DIR]`` runs
+the cluster stage under ``torch.profiler`` and writes a Chrome trace to
+DIR, by default ``<wd>/log/torch_trace``; ``DREP_TORCH_METRICS_FLUSH_S``
+publishes ``<wd>/log/metrics.prom`` periodically; and every run writes
+``<wd>/log/perf_counters.json``. The index verbs trace into the index's
+own log dir, except ``classify``, which writes nothing under the index;
+``index serve|route`` trace into ``--log_dir``.
 """
 
 from __future__ import annotations
@@ -28,7 +39,9 @@ from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.evaluate import d_evaluate_wrapper
 from drep_tpu_torch.filter import d_filter_wrapper
 from drep_tpu_torch.ingest import make_bdb
+from drep_tpu_torch.utils import telemetry
 from drep_tpu_torch.utils.logger import get_logger, setup_logger
+from drep_tpu_torch.utils.profiling import counters, start_metrics_flush, stop_metrics_flush, trace
 from drep_tpu_torch.workdir import WorkDirectory
 
 
@@ -43,9 +56,14 @@ def _configure_io(kwargs: dict) -> None:
     faults.active()
 
 
-def _init(wd_loc: str, genomes: list[str]) -> tuple[WorkDirectory, pd.DataFrame]:
+def _init(wd_loc: str, genomes: list[str], events=None) -> tuple[WorkDirectory, pd.DataFrame]:
     wd = WorkDirectory(wd_loc)
     setup_logger(wd.get_dir("log"))
+    # the event sink (--events / DREP_TORCH_EVENTS; off: no file) and the
+    # periodic metrics flush (DREP_TORCH_METRICS_FLUSH_S; 0: no thread)
+    telemetry.configure(log_dir=wd.get_dir("log"), enabled=events, pid=0)
+    start_metrics_flush(wd.get_dir("log"))
+    counters.reset()  # fresh per run: library users may run several workflows in one process
     reset_run_state()  # a second run in this process warns again, as a second CLI run would
     if genomes:
         bdb = make_bdb(genomes)
@@ -57,6 +75,29 @@ def _init(wd_loc: str, genomes: list[str]) -> tuple[WorkDirectory, pd.DataFrame]
     return wd, bdb
 
 
+def _trace_dir(wd: WorkDirectory, profile) -> str | None:
+    """--profile's directory: the one given, or ``<wd>/log/torch_trace``
+    for the bare flag; None without it."""
+    if not profile:
+        return None
+    return profile if isinstance(profile, str) and profile != "auto" else wd.get_dir("log/torch_trace")
+
+
+def _finish_counters(wd: WorkDirectory) -> None:
+    """The run's epilogue: the last metrics flush, perf_counters.json, the
+    ``run_finished`` instant and the sink's close."""
+    stop_metrics_flush(final=True)
+    rep = counters.report()
+    path = counters.write(wd.get_dir("log"))
+    telemetry.event("run_finished", pairs=rep["total"]["pairs"])
+    telemetry.close()
+    total = rep["total"]
+    get_logger().info(
+        "perf: %d pairs in %.2fs = %s pairs/sec/chip (%d chip(s)) -> %s",
+        total["pairs"], total["seconds"], total["pairs_per_sec_per_chip"], rep["n_chips"], path,
+    )
+
+
 def compare_wrapper(
     wd_loc: str, genomes: list[str] | None = None, device=None, **kwargs
 ) -> pd.DataFrame:
@@ -64,15 +105,19 @@ def compare_wrapper(
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
-    wd, bdb = _init(wd_loc, genomes or [])
-    cdb = d_cluster_wrapper(wd, bdb, device=dev, **kwargs)
+    events, profile = kwargs.pop("events", None), kwargs.pop("profile", None)
+    wd, bdb = _init(wd_loc, genomes or [], events=events)
+    with trace(_trace_dir(wd, profile)), telemetry.span("stage:cluster"):
+        cdb = d_cluster_wrapper(wd, bdb, device=dev, **kwargs)
     # per-genome stats for downstream stages come from the ingest pass's Gdb
     wd.store_db(wd.get_db("Gdb")[["genome", "length", "N50", "contigs"]], "genomeInformation")
-    d_evaluate_wrapper(wd, **kwargs)
+    with telemetry.span("stage:evaluate"):
+        d_evaluate_wrapper(wd, **kwargs)
     if not kwargs.get("skip_plots", False):
         from drep_tpu_torch.analyze import plot_all
 
         plot_all(wd)
+    _finish_counters(wd)
     get_logger().info("compare finished: %d genomes, %d secondary clusters",
                       len(cdb), cdb["secondary_cluster"].nunique())
     return cdb
@@ -87,33 +132,51 @@ def dereplicate_wrapper(
     dev = resolve_device(device)
     validate_bonus_args(kwargs)  # centrifuge and its index, before any table is written
     _configure_io(kwargs)
-    wd, bdb = _init(wd_loc, genomes or [])
-    filtered = d_filter_wrapper(wd, bdb, genomeInfo=kwargs.pop("genomeInfo", None), **kwargs)
-    d_cluster_wrapper(wd, filtered, device=dev, **kwargs)
-    wdb = d_choose_wrapper(wd, filtered, **kwargs)
+    events, profile = kwargs.pop("events", None), kwargs.pop("profile", None)
+    wd, bdb = _init(wd_loc, genomes or [], events=events)
+    with telemetry.span("stage:filter"):
+        filtered = d_filter_wrapper(wd, bdb, genomeInfo=kwargs.pop("genomeInfo", None), **kwargs)
+    with trace(_trace_dir(wd, profile)), telemetry.span("stage:cluster"):
+        d_cluster_wrapper(wd, filtered, device=dev, **kwargs)
+    with telemetry.span("stage:choose"):
+        wdb = d_choose_wrapper(wd, filtered, **kwargs)
     if kwargs.get("run_tax"):
         d_bonus_wrapper(wd, filtered, cent_index=kwargs.get("cent_index"), processes=kwargs.get("processes", 1))
-    d_evaluate_wrapper(wd, **kwargs)
+    with telemetry.span("stage:evaluate"):
+        d_evaluate_wrapper(wd, **kwargs)
     if not kwargs.get("skip_plots", False):
         from drep_tpu_torch.analyze import plot_all
 
         plot_all(wd)
+    _finish_counters(wd)
     get_logger().info("dereplicate finished: %d winners", len(wdb))
     return wdb
 
 
 def _init_index(index_loc: str, device, kwargs: dict, write_logs: bool = True):
     """An index command's checks, then its logging: the unported flags and
-    the device are refused before anything is written; then the logger
-    goes under the index's log dir. `write_logs=False` (classify) keeps
-    logging on the console: classify writes nothing under the index
-    tree. Returns the device."""
+    the device are refused before anything is written; then the logger,
+    the event sink (DREP_TORCH_EVENTS) and the metrics flush go under the
+    index's log dir and the counters restart. `write_logs=False`
+    (classify) keeps logging on the console and tracing and the flush
+    off: classify writes nothing under the index tree. Returns the
+    device."""
     import os
 
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
-    setup_logger(os.path.join(os.path.abspath(index_loc), "log") if write_logs else None)
+    log_dir = None
+    if write_logs:
+        log_dir = os.path.join(os.path.abspath(index_loc), "log")
+        os.makedirs(log_dir, exist_ok=True)
+    setup_logger(log_dir)
+    telemetry.configure(log_dir=log_dir)
+    if log_dir is not None:
+        start_metrics_flush(log_dir)
+    else:
+        stop_metrics_flush()
+    counters.reset()
     return dev
 
 
@@ -189,9 +252,13 @@ def index_maintenance_wrapper(index_loc: str, op: str, device=None, **kwargs) ->
         pid_a, pid_b = kwargs["pids"]
         summary = fed_merge(index_loc, int(pid_a), int(pid_b), processes=processes, device=dev)
     else:
+        from drep_tpu_torch.utils import envknobs
+
         min_gens = kwargs.get("min_generations")
+        if min_gens is None:
+            min_gens = envknobs.env_int("DREP_TORCH_COMPACT_MIN_SHARDS")
         summary = fed_compact(index_loc, pid=kwargs.get("pid"), processes=processes,
-                              min_generations=4 if min_gens is None else int(min_gens), device=dev)
+                              min_generations=int(min_gens), device=dev)
     get_logger().info("index %s summary: %s", op, summary)
     return summary
 
@@ -209,25 +276,26 @@ def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, dev
 
 def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
     """The set-up `index serve` and `index route` share: what the port
-    does not run refuses first (``--events on``, item 13), then the device
-    resolves, the durable-I/O policy is installed, the console keeps the
-    controller's verbosity and the counters restart. Both are pure
-    readers of the index, so their logs and counters live under
-    ``--log_dir`` (outside the index tree) or nowhere. Returns (the
-    absolute log_dir or None, the device)."""
+    does not run refuses first, then the device resolves, the durable-I/O
+    policy is installed, the console keeps the controller's verbosity,
+    the event sink (``--events`` / DREP_TORCH_EVENTS) and the metrics
+    flush go to the log dir and the counters restart. Both are pure
+    readers of the index, so their logs, counters and events live under
+    ``--log_dir`` (outside the index tree) or nowhere; tracing without a
+    log dir is refused. Returns (the absolute log_dir or None, the
+    device)."""
     import logging
     import os
 
-    from drep_tpu_torch.utils.profiling import counters, start_metrics_flush, stop_metrics_flush
-
-    if kwargs.get("events") == "on":
-        raise NotImplementedError(
-            f"index {what} --events on: event tracing is not ported yet (ROADMAP.md queue 1, item 13)"
-        )
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
     log_dir = kwargs.get("log_dir") or None
+    if telemetry.resolve_enabled(kwargs.get("events")) and not log_dir:
+        raise UserInputError(
+            f"--events on needs --log_dir (the {'daemon' if what == 'serve' else 'router'} never writes under "
+            f"the index directory, so traces have nowhere to go)"
+        )
     if log_dir:
         log_dir = os.path.abspath(log_dir)
         idx_abs = os.path.abspath(index_loc)
@@ -243,6 +311,7 @@ def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
         (h.level for h in get_logger().handlers if isinstance(h, logging.StreamHandler)), logging.INFO,
     )
     setup_logger(log_dir, verbosity=console_lvl or logging.INFO)
+    telemetry.configure(log_dir=log_dir, enabled=kwargs.get("events"))
     if log_dir:
         start_metrics_flush(log_dir)
     else:
@@ -276,7 +345,6 @@ def _serve_kwargs(index_loc: str, kwargs: dict, log_dir: str | None, dev) -> dic
 
 def _run_server(server, log_dir: str | None) -> int:
     from drep_tpu_torch.serve import install_signal_handlers
-    from drep_tpu_torch.utils.profiling import counters, stop_metrics_flush
 
     install_signal_handlers(server)
     try:
@@ -285,6 +353,7 @@ def _run_server(server, log_dir: str | None) -> int:
         stop_metrics_flush(final=bool(log_dir))
         if log_dir:
             counters.write(log_dir)
+        telemetry.close()
 
 
 def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
@@ -292,10 +361,7 @@ def index_serve_wrapper(index_loc: str, device=None, **kwargs) -> int:
     load once, batch dynamically, hot-swap generations, drain on SIGTERM.
     Blocks until drained; returns run()'s exit status (0). On a federated
     root it loads the streaming resident, whose residency budget is
-    ``--resident_mb``.
-
-    What the port does not run is refused before anything is loaded:
-    ``--events on`` (item 13)."""
+    ``--resident_mb`` (default DREP_TORCH_SERVE_RESIDENT_MB)."""
     from drep_tpu_torch.serve import IndexServer, ServeConfig
 
     log_dir, dev = _serve_front_door(index_loc, kwargs, "serve", device)
@@ -312,8 +378,7 @@ def index_route_wrapper(index_loc: str, device=None, **kwargs) -> int:
     ``fleet`` op); queries before a join are refused with ``no_replicas``.
 
     Refused before anything is read: ``--fleet_manifest`` (the
-    supervisor's manifest, ROADMAP.md queue 1 item 11c) and ``--events
-    on`` (item 13)."""
+    supervisor's manifest, ROADMAP.md queue 1 item 11c)."""
     from drep_tpu_torch.serve.router import RouterConfig, RouterServer, refuse_fleet_manifest
 
     refuse_fleet_manifest(kwargs.get("fleet_manifest"))
@@ -324,7 +389,7 @@ def index_route_wrapper(index_loc: str, device=None, **kwargs) -> int:
             "index route starting with an empty replica table — queries "
             "will be refused (no_replicas) until a `fleet` join arrives"
         )
-    # flags left unset keep RouterConfig's defaults (the JAX package's knobs)
+    # flags left unset keep RouterConfig's defaults (the DREP_TORCH_ROUTER_* knobs)
     knobs = {k: kwargs[k] for k in ("max_inflight", "leg_timeout_s", "hedge_delay_s", "probe_backoff_s")
              if kwargs.get(k) is not None}
     cfg = RouterConfig(

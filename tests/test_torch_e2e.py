@@ -9,6 +9,7 @@ estimator and in numpy here, so they agree to the repo's atol=1e-7
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -469,12 +470,13 @@ def test_streaming_argvs_equal_jax_bytes(tmp_path, genome_paths, operation, flag
 # the JAX CLI's flags that the port parses and runs only at their JAX
 # defaults: a value to refuse, and the ROADMAP item that ports it; None
 # where the port now runs the value (the fault-tolerance and durable-I/O
-# flags, item 5): it reaches the cluster stage's _ft_config
+# flags, item 5): it reaches the cluster stage's _ft_config; the tracing
+# flags (item 13) the workflow runs itself, around the cluster stage
 _UNPORTED_FLAG_VALUES = [
-    (["--events", "on"], "item 13"),
+    (["--events", "on"], None),
     (["--fsync"], None),
     (["--io_retries", "5"], None),
-    (["--profile"], "item 13"),
+    (["--profile"], None),
     (["--fault_retries", "0"], None),
     (["--dispatch_timeout", "10"], None),
     (["--max_dead_processes", "0"], "item 12b"),
@@ -495,7 +497,9 @@ def test_jax_cli_flags_off_default_raise(tmp_path, genome_paths, flag, item, mon
     """A JAX CLI flag set to a value the port does not run raises naming
     its ROADMAP item before any work: the workdir is not even made. A
     flag the port runs reaches the cluster stage's _ft_config with its
-    value, before ingest."""
+    value, before ingest; --events and --profile the workflow consumes
+    (the cluster stage never sees them), and --events on has opened the
+    trace with the cluster stage's span by then."""
     from drep_tpu_torch.cluster import controller
 
     wd = tmp_path / "wd"
@@ -514,6 +518,13 @@ def test_jax_cli_flags_off_default_raise(tmp_path, genome_paths, flag, item, mon
     monkeypatch.setattr(controller, "_ft_config", reached)
     with pytest.raises(_ReachedFtConfig):
         torch_main(argv)
+    if flag[0] in ("--events", "--profile"):
+        assert flag[0][2:] not in seen
+        events = wd / "log" / "events.p0.jsonl"
+        assert events.exists() == (flag[0] == "--events")
+        if events.exists():
+            assert json.loads(events.read_text().splitlines()[-1])["ev"] == "stage:cluster"
+        return
     key, value = _FLAG_KW[flag[0]]
     assert seen[key] == value
     assert not (wd / "data" / "sketch_shards").exists()  # before ingest

@@ -169,8 +169,8 @@ def test_spec_parses_and_fires_as_jax(spec, poll):
     ("wire:reset", "11c"),
     ("wire:garble:path=replica0", "11c"),
     ("supervisor_tick:raise", "11c"),
-    ("index_update:raise", "13"),
-    ("partition_load:raise", "13"),
+    ("autoscale_decide:raise", "12b"),
+    ("barrier:sleep", "12b"),
     ("allgather:hang", "12b"),
 ])
 def test_unported_modes_and_sites_refused(spec, item):
@@ -482,8 +482,7 @@ def test_cli_flags_reach_ft_config(tmp_path, genome_paths, monkeypatch, flags, w
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--events", "on"], "13"), (["--profile"], "13"), (["--max_dead_processes", "2"], "12b"),
-    (["--max_joins", "1"], "12b"), (["--drain_grace_s", "5"], "12b"),
+    (["--max_dead_processes", "2"], "12b"), (["--max_joins", "1"], "12b"), (["--drain_grace_s", "5"], "12b"),
 ])
 def test_cli_pod_and_tracing_flags_still_raise(tmp_path, genome_paths, flag, item):
     from drep_tpu_torch.controller import main as torch_main

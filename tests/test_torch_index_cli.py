@@ -182,15 +182,16 @@ def _accepts_durable_io(monkeypatch, argv: list[str], io: dict) -> None:
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--events", "on", "--log_dir", "LOG"], "13"),
+    (["--events", "on"], "log_dir"),
     (["--io_retries", "5"], None),
     (["--fsync"], None),
 ])
 def test_cli_serve_refusals(tmp_path, cli_runs, flags, item, monkeypatch):
-    """`index serve` refuses what the port does not run before anything
-    is loaded, naming its item (event tracing), and takes the durable-I/O
-    flags (item = None) as the JAX CLI does; nothing under the index
-    changes either way."""
+    """`index serve` refuses before anything is loaded what it cannot run
+    (``--events on`` without a ``--log_dir``: the daemon writes nothing
+    under the index, as the JAX CLI refuses it), and takes the
+    durable-I/O flags (item = None) as the JAX CLI does; nothing under
+    the index changes either way."""
     loc = cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=())
     argv = [str(tmp_path / "log") if a == "LOG" else a for a in flags]
@@ -199,7 +200,7 @@ def test_cli_serve_refusals(tmp_path, cli_runs, flags, item, monkeypatch):
         _accepts_durable_io(monkeypatch, ["index", "serve", loc, "--device", "cpu",
                                           "--socket", str(tmp_path / "s.sock"), *argv], io)
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+        with pytest.raises(SystemExit):  # the CLI's one `!!!` line for a UserInputError
             torch_main(["index", "serve", loc, "--device", "cpu", *argv])
     assert lib.tree_digest(loc, exclude_dirs=()) == before
     assert not os.path.exists(tmp_path / "log")
@@ -207,13 +208,14 @@ def test_cli_serve_refusals(tmp_path, cli_runs, flags, item, monkeypatch):
 
 @pytest.mark.parametrize("flags,item", [
     (["--fleet_manifest", "FLEET", "--log_dir", "LOG"], "11c"),
-    (["--events", "on", "--log_dir", "LOG"], "13"),
+    (["--events", "on"], "log_dir"),
     (["--io_retries", "5"], None),
 ])
 def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item, monkeypatch):
-    """`index route` refuses what the port does not run before anything
-    is read, bound or written, naming its item: the supervisor's fleet
-    manifest, event tracing; it takes the durable-I/O flag (item = None)."""
+    """`index route` refuses before anything is read, bound or written
+    what it does not run, naming its item (the supervisor's fleet
+    manifest), and ``--events on`` without a ``--log_dir``, as the JAX
+    CLI does; it takes the durable-I/O flag (item = None)."""
     loc = fed_cli_runs[("torch", "update")]
     before = lib.tree_digest(loc, exclude_dirs=())
     sub = {"LOG": str(tmp_path / "log"), "FLEET": str(tmp_path / "fleet.json")}
@@ -221,6 +223,9 @@ def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item, monkeypatch):
             "--socket", str(tmp_path / "r.sock"), *[sub.get(a, a) for a in flags]]
     if item is None:
         _accepts_durable_io(monkeypatch, argv, {"retries": 5})
+    elif item == "log_dir":
+        with pytest.raises(SystemExit):  # the CLI's one `!!!` line for a UserInputError
+            torch_main(argv)
     else:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             torch_main(argv)

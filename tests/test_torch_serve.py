@@ -577,6 +577,33 @@ def test_daemon_deadline_shed_cancel_and_eta_refusal(serve_index):
         _stop_server(srv, t)
 
 
+@pytest.mark.parametrize("package", ["port", "jax"])
+def test_zero_default_deadline_admits_and_answers(serve_index, monkeypatch, package):
+    """A default budget of 0 means none: a request without deadline_ms is
+    neither refused at admission (the queue ETA is the batch window, above
+    0) nor shed, and is answered, in both packages' daemons."""
+    loc, queries, oneshot = serve_index
+    monkeypatch.setenv("DREP_TORCH_SERVE_DEADLINE_DEFAULT_MS", "0")
+    monkeypatch.setenv("DREP_TPU_SERVE_DEADLINE_DEFAULT_MS", "0")
+    counters.reset()
+    if package == "port":
+        srv, addr, t = _start_server(loc, batch_window_ms=200.0, poll_generation_s=60.0)
+    else:
+        srv = JaxIndexServer(JaxServeConfig(index_loc=loc, batch_window_ms=200.0, max_batch=16,
+                                            poll_generation_s=60.0))
+        addr = srv.start()
+        t = threading.Thread(target=srv.serve_batches, daemon=True)
+        t.start()
+    try:
+        assert srv._budget_ms({}) is None
+        with ServeClient(addr, timeout_s=120) as c:
+            resp = c.classify(queries[0])
+        assert resp["ok"] and resp["verdict"] == oneshot[queries[0]]
+        assert srv.stats.deadline_shed == 0 and srv.stats.rejected_total == 0
+    finally:
+        _stop_server(srv, t)
+
+
 def test_poisoned_batch_isolates_the_bad_query(serve_index, tmp_path):
     loc, queries, oneshot = serve_index
     bad = str(tmp_path / "bad.fasta")
