@@ -141,9 +141,8 @@ Phases (any failure exits nonzero; nothing is caught):
    clean drain; on the 64-query batch the resident edges equal to 10c's
    union-path edges bit for bit; the kernel at the resident shape held against its plain
    version, timed and bounded; the resident rectangle of the prefix index
-   equal on the card and the CPU; 11b ``python -m drep_tpu_torch index
-   serve`` as a subprocess on an index of the fixture genomes A-C: its
-   verdict equal to ``index classify`` on the card, SIGTERM to exit 0;
+   equal on the card and the CPU (the CLI daemon as a subprocess, 11b
+   until PR 17, is phase 17's supervised replicas);
 12. the federated index and its maintenance verbs (``index/federation.py``,
    ``index/maintenance.py``, ROADMAP queue 1 item 10b), with phase 5's and
    10's planted sketches substituted for ``federation.sketch_batch``: 12a
@@ -158,7 +157,8 @@ Phases (any failure exits nonzero; nothing is caught):
    10c's queries from ``load_resident_index(streaming=False)``: verdicts
    equal to 10c's joint ones (labels up to renumbering, the union orders
    differ; ``nearest`` up to a tie), the tree unchanged, and the separate
-   verdicts of every query (phase 13's oracle); then phase 13, then 12d
+   verdicts of every query (phase 13's oracle); then phases 13, 17a-b,
+   14 and 17c-f, then 12d
    ``compact_store`` on phase 10's plain store, then ``index split`` of
    the largest partition, ``index merge`` back and ``index compact`` of
    the federation through the CLI, each leaving the union's partitions
@@ -178,15 +178,14 @@ Phases (any failure exits nonzero; nothing is caught):
    never suspect or quarantined (a failed launch would show as a PARTIAL
    verdict), the ``mash_shared`` launches equal to the row stripes the
    partitions and batches imply and the ``indicator_mm`` launches to the
-   reclusters' secondaries, the tree unchanged; 13b two replicas behind a
-   ``RouterServer`` (the router's sketch cache holding the planted
-   sketches, its batches FED_ROUTER_BATCH queries), scoped to partitions
-   FED_SERVE_SCOPES (every query scattered as ``classify_part`` legs,
-   merged on the router), then
-   unscoped (every query forwarded): verdicts equal to 13a's full dicts,
-   no leg failed, hedged or rerouted, the legs counted, the Mash launches
-   all on the replicas' side and the indicator launches split between
-   the router's reclusters and the replicas';
+   reclusters' secondaries, the tree unchanged; 13b two in-process
+   replicas behind a ``RouterServer`` (the router's sketch cache holding
+   the planted sketches), unscoped (every query forwarded): verdicts equal
+   to 13a's full dicts, no leg failed, hedged or rerouted, the Mash
+   launches all on the replicas' side and the indicator launches split
+   between the router's reclusters and the replicas' (the scoped run,
+   every query scattered as ``classify_part`` legs in batches of
+   FED_ROUTER_BATCH, is 17b's since PR 17, over the supervised replicas);
 14. resilience on the card (ROADMAP queue 1 item 5; faults injected
    through ``drep_tpu_torch/utils/faults.py``): 14a d_cluster_wrapper on
    phase 9's PREFIX_OPTION_GENOMES prefix of phase 5's genomes, first with
@@ -237,13 +236,45 @@ Phases (any failure exits nonzero; nothing is caught):
    secondary (one ``fault`` instant for the retry, one for the injected
    raise), 11a's daemon (``serve_load``, ``serve_start``, one
    ``serve_batch`` span a batch, ``serve_drain``, ``serve_stop``) and
-   13b's scatter router with its replicas (``route_start``, one
-   ``partition_classify`` span a leg, no replica transition or fault),
-   each log's event count and its run's seconds printed; 16c one
-   recommend-only ``FleetAutoscaleController`` tick against 13b's live
-   scatter router: one decision record a partition range, the JAX keys,
-   nothing placed or drained;
-17. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+   17b's scatter router (``route_start``, no replica transition or fault;
+   its replicas' ``partition_classify`` spans, one a leg, are in their
+   own logs), each log's event count and its run's seconds printed; 16c
+   one recommend-only ``FleetAutoscaleController`` tick against 17b's
+   live scatter router: one decision record a partition range, the JAX
+   keys, nothing placed or drained;
+17. the fleet's supervision (``serve/supervisor.py``, ``serve/wirechaos.py``,
+   ROADMAP queue 1 item 11c) on 12c's root, after phase 13: 17a ``python
+   -m drep_tpu_torch index supervise`` (a subprocess with no device,
+   started right after 12b, when the root is final, so that it and its
+   replicas start beside 12c and 13) places one ``index serve`` replica
+   on the card a scope of FED_SERVE_SCOPES, each tracing into its own log
+   dir: the ready line, both slots healthy in ``fleet.json``; 17b (13b's
+   scatter run since PR 17; traced for 16b, with 16c's autoscale tick)
+   an in-process router built from the manifest alone routes 13's
+   queries: verdicts equal to 13a's, every query scattered (legs of
+   FED_ROUTER_BATCH queries), the ``supervision`` view, the router's
+   ``indicator_mm`` launches its reclusters' secondaries, the replicas'
+   traced legs (``partition_classify`` spans) the router's legs and their
+   ``stripe`` spans (``mash_shared`` launches) some, their ``/healthz``
+   partition loads, and on the card each replica pid holding a CUDA
+   context (its memory maps /dev/nvidia-uvm), the supervisor none and
+   nvidia-smi's compute apps as many as the contexts (nvidia-smi names
+   every process of the chip's sandbox pid 1); 17c SIGKILL one replica
+   (its respawn runs beside phase 14): the supervisor books the death and
+   respawns it (a new pid, the old one gone), the router learns the new
+   address by the supervisor's join and ejects the old, a
+   FLEET_SHORT_QUERIES batch's verdicts equal 13a's; 17d SIGKILL the
+   supervisor once the respawn is in and start a successor, whose start
+   runs beside 17c's batch and 17e: both replicas adopted (the same pids,
+   no spawn, the generation advanced); 17e a router reaching one replica
+   through two ``WireChaos`` proxies, ``wire:garble:path=garbled_hop:max=1`` in this
+   process: one garbled leg reply, caught by the CRC (the router's
+   ``replica_suspect`` instant) and rerouted, the verdicts equal 13a's;
+   17f ``FleetSupervisor.drain`` of each slot: fleet leave, SIGTERM, exit
+   0 (this process is its descendants' subreaper, so the adopted
+   replicas' exit codes are read here), their ``serve_drain`` and
+   ``serve_stop`` instants, the manifest empty, the root's tree unchanged;
+18. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -260,8 +291,9 @@ Phases (any failure exits nonzero; nothing is caught):
    14's launches under ``resilience_launches`` and phase 15's under
    ``subprocess_launches``; both phase 16a's launches and profiled kernel
    events under ``profiled``, the Mash kernel phase 16's seconds and event
-   counts under ``trace``);
-18. the last line: ``{"ok": true, "device": {...}}``.
+   counts under ``trace``; both phase 17's launches a batch under
+   ``fleet_launches``, the Mash kernel phase 17's seconds under ``fleet``);
+19. the last line: ``{"ok": true, "device": {...}}``.
 
 Phase 5's and phase 8a's planted sketches are made in two spawned
 processes started before phase 2 (the same seeds, so the same sketches),
@@ -2555,17 +2587,17 @@ def phase_serve(tmp: str, dev, p10: dict) -> dict:
     verdicts equal to 10c's union-path ones, one upload, one mash_shared
     launch a batch, the resident edges equal to the union edges on one
     batch, the kernel at the resident shape against its plain version and
-    bound, the card against the CPU on the prefix index); 11b the CLI
-    daemon as a subprocess on an index of the fixture genomes A-C."""
+    bound, the card against the CPU on the prefix index). The CLI daemon
+    as a subprocess (11b until phase 17) is phase 17's supervised replicas."""
     import threading
 
     import torch
 
-    from drep_tpu_torch.index import build_from_paths, index_classify, load_resident_index, resident_device
+    from drep_tpu_torch.index import load_resident_index, resident_device
     from drep_tpu_torch.index.classify import SketchedQueries
     from drep_tpu_torch.ops import mash
     from drep_tpu_torch.ops.minhash import pad_packed_rows
-    from drep_tpu_torch.serve import IndexServer, ServeClient, ServeConfig
+    from drep_tpu_torch.serve import IndexServer, ServeConfig
     from drep_tpu_torch.utils.profiling import counters
 
     t_phase = time.perf_counter()
@@ -2677,49 +2709,11 @@ def phase_serve(tmp: str, dev, p10: dict) -> dict:
     log(f"11a: the resident rectangle of the {pre_g.n}-genome prefix index x {INDEX_QUERIES} queries is equal on the "
         f"card and the CPU ({len(g[0])} edges, {t_prefix:.2f} s)")
 
-    # 11b: the CLI daemon, a subprocess on the card
-    t0 = time.perf_counter()
-    cli_idx = os.path.join(tmp, "serve_cli_index")
-    fixture = [os.path.join(HERE, "tests", "genomes", f"genome_{x}.fasta") for x in "ABC"]
-    build_from_paths(cli_idx, fixture, processes=1, device=dev)
-    digest = tree_digest(cli_idx)
-    want_v = index_classify(cli_idx, fixture[:1], device=dev)[0]
-    sock = os.path.join(tmp, "serve.sock")
-    err_path = os.path.join(tmp, "serve_cli.err")
-    with open(err_path, "w") as err:
-        proc = subprocess.Popen([sys.executable, "-m", "drep_tpu_torch", "index", "serve", cli_idx, "--socket", sock],
-                                stdout=subprocess.PIPE, stderr=err, text=True, cwd=HERE)
-
-    def err_tail() -> str:
-        with open(err_path) as f:
-            return f.read()[-3000:]
-
-    try:
-        ready_line = proc.stdout.readline()
-        require(bool(ready_line), f"11b: the daemon died before its ready line (exit {proc.poll()}): {err_tail()}")
-        ready = json.loads(ready_line)
-        t_ready = time.perf_counter() - t0
-        with ServeClient(sock, timeout_s=300) as cl:
-            resp = cl.classify(fixture[0])
-        require(resp["ok"] and resp["verdict"] == want_v,
-                f"11b: the CLI daemon's verdict {resp} != index classify on the card {want_v}")
-        proc.send_signal(15)  # SIGTERM: drain
-        rc = proc.wait(timeout=120)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait(timeout=60)
-    require(rc == 0, f"11b: the CLI daemon exited {rc} after SIGTERM: {err_tail()}")
-    require(tree_digest(cli_idx) == digest, "11b: the CLI daemon changed the index tree")
-    t_cli = time.perf_counter() - t0
-    log(f"11b: `index serve` subprocess ready in {t_ready:.2f} s ({json.dumps(ready)}), its verdict equals index "
-        f"classify on the card, SIGTERM drained it to exit 0 with the tree unchanged ({t_cli:.2f} s)")
-
     out = {"start_s": t_start, "upload_s": upload_s, "serve_s": t_serve, "requests": INDEX_QUERIES,
            "clients": SERVE_CLIENTS, "batches": batches, "rect_s": rect_s, "launches": launches,
            "latency_ms": st["latency_ms"], "resident_rect_s": t_resident_rect,
            "union_pack_s": p10["classify_separate_pack_s"], "union_walk_s": p10["classify_separate_walk_s"],
-           "kernel": kernel, "prefix_card_cpu_s": t_prefix, "cli_s": t_cli}
+           "kernel": kernel, "prefix_card_cpu_s": t_prefix}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 11: {json.dumps({k: v for k, v in out.items() if k not in ('latency_ms',)})}")
     return out
@@ -2848,7 +2842,7 @@ class planted_sketches:
         federation.sketch_batch = self.real
 
 
-def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
+def phase_federation(tmp: str, dev, real: dict, p10: dict, after_update=None) -> dict:
     """Phase 12a-c: build_federated over phase 5's genomes; phase 10's
     update; one-shot classify of phase 10's queries from the union, joint
     and separate (the separate verdicts are phase 13's oracle)."""
@@ -2921,6 +2915,8 @@ def phase_federation(tmp: str, dev, real: dict, p10: dict) -> dict:
                                                "publish_s")}, "cross_edges": upd["cross_edges"]}
         log(f"12b federated update: {json.dumps(out['update'])}; the union's partitions and winners equal phase "
             f"10's plain store's")
+        if after_update is not None:  # the root is final: phase 17's fleet starts beside 12c and 13
+            after_update(fed_dir)
 
         # 12c: one-shot classify (load_resident_index(streaming=False) +
         # one joint batch, index_classify's body on presketched queries)
@@ -3091,8 +3087,8 @@ def phase_federation_maint(tmp: str, dev, real: dict, p10: dict, p12: dict) -> d
 
 # phase 13: serving the federated root (ROADMAP queue 1 item 11b) at 12c's
 # generation: 13a the daemon on the streaming resident, 13b a router over
-# two replicas scoped to FED_SERVE_SCOPES (scatter/gather), then over the
-# same replicas unscoped (forward)
+# two unscoped replicas (forward); 17b routes the same queries over two
+# supervised replicas scoped to FED_SERVE_SCOPES (scatter/gather)
 FED_SERVE_SCOPES = ("0,1", "2,3")
 # the router's batch bound: a classify_part leg is one protocol line
 # carrying its queries' bottoms as JSON integers (~17-21 bytes a hash),
@@ -3102,6 +3098,9 @@ FED_SERVE_SCOPES = ("0,1", "2,3")
 # sketches: its router batches all INDEX_QUERIES, so that each replica
 # packs its partitions once
 FED_ROUTER_BATCH = 32
+# 13b's forwarded queries: the first half of 10c's (cut from all of them
+# for the time limit at PR 17)
+FED_FORWARD_QUERIES = INDEX_QUERIES // 2
 
 
 def fed_stripes(fed, bottoms: list, block: int) -> int:
@@ -3149,9 +3148,8 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
     generation (the streaming resident on the card), 10c's queries from
     concurrent clients: verdicts equal to 12c's separate union verdicts
     once stripped, full coverage, the Mash launches the partitions' stripes
-    imply; 13b two replicas behind a RouterServer, scoped (scatter/gather)
-    and then unscoped (forward): verdicts equal to 13a's full dicts, the
-    legs and each side's launches counted."""
+    imply; 13b two replicas behind a RouterServer, unscoped (forward):
+    verdicts equal to 13a's full dicts, each side's launches counted."""
     import threading
 
     import pandas as pd
@@ -3188,12 +3186,6 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
         loop.start()
         return srv, addr, loop, t_start
 
-    def stop(srv, loop, what: str) -> None:
-        srv.request_drain()
-        loop.join(timeout=300)
-        srv.close()
-        require(not loop.is_alive(), f"{what}: the batch loop did not drain")
-
     def answered(resps: list, srv, what: str) -> dict:
         st = srv.snapshot()
         bad = [r for r in resps if not (r and r.get("ok"))]
@@ -3214,7 +3206,7 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
         t_serve = time.perf_counter() - t0
         launches = read_launches()
     finally:
-        stop(srv, loop, "13a")
+        stop_router(srv, loop, "13a")
     got_a = answered(resps, srv, "13a")
     fed_coverage_full(list(got_a.values()), fed, "13a")
     stripped = {g: {k: x for k, x in v.items() if k not in strip} for g, v in got_a.items()}
@@ -3240,88 +3232,617 @@ def phase_fed_serve(tmp: str, dev, p10: dict, p12: dict) -> dict:
         f"{json.dumps({k: v for k, v in out['a'].items() if k != 'latency_ms'})}; verdicts equal 12c's separate "
         f"ones once stripped, full coverage, every partition healthy, the tree unchanged")
 
-    # 13b: two replicas behind a router, scoped then unscoped
+    # 13b: two in-process replicas behind a router, unscoped (every query
+    # forwarded); the scoped run (every query scattered) is 17b's, over the
+    # supervised replicas
     reps = [serve((ServeConfig, IndexServer), {}, fed_serve_classify_fn(queries, dev, [])) for _ in range(2)]
     # no hedging: a forward group hedges on its first pass whenever the
     # batch's budget exceeds the hedge delay (both packages; ROADMAP queue
     # 3, F8), so the delay is set past SERVE_DEADLINE_MS
     router_kw = {"leg_timeout_s": 120.0, "hedge_delay_s": 2 * SERVE_DEADLINE_MS / 1000.0, "probe_interval_s": 1.0}
     try:
-        for mode, specs, batch in (
-                ("scatter", [f"{reps[i][1]}={FED_SERVE_SCOPES[i]}" for i in range(2)], FED_ROUTER_BATCH),
-                ("forward", [reps[0][1], reps[1][1]], INDEX_QUERIES)):
-            before = [(dict(r[0]._resident.work), r[0].stats.legs_total) for r in reps]
-            reset_launches()
-            # phase 16b: the scatter run traced (the router and its replicas
-            # share this process's event log); 16c: one recommend-only
-            # autoscale tick against the live router
-            trace_dir = os.path.join(tmp, f"trace_13b_{mode}")
-            with traced(trace_dir) if mode == "scatter" else contextlib.nullcontext():
-                rt, raddr, rloop, r_start = serve((RouterConfig, RouterServer), {"replicas": specs, **router_kw},
-                                                  max_batch=batch)
-                for p in paths:  # the router's sketch cache holds 10c's planted sketches
-                    rt._sketch_cache[rt._sketch_key(p)] = queries.results[f"query:{os.path.basename(p)}"]
-                try:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    resps = serve_clients(raddr, paths)
-                    torch.cuda.synchronize()
-                    t_route = time.perf_counter() - t0
-                    launches = read_launches()
-                    if mode == "scatter":
-                        out["autoscale"] = autoscale_tick(tmp, raddr, specs)
-                finally:
-                    stop(rt, rloop, f"13b {mode}")
-            got = answered(resps, rt, f"13b {mode}")
-            partial = sorted(g for g, v in got.items() if v.get("partial") or v.get("partitions_unavailable"))
-            require(not partial, f"13b {mode}: budget expired: {len(partial)} PARTIAL (first {partial[:5]}; "
-                    f"router {json.dumps(rt.snapshot()['router'])})")
-            differ = sorted(g for g in got_a if got.get(g) != got_a[g])
-            if differ:  # the first difference in full, for the diagnosis
-                log(f"13b {mode}: {differ[0]}: 13a {json.dumps(got_a[differ[0]], default=str)}; routed "
-                    f"{json.dumps(got.get(differ[0]), default=str)}; router {json.dumps(rt.snapshot()['router'])}")
-            require(not differ, f"13b {mode}: routed verdicts != 13a's: {differ[:5]}")
-            rs = rt.snapshot()["router"]
-            rep_work = [{k: r[0]._resident.work[k] - b[0][k] for k in ("stripes", "secondary_calls")}
-                        for r, b in zip(reps, before)]
-            legs = [r[0].stats.legs_total - b[1] for r, b in zip(reps, before)]
-            router_work = rt._resident.work
-            n_q = len(paths)
-            if mode == "scatter":
-                require(rs["scattered"] == n_q and rs["forwarded"] == 0, f"13b scatter: {rs}")
-                require(sum(legs) == rs["legs_total"] > 0 and all(legs), f"13b scatter: legs {legs}, router {rs}")
-                tc = read_trace(trace_dir, "13b", r_start + t_route)["counts"]
-                require(tc.get("route_start:i") == 1 and tc.get("partition_classify:E") == sum(legs)
-                        and tc.get("fleet_autoscale_decision:i") == len(FED_SERVE_SCOPES)
-                        and not any(k.startswith(("replica_", "fault:")) for k in tc),
-                        f"16b 13b: events {tc}, {sum(legs)} legs")
-            else:
-                require(rs["forwarded"] == n_q and rs["scattered"] == 0 and rs["legs_total"] == 0,
-                        f"13b forward: {rs}")
-            require(rs["leg_failures"] == rs["hedges"] == rs["partial_verdicts"] == rs["reroutes"] == 0,
-                    f"13b {mode}: {rs}")
-            require(router_work["stripes"] == 0 and launches["mash_shared"] == sum(w["stripes"] for w in rep_work) > 0,
-                    f"13b {mode}: mash_shared {launches['mash_shared']}, replicas {rep_work}, router {router_work}")
-            require(launches["indicator_mm"] == router_work["secondary_calls"]
-                    + sum(w["secondary_calls"] for w in rep_work) > 0,
-                    f"13b {mode}: indicator_mm {launches['indicator_mm']}, replicas {rep_work}, router {router_work}")
-            for i, r in enumerate(reps):
-                fed_coverage_full([], r[0]._resident, f"13b {mode} replica {i}")
-            fed_coverage_full([], rt._resident, f"13b {mode} router")
-            out[mode] = {"router_start_s": r_start, "serve_s": t_route, "launches": launches, "router": rs,
-                         "replica_legs": legs, "replica_work": rep_work,
-                         "router_work": {k: router_work[k] for k in ("reclusters", "secondary_calls", "recluster_s")},
-                         "batches": rt.snapshot()["batches_total"], "latency_ms": rt.snapshot()["latency_ms"]}
-            log(f"13b {mode}: {n_q} requests through the router in {t_route:.2f} s (router start {r_start:.2f} s); "
-                f"{json.dumps({k: v for k, v in out[mode].items() if k != 'latency_ms'})}; verdicts equal 13a's "
-                f"full dicts")
+        mode = "forward"
+        before = [(dict(r[0]._resident.work), r[0].stats.legs_total) for r in reps]
+        reset_launches()
+        rt, raddr, rloop, r_start = serve((RouterConfig, RouterServer), {"replicas": [reps[0][1], reps[1][1]],
+                                                                         **router_kw}, max_batch=INDEX_QUERIES)
+        fpaths = paths[:FED_FORWARD_QUERIES]
+        for p in fpaths:  # the router's sketch cache holds 10c's planted sketches
+            rt._sketch_cache[rt._sketch_key(p)] = queries.results[f"query:{os.path.basename(p)}"]
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resps = serve_clients(raddr, fpaths)
+            torch.cuda.synchronize()
+            t_route = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            stop_router(rt, rloop, f"13b {mode}")
+        got = answered(resps, rt, f"13b {mode}")
+        partial = sorted(g for g, v in got.items() if v.get("partial") or v.get("partitions_unavailable"))
+        require(not partial, f"13b {mode}: budget expired: {len(partial)} PARTIAL (first {partial[:5]}; "
+                f"router {json.dumps(rt.snapshot()['router'])})")
+        differ = sorted(g for g in got if got[g] != got_a.get(g))
+        if differ:  # the first difference in full, for the diagnosis
+            log(f"13b {mode}: {differ[0]}: 13a {json.dumps(got_a.get(differ[0]), default=str)}; routed "
+                f"{json.dumps(got[differ[0]], default=str)}; router {json.dumps(rt.snapshot()['router'])}")
+        require(len(got) == len(fpaths) and not differ, f"13b {mode}: routed verdicts != 13a's: {differ[:5]}")
+        rs = rt.snapshot()["router"]
+        rep_work = [{k: r[0]._resident.work[k] - b[0][k] for k in ("stripes", "secondary_calls")}
+                    for r, b in zip(reps, before)]
+        legs = [r[0].stats.legs_total - b[1] for r, b in zip(reps, before)]
+        router_work = rt._resident.work
+        n_q = len(fpaths)
+        require(rs["forwarded"] == n_q and rs["scattered"] == 0 and rs["legs_total"] == 0, f"13b {mode}: {rs}")
+        require(rs["leg_failures"] == rs["hedges"] == rs["partial_verdicts"] == rs["reroutes"] == 0,
+                f"13b {mode}: {rs}")
+        require(router_work["stripes"] == 0 and launches["mash_shared"] == sum(w["stripes"] for w in rep_work) > 0,
+                f"13b {mode}: mash_shared {launches['mash_shared']}, replicas {rep_work}, router {router_work}")
+        require(launches["indicator_mm"] == router_work["secondary_calls"]
+                + sum(w["secondary_calls"] for w in rep_work) > 0,
+                f"13b {mode}: indicator_mm {launches['indicator_mm']}, replicas {rep_work}, router {router_work}")
+        for i, r in enumerate(reps):
+            fed_coverage_full([], r[0]._resident, f"13b {mode} replica {i}")
+        fed_coverage_full([], rt._resident, f"13b {mode} router")
+        out[mode] = {"router_start_s": r_start, "serve_s": t_route, "launches": launches, "router": rs,
+                     "replica_legs": legs, "replica_work": rep_work,
+                     "router_work": {k: router_work[k] for k in ("reclusters", "secondary_calls", "recluster_s")},
+                     "batches": rt.snapshot()["batches_total"], "latency_ms": rt.snapshot()["latency_ms"]}
+        log(f"13b {mode}: {n_q} requests through the router in {t_route:.2f} s (router start {r_start:.2f} s); "
+            f"{json.dumps({k: v for k, v in out[mode].items() if k != 'latency_ms'})}; verdicts equal 13a's "
+            f"full dicts")
     finally:
         for srv, _addr, loop, _t in reps:
-            stop(srv, loop, "13b replica")
+            stop_router(srv, loop, "13b replica")
     require(tree_digest(fed_dir) == p12["digest"], "13b: the fleet changed the federation's tree")
+    # phase 17's inputs: the query files, 13a's verdicts and the sketches
+    # its routers' caches hold
+    out.update(paths=paths, verdicts=got_a,
+               sketches={p: queries.results[f"query:{os.path.basename(p)}"] for p in paths})
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 13: {out['phase_s']:.1f} s")
     return out
+
+
+# phase 17: the fleet's supervision (ROADMAP queue 1 item 11c) on 12c's
+# federated root, after phase 13 and before 12d changes the root. 17a's
+# supervisor (`index supervise`, a subprocess with no device) is started
+# right after 12b, so that its start and those of its two `index serve`
+# replicas on the card (a torch import, a CUDA context and the spine each)
+# run beside 12c and 13; 17b-17f then drive the fleet, 17c's respawn
+# beside phase 14
+FLEET_HEARTBEAT_S = 0.5
+# 17c's and 17e's batches: half a router batch of 13's queries (17b runs
+# all of them; cut for the time limit)
+FLEET_SHORT_QUERIES = FED_ROUTER_BATCH // 2
+# the longest wait for a ready line, a respawn or a drained replica
+FLEET_WAIT_S = 240.0
+# the fleet's processes, stopped on the way out whatever happened
+FLEET_PROCS: list = []
+FLEET_PIDS: set = set()
+FLEET_DIRS: list = []
+# the label of 17e's proxied hop (the wire rule's path=)
+FLEET_HOP = "garbled_hop"
+
+
+def context_pids(pids) -> set:
+    """The pids among `pids` that hold a CUDA context: their memory maps
+    /dev/nvidia-uvm (a process that only asked for the device count has
+    the file open but not mapped). On the chip machine nvidia-smi names
+    every process of the sandbox pid 1 (/process_api), so its pid column
+    cannot be matched to ours; its line count can, a line a context."""
+    out = set()
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/maps") as f:
+                if any("/dev/nvidia-uvm" in ln for ln in f):
+                    out.add(int(pid))
+        except OSError:
+            continue
+    return out
+
+
+def nvidia_fds(pid: int) -> list:
+    """The /dev/nvidia* files `pid` holds open (none: it never touched the card)."""
+    out = []
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return out
+    for fd in fds:
+        try:
+            target = os.readlink(f"/proc/{pid}/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.append(target)
+    return sorted(out)
+
+
+def on_card(dev, replicas: list, sup_pid: int, gone: list, what: str) -> dict:
+    """Each replica pid holds a CUDA context, the supervisor's pid never
+    touched the card, the pids in `gone` are gone, and nvidia-smi's
+    compute apps count exactly the processes that hold a context."""
+    if dev.type != "cuda":
+        return {}
+    res = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    require(res.returncode == 0, f"{what}: nvidia-smi --query-compute-apps failed: {res.stderr[-500:]}")
+    apps = [ln.strip() for ln in res.stdout.splitlines() if ln.strip()]
+    held = context_pids(int(p) for p in os.listdir("/proc") if p.isdigit())
+    require(set(replicas) <= held, f"{what}: replicas {replicas} without a CUDA context (contexts: {sorted(held)})")
+    require(sup_pid not in held and not nvidia_fds(sup_pid),
+            f"{what}: the supervisor (pid {sup_pid}) touched the card: {nvidia_fds(sup_pid)}")
+    require(not any(os.path.exists(f"/proc/{pid}") for pid in gone), f"{what}: pids {gone} still exist")
+    require(len(apps) == len(held), f"{what}: nvidia-smi lists {len(apps)} compute apps {apps}, "
+            f"{len(held)} processes hold a context ({sorted(held)})")
+    return {"compute_apps": apps, "context_pids": sorted(held)}
+
+
+def read_json_line(proc, timeout_s: float, what: str, err_path: str) -> dict:
+    """The next stdout line of `proc` as JSON, within `timeout_s`."""
+    import selectors
+
+    def tail() -> str:
+        with open(err_path) as f:
+            return f.read()[-3000:]
+
+    sel = selectors.DefaultSelector()
+    sel.register(proc.stdout, selectors.EVENT_READ)
+    deadline = time.monotonic() + timeout_s
+    try:
+        while True:
+            left = deadline - time.monotonic()
+            require(left > 0, f"{what}: no ready line within {timeout_s:.0f} s: {tail()}")
+            if sel.select(timeout=min(1.0, left)):
+                line = proc.stdout.readline()
+                require(bool(line), f"{what}: exited before its ready line (exit {proc.poll()}): {tail()}")
+                return json.loads(line)
+            require(proc.poll() is None, f"{what}: exited before its ready line (exit {proc.poll()}): {tail()}")
+    finally:
+        sel.close()
+
+
+def start_supervisor(fleet: dict, what: str, log_dir: str):
+    """`python -m drep_tpu_torch index supervise` with the fleet's argv and
+    its own event log, its stdout a pipe (the ready line), its stderr a file
+    (a daemon's pipe must not fill; its replicas inherit it)."""
+    err_path = os.path.join(fleet["dir"], f"supervise_{what}.err")
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(fleet["argv"] + ["--log_dir", log_dir], stdout=subprocess.PIPE, stderr=err,
+                                text=True, cwd=HERE)
+    FLEET_PROCS.append(proc)
+    return proc, err_path, time.time()
+
+
+def start_fleet(tmp: str, dev, fed_dir: str) -> dict:
+    """17a's start: this process becomes its descendants' subreaper (when
+    17d kills the supervisor, its replicas become this process's children,
+    so 17f reads their exit codes and nothing outlives the script), then
+    the supervisor places one replica a scope of FED_SERVE_SCOPES with
+    --spawn the port's `index serve` of the root (on the card: no
+    --device), each replica tracing into its own log dir."""
+    import ctypes
+    import shlex
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    require(libc.prctl(36, 1, 0, 0, 0) == 0, f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+    d = os.path.join(tmp, "fleet17")
+    os.makedirs(d)
+    fleet = {"dir": d, "fed_dir": fed_dir, "fleet_dir": os.path.join(d, "fleet"),
+             "logs": os.path.join(d, "replica_logs"), "router_sock": os.path.join(d, "router.sock")}
+    FLEET_DIRS.append(fleet["fleet_dir"])
+    # the CPU rehearsal's replicas are asked for the CPU; on the card the
+    # command names no device (index serve's default is cuda)
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    spawn = shlex.join([sys.executable, "-m", "drep_tpu_torch", "index", "serve", fed_dir, "--port", "0",
+                        "--poll_generation_s", "60", "--events", "on",
+                        "--log_dir", os.path.join(fleet["logs"], "r{partitions}"), *device])
+    fleet["argv"] = [sys.executable, "-m", "drep_tpu_torch", "index", "supervise", fed_dir,
+                     "--fleet_dir", fleet["fleet_dir"], "--spawn", spawn, "--router", fleet["router_sock"],
+                     "--heartbeat_s", str(FLEET_HEARTBEAT_S), "--backoff_max_s", "1", "--events", "on",
+                     *[a for s in FED_SERVE_SCOPES for a in ("--replica", f"1={s}")]]
+    fleet["sup"] = start_supervisor(fleet, "17a", os.path.join(d, "supervisor_log_17a"))
+    return fleet
+
+
+def stop_fleet() -> None:
+    """SIGKILL and reap every fleet process still alive: the supervisors
+    this script started and every replica a manifest records."""
+    from drep_tpu_torch.serve.supervisor import load_manifest
+
+    pids = set(FLEET_PIDS) | {p.pid for p in FLEET_PROCS}
+    for fleet_dir in FLEET_DIRS:
+        try:
+            pids |= {int(s["pid"]) for s in load_manifest(fleet_dir)["slots"].values() if s.get("pid")}
+        except Exception:  # noqa: BLE001 — best effort on the way out
+            pass
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.kill(pid, 9)
+    for pid in pids:
+        with contextlib.suppress(OSError):
+            os.waitpid(pid, 0)  # our child, or an orphan this subreaper adopted
+
+
+def wait_for(pred, timeout_s: float, what: str, poll_s: float = 0.1):
+    """pred()'s first truthy value within `timeout_s`."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        require(time.monotonic() < deadline, f"{what}: not within {timeout_s:.0f} s")
+        time.sleep(poll_s)
+
+
+def reap(pid: int, timeout_s: float, what: str) -> int:
+    """The exit code of `pid`, a child of this process (born or adopted)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got, status = os.waitpid(pid, os.WNOHANG)
+        if got == pid:
+            return os.waitstatus_to_exitcode(status)
+        require(time.monotonic() < deadline, f"{what}: pid {pid} did not exit within {timeout_s:.0f} s")
+        time.sleep(0.05)
+
+
+def replica_spans(log_dir: str) -> dict:
+    """A replica's ``partition_classify`` (a leg) and ``stripe`` (a
+    ``mash_shared`` launch) spans, serve starts and drains so far."""
+    from drep_tpu_torch.utils import telemetry
+
+    recs = telemetry.read_events(log_dir) if os.path.isdir(log_dir) else []
+    count = lambda ev, ph: sum(1 for r in recs if r["ev"] == ev and r["ph"] == ph)  # noqa: E731
+    return {"legs": count("partition_classify", "E"), "stripes": count("stripe", "E"),
+            "starts": count("serve_start", "i"), "drains": count("serve_drain", "i"),
+            "stops": count("serve_stop", "i")}
+
+
+def slots_by_scope(doc: dict) -> dict:
+    """A manifest's slots by their partition range ("0,1")."""
+    return {",".join(str(p) for p in s["partitions"]): s for s in doc["slots"].values()}
+
+
+def fleet_spans(fleet: dict) -> dict:
+    return {s: replica_spans(os.path.join(fleet["logs"], f"r{s}")) for s in FED_SERVE_SCOPES}
+
+
+def fleet_router(fleet: dict, **kw):
+    """An in-process RouterServer on the fleet's root, as 13b's, its sketch
+    cache holding the planted sketches; returns (server, address, its
+    batch loop thread, its start seconds)."""
+    import threading
+
+    from drep_tpu_torch.serve.router import RouterConfig, RouterServer
+
+    srv = RouterServer(RouterConfig(
+        index_loc=fleet["fed_dir"], device=fleet["dev"], poll_generation_s=60.0, max_batch=FED_ROUTER_BATCH,
+        batch_window_ms=SERVE_WINDOW_MS, leg_timeout_s=120.0, hedge_delay_s=2 * SERVE_DEADLINE_MS / 1000.0, **kw))
+    t0 = time.perf_counter()
+    addr = srv.start()
+    t_start = time.perf_counter() - t0
+    loop = threading.Thread(target=srv.serve_batches, daemon=True)
+    loop.start()
+    if fleet["sketches"] is not None:
+        for p in fleet["paths"]:
+            srv._sketch_cache[srv._sketch_key(p)] = fleet["sketches"][p]
+    return srv, addr, loop, t_start
+
+
+def stop_router(srv, loop, what: str) -> None:
+    """Drain an in-process daemon or router and join its batch loop."""
+    srv.request_drain()
+    loop.join(timeout=300)
+    srv.close()
+    require(not loop.is_alive(), f"{what}: the batch loop did not drain")
+
+
+def fleet_batch(fleet: dict, srv, addr: str, qpaths: list, what: str) -> dict:
+    """One burst through a router over the fleet: the verdicts equal 13a's
+    full dicts, every query scattered, the router's Mash launches none and
+    its indicator launches its reclusters' secondaries; the replicas'
+    traced legs (``partition_classify`` spans) and stripes (``mash_shared``
+    launches) over the burst."""
+    import torch
+
+    dev = fleet["dev"]
+    before_spans, before_rs = fleet_spans(fleet), dict(srv.snapshot()["router"])
+    before_work = dict(srv._resident.work)
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resps = serve_clients(addr, qpaths)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    launches = read_launches()
+    bad = [r for r in resps if not (r and r.get("ok"))]
+    require(not bad, f"{what}: {len(bad)} error replies (first {bad[:1]})")
+    got = {r["verdict"]["genome"]: r["verdict"] for r in resps}
+    want = fleet["want"]
+    differ = sorted(g for g in got if got[g] != want.get(g))
+    if differ:  # the first difference in full, for the diagnosis
+        log(f"{what}: {differ[0]}: 13a {json.dumps(want.get(differ[0]), default=str)}; routed "
+            f"{json.dumps(got[differ[0]], default=str)}")
+    require(len(got) == len(qpaths) and not differ, f"{what}: routed verdicts != 13a's: {differ[:5]}")
+    rs = srv.snapshot()["router"]
+    d_rs = {k: rs[k] - before_rs.get(k, 0) for k in rs}
+    require(d_rs["scattered"] == len(qpaths) and d_rs["forwarded"] == 0 and d_rs["partial_verdicts"] == 0,
+            f"{what}: router {d_rs}")
+    d_work = {k: srv._resident.work[k] - before_work[k] for k in ("stripes", "secondary_calls", "reclusters")}
+    require(launches["mash_shared"] == 0 == d_work["stripes"]
+            and launches["indicator_mm"] == d_work["secondary_calls"] > 0,
+            f"{what}: router launches {launches}, its work {d_work}")
+    after = fleet_spans(fleet)
+    d_spans = {s: {k: after[s][k] - before_spans[s][k] for k in after[s]} for s in after}
+    return {"s": t_batch, "queries": len(qpaths), "router": d_rs, "router_launches": launches,
+            "router_work": d_work, "replica_spans": d_spans}
+
+
+def phase_fleet_start(tmp: str, dev, p13: dict, fleet: dict) -> None:
+    """Phase 17 up to the replica's SIGKILL (the docstring's item 17): 17a
+    the supervisor's placement, 17b a router from its manifest alone
+    (traced, with 16c's autoscale tick), then 17c's SIGKILL of one replica,
+    whose respawn runs beside phase 14 (phase_fleet_finish checks it)."""
+    import signal
+
+    from drep_tpu_torch.serve import ServeClient
+    from drep_tpu_torch.serve.supervisor import load_manifest
+
+    t_phase = time.perf_counter()
+    fleet.update(dev=dev, paths=p13["paths"], want=p13["verdicts"], sketches=p13["sketches"])
+    fleet_dir, paths = fleet["fleet_dir"], fleet["paths"]
+    scopes = {s: [int(p) for p in s.split(",")] for s in FED_SERVE_SCOPES}
+    out = fleet["out"] = {}
+
+    # -- 17a: the supervisor's placement ------------------------------------
+    sup, sup_err, sup_wall = fleet["sup"]
+    t0 = time.perf_counter()
+    ready = read_json_line(sup, FLEET_WAIT_S, "17a: index supervise", sup_err)
+    ready_wait_s = time.perf_counter() - t0
+    require(ready["slots"] == len(FED_SERVE_SCOPES) and ready["adopted"] == 0 and ready["pid"] == sup.pid
+            and ready["supervising"] == fleet_dir, f"17a: ready line {ready}")
+    doc = load_manifest(fleet_dir)
+    slots = slots_by_scope(doc)
+    require(sorted(slots) == sorted(FED_SERVE_SCOPES) and all(s["state"] == "healthy" and s["pid"]
+                                                              for s in slots.values()),
+            f"17a: manifest slots {json.dumps(doc['slots'])}")
+    FLEET_PIDS.update(int(s["pid"]) for s in slots.values())
+    # each replica's start: its spawn instant after the one before (the
+    # first after the supervisor's own start), from the supervisor's log
+    spawn_walls = [r["wall"] for r in telemetry_records(os.path.join(fleet["dir"], "supervisor_log_17a"))
+                   if r["ev"] == "supervisor_spawn"]
+    out["a"] = {"ready": ready, "ready_wait_s": ready_wait_s, "ready_after_start_s": time.time() - sup_wall,
+                "spawn_s": [b - a for a, b in zip([sup_wall] + spawn_walls, spawn_walls)],
+                "slots": {k: {"pid": s["pid"], "address": s["address"]} for k, s in slots.items()}}
+    log(f"17a: `index supervise` placed {len(slots)} replicas ({json.dumps(out['a']['slots'])}), the supervisor "
+        f"start and each replica's start {[round(x, 2) for x in out['a']['spawn_s']]} s; its ready line "
+        f"{ready_wait_s:.2f} s into phase 17 ({out['a']['ready_after_start_s']:.1f} s after its start beside "
+        f"12c and 13)")
+
+    # -- 17b: a router from the manifest alone, traced (phase 16b), with
+    # one recommend-only autoscale tick against it (16c) -------------------
+    trace_dir = os.path.join(fleet["dir"], "trace_17b")
+    with traced(trace_dir):
+        rt, raddr, rloop, r_start = fleet_router(fleet, socket_path=fleet["router_sock"], fleet_manifest=fleet_dir,
+                                                 probe_interval_s=1.0)
+        fleet["router"] = (rt, raddr, rloop)
+        table = {a: (r["state"], r["assigned"]) for a, r in rt.table.health_map()["replicas"].items()}
+        require(table == {s["address"]: ("healthy", scopes[k]) for k, s in slots.items()},
+                f"17b: the router's table from the manifest {table}")
+        out["b"] = fleet_batch(fleet, rt, raddr, paths, "17b")
+        out["autoscale"] = autoscale_tick(tmp, raddr, [f"x={s}" for s in FED_SERVE_SCOPES])
+    counts: dict = {}
+    for r in telemetry_records(trace_dir):
+        counts[f"{r['ev']}:{r['ph']}"] = counts.get(f"{r['ev']}:{r['ph']}", 0) + 1
+    TRACES["17b"] = {"events": sum(counts.values()), "s": r_start + out["b"]["s"], "counts": counts}
+    require(counts.get("route_start:i") == 1 and counts.get("fleet_autoscale_decision:i") == len(FED_SERVE_SCOPES)
+            and not any(k.startswith(("replica_", "fault:")) for k in counts), f"16b 17b: events {counts}")
+    view = rt.snapshot()["supervision"]
+    require(sorted(view["slots"]) == sorted(doc["slots"]) and view["supervisor_alive"]
+            and view["supervisor_pid"] == sup.pid, f"17b: supervision view {json.dumps(view)}")
+    legs = out["b"]["replica_spans"]
+    require(sum(x["legs"] for x in legs.values()) == out["b"]["router"]["legs_total"]
+            and all(x["legs"] > 0 and x["stripes"] > 0 for x in legs.values()),
+            f"17b: replica spans {legs}, router {out['b']['router']}")
+    loads = {}
+    for k, s in slots.items():
+        with ServeClient(s["address"], timeout_s=60) as c:
+            hm = c.status()["partitions"]
+        loads[k] = {p: e["loads"] for p, e in hm["partitions"].items() if e["loads"]}
+        resident = {int(p) for p, e in hm["partitions"].items() if e["resident"]}
+        require(resident and resident <= set(scopes[k]) and not hm["quarantined"] and not hm["suspect"],
+                f"17b: replica {k} health {json.dumps(hm)}")
+    out["b"].update(router_start_s=r_start, partition_loads=loads,
+                    card=on_card(dev, [s["pid"] for s in slots.values()], sup.pid, [], "17b"))
+    log(f"17b: a router from the manifest alone ({r_start:.2f} s to start) routed {len(paths)} queries in "
+        f"{out['b']['s']:.2f} s, verdicts equal to 13a's; {json.dumps(out['b'])}")
+
+    # -- 17c: SIGKILL a replica; its respawn runs beside phase 14 -----------
+    victim = slots[FED_SERVE_SCOPES[0]]
+    fleet["victim"] = (int(victim["pid"]), victim["address"], time.perf_counter())
+    os.kill(int(victim["pid"]), signal.SIGKILL)
+    fleet["t_phase"] = time.perf_counter() - t_phase
+    log(f"17c: SIGKILLed replica {FED_SERVE_SCOPES[0]} (pid {victim['pid']}); its respawn runs beside phase 14 "
+        f"(phase 17a-b: {fleet['t_phase']:.1f} s)")
+
+
+def phase_fleet_finish(p12: dict, fleet: dict) -> dict:
+    """Phase 17 after phase 14: 17c the respawn, the router's new table and
+    a batch, 17d a successor supervisor's adoption, 17e a garbling proxy
+    in front of one replica, 17f the drain of every replica."""
+    from drep_tpu_torch.serve.supervisor import FleetSupervisor, load_manifest
+    from drep_tpu_torch.serve.wirechaos import WireChaos
+    from drep_tpu_torch.utils import faults
+    from drep_tpu_torch.utils.profiling import counters
+
+    t_phase = time.perf_counter()
+    dev, fleet_dir, paths, out = fleet["dev"], fleet["fleet_dir"], fleet["paths"], fleet["out"]
+    scopes = {s: [int(p) for p in s.split(",")] for s in FED_SERVE_SCOPES}
+    sup = fleet["sup"][0]
+    rt, raddr, rloop = fleet["router"]
+    old_pid, old_addr, t_kill = fleet["victim"]
+    succ = None
+    hops: list = []
+    try:
+        # -- 17c: the supervisor booked the death and respawned the replica;
+        # the router learned the new address from the supervisor's join,
+        # and its probes ejected the old one
+        def respawned():
+            d = load_manifest(fleet_dir)
+            s = slots_by_scope(d)[FED_SERVE_SCOPES[0]]
+            return d if s["state"] == "healthy" and s["pid"] not in (None, old_pid) else None
+
+        t0 = time.perf_counter()
+        doc = wait_for(respawned, FLEET_WAIT_S, "17c: the respawn")
+        respawn_wait_s = time.perf_counter() - t0
+        slots = slots_by_scope(doc)
+        fresh = slots[FED_SERVE_SCOPES[0]]
+        FLEET_PIDS.add(int(fresh["pid"]))
+        require(fresh["restarts"] == 1 and len(fresh["deaths"]) == 1
+                and fresh["last_death_reason"] == "exited rc=-9" and fresh["address"] != old_addr,
+                f"17c: the slot after the respawn {json.dumps(fresh)}")
+
+        def learned():
+            hm = rt.table.health_map()["replicas"]
+            return hm.get(fresh["address"], {}).get("state") == "healthy" and hm[old_addr]["state"] == "ejected"
+
+        wait_for(learned, 60.0, "17c: the router's table")
+        # the respawn's seconds: the manifest's placed_at after the kill
+        respawn_s = float(fresh["placed_at"]) - (time.time() - (time.perf_counter() - t_kill))
+
+        # -- 17d: SIGKILL the supervisor; a successor adopts (its start
+        # runs beside 17c's batch and 17e; the supervisor never touched
+        # the card) -----------------------------------------------------------
+        require(dev.type != "cuda" or not nvidia_fds(sup.pid),
+                f"17d: the supervisor (pid {sup.pid}) holds {nvidia_fds(sup.pid)}")
+        gen_before, pids_before = doc["generation"], {k: s["pid"] for k, s in slots.items()}
+        sup.kill()
+        sup.wait(timeout=60)
+        t0 = time.perf_counter()
+        succ, succ_err, _ = start_supervisor(fleet, "17d", os.path.join(fleet["dir"], "supervisor_log_17d"))
+
+        out["c"] = fleet_batch(fleet, rt, raddr, paths[:FLEET_SHORT_QUERIES], "17c")
+        require(out["c"]["router"]["leg_failures"] == out["c"]["router"]["reroutes"] == 0,
+                f"17c: router {out['c']['router']}")
+        out["c"].update(respawn_s=respawn_s, respawn_wait_s=respawn_wait_s, old_pid=old_pid, new_pid=fresh["pid"],
+                        card=on_card(dev, [s["pid"] for s in slots.values()], succ.pid, [old_pid], "17c"))
+        log(f"17c: replica {FED_SERVE_SCOPES[0]} respawned as pid {fresh['pid']} at {fresh['address']} "
+            f"{respawn_s:.2f} s after its SIGKILL ({respawn_wait_s:.2f} s waited after phase 14), the router's "
+            f"table updated; {json.dumps(out['c'])}")
+        stop_router(rt, rloop, "17b")
+
+        # -- 17e (while the successor starts): a garbling proxy in front of
+        # one replica. The router reaches that replica through two proxies,
+        # the scope's only members: a leg's first target is the one whose
+        # address sorts first (the same health, residency and load), which
+        # garbles its first reply line; the CRC catches it and the leg is
+        # rerouted through the other, which passes bytes through
+        a, b = slots[FED_SERVE_SCOPES[0]], slots[FED_SERVE_SCOPES[1]]
+        hops = [WireChaos(a["address"]) for _ in range(2)]
+        for hop in hops:
+            hop.start()
+        hops.sort(key=lambda hop: hop.address)
+        hops[0].peer, hops[1].peer = FLEET_HOP, "clean_hop"
+        rt, raddr, rloop, r_start = fleet_router(fleet, replicas=[f"{hops[0].address}={FED_SERVE_SCOPES[0]}",
+                                                                  f"{hops[1].address}={FED_SERVE_SCOPES[0]}",
+                                                                  f"{b['address']}={FED_SERVE_SCOPES[1]}"],
+                                                 probe_interval_s=3600.0)
+        # the start's one probe of each (no other until the batch is done)
+        wait_for(lambda: all(r["probes"] >= 1 for r in rt.table.health_map()["replicas"].values()), 60.0,
+                 "17e: the first probes")
+        # traced: the router's replica_suspect instant carries the error
+        # its leg met on the proxied hop
+        trace_dir = os.path.join(fleet["dir"], "trace_17e")
+        faults.configure(f"wire:garble:path={FLEET_HOP}:max=1")
+        try:
+            with traced(trace_dir):
+                out["e"] = fleet_batch(fleet, rt, raddr, paths[:FLEET_SHORT_QUERIES], "17e")
+            fired = counters.faults.get("injected_wire_garble", 0)
+        finally:
+            faults.configure(None)
+        recs = telemetry_records(trace_dir)
+        caught = [r["args"]["error"] for r in recs if r["ev"] == "replica_suspect"]
+        rs = out["e"]["router"]
+        require(fired == 1 and rs["reroutes"] == 1 and rs["leg_failures"] == 0 and rs["hedges"] == 0
+                and len(caught) == 1 and "CRC" in caught[0]
+                and [r["args"]["address"] for r in recs if r["ev"] == "replica_suspect"] == [hops[0].address],
+                f"17e: {fired} garbled frames, router {rs}, suspect instants {caught}")
+        out["e"].update(router_start_s=r_start, garbled=fired, caught=caught[0])
+        log(f"17e: {out['e']['queries']} queries through a router whose {FED_SERVE_SCOPES[0]} legs meet a "
+            f"garbling proxy first: one garbled leg reply caught ({caught[0]!r}) and the leg rerouted to the "
+            f"replica, the verdicts equal to 13a's; {json.dumps(out['e'])}")
+
+        ready2 = read_json_line(succ, FLEET_WAIT_S, "17d: the successor", succ_err)
+        adopt_s = time.perf_counter() - t0
+        doc = load_manifest(fleet_dir)
+        require(ready2["adopted"] == len(FED_SERVE_SCOPES) == ready2["slots"] and ready2["pid"] == succ.pid
+                and {k: s["pid"] for k, s in slots_by_scope(doc).items()} == pids_before
+                and doc["generation"] > gen_before and doc["supervisor_pid"] == succ.pid,
+                f"17d: ready {ready2}, manifest {json.dumps(doc)} (before: generation {gen_before}, {pids_before})")
+        succ_log = telemetry_records(os.path.join(fleet["dir"], "supervisor_log_17d"))
+        recovered = [r["args"] for r in succ_log if r["ev"] == "supervisor_recover"]
+        require(not any(r["ev"] == "supervisor_spawn" for r in succ_log) and recovered
+                and recovered[0]["adopted"] == 2 and recovered[0]["reaped"] == 0,
+                f"17d: the successor's events {[r['ev'] for r in succ_log]}, recover {recovered}")
+        starts = {k: x["starts"] for k, x in fleet_spans(fleet).items()}
+        require(starts == {k: 2 if k == FED_SERVE_SCOPES[0] else 1 for k in FED_SERVE_SCOPES},
+                f"17d: the replicas' serve starts {starts}")
+        out["d"] = {"adopt_s": adopt_s, "ready": ready2, "generation": [gen_before, doc["generation"]]}
+        log(f"17d: SIGKILLed the supervisor; its successor adopted both replicas (the same pids {pids_before}, no "
+            f"spawn, generation {gen_before} -> {doc['generation']}), ready {adopt_s:.2f} s after its start")
+
+        # -- 17f: drain every replica through the placement API ------------
+        succ.kill()
+        succ.wait(timeout=60)
+        t0 = time.perf_counter()
+        drainer = FleetSupervisor(fleet_dir, router_address=raddr, drain_deadline_s=FLEET_WAIT_S,
+                                  heartbeat_s=FLEET_HEARTBEAT_S)
+        require(drainer.recover()["adopted"] == sorted(doc["slots"]), "17f: the in-process supervisor's adoption")
+        drains = {}
+        for scope in reversed(FED_SERVE_SCOPES):
+            slot = slots_by_scope(drainer.doc)[scope]
+            pid, addr = int(slot["pid"]), slot["address"]
+            (gone,) = drainer.drain(partitions=scopes[scope], count=1)
+            require(gone["slot_id"] == slot["slot_id"] and rt.table.health_map()["replicas"][addr]["state"] == "left",
+                    f"17f: the drain of {scope}: the router's table {rt.table.health_map()['replicas'].get(addr)}")
+            rc = reap(pid, FLEET_WAIT_S, f"17f: replica {scope}")
+            drainer.tick()
+            left = replica_spans(os.path.join(fleet["logs"], f"r{scope}"))
+            require(rc == 0 and slot["slot_id"] not in drainer.doc["slots"] and left["drains"] >= 1
+                    and left["stops"] >= 1 and gone["escalations"] == 0,
+                    f"17f: replica {scope} exit {rc}, its log {left}, slots {sorted(drainer.doc['slots'])}")
+            drains[scope] = {"rc": rc, "pid": pid}
+        doc = load_manifest(fleet_dir)
+        require(doc["slots"] == {}, f"17f: slots left {json.dumps(doc['slots'])}")
+        out["f"] = {"s": time.perf_counter() - t0, "drains": drains, "generation": doc["generation"]}
+        log(f"17f: each replica drained (fleet leave, SIGTERM, exit 0) through FleetSupervisor.drain in "
+            f"{out['f']['s']:.2f} s; the manifest empty at generation {doc['generation']}")
+    finally:
+        if rloop.is_alive():
+            stop_router(rt, rloop, "17")
+        for hop in hops:
+            hop.close()
+        for p in (sup, succ):
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    require(tree_digest(fleet["fed_dir"]) == p12["digest"], "17: the fleet changed the federation's tree")
+    # the injected fault and the replica failures 17c and 17e booked, on
+    # purpose; the later phases' checks start from empty counters
+    counters.reset()
+    out["phase_s"] = fleet["t_phase"] + time.perf_counter() - t_phase
+    log(f"phase 17: {out['phase_s']:.1f} s (17a-b {fleet['t_phase']:.1f} s, 17c-f after phase 14 "
+        f"{time.perf_counter() - t_phase:.1f} s)")
+    return out
+
+
+def telemetry_records(log_dir: str) -> list:
+    from drep_tpu_torch.utils import telemetry
+
+    return telemetry.read_events(log_dir) if os.path.isdir(log_dir) else []
 
 
 # stand-ins for the external binaries of the subprocess engines (mash,
@@ -4272,6 +4793,7 @@ def main() -> int:
     try:
         return run_phases(dev, card, tmp, *plants)
     finally:
+        stop_fleet()
         for p in plants:
             p.stop()
         for proc in CHILDREN:
@@ -4283,7 +4805,7 @@ def main() -> int:
 
 def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Planting,
                plant_stream: Planting) -> int:
-    """Phases 2-18 (main has printed phase 1 and started the plantings)."""
+    """Phases 2-19 (main has printed phase 1 and started the plantings)."""
     import torch
 
     from drep_tpu_torch.native import get_library
@@ -4323,17 +4845,24 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     p10 = phase_index(tmp, dev, real)
     require_no_faults("phases 1-10")  # phase 11 restarts the counters
     p11 = phase_serve(tmp, dev, p10)
-    p12 = phase_federation(tmp, dev, real, p10)
+    fleet: dict = {}  # 17a's supervisor and replicas start beside 12c and 13
+    p12 = phase_federation(tmp, dev, real, p10, after_update=lambda fed_dir: fleet.update(
+        start_fleet(tmp, dev, fed_dir)))
     p13 = phase_fed_serve(tmp, dev, p10, p12)
-    require_no_faults("phases 11-13")  # the maintenance verbs' CLI restarts the counters
-    p12.update(phase_federation_maint(tmp, dev, real, p10, p12))
-    require_no_faults("12d-e")
+    require_no_faults("phases 11-13")
+    phase_fleet_start(tmp, dev, p13, fleet)
+    # phase 14 runs while 17c's killed replica respawns; it touches nothing
+    # of the federation and reads only its own fault counters
     t14 = time.perf_counter()
     p14 = {"a": phase_resilience_secondary(tmp, dev, real),
            "b": phase_resilience_streaming(dev, real, edges_8b, stream_edges["keep"]),
            "c": phase_resilience_resume(cli)}
     p14["phase_s"] = time.perf_counter() - t14
     log(f"phase 14: {p14['phase_s']:.1f} s")
+    p17 = phase_fleet_finish(p12, fleet)
+    # the maintenance verbs' CLI restarts the counters
+    p12.update(phase_federation_maint(tmp, dev, real, p10, p12))
+    require_no_faults("12d-e")
     p15 = phase_subprocess(dev, sub_prep)
     t16 = time.perf_counter()
     p16 = phase_trace(tmp, cli)
@@ -4406,12 +4935,34 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
             "daemon": {"launches": p13["a"]["launches"][name], "serve_s": p13["a"]["serve_s"],
                        "start_s": p13["a"]["start_s"], "batches": p13["a"]["batches"],
                        **{key: p13["a"]["work"][key] for key in ("pack_s", "walk_s", "recluster_s")}},
-            **{mode: {"launches": p13[mode]["launches"][name], "serve_s": p13[mode]["serve_s"],
-                      "replica_launches": [w[work] for w in p13[mode]["replica_work"]],
-                      "router_launches": p13[mode]["router_work"].get(work, 0),
-                      "legs": p13[mode]["replica_legs"], "traced": mode == "scatter"}
-               for mode in ("scatter", "forward")},
+            "forward": {"launches": p13["forward"]["launches"][name], "serve_s": p13["forward"]["serve_s"],
+                        "replica_launches": [w[work] for w in p13["forward"]["replica_work"]],
+                        "router_launches": p13["forward"]["router_work"].get(work, 0),
+                        "legs": p13["forward"]["replica_legs"]},
+            # the scatter run is 17b's, over the supervised replicas: their
+            # Mash launches are their traced stripe spans
+            "scatter": {"launches": p17["b"]["router_launches"][name] if name == "indicator_mm" else
+                        sum(x["stripes"] for x in p17["b"]["replica_spans"].values()),
+                        "serve_s": p17["b"]["s"],
+                        "replica_launches": None if name == "indicator_mm" else [
+                            x["stripes"] for x in p17["b"]["replica_spans"].values()],
+                        "router_launches": p17["b"]["router_work"][work],
+                        "legs": [x["legs"] for x in p17["b"]["replica_spans"].values()],
+                        "traced": True, "supervised": True},
             "phase_s": p13["phase_s"]}
+    # phase 17, the supervised fleet: the router's fused indicator launches
+    # and the replicas' Mash launches (their traced stripe spans: the
+    # launch counters live in the replica processes) a batch
+    for k, name in ((kernels[0], "mash_shared"), (kernels[1], "indicator_mm")):
+        k["fleet_launches"] = {
+            step: (sum(x["stripes"] for x in p17[step]["replica_spans"].values()) if name == "mash_shared"
+                   else p17[step]["router_launches"]["indicator_mm"]) for step in ("b", "c", "e")}
+    kernels[0]["fleet"] = {"phase_s": p17["phase_s"], "spawn_s": p17["a"]["spawn_s"],
+                           "ready_wait_s": p17["a"]["ready_wait_s"], "respawn_s": p17["c"]["respawn_s"],
+                           "respawn_wait_s": p17["c"]["respawn_wait_s"],
+                           "adopt_s": p17["d"]["adopt_s"], "drain_s": p17["f"]["s"],
+                           **{f"{step}_s": p17[step]["s"] for step in ("b", "c", "e")},
+                           "legs": {step: p17[step]["router"]["legs_total"] for step in ("b", "c", "e")}}
     # phase 14, resilience: the launches of each faulted or resumed run
     kernels[0]["resilience_launches"] = {"14b_raise": p14["b"]["raise"]["launches"],
                                          "14b_hang": p14["b"]["hang"]["launches"],
@@ -4437,7 +4988,7 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     kernels[0]["trace"] = {"16a_s": p16["s"], "16a_events": p16["events"], "16a_trace_bytes": p16["trace_bytes"],
                            "phase_s": p16["phase_s"], "16b": {w: {"events": t["events"], "s": t["s"]}
                                                              for w, t in TRACES.items()},
-                           "16c": p13["autoscale"]}
+                           "16c": p17["autoscale"]}
     kernels[0]["subprocess"] = {"primary_launches": p15["primary_launches"], "phase_s": p15["phase_s"],
                                 "prep_s": p15["prep_s"], "runs_s": {e: r["s"] for e, r in p15["runs"].items()},
                                 "faults": p15["faults"]}

@@ -27,10 +27,10 @@ raises NotImplementedError naming its ROADMAP item.
 `index build|update|classify|serve|route|split|merge|compact` take the
 JAX CLI's flags plus --device, the federated ones included (`index build
 --partitions/--fed_pods`, `index update --fed_pods/--params_file`,
-`index serve --resident_mb`, `index serve|route --events`); `index
-route --fleet_manifest` raises naming item 11c, and
-`index supervise` parses and raises NotImplementedError naming item 11c
-(:data:`UNPORTED_INDEX_OPS`).
+`index serve --resident_mb`, `index serve|route --events`, `index route
+--fleet_manifest`). `index supervise` (the fleet supervisor, a control
+plane) takes the JAX CLI's flags and no --device: its replicas run where
+its --spawn command says.
 """
 
 from __future__ import annotations
@@ -47,11 +47,6 @@ UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
     "max_joins": ((0,), "12b"),
     "drain_grace_s": ((30.0,), "12b"),
 }
-
-# `index` subcommands of the JAX CLI that the port parses and refuses:
-# the fleet supervisor
-UNPORTED_INDEX_OPS: dict[str, str] = {"supervise": "11c"}
-
 
 def refuse_unported_flags(kwargs: dict) -> None:
     """Raise NotImplementedError for the first flag of UNPORTED_FLAGS that
@@ -382,8 +377,10 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--probe_backoff_s", type=float, default=None,
                    help="first reprobe delay after an ejection (doubling to 60 s). Default 1 s")
     r.add_argument("--fleet_manifest", default=None, metavar="PATH",
-                   help="the fleet supervisor's fleet.json: not ported yet (ROADMAP.md queue 1, "
-                        "item 11c); refused before anything is read")
+                   help="the fleet supervisor's fleet.json (or its directory): the router adds its "
+                        "healthy slots to the replica table at start (membership survives a router "
+                        "restart with no fleet join replayed) and reports the supervision tree in "
+                        "/healthz. Read-only; only `index supervise` writes it")
     r.add_argument("--resident_mb", type=int, default=None,
                    help="budget (MiB) of the router's own lazily loaded component sketches (the "
                         "merge's secondary recluster; the rectangles run on the replicas). "
@@ -447,10 +444,57 @@ def build_parser() -> argparse.ArgumentParser:
                     help="without --pid: compact partitions holding at least this many shard "
                          "generations (default 4)")
 
-    for op, item in UNPORTED_INDEX_OPS.items():
-        r = isub.add_parser(op, help=f"not ported yet (ROADMAP.md queue 1, item {item})")
-        r.add_argument("index_directory")
-        r.add_argument("rest", nargs=argparse.REMAINDER, help="the JAX CLI's flags of this subcommand")
+    v = isub.add_parser(
+        "supervise",
+        help="fleet supervisor: owns the replica processes of a serving fleet against a durable "
+             "fleet.json manifest: spawn under a startup deadline, liveness and /healthz every "
+             "heartbeat, restart on death with decorrelated backoff, crash-loop QUARANTINE after "
+             "K deaths in a window, graceful drain with SIGKILL escalation. A restart adopts the "
+             "live replicas of the manifest (never spawns twice); a restarted router rebuilds its "
+             "membership from the same file",
+    )
+    v.add_argument("index_directory",
+                   help="the FEDERATED root the supervised fleet serves (the manifest lives under "
+                        "<root>/fleet unless --fleet_dir says otherwise)")
+    v.add_argument("--fleet_dir", default=None, metavar="DIR",
+                   help="home of fleet.json and its generation snapshots. Default "
+                        "<index_directory>/fleet")
+    v.add_argument("--spawn", default=None, metavar="CMD",
+                   help="the `index serve` command line of ONE replica ('{partitions}' becomes a "
+                        "slot's comma list, nothing for an unscoped slot). Without it the supervisor "
+                        "only adopts and retires what the manifest records")
+    v.add_argument("--replica", action="append", default=[], metavar="N[=PIDS]",
+                   help="initial placement: N unscoped replicas, or 'N=0-2,5' scoped to a partition "
+                        "set. Repeatable; applied once at start for ranges the manifest does not "
+                        "already hold")
+    v.add_argument("--router", default=None, metavar="ADDR",
+                   help="a running `index route` to announce fleet join/leave to (advisory: a router "
+                        "that is down rebuilds from the manifest when it returns)")
+    v.add_argument("--heartbeat_s", type=float, default=None,
+                   help="liveness tick cadence (pid poll + /healthz). Default DREP_TORCH_SUP_HEARTBEAT_S")
+    v.add_argument("--backoff_max_s", type=float, default=None,
+                   help="cap of the decorrelated restart backoff. Default DREP_TORCH_SUP_BACKOFF_MAX_S")
+    v.add_argument("--crashloop_k", type=int, default=None,
+                   help="deaths inside the window that QUARANTINE a slot (0: never). Default "
+                        "DREP_TORCH_SUP_CRASHLOOP_K")
+    v.add_argument("--crashloop_window_s", type=float, default=None,
+                   help="the crash-loop window. Default DREP_TORCH_SUP_CRASHLOOP_WINDOW_S")
+    v.add_argument("--drain_deadline_s", type=float, default=None,
+                   help="seconds after SIGTERM before a draining replica is SIGKILLed (escalations "
+                        "counted). Default DREP_TORCH_SUP_DRAIN_DEADLINE_S")
+    v.add_argument("--startup_deadline_s", type=float, default=None,
+                   help="seconds a spawned replica gets to print its ready line before the spawn "
+                        "books a death. Default DREP_TORCH_SUP_STARTUP_DEADLINE_S")
+    v.add_argument("--ticks", type=int, default=0,
+                   help="exit after this many supervision ticks (0: run until interrupted)")
+    v.add_argument("-d", "--debug", action="store_true")
+    v.add_argument("--io_retries", type=int, default=None,
+                   help="transient shared-filesystem I/O retry budget (same knob as the pipeline)")
+    v.add_argument("--log_dir", default=None,
+                   help="home for the supervisor's logs and event traces; never the index directory")
+    v.add_argument("--events", default=None, choices=["off", "on"],
+                   help="event tracing (supervisor_spawn/death/quarantine/escalation instants) into "
+                        "--log_dir (default DREP_TORCH_EVENTS)")
 
     cmp_p = sub.add_parser("compare", help="cluster genomes without dereplicating")
     add_common(cmp_p, with_filter=False, with_scoring=False)

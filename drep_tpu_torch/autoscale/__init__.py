@@ -8,12 +8,12 @@ Counterpart of drep_tpu/autoscale/:
   index's partitions), pure functions;
 - :mod:`drep_tpu_torch.autoscale.fleet`: ``decide_fleet``, the same
   policy over a serve router's per-range queue depths, and the
-  recommend-only :class:`FleetAutoscaleController`
-  (``python -m drep_tpu_torch.autoscale --router ADDR``).
+  :class:`FleetAutoscaleController`, which acts through the fleet
+  supervisor (``python -m drep_tpu_torch.autoscale --router ADDR
+  [--spawn CMD --fleet_dir DIR]``).
 
 Not ported: the elastic pod's ``AutoscaleController`` (it reads a pod's
-checkpoint dir; ROADMAP.md queue 1 item 12b) and the fleet's actuation
-through the supervisor (item 11c).
+checkpoint dir; ROADMAP.md queue 1 item 12b).
 """
 
 from drep_tpu_torch.autoscale.fleet import FleetAutoscaleController, decide_fleet

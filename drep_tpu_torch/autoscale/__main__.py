@@ -1,16 +1,18 @@
 """``python -m drep_tpu_torch.autoscale --router ADDR``: the fleet
-autoscale controller, recommend-only.
+autoscale controller.
 
 The port's counterpart of ``tools/pod_autoscale.py --router``, with the
-same flags. Each tick reads the router's status, runs the pure policy per
-partition range and appends one JSON line a range to ``--decision_log``;
-with ``--log_dir`` and ``DREP_TORCH_EVENTS=on`` each decision is also a
+same flags. Each tick runs the embedded supervisor's heartbeat (with
+``--fleet_dir``), reads the router's status, runs the pure policy per
+partition range, places or drains replicas through the supervisor (with
+``--spawn`` and ``--fleet_dir``; without them it only recommends) and
+appends one JSON line a range to ``--decision_log``; with ``--log_dir``
+and ``DREP_TORCH_EVENTS=on`` each decision is also a
 ``fleet_autoscale_decision`` instant. Knobs:
 ``DREP_TORCH_AUTOSCALE_INTERVAL_S``, ``_COOLDOWN_S``, ``_MAX_SPAWN``.
 
 Refused before anything is read: batch mode (a ``checkpoint_dir``: the
-elastic pod's controller, ROADMAP.md queue 1 item 12b), and ``--spawn`` /
-``--fleet_dir`` (actuation through the fleet supervisor, item 11c).
+elastic pod's controller, ROADMAP.md queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -27,13 +29,15 @@ AUTOSCALE_TELEMETRY_PID = 999
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m drep_tpu_torch.autoscale",
-                                 description="Fleet autoscaling controller (recommend-only) for an `index route` router")
+                                 description="Fleet autoscaling controller for an `index route` router")
     ap.add_argument("checkpoint_dir", nargs="?", default=None,
                     help="batch mode (an elastic pod's checkpoint dir): not ported yet (item 12b)")
     ap.add_argument("--router", default=None, metavar="ADDR",
                     help="the `index route` front door (host:port or socket path) whose fleet to govern")
     ap.add_argument("--fleet_dir", default=None, metavar="DIR",
-                    help="the fleet supervisor's manifest home: not ported yet (item 11c)")
+                    help="home of the durable fleet.json manifest (the embedded supervisor's memory: "
+                         "spawn and drain are manifest transactions, and a restarted controller adopts its "
+                         "predecessor's replicas from it). Required with --spawn")
     ap.add_argument("--queue_deadline_s", type=float, default=5.0,
                     help="rolling queueing-delay target per partition range")
     ap.add_argument("--svc_s", type=float, default=0.2,
@@ -52,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="replicas per scale-up decision (default DREP_TORCH_AUTOSCALE_MAX_SPAWN)")
     ap.add_argument("--hysteresis", type=float, default=0.1, help="dead-band fraction around the deadline")
     ap.add_argument("--spawn", default=None, metavar="CMD",
-                    help="the replica command line: actuation is not ported yet (item 11c)")
+                    help="the `index serve` command line of one replica ('{partitions}' becomes the range's "
+                         "comma list); omit for recommend-only mode")
     ap.add_argument("--decision_log", default=None, help="decision JSONL path (one line a range a tick)")
     ap.add_argument("--log_dir", default=None,
                     help="event log dir for fleet_autoscale_decision instants, gated by DREP_TORCH_EVENTS")
@@ -61,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
-    from drep_tpu_torch.autoscale.fleet import FleetAutoscaleController, refuse_actuation
+    from drep_tpu_torch.autoscale.fleet import FleetAutoscaleController
     from drep_tpu_torch.autoscale.policy import Targets
 
     ap = build_parser()
@@ -75,7 +80,8 @@ def main(argv: list[str] | None = None) -> int:
         )
     if not args.router:
         ap.error("need --router ADDR (fleet mode)")
-    refuse_actuation(spawn_cmd=args.spawn, fleet_dir=args.fleet_dir)
+    if args.spawn and not args.fleet_dir:
+        ap.error("--spawn in fleet mode needs --fleet_dir (actuation is a fleet.json manifest transaction)")
     from drep_tpu_torch.serve import ServeClient
 
     cooldown = envknobs.env_float("DREP_TORCH_AUTOSCALE_COOLDOWN_S") if args.cooldown is None else args.cooldown
@@ -91,7 +97,7 @@ def main(argv: list[str] | None = None) -> int:
                       cooldown_s=cooldown, hysteresis=args.hysteresis, max_spawn=max_spawn)
     controller = FleetAutoscaleController(
         ServeClient(args.router), targets, queue_deadline_s=args.queue_deadline_s, svc_s=args.svc_s,
-        interval_s=interval, decision_log=args.decision_log,
+        spawn_cmd=args.spawn, interval_s=interval, decision_log=args.decision_log, fleet_dir=args.fleet_dir,
     )
     try:
         return controller.run(count=args.count)

@@ -17,14 +17,20 @@ mapping the router's ``status`` onto the inputs
   clamps and reason slugs carry over unchanged, and the per-range
   decision history gates the same cooldown.
 
-:class:`FleetAutoscaleController` runs recommend-only: each tick reads
-the router's status, decides per range, and records every decision in
-the JSONL decision log (one whole flushed line a record, the JAX
-package's keys) and, with tracing on, as a ``fleet_autoscale_decision``
-instant. Nothing spawns or drains. Actuation goes through the fleet
-supervisor's manifest (``serve/supervisor.py``), which is ROADMAP.md
-queue 1 item 11c: a ``spawn_cmd``, ``fleet_dir`` or ``supervisor``
-argument raises NotImplementedError before anything is read.
+:class:`FleetAutoscaleController` ticks: the supervisor's heartbeat
+(when it has one), the router's status, a decision per range, and the
+actuation, recorded in the JSONL decision log (one whole flushed line a
+record, the JAX package's keys) and, with tracing on, as a
+``fleet_autoscale_decision`` instant. Actuation goes only through the
+fleet supervisor's placement API (``serve/supervisor.py``): a scale-up is
+:meth:`FleetSupervisor.place` (the manifest transaction, then the spawn,
+its ready line and the ``fleet`` join), a scale-down
+:meth:`FleetSupervisor.drain`, whose victim is the most recently placed
+live slot of the range in the manifest, so the choice holds across any
+number of controller restarts. Without a ``fleet_dir`` or ``supervisor``
+the controller is recommend-only, and a ``spawn_cmd`` without one is a
+ValueError. Replicas outlive the controller: the manifest makes its
+successor whole.
 """
 
 from __future__ import annotations
@@ -38,9 +44,6 @@ from drep_tpu_torch.utils import telemetry
 from drep_tpu_torch.utils.logger import get_logger
 
 __all__ = ["range_key", "fleet_snapshots", "decide_fleet", "FleetAutoscaleController", "append_decision"]
-
-# the ROADMAP.md queue 1 item that ports the supervisor the actuation needs
-SUPERVISION_ITEM = "11c"
 
 # replica states that count as serving capacity for a range: a suspect
 # replica is still routable (one probe failure, a reprobe pending)
@@ -115,26 +118,20 @@ def append_decision(path: str, record: dict) -> None:
         f.flush()
 
 
-def refuse_actuation(spawn_cmd=None, fleet_dir=None, supervisor=None) -> None:
-    """Raise NotImplementedError where an argument asks for actuation,
-    which runs through the fleet supervisor (item 11c)."""
-    for flag, val in (("spawn_cmd", spawn_cmd), ("fleet_dir", fleet_dir), ("supervisor", supervisor)):
-        if val is not None:
-            raise NotImplementedError(
-                f"fleet autoscale {flag}: spawn and drain go through the fleet supervisor, which is not "
-                f"ported yet (ROADMAP.md queue 1, item {SUPERVISION_ITEM}); the port runs recommend-only"
-            )
-
-
 class FleetAutoscaleController:
-    """Watch one router and decide for its replica fleet, per partition
-    range, recommend-only.
+    """Watch one router and govern its replica fleet, per partition range.
 
     `router_client` is anything with ``.status()`` (a
-    :class:`drep_tpu_torch.serve.ServeClient`, or a test's fake). Each
-    tick appends one record a range to `decision_log` (when given) with
-    the JAX package's keys: ``at``, ``range``, ``verdict``, ``delta``,
-    ``reason``, ``inputs``, ``actuation``."""
+    :class:`drep_tpu_torch.serve.ServeClient`, or a test's fake). With
+    `fleet_dir` the controller embeds a :class:`FleetSupervisor` anchored
+    there (recovered at once: a restarted controller adopts its
+    predecessor's replicas); `supervisor` shares an existing one (tests
+    pass fakes with ``place``, ``drain`` and ``tick``). `spawn_cmd` is the
+    ``index serve`` command line of one replica (``{partitions}`` becomes
+    the range's comma list, nothing for ``all``). Each tick appends one
+    record a range to `decision_log` (when given) with the JAX package's
+    keys: ``at``, ``range``, ``verdict``, ``delta``, ``reason``,
+    ``inputs``, ``actuation``."""
 
     def __init__(
         self,
@@ -149,30 +146,79 @@ class FleetAutoscaleController:
         fleet_dir: str | None = None,
         supervisor=None,
     ) -> None:
-        refuse_actuation(spawn_cmd, fleet_dir, supervisor)
         self.client = router_client
         self.targets = targets
         self.queue_deadline_s = float(queue_deadline_s)
         self.svc_s = float(svc_s)
+        self.spawn_cmd = spawn_cmd
         self.interval_s = float(interval_s)
         self.decision_log = decision_log
         self.history: dict[str, list[dict]] = {}
         self.decisions = 0
         self._log = get_logger()
+        if supervisor is not None:
+            self.supervisor = supervisor
+        elif fleet_dir:
+            from drep_tpu_torch.serve.supervisor import FleetSupervisor
 
-    @staticmethod
-    def _actuate(decision: Decision) -> str:
-        """What the JAX controller records for a decision it cannot act
-        on (recommend-only: no supervisor)."""
-        if decision.verdict == "scale_up":
+            self.supervisor = FleetSupervisor(fleet_dir, spawn_cmd=spawn_cmd,
+                                              router_address=getattr(router_client, "address", None),
+                                              spawn_env=spawn_env)
+            # adoption before any placement: the manifest, not this
+            # process's memory, owns which replica belongs to which range
+            self.supervisor.recover()
+        elif spawn_cmd:
+            raise ValueError("FleetAutoscaleController: spawn_cmd needs a fleet_dir (or an explicit supervisor) "
+                             "— actuation is a manifest transaction, never an in-memory Popen ledger")
+        else:
+            self.supervisor = None  # recommend-only
+
+    # -- actuation, all of it through the supervisor's placement API -----
+    def _spawn_replica(self, key: str, count: int) -> str:
+        if self.supervisor is None or not (self.spawn_cmd or getattr(self.supervisor, "spawn_cmd", None)):
             return "skipped: no --spawn command (recommend-only mode)"
-        if decision.verdict == "scale_down":
+        count = min(count, self.targets.max_spawn)
+        if count <= 0:
+            return "skipped: max_spawn is 0"
+        parts = None if key == "all" else [int(p) for p in key.split(",")]
+        placed = self.supervisor.place(partitions=parts, count=count)
+        ok = [s.get("address") for s in placed if s.get("state") == "healthy"]
+        pending = [s["slot_id"] for s in placed if s.get("state") != "healthy"]
+        if pending and not ok:
+            return f"FAILED: slot(s) {pending} died at startup (supervisor retries with backoff)"
+        tail = f" ({len(pending)} pending respawn)" if pending else ""
+        return f"placed {ok} for range {key}{tail}"
+
+    def _drain_replica(self, key: str, count: int) -> str:
+        if self.supervisor is None:
             return "skipped: no supervised capacity (recommend-only mode)"
+        parts = None if key == "all" else [int(p) for p in key.split(",")]
+        victims = self.supervisor.drain(partitions=parts, count=count)
+        if not victims:
+            return "skipped: no supervised capacity left to drain"
+        out = [s.get("address") or s["slot_id"] for s in victims]
+        return f"draining {out} for range {key}"
+
+    def _actuate(self, key: str, decision: Decision) -> str:
+        try:
+            if decision.verdict == "scale_up":
+                return self._spawn_replica(key, decision.delta)
+            if decision.verdict == "scale_down":
+                return self._drain_replica(key, -decision.delta)
+        except Exception as e:  # noqa: BLE001 — a broken spawn must not lose the record
+            self._log.warning("fleet autoscale: actuation failed: %r", e)
+            return f"FAILED: {e!r}"
         return ""
 
     def poll_once(self) -> dict[str, Decision]:
-        """One tick: router status -> per-range decide -> record.
-        Read-only against the router (one status op)."""
+        """One tick: the supervisor's heartbeat -> router status ->
+        per-range decide -> actuate -> record. Read-only against the
+        router (one status op); every process action rides the supervisor."""
+        if self.supervisor is not None:
+            try:
+                self.supervisor.tick()
+            except Exception as e:  # noqa: BLE001 — a broken heartbeat is a report; the policy still runs
+                self._log.warning("fleet autoscale: supervisor tick failed: %r", e)
         observed_at = time.time()  # the rolling deadline's clock: the snapshot's own family
         try:
             status = self.client.status()
@@ -185,7 +231,10 @@ class FleetAutoscaleController:
                                      self.history)
         self.decisions += 1
         for key, decision in decisions.items():
-            actuation = self._actuate(decision)
+            actuation = self._actuate(key, decision)
+            if decision.verdict != "hold" and not actuation.startswith("skipped"):
+                self.history.setdefault(key, []).append(
+                    {"at": observed_at, "verdict": decision.verdict, "delta": decision.delta})
             record = {
                 "at": observed_at,
                 "range": key,
@@ -196,7 +245,10 @@ class FleetAutoscaleController:
                 "actuation": actuation,
             }
             if self.decision_log:
-                append_decision(self.decision_log, record)
+                try:
+                    append_decision(self.decision_log, record)
+                except OSError as e:
+                    self._log.warning("fleet autoscale: decision log unwritable: %s", e)
             telemetry.event("fleet_autoscale_decision", range=key, verdict=decision.verdict, delta=decision.delta,
                             reason=decision.reason)
             if decision.verdict != "hold":
@@ -205,7 +257,8 @@ class FleetAutoscaleController:
         return decisions
 
     def run(self, count: int = 0) -> int:
-        """Poll until interrupted (or `count` ticks). Returns 0."""
+        """Poll until interrupted (or `count` ticks). Returns 0: a dying
+        fleet is a report, not a controller failure."""
         n = 0
         try:
             while True:
@@ -216,4 +269,13 @@ class FleetAutoscaleController:
                 time.sleep(max(0.05, self.interval_s))
         except KeyboardInterrupt:
             pass
+        finally:
+            # placed replicas are fleet members: they stay, the manifest
+            # records them and the next supervisor adopts them
+            if self.supervisor is not None:
+                for slot in self.supervisor.slots().values():
+                    if slot.get("state") == "healthy":
+                        self._log.info("fleet autoscale: leaving replica %s (pid %s, slot %s) running — "
+                                       "fleet.json owns its lifecycle", slot.get("address"), slot.get("pid"),
+                                       slot.get("slot_id"))
         return 0

@@ -8,7 +8,7 @@ import json
 import logging
 import sys
 
-from drep_tpu_torch.argparser import UNPORTED_INDEX_OPS, parse_args
+from drep_tpu_torch.argparser import parse_args
 from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.utils.logger import get_logger, setup_logger
 from drep_tpu_torch.workflows import (
@@ -19,6 +19,7 @@ from drep_tpu_torch.workflows import (
     index_maintenance_wrapper,
     index_route_wrapper,
     index_serve_wrapper,
+    index_supervise_wrapper,
     index_update_wrapper,
 )
 
@@ -54,17 +55,13 @@ def check_dependencies() -> list[str]:
 
 
 def index_operation(**kwargs):
-    """`index build|update|classify|serve|route|split|merge|compact`:
-    classify prints one JSON verdict line per query on stdout, as the JAX
-    CLI does; the others log their summaries; serve and route block until
-    drained (exit 0 is the drain contract). `index supervise` raises
-    NotImplementedError naming its ROADMAP item."""
+    """`index build|update|classify|serve|route|supervise|split|merge|
+    compact`: classify prints one JSON verdict line per query on stdout,
+    as the JAX CLI does; the others log their summaries; serve and route
+    block until drained (exit 0 is the drain contract), supervise prints
+    its ready line and ticks until interrupted."""
     sub = kwargs.pop("index_op")
     index_loc = kwargs.pop("index_directory")
-    if sub in UNPORTED_INDEX_OPS:
-        raise NotImplementedError(
-            f"index {sub}: not ported yet (ROADMAP.md queue 1, item {UNPORTED_INDEX_OPS[sub]})"
-        )
     genomes = kwargs.pop("genomes", None)
     if sub == "build":
         return index_build_wrapper(index_loc, genomes, **kwargs)
@@ -74,6 +71,8 @@ def index_operation(**kwargs):
         return index_serve_wrapper(index_loc, **kwargs)
     if sub == "route":
         return index_route_wrapper(index_loc, **kwargs)
+    if sub == "supervise":
+        return index_supervise_wrapper(index_loc, **kwargs)
     if sub in ("split", "merge", "compact"):
         return index_maintenance_wrapper(index_loc, op=sub, **kwargs)
     if sub == "classify":

@@ -9,9 +9,11 @@ answer with the one-shot verdicts, drain on SIGTERM. The router speaks the
 same protocol in front of N replicas of a federated root: scatter/gather
 with generation fencing, hedged legs and PARTIAL verdicts on replica loss.
 The wire is the JAX package's, so either package's client talks to either
-package's daemon or router. See serve/daemon.py and serve/router.py. Not
-ported yet: the fleet supervisor and the wire-chaos proxy (ROADMAP.md
-queue 1, item 11c).
+package's daemon or router. The fleet supervisor (serve/supervisor.py,
+`index supervise`) owns the replica processes against a durable
+``fleet.json`` manifest that the router can rebuild its table from; the
+wire-chaos proxy (serve/wirechaos.py) is test machinery, imported by
+nothing here. See serve/daemon.py and serve/router.py.
 """
 
 from drep_tpu_torch.serve.batcher import AdmissionQueue, PendingRequest  # noqa: F401
@@ -25,4 +27,9 @@ from drep_tpu_torch.serve.router import (  # noqa: F401
     ReplicaTable,
     RouterConfig,
     RouterServer,
+)
+from drep_tpu_torch.serve.supervisor import (  # noqa: F401
+    FleetSupervisor,
+    load_manifest,
+    manifest_path,
 )

@@ -43,10 +43,11 @@ the fleet:
   gates each partition consult of the merge.
 
 The router writes nothing anywhere: kill and restart it and the fleet
-re-forms from the replica specs and the probes. Not ported: the fleet
-supervisor and its durable membership manifest (``index supervise``,
-``--fleet_manifest``), and the wire-chaos proxy (ROADMAP.md queue 1 item
-11c). The defaults of :class:`RouterConfig`'s fleet fields are the
+re-forms from the replica specs, the probes and, with
+``fleet_manifest`` (``--fleet_manifest``), the healthy slots of the fleet
+supervisor's ``fleet.json`` (serve/supervisor.py, either package's),
+joined before the first leg; its ``status`` then carries the manifest's
+``supervision`` view in the JAX router's shape. The defaults of :class:`RouterConfig`'s fleet fields are the
 ``DREP_TORCH_ROUTER_*`` / ``DREP_TORCH_SERVE_PROBE_MAX_S`` knobs, read when
 a config is made (an explicit field wins). The ``router_leg`` fault site
 fires at each scatter leg and forward group, ``replica_health`` at each
@@ -72,7 +73,7 @@ from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.serve import protocol
 from drep_tpu_torch.serve.client import ServeClient
 from drep_tpu_torch.serve.daemon import _RETRY_AFTER_FLOOR_S, IndexServer, ServeConfig
-from drep_tpu_torch.utils import envknobs, faults, telemetry
+from drep_tpu_torch.utils import durableio, envknobs, faults, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.utils.profiling import counters
 
@@ -84,10 +85,6 @@ BREAKER_CLOSED = "closed"
 BREAKER_OPEN = "open"
 BREAKER_HALF_OPEN = "half_open"
 
-# the ROADMAP item that owns the fleet supervisor, its manifest and the
-# wire-chaos proxy
-FLEET_SUPERVISION_ITEM = "ROADMAP.md queue 1, item 11c"
-
 # entries the router's sketch cache keeps (a sketch is a few KB; the cap
 # bounds a leak, it is not a memory budget)
 _SKETCH_CACHE_CAP = 4096
@@ -97,15 +94,12 @@ _SKETCH_CACHE_CAP = 4096
 _LEG_SEQ = itertools.count()
 
 
-def refuse_fleet_manifest(path: str | None) -> None:
-    """Raise NotImplementedError for a ``--fleet_manifest``: the
-    supervisor's durable membership is item 11c."""
-    if path:
-        raise NotImplementedError(
-            f"--fleet_manifest {path}: the fleet supervisor's manifest is not ported yet "
-            f"({FLEET_SUPERVISION_ITEM}); name the replicas with --replica or join them "
-            f"through the fleet op"
-        )
+def _manifest_file(path: str) -> str:
+    """A ``fleet_manifest`` setting (the manifest or its directory) as the
+    manifest's path."""
+    from drep_tpu_torch.serve import supervisor as sup
+
+    return sup.manifest_path(path) if os.path.isdir(path) else path
 
 
 def decrement_budget_ms(budget_ms: float | None, elapsed_s: float) -> float | None:
@@ -173,8 +167,8 @@ class RouterConfig(ServeConfig):
     """ServeConfig plus the fleet surface. ``replicas`` are
     :func:`parse_replica_spec` strings; each knob field defaults to its
     ``DREP_TORCH_*`` knob, read when the config is made.
-    ``fleet_manifest`` (the supervisor's, item 11c) makes the router
-    refuse to start."""
+    ``fleet_manifest`` (the supervisor's ``fleet.json`` or its directory)
+    adds the manifest's healthy slots to the replica table at start."""
 
     replicas: list[str] = field(default_factory=list)
     leg_timeout_s: float = field(default_factory=lambda: envknobs.env_float("DREP_TORCH_ROUTER_LEG_TIMEOUT_S"))
@@ -479,7 +473,6 @@ class RouterServer(IndexServer):
     the generation poller, SIGTERM drain and /healthz are the daemon's."""
 
     def __init__(self, cfg: RouterConfig, classify_fn=None):
-        refuse_fleet_manifest(cfg.fleet_manifest)
         self.leg_timeout_s = float(cfg.leg_timeout_s)
         self.hedge_delay_s = float(cfg.hedge_delay_s)
         cfg.max_queue = int(cfg.max_inflight)
@@ -488,6 +481,9 @@ class RouterServer(IndexServer):
             list(cfg.replicas), cfg.probe_backoff_s, cfg.probe_max_s, breaker_errs=cfg.breaker_errs,
             breaker_window_s=cfg.breaker_window_s, breaker_halfopen_s=cfg.breaker_halfopen_s,
         )
+        # the supervisor's membership, joined before the first leg: a
+        # restarted router recovers its fleet with no join replayed
+        self._rebuilt_members = self._rebuild_membership()
         self.router_stats = {
             "forwarded": 0,  # queries answered by the forward path
             "scattered": 0,  # queries answered by the scatter/gather merge
@@ -615,11 +611,69 @@ class RouterServer(IndexServer):
         )
         telemetry.event("fleet_prewarm", address=addr, warmed=report.get("warmed"), failed=report.get("failed"))
 
+    # ---- durable membership ----------------------------------------------
+    def _rebuild_membership(self) -> list[str]:
+        """Join every healthy slot of the supervisor's manifest into the
+        replica table. Read-only and best effort: a missing manifest is an
+        empty fleet, a rotted one a warning (the router starts with its
+        --replica list; the supervisor's next publish heals the file)."""
+        cfg: RouterConfig = self.cfg  # type: ignore[assignment]
+        if not cfg.fleet_manifest:
+            return []
+        from drep_tpu_torch.serve import supervisor as sup
+
+        path = _manifest_file(cfg.fleet_manifest)
+        try:
+            doc = (sup.load_manifest(os.path.dirname(path)) if os.path.basename(path) == sup.MANIFEST_NAME
+                   else durableio.read_json_checked(path, what="fleet manifest"))
+        except Exception as e:  # noqa: BLE001 — a degraded start beats none
+            get_logger().warning("route: fleet manifest %s unreadable (%r) — starting with explicit replicas only",
+                                 cfg.fleet_manifest, e)
+            return []
+        joined = []
+        for slot in (doc.get("slots") or {}).values():
+            addr = slot.get("address")
+            # a starting or backoff slot has no routable address yet (or a
+            # stale one); the supervisor joins it when it comes up
+            if not addr or slot.get("state") not in ("healthy",):
+                continue
+            parts = slot.get("partitions")
+            self.table.join(addr, frozenset(int(p) for p in parts) if parts is not None else None)
+            joined.append(addr)
+        if joined:
+            get_logger().info("route: rebuilt %d replica(s) from fleet manifest %s", len(joined), cfg.fleet_manifest)
+        return joined
+
+    def _supervision_view(self) -> dict | None:
+        """The manifest's slot table for ``status`` readers (the JAX
+        package's tools/pod_status.py renders it). None without a
+        manifest; an error marker when it cannot be read."""
+        cfg: RouterConfig = self.cfg  # type: ignore[assignment]
+        if not cfg.fleet_manifest:
+            return None
+        from drep_tpu_torch.serve import supervisor as sup
+
+        try:
+            doc = durableio.read_json_checked(_manifest_file(cfg.fleet_manifest), what="fleet manifest")
+        except FileNotFoundError:
+            return {"slots": {}, "generation": 0, "supervisor_pid": None}
+        except Exception as e:  # noqa: BLE001 — status answers regardless
+            return {"error": f"fleet manifest unreadable: {e!r}"}
+        return {
+            "slots": doc.get("slots") or {},
+            "generation": doc.get("generation"),
+            "supervisor_pid": doc.get("supervisor_pid"),
+            "supervisor_alive": sup.pid_alive(doc.get("supervisor_pid")),
+        }
+
     # ---- status ----------------------------------------------------------
     def snapshot(self) -> dict:
         out = super().snapshot()
         out["role"] = "router"
         out["replicas"] = self.table.health_map()
+        sup_view = self._supervision_view()
+        if sup_view is not None:
+            out["supervision"] = sup_view
         with self._lock:
             out["router"] = dict(self.router_stats)
         return out

@@ -37,8 +37,10 @@ Knobs of the JAX package the port does not declare, and why:
   daemon's with its CRC off), so interoperation needs no switch;
 - the elastic pod, ROADMAP queue 1 item 12b: ``HEARTBEAT_S``,
   ``POD_JOIN``, ``COLLECTIVE_TIMEOUT_S``, ``INGEST_BARRIER_S``,
-  ``AUTOSCALE_SPAWNED`` and the chaos harness's ``TEST_*``;
-- the fleet supervisor, item 11c: ``SUP_*``.
+  ``AUTOSCALE_SPAWNED`` (the fleet supervisor sets
+  ``DREP_TORCH_AUTOSCALE_SPAWNED=1`` in each replica's environment, as
+  the JAX supervisor sets its twin; only the pod's members read it) and
+  the chaos harness's ``TEST_*``.
 
 Stdlib only: durable I/O, the serve tier and the autoscale tools read
 knobs with no torch around.
@@ -160,6 +162,24 @@ _declare("DREP_TORCH_AUTOSCALE_COOLDOWN_S", "float", 30.0,
 _declare("DREP_TORCH_AUTOSCALE_MAX_SPAWN", "int", 1,
          "Autoscale controller: max replicas placed per scale-up decision; "
          "--max_spawn overrides.")
+# -- fleet supervisor --------------------------------------------------------
+_declare("DREP_TORCH_SUP_HEARTBEAT_S", "float", 1.0,
+         "Fleet supervisor (serve/supervisor.py): seconds between liveness ticks "
+         "(a pid poll and a /healthz probe a healthy slot); --heartbeat_s overrides.")
+_declare("DREP_TORCH_SUP_BACKOFF_MAX_S", "float", 30.0,
+         "Fleet supervisor: cap of the decorrelated restart backoff "
+         "uniform(base, prev*3); --backoff_max_s overrides.")
+_declare("DREP_TORCH_SUP_CRASHLOOP_K", "int", 3,
+         "Fleet supervisor: deaths inside the crash-loop window that quarantine a "
+         "slot (0 = never); --crashloop_k overrides.")
+_declare("DREP_TORCH_SUP_CRASHLOOP_WINDOW_S", "float", 60.0,
+         "Fleet supervisor: the crash-loop window (s); --crashloop_window_s overrides.")
+_declare("DREP_TORCH_SUP_DRAIN_DEADLINE_S", "float", 30.0,
+         "Fleet supervisor: seconds after SIGTERM before a draining replica is "
+         "SIGKILLed (an escalation); --drain_deadline_s overrides.")
+_declare("DREP_TORCH_SUP_STARTUP_DEADLINE_S", "float", 120.0,
+         "Fleet supervisor: seconds a spawned replica gets to print its ready line "
+         "before the spawn books a death; --startup_deadline_s overrides.")
 
 
 def knob(name: str) -> Knob:

@@ -16,7 +16,7 @@ package's grammar unchanged::
 
     DREP_TORCH_FAULTS="streaming_tile:raise:0.05:seed=7,shard_write:torn"
 
-- ``site``: the injection point. The port threads thirteen of the JAX
+- ``site``: the injection point. The port threads sixteen of the JAX
   package's sites at the JAX package's fire points: ``streaming_tile``
   (each streaming stripe's launch, parallel/streaming.py),
   ``secondary_batch`` (each secondary engine call, cluster/controller.py),
@@ -27,26 +27,38 @@ package's grammar unchanged::
   ``partition_classify`` (a served partition's load and consult) and
   ``partition_update`` (a federated update's partition and its commit,
   index/federation.py), ``partition_split`` and ``compaction``
-  (index/maintenance.py's transactions), and ``router_leg`` /
+  (index/maintenance.py's transactions), ``router_leg`` /
   ``replica_health`` (a routed leg and a replica probe,
-  serve/router.py). The other sites of the JAX package parse and raise
-  NotImplementedError naming the ROADMAP item that threads them.
+  serve/router.py), ``wire`` (each reply line through the chaos proxy,
+  serve/wirechaos.py, polled by :func:`wire_fault`), and
+  ``supervisor_spawn`` / ``supervisor_tick`` (a spawn after the manifest
+  records its intent and before the fork, and the top of each
+  supervision tick, serve/supervisor.py). The elastic pod's sites
+  (``ring_dispatch``, ``ring_step``, ``allgather``, ``barrier``,
+  ``process_death``, ``autoscale_decide``) parse and raise
+  NotImplementedError naming ROADMAP.md queue 1 item 12b.
 - ``mode``: ``raise`` (InjectedFault), ``hang`` (sleep ``secs``, default
   3600, then raise: trips the watchdog), ``sleep`` (sleep ``secs``, then
-  go on), ``torn`` (``shard_write`` only: publish a truncated file in
-  place of the atomic write), and the ``io`` modes ``io_error``
-  (EIO on reads and writes), ``stale_read`` (ESTALE on reads),
-  ``enospc`` (ENOSPC on writes) and ``corrupt`` (flip one bit of the
-  published file). ``kill`` and ``drain`` (the elastic pod, item 12b)
-  and the wire modes (the chaos proxy, item 11c) raise
-  NotImplementedError.
+  go on), ``kill`` (SIGKILL the calling process: no cleanup, as an
+  external kill; not at the ``io`` site), ``torn`` (``shard_write``
+  only: publish a truncated file in place of the atomic write), the
+  ``io`` modes ``io_error`` (EIO on reads and writes), ``stale_read``
+  (ESTALE on reads), ``enospc`` (ENOSPC on writes) and ``corrupt`` (flip
+  one bit of the published file), and the ``wire`` modes, which the
+  proxy acts out on the byte stream of one reply line: ``reset`` (RST
+  mid-reply), ``stall`` (hold it ``secs``, default 3600), ``slow``
+  (delay it ``secs``, default 0.05), ``short_read`` (half the line, then
+  EOF), ``garble`` (flip bytes inside the frame's body: the CRC must
+  catch it) and ``dup`` (the line twice). ``drain`` (the elastic pod,
+  item 12b) raises NotImplementedError.
 - ``prob``: per-call probability (default 1.0), drawn from the rule's
   own ``random.Random(seed)`` stream.
 - ``key=value``: ``seed=N`` (default 0), ``secs=F``, ``device=N`` (fire
   only for that device slot), ``max=N`` (stop after N fires),
   ``proc=N`` (fire only in process N of a pod; the port is process 0),
   ``skip=N`` (let the first N matching calls pass), ``path=S`` (fire
-  only where the target path contains S; io and shard_write sites).
+  only where the target path contains S; io and shard_write sites, and
+  on the wire site the proxy's peer label, so one spec damages one hop).
 
 The same spec fires on the same calls of a site in both packages. With
 no spec, :func:`fire` costs one falsy check.
@@ -55,7 +67,9 @@ no spec, :func:`fire` costs one falsy check.
 from __future__ import annotations
 
 import errno
+import os
 import random
+import signal
 import time
 from dataclasses import dataclass, field
 
@@ -72,17 +86,14 @@ SITES = (
     "partition_load", "partition_classify", "autoscale_decide", "router_leg", "replica_health",
     "partition_split", "compaction", "wire", "supervisor_spawn", "supervisor_tick",
 )
-UNPORTED_SITES: dict[str, str] = {
-    # autoscale_decide fires only in the elastic pod's controller
-    **dict.fromkeys(("ring_dispatch", "ring_step", "allgather", "barrier", "process_death",
-                     "autoscale_decide"), "12b"),
-    **dict.fromkeys(("wire", "supervisor_spawn", "supervisor_tick"), "11c"),
-}
+# autoscale_decide fires only in the elastic pod's controller
+UNPORTED_SITES: dict[str, str] = dict.fromkeys(
+    ("ring_dispatch", "ring_step", "allgather", "barrier", "process_death", "autoscale_decide"), "12b")
 
 IO_MODES = ("io_error", "stale_read", "enospc", "corrupt")
 WIRE_MODES = ("reset", "stall", "slow", "short_read", "garble", "dup")
 MODES = ("raise", "hang", "sleep", "torn", "kill", "drain") + IO_MODES + WIRE_MODES
-UNPORTED_MODES: dict[str, str] = {"kill": "12b", "drain": "12b", **dict.fromkeys(WIRE_MODES, "11c")}
+UNPORTED_MODES: dict[str, str] = {"drain": "12b"}
 
 
 class InjectedFault(RuntimeError):
@@ -153,8 +164,13 @@ def _parse(spec: str) -> dict[str, list[_Rule]]:
         # nothing: each mode belongs to the sites that poll it
         if mode in IO_MODES and site != "io":
             raise FaultSpecError(f"mode {mode!r} is io-site-only (got site {site!r})")
-        if site == "io" and mode == "torn":
-            raise FaultSpecError("mode 'torn' has no 'io' site semantics — use shard_write:torn")
+        if site == "io" and mode in ("torn", "kill"):
+            raise FaultSpecError(f"mode {mode!r} has no 'io' site semantics — use shard_write:torn for torn "
+                                 f"publishes, or another site's kill for deaths")
+        if mode in WIRE_MODES and site != "wire":
+            raise FaultSpecError(f"mode {mode!r} is wire-site-only (got site {site!r})")
+        if site == "wire" and mode not in WIRE_MODES:
+            raise FaultSpecError(f"the 'wire' site takes only the wire modes {', '.join(WIRE_MODES)} (got {mode!r})")
         if mode == "torn" and site != "shard_write":
             raise FaultSpecError(f"mode 'torn' is shard_write-only (got site {site!r})")
         rule = _Rule(site=site, mode=mode)
@@ -174,10 +190,12 @@ def _parse(spec: str) -> dict[str, list[_Rule]]:
                 elif key == "max":
                     rule.max_fires = int(val)
                 elif key == "path":
-                    # only the durable-I/O sites pass a path; anywhere else
-                    # the rule would never fire
-                    if site not in ("io", "shard_write"):
-                        raise FaultSpecError(f"path= is only meaningful on the io/shard_write sites (got {site!r})")
+                    # only the durable-I/O sites pass a path, and the wire
+                    # site its peer label; anywhere else the rule would
+                    # never fire
+                    if site not in ("io", "shard_write", "wire"):
+                        raise FaultSpecError(
+                            f"path= is only meaningful on the io/shard_write/wire sites (got {site!r})")
                     rule.path_sub = val
                 else:
                     raise FaultSpecError(f"unknown fault field {key!r} in {entry!r}")
@@ -224,7 +242,7 @@ def _record(rule: _Rule) -> None:
 
 
 def fire(site: str, device: int | None = None) -> None:
-    """Run the matching rules of `site`: raise, hang or sleep. A watched
+    """Run the matching rules of `site`: raise, hang, sleep or kill. A watched
     site calls this inside the watched region, so that a ``hang`` trips
     the watchdog rather than the caller."""
     rules = _RULES if _RULES is not None else _rules()
@@ -241,6 +259,10 @@ def fire(site: str, device: int | None = None) -> None:
             raise InjectedFault(f"injected hang at {site} woke up (device={device})")
         if rule.mode == "sleep":
             time.sleep(0.05 if rule.secs is None else rule.secs)
+        if rule.mode == "kill":
+            # an external SIGKILL's stand-in: no cleanup, no atexit; the
+            # counters die with the process
+            os.kill(os.getpid(), signal.SIGKILL)
 
 
 def torn_write(site: str = "shard_write", path: str | None = None) -> bool:
@@ -267,6 +289,21 @@ def corrupt_write(site: str = "io", path: str | None = None) -> bool:
             _record(rule)
             return True
     return False
+
+
+def wire_fault(peer: str | None = None):
+    """Poll the ``wire`` site for one reply line about to cross `peer`'s
+    hop (serve/wirechaos.py, a poll a reply line). Returns the matching
+    rule, whose mode the proxy acts out on the byte stream, or None;
+    ``path=`` rules match the peer label."""
+    rules = _RULES if _RULES is not None else _rules()
+    if not rules:
+        return None
+    for rule in rules.get("wire", ()):
+        if rule.should_fire(None, path=peer):
+            _record(rule)
+            return rule
+    return None
 
 
 def fire_io(op: str, path: str | None = None) -> None:

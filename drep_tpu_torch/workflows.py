@@ -5,7 +5,7 @@ genome index):
 dereplicate = filter -> cluster -> choose -> [bonus] -> evaluate -> analyze;
 compare = cluster -> evaluate -> analyze (no filter/choose);
 index build|update|classify|split|merge|compact = drep_tpu_torch/index;
-index serve|route = drep_tpu_torch/serve.
+index serve|route|supervise = drep_tpu_torch/serve.
 
 All run on `device` (default cuda); a CUDA request on a machine without
 CUDA, or a JAX CLI flag set to a value the port does not run
@@ -22,7 +22,8 @@ DIR, by default ``<wd>/log/torch_trace``; ``DREP_TORCH_METRICS_FLUSH_S``
 publishes ``<wd>/log/metrics.prom`` periodically; and every run writes
 ``<wd>/log/perf_counters.json``. The index verbs trace into the index's
 own log dir, except ``classify``, which writes nothing under the index;
-``index serve|route`` trace into ``--log_dir``.
+``index serve|route|supervise`` trace into ``--log_dir``. `index
+supervise` uses no device (its replicas run where its --spawn says).
 """
 
 from __future__ import annotations
@@ -277,32 +278,38 @@ def index_classify_wrapper(index_loc: str, genomes: list[str] | None = None, dev
 def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
     """The set-up `index serve` and `index route` share: what the port
     does not run refuses first, then the device resolves, the durable-I/O
-    policy is installed, the console keeps the controller's verbosity,
-    the event sink (``--events`` / DREP_TORCH_EVENTS) and the metrics
-    flush go to the log dir and the counters restart. Both are pure
-    readers of the index, so their logs, counters and events live under
-    ``--log_dir`` (outside the index tree) or nowhere; tracing without a
-    log dir is refused. Returns (the absolute log_dir or None, the
-    device)."""
-    import logging
-    import os
-
+    policy is installed and the logs are set up (:func:`_reader_logs`).
+    Returns (the absolute log_dir or None, the device)."""
     refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
+    contract = f"the {'daemon' if what == 'serve' else 'router'} is read-only by contract"
+    return _reader_logs(index_loc, kwargs, contract), dev
+
+
+def _reader_logs(index_loc: str, kwargs: dict, contract: str) -> str | None:
+    """The logs of a long-lived process that writes no log under the index
+    (`index serve|route|supervise`): its logs, counters and events live
+    under ``--log_dir`` (outside the index tree) or nowhere, and tracing
+    without a log dir is refused. The console keeps the controller's
+    verbosity, the event sink (``--events`` / DREP_TORCH_EVENTS) and the
+    metrics flush go to the log dir and the counters restart. `contract`
+    says, in the refusals, what the process writes under the index.
+    Returns the absolute log_dir or None."""
+    import logging
+    import os
+
     log_dir = kwargs.get("log_dir") or None
     if telemetry.resolve_enabled(kwargs.get("events")) and not log_dir:
         raise UserInputError(
-            f"--events on needs --log_dir (the {'daemon' if what == 'serve' else 'router'} never writes under "
-            f"the index directory, so traces have nowhere to go)"
+            f"--events on needs --log_dir ({contract}, so traces have nowhere to go)"
         )
     if log_dir:
         log_dir = os.path.abspath(log_dir)
         idx_abs = os.path.abspath(index_loc)
         if log_dir == idx_abs or log_dir.startswith(idx_abs + os.sep):
             raise UserInputError(
-                f"--log_dir {log_dir} is inside the index directory — the "
-                f"{'daemon' if what == 'serve' else 'router'} is read-only by contract; point it elsewhere"
+                f"--log_dir {log_dir} is inside the index directory — {contract}; point it elsewhere"
             )
         os.makedirs(log_dir, exist_ok=True)
     # keep the console verbosity the controller already set for -d:
@@ -317,7 +324,7 @@ def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
     else:
         stop_metrics_flush()
     counters.reset()
-    return log_dir, dev
+    return log_dir
 
 
 def _serve_kwargs(index_loc: str, kwargs: dict, log_dir: str | None, dev) -> dict:
@@ -377,14 +384,13 @@ def index_route_wrapper(index_loc: str, device=None, **kwargs) -> int:
     An empty ``--replica`` list is legal (replicas may join through the
     ``fleet`` op); queries before a join are refused with ``no_replicas``.
 
-    Refused before anything is read: ``--fleet_manifest`` (the
-    supervisor's manifest, ROADMAP.md queue 1 item 11c)."""
-    from drep_tpu_torch.serve.router import RouterConfig, RouterServer, refuse_fleet_manifest
+    ``--fleet_manifest`` adds the healthy slots of the fleet supervisor's
+    ``fleet.json`` (either package's) to the table at start."""
+    from drep_tpu_torch.serve.router import RouterConfig, RouterServer
 
-    refuse_fleet_manifest(kwargs.get("fleet_manifest"))
     log_dir, dev = _serve_front_door(index_loc, kwargs, "route", device)
     replicas = list(kwargs.get("replica") or [])
-    if not replicas:
+    if not replicas and not kwargs.get("fleet_manifest"):
         get_logger().warning(
             "index route starting with an empty replica table — queries "
             "will be refused (no_replicas) until a `fleet` join arrives"
@@ -394,6 +400,76 @@ def index_route_wrapper(index_loc: str, device=None, **kwargs) -> int:
              if kwargs.get(k) is not None}
     cfg = RouterConfig(
         **_serve_kwargs(index_loc, kwargs, log_dir, dev), replicas=replicas,
-        probe_interval_s=float(kwargs.get("probe_interval_s", 1.0) or 1.0), **knobs,
+        probe_interval_s=float(kwargs.get("probe_interval_s", 1.0) or 1.0),
+        fleet_manifest=kwargs.get("fleet_manifest"), **knobs,
     )
     return _run_server(RouterServer(cfg), log_dir)
+
+
+def index_supervise_wrapper(index_loc: str, **kwargs) -> int:
+    """`index supervise`: the fleet supervisor (drep_tpu_torch/serve/
+    supervisor.py), the replica processes' lifecycle against the durable
+    ``fleet.json``. Recovery first (the live replicas of the manifest
+    adopted, none spawned twice), then the ``--replica`` placement of the
+    ranges the manifest does not already hold, then one JSON ready line
+    (``{"supervising": ..., "pid": ...}``) on stdout, then the heartbeat
+    loop (``--ticks`` of them, or until interrupted). A control plane: it
+    takes no --device and makes no CUDA context; exit is harmless, the
+    replicas outlive it and the manifest makes its successor whole."""
+    import json
+    import os
+    import time
+
+    from drep_tpu_torch.serve.router import parse_replica_spec
+    from drep_tpu_torch.serve.supervisor import FleetSupervisor, manifest_path, slot_range_key
+
+    # the initial placement: "N" (unscoped) or "N=0-2,5" (scoped)
+    wanted: list[tuple[int, frozenset | None]] = []
+    for spec in kwargs.get("replica") or []:
+        count_s, _, pids_s = str(spec).partition("=")
+        try:
+            count = int(count_s)
+        except ValueError:
+            raise UserInputError(f"bad --replica spec {spec!r}: want N or N=PIDS (e.g. 2 or 1=0-2,5)") from None
+        wanted.append((count, parse_replica_spec(f"x={pids_s}")[1] if pids_s else None))
+    _configure_io(kwargs)
+    log_dir = _reader_logs(index_loc, kwargs, "the supervisor's one write under it is the fleet manifest")
+    fleet_dir = kwargs.get("fleet_dir") or os.path.join(index_loc, "fleet")
+    sup = FleetSupervisor(
+        fleet_dir, spawn_cmd=kwargs.get("spawn"), router_address=kwargs.get("router"),
+        heartbeat_s=kwargs.get("heartbeat_s"), backoff_max_s=kwargs.get("backoff_max_s"),
+        crashloop_k=kwargs.get("crashloop_k"), crashloop_window_s=kwargs.get("crashloop_window_s"),
+        drain_deadline_s=kwargs.get("drain_deadline_s"), startup_deadline_s=kwargs.get("startup_deadline_s"),
+    )
+    try:
+        recovered = sup.recover()
+        for count, assigned in wanted:
+            key = "all" if assigned is None else ",".join(str(p) for p in sorted(assigned))
+            have = sum(1 for s in sup.doc["slots"].values()
+                       if slot_range_key(s) == key and s.get("state") not in ("draining",))
+            if count - have > 0:
+                sup.place(partitions=sorted(assigned) if assigned is not None else None, count=count - have)
+        print(json.dumps({
+            "supervising": fleet_dir,
+            "manifest": manifest_path(fleet_dir),
+            "pid": os.getpid(),
+            "slots": len(sup.doc["slots"]),
+            "adopted": len(recovered["adopted"]),
+        }), flush=True)
+        ticks = int(kwargs.get("ticks", 0) or 0)
+        n = 0
+        try:
+            while True:
+                sup.tick()
+                n += 1
+                if ticks and n >= ticks:
+                    break
+                time.sleep(max(0.05, sup.heartbeat_s))
+        except KeyboardInterrupt:
+            pass
+        return 0
+    finally:
+        stop_metrics_flush(final=bool(log_dir))
+        if log_dir:
+            counters.write(log_dir)
+        telemetry.close()

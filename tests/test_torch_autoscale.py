@@ -9,9 +9,11 @@ maintenance scheduler's inputs against the JAX package's, on the CPU.
 - the recommend-only FleetAutoscaleController ticks against the port's
   RouterServer, writing the decision records the JAX controller writes
   against the same router;
-- actuation (``spawn_cmd``, ``fleet_dir``, ``supervisor``, ``--spawn``,
-  ``--fleet_dir``) refuses naming item 11c and batch mode (a checkpoint
-  dir) naming item 12b, before anything is read.
+- actuation arguments (``spawn_cmd``, ``fleet_dir``, ``supervisor``,
+  ``--spawn``, ``--fleet_dir``) behave as the JAX controller's and
+  ``tools/pod_autoscale.py``'s (tests/test_torch_supervisor.py holds the
+  actuation itself); batch mode (a checkpoint dir) refuses naming item
+  12b, before anything is read.
 """
 
 import dataclasses
@@ -255,10 +257,28 @@ def test_controller_tick_against_a_dead_router_records_snapshot_error(tmp_path):
 
 @pytest.mark.parametrize("arg", ["spawn_cmd", "fleet_dir", "supervisor"])
 def test_controller_actuation_refused_naming_11c(arg, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        fleet.FleetAutoscaleController(_DeadRouter(), policy.Targets(), queue_deadline_s=5.0, svc_s=0.2,
-                                       **{arg: str(tmp_path / "x")})
-    assert not os.listdir(tmp_path)
+    """Actuation since item 11c, each argument alone, as in the JAX
+    controller: a spawn command without a manifest home refuses with
+    nothing written; a fleet_dir embeds a supervisor, recovered at once
+    (the manifest's first generation); a supervisor is used as given."""
+    outcomes = {}
+    for pkg, (fl, pol) in {"torch": (fleet, policy), "jax": (jax_fleet, jax_policy)}.items():
+        home = tmp_path / pkg
+        home.mkdir()
+        value = {"spawn_cmd": "index serve x", "fleet_dir": str(home / "fleet"), "supervisor": _DeadRouter()}[arg]
+        try:
+            ctl = fl.FleetAutoscaleController(_DeadRouter(), pol.Targets(), queue_deadline_s=5.0, svc_s=0.2,
+                                              **{arg: value})
+        except ValueError as e:
+            outcomes[pkg] = ("ValueError", "fleet_dir" in str(e), os.listdir(home))
+            continue
+        sup = ctl.supervisor
+        outcomes[pkg] = (type(sup).__name__, sup is value, getattr(sup, "doc", {}).get("generation"),
+                         sorted(os.listdir(home)))
+    assert outcomes["torch"] == outcomes["jax"]
+    assert outcomes["torch"] == {"spawn_cmd": ("ValueError", True, []),
+                                 "fleet_dir": ("FleetSupervisor", False, 1, ["fleet"]),
+                                 "supervisor": ("_DeadRouter", True, None, [])}[arg]
 
 
 @pytest.mark.parametrize("argv,item", [
@@ -267,12 +287,26 @@ def test_controller_actuation_refused_naming_11c(arg, tmp_path):
     (["CKPT", "--deadline", "600"], "12b"),
 ])
 def test_cli_refusals_name_their_item(tmp_path, argv, item):
-    """`python -m drep_tpu_torch.autoscale` refuses actuation and batch
-    mode before anything is read or written (no decision log, no socket)."""
+    """`python -m drep_tpu_torch.autoscale` refuses batch mode naming item
+    12b; its actuation flags (item 11c) act as ``tools/pod_autoscale.py``'s:
+    --spawn without --fleet_dir is a usage error, and a router that is not
+    there fails the start. Nothing is read or written (no decision log,
+    no manifest, no socket)."""
     sub = {"ADDR": str(tmp_path / "r.sock"), "FLEET": str(tmp_path / "fleet"), "CKPT": str(tmp_path / "ckpt")}
     log = tmp_path / "d.jsonl"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        autoscale_main([sub.get(a, a) for a in argv] + ["--decision_log", str(log)])
+    full = [sub.get(a, a) for a in argv] + ["--decision_log", str(log)]
+    if item == "12b":
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            autoscale_main(full)
+    else:
+        from tools.pod_autoscale import main as jax_autoscale_main
+
+        seen = []
+        for main in (autoscale_main, jax_autoscale_main):
+            with pytest.raises((SystemExit, OSError)) as ei:
+                main(full)
+            seen.append(type(ei.value).__name__)
+        assert seen[0] == seen[1] == ("SystemExit" if "--spawn" in argv else "FileNotFoundError")
     assert not os.listdir(tmp_path)
 
 
@@ -300,3 +334,61 @@ def test_cli_recommend_only_run(feds, tmp_path, monkeypatch):
     assert [r["range"] for r in recs] == ["all", "all"]
     got = telemetry.read_events(str(events))
     assert [r["ev"] for r in got] == ["fleet_autoscale_decision"] * 2 and {r["pid"] for r in got} == {999}
+
+
+# a stand-in replica on the daemon's ready-line contract: it binds a port,
+# prints the ready line and answers every request line with an error
+STUB_REPLICA = """import json, os, socket, threading
+srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+srv.bind(("127.0.0.1", 0))
+srv.listen(8)
+def serve(conn):
+    with conn, conn.makefile("rb") as r:
+        for line in r:
+            conn.sendall(b'{"ok": false, "reason": "stub"}\\n')
+def accept():
+    while True:
+        threading.Thread(target=serve, args=(srv.accept()[0],), daemon=True).start()
+threading.Thread(target=accept, daemon=True).start()
+print(json.dumps({"serving": "127.0.0.1:%d" % srv.getsockname()[1], "pid": os.getpid()}), flush=True)
+threading.Event().wait()
+"""
+
+
+def test_cli_places_through_the_supervisor(feds, tmp_path):
+    """`--spawn` with `--fleet_dir` acts: a range whose queueing deadline
+    is already spent (--queue_deadline_s 0) scales up, and the embedded
+    supervisor places the replica (the manifest's slot healthy, the
+    decision's actuation naming its address, the router told by a fleet
+    join), as tools/pod_autoscale.py does."""
+    import signal
+    import sys
+
+    from drep_tpu_torch.serve.supervisor import load_manifest
+
+    loc = feds[0]
+    kw = {"batch_window_ms": 20.0, "max_batch": 16, "poll_generation_s": 60.0}
+    rep = _serve(IndexServer(ServeConfig(index_loc=loc, device=CPU, **kw)))
+    rt, ra, trt = _serve(RouterServer(RouterConfig(index_loc=loc, replicas=[rep[1]], device=CPU, **kw)))
+    stub = tmp_path / "stub.py"
+    stub.write_text(STUB_REPLICA)
+    log, fleet_dir = tmp_path / "d.jsonl", str(tmp_path / "fleet")
+    pids = []
+    try:
+        assert autoscale_main(["--router", ra, "--count", "1", "--queue_deadline_s", "0", "--max_procs", "2",
+                               "--spawn", f"{sys.executable} {stub}", "--fleet_dir", fleet_dir,
+                               "--decision_log", str(log)]) == 0
+        slots = load_manifest(fleet_dir)["slots"]
+        pids = [s["pid"] for s in slots.values() if s.get("pid")]
+        (slot,) = slots.values()
+        assert slot["state"] == "healthy" and slot["partitions"] is None
+        with open(log) as f:
+            (rec,) = [json.loads(line) for line in f]
+        assert (rec["range"], rec["verdict"], rec["delta"], rec["reason"]) == ("all", "scale_up", 1, "deadline-passed")
+        assert rec["actuation"] == f"placed [{slot['address']!r}] for range all"
+        assert rt.table.health_map()["replicas"][slot["address"]]["state"] == "healthy"  # the fleet join
+    finally:
+        for pid in pids:
+            os.kill(pid, signal.SIGKILL)
+        _stop(rt, trt)
+        _stop(*rep[0:1], rep[2])

@@ -50,12 +50,11 @@ def test_knob_matches_jax_twin(name):
 
 @pytest.mark.parametrize("suffix", UNPORTED)
 def test_unported_jax_knob_is_listed_with_its_reason(suffix):
-    """The rest of the JAX registry is TPU-only, the pod's (item 12b), the
-    supervisor's (item 11c) or has nothing to choose in the port: each is
-    named in the port registry's docstring."""
+    """The rest of the JAX registry is TPU-only, the pod's (item 12b) or
+    has nothing to choose in the port: each is named in the port
+    registry's docstring."""
     doc = envknobs.__doc__
-    assert f"``{suffix}``" in doc or (suffix.startswith("TEST_") and "``TEST_*``" in doc) \
-        or (suffix.startswith("SUP_") and "``SUP_*``" in doc), suffix
+    assert f"``{suffix}``" in doc or (suffix.startswith("TEST_") and "``TEST_*``" in doc), suffix
 
 
 @pytest.mark.parametrize("accessor,raw,want", [
@@ -138,6 +137,22 @@ def test_router_config_fields_read_their_knobs(monkeypatch):
     cfg = RouterConfig(index_loc="x")
     assert (cfg.leg_timeout_s, cfg.max_inflight, cfg.breaker_halfopen_s, cfg.probe_max_s) == (12.5, 9, 0.5, 3.0)
     assert RouterConfig(index_loc="x", leg_timeout_s=1.0).leg_timeout_s == 1.0  # an explicit field wins
+
+
+def test_supervisor_knobs_reach_the_supervisor(monkeypatch, tmp_path):
+    """The six DREP_TORCH_SUP_* knobs are the supervisor's defaults, as
+    their twins are the JAX supervisor's; an explicit argument wins."""
+    from drep_tpu_torch.serve.supervisor import FleetSupervisor
+
+    fields = ("heartbeat_s", "backoff_max_s", "crashloop_k", "crashloop_window_s", "drain_deadline_s",
+              "startup_deadline_s")
+    sup = FleetSupervisor(str(tmp_path / "a"))
+    assert tuple(getattr(sup, f) for f in fields) == (1.0, 30.0, 3, 60.0, 30.0, 120.0)
+    for f, v in zip(fields, ("0.5", "4", "7", "9.5", "2", "11")):
+        monkeypatch.setenv("DREP_TORCH_SUP_" + f.upper(), v)
+    sup = FleetSupervisor(str(tmp_path / "b"))
+    assert tuple(getattr(sup, f) for f in fields) == (0.5, 4.0, 7, 9.5, 2.0, 11.0)
+    assert FleetSupervisor(str(tmp_path / "c"), crashloop_k=1).crashloop_k == 1
 
 
 def test_serve_knobs_reach_the_daemon(monkeypatch):

@@ -5,7 +5,8 @@ partition_update, partition_load, partition_classify, partition_split,
 compaction, router_leg, replica_health), each injected with ``raise`` in
 the port and the same spec in the JAX package, on the CPU: each leaves
 the store, the partition health or the routed verdict the JAX package
-leaves. ``kill`` and the pod's sites stay refused (item 12b).
+leaves; ``kill`` at these sites SIGKILLs the caller in both packages. The
+pod's sites and its drain mode stay refused (item 12b).
 """
 
 import json
@@ -297,10 +298,30 @@ def test_replica_health_site_ejects_as_jax(fed):
     assert seen["torch"] == seen["jax"] == {"ejected"}
 
 
-@pytest.mark.parametrize("spec", ["index_update:kill", "compaction:kill", "autoscale_decide:raise"])
+@pytest.mark.parametrize("spec", ["process_death:kill", "ring_step:drain", "autoscale_decide:raise"])
 def test_pod_modes_and_sites_stay_refused(spec):
-    """The elastic pod's fault modes and its controller's site are item
-    12b's; the JAX package runs them."""
+    """The elastic pod's sites, its drain mode and its controller's site
+    are item 12b's; the JAX package runs them."""
     jax_faults._parse(spec)
     with pytest.raises(NotImplementedError, match="item 12b"):
         faults.configure(spec)
+
+
+@pytest.mark.parametrize("spec,site", [("index_update:kill", "index_update"), ("compaction:kill:skip=1", "compaction")])
+def test_kill_mode_sigkills_the_caller_as_jax(spec, site):
+    """``kill`` at an index site SIGKILLs the calling process at the
+    matching fire, no cleanup run, in both packages; earlier fires pass."""
+    import subprocess
+
+    for mod in ("drep_tpu_torch", "drep_tpu"):
+        code = (f"from {mod}.utils import faults\n"
+                f"faults.configure({spec!r})\n"
+                f"for i in range(3):\n"
+                f"    print('fire', i, flush=True)\n"
+                f"    faults.fire({site!r})\n"
+                f"print('survived', flush=True)\n")
+        res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                             cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert res.returncode == -9, (mod, res.stderr[-2000:])
+        assert res.stdout.split("\n")[:-1] == ["fire 0"] + (["fire 1"] if "skip=1" in spec else []), mod

@@ -165,18 +165,31 @@ def test_spec_parses_and_fires_as_jax(spec, poll):
 @pytest.mark.parametrize("spec,item", [
     ("process_death:kill", "12b"),
     ("ring_step:drain", "12b"),
-    ("streaming_tile:kill:0.5", "12b"),
-    ("wire:reset", "11c"),
-    ("wire:garble:path=replica0", "11c"),
-    ("supervisor_tick:raise", "11c"),
+    ("process_death:drain", "12b"),
+    ("ring_dispatch:raise", "12b"),
     ("autoscale_decide:raise", "12b"),
     ("barrier:sleep", "12b"),
     ("allgather:hang", "12b"),
 ])
 def test_unported_modes_and_sites_refused(spec, item):
+    """The elastic pod's sites and its drain mode (item 12b) refuse; the
+    JAX package runs them."""
     jax_faults._parse(spec)  # the JAX package runs it
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
         faults.configure(spec)
+
+
+@pytest.mark.parametrize("spec", [
+    "wire:reset", "wire:garble:path=replica0", "wire:stall:secs=2:max=1", "supervisor_tick:raise",
+    "supervisor_spawn:kill:skip=1", "streaming_tile:kill:0.5",
+])
+def test_supervision_wire_and_kill_specs_parse_as_jax(spec):
+    """The fleet supervisor's sites, the wire site with its modes and
+    ``path=`` peer labels, and the kill mode (ported with the supervisor)
+    parse into the JAX package's rules."""
+    got = {site: [_rule_fields(r) for r in rules] for site, rules in faults._parse(spec).items()}
+    want = {site: [_rule_fields(r) for r in rules] for site, rules in jax_faults._parse(spec).items()}
+    assert got == want and got
 
 
 # the unknown site and mode are built by concatenation: drep-lint's
@@ -184,7 +197,7 @@ def test_unported_modes_and_sites_refused(spec, item):
 @pytest.mark.parametrize("spec", [
     "not_a_site" + ":raise", "streaming_tile:" + "not_a_mode", "streaming_tile:raise:0.5:bogus=1",
     "secondary_batch:enospc", "secondary_batch:torn", "io:torn", "streaming_tile:raise:path=x",
-    "streaming_tile",
+    "streaming_tile", "io:kill", "secondary_batch:garble", "wire:raise", "supervisor_tick:raise:path=x",
 ])
 def test_malformed_specs_raise_as_jax(spec):
     with pytest.raises(jax_faults.FaultSpecError):

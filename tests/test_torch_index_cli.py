@@ -156,11 +156,28 @@ def test_cli_federated_lifecycle_equals_jax(fed_cli_runs, op):
 @pytest.mark.parametrize("op,args,item", [
     ("supervise", ["--replica", "2"], "11c"),
 ])
-def test_cli_unported_index_ops_raise(cli_runs, op, args, item):
+def test_cli_unported_index_ops_raise(tmp_path, cli_runs, op, args, item):
+    """`index supervise` (item 11c, ported): both CLIs, with no --spawn
+    command, place the two slots, book each a death and print the same
+    ready line; the manifests are equal (pids, instants and the jittered
+    backoff normalised) and nothing under the index changes."""
     loc = cli_runs["torch"][0]
     before = lib.tree_digest(loc, exclude_dirs=())
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
-        torch_main(["index", op, loc, *args])
+    seen = {}
+    for pkg, main in (("jax", jax_main), ("torch", torch_main)):
+        fleet_dir = str(tmp_path / pkg)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(["index", op, loc, *args, "--fleet_dir", fleet_dir, "--ticks", "1"])
+        ready = json.loads(buf.getvalue().splitlines()[0])
+        with open(os.path.join(fleet_dir, "fleet.json")) as f:
+            doc = json.load(f)
+        slots = {sid: (x["state"], x["partitions"], x["last_death_reason"], len(x["deaths"]), x["pid"])
+                 for sid, x in doc["slots"].items()}
+        seen[pkg] = (sorted(ready), ready["slots"], ready["adopted"], ready["supervising"] == fleet_dir,
+                     doc["generation"], slots)
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][-1] == {s: ("backoff", None, "no spawn command for slot", 1, None) for s in ("s000", "s001")}
     assert lib.tree_digest(loc, exclude_dirs=()) == before
 
 
@@ -213,9 +230,11 @@ def test_cli_serve_refusals(tmp_path, cli_runs, flags, item, monkeypatch):
 ])
 def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item, monkeypatch):
     """`index route` refuses before anything is read, bound or written
-    what it does not run, naming its item (the supervisor's fleet
-    manifest), and ``--events on`` without a ``--log_dir``, as the JAX
-    CLI does; it takes the durable-I/O flag (item = None)."""
+    ``--events on`` without a ``--log_dir``, as the JAX CLI does; it takes
+    the durable-I/O flag (item = None) and, since item 11c, the fleet
+    supervisor's manifest: the router it builds holds the manifest's
+    healthy slot beside its --replica, with the manifest's ``supervision``
+    view, and writes only under --log_dir."""
     loc = fed_cli_runs[("torch", "update")]
     before = lib.tree_digest(loc, exclude_dirs=())
     sub = {"LOG": str(tmp_path / "log"), "FLEET": str(tmp_path / "fleet.json")}
@@ -227,10 +246,24 @@ def test_cli_route_refusals(tmp_path, fed_cli_runs, flags, item, monkeypatch):
         with pytest.raises(SystemExit):  # the CLI's one `!!!` line for a UserInputError
             torch_main(argv)
     else:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            torch_main(argv)
+        from drep_tpu_torch import workflows
+        from drep_tpu_torch.utils import durableio
+
+        durableio.atomic_write_json(sub["FLEET"], {
+            "version": 1, "generation": 2, "supervisor_pid": None, "slots": {
+                "s000": {"slot_id": "s000", "partitions": [0], "address": "127.0.0.1:2", "pid": None,
+                         "state": "healthy"}}})
+        built = []
+        monkeypatch.setattr(workflows, "_run_server", lambda server, log_dir: built.append(server) or 0)
+        torch_main(argv)
+        (srv,) = built
+        assert {a: r["assigned"] for a, r in srv.table.health_map()["replicas"].items()} == {
+            "127.0.0.1:1": None, "127.0.0.1:2": [0]}
+        assert srv._supervision_view()["generation"] == 2 and sorted(srv._supervision_view()["slots"]) == ["s000"]
+        assert os.path.isdir(tmp_path / "log")
     assert lib.tree_digest(loc, exclude_dirs=()) == before
-    assert not os.path.exists(tmp_path / "log") and not os.path.exists(tmp_path / "r.sock")
+    assert not os.path.exists(tmp_path / "r.sock")
+    assert os.path.exists(tmp_path / "log") == (item == "11c")
 
 
 def _spawn_cli(tmp_path, name: str, argv: list[str]):

@@ -14,8 +14,10 @@ daemon's classify_part legs against the JAX package's, on the CPU.
   mid-traffic gives PARTIAL (strict: refused) and a ``fleet`` join
   restores full coverage; a hedged forward answers each query once with
   the first answer; a draining replica's refusals spill to PARTIAL; no
-  usable replica is refused with ``no_replicas``; a plain root and a
-  ``fleet_manifest`` (item 11c) are refused.
+  usable replica is refused with ``no_replicas``; a plain root is
+  refused; a router given only a ``fleet_manifest`` (the supervisor's
+  ``fleet.json``) rebuilds its table from it as the JAX router does and
+  scatters to the replicas it names.
 """
 
 import contextlib
@@ -514,14 +516,53 @@ def test_router_warns_when_a_leg_can_pass_the_line_limit(fleet_store):
 
 
 def test_fleet_manifest_refused_before_loading(fleet_store, tmp_path):
-    """The supervisor's manifest is item 11c: the router refuses it before
-    it reads the root or binds."""
-    loc, _paths, _queries, _oracle, _jax_oracle = fleet_store
+    """A router given the fleet supervisor's manifest and no --replica
+    list: both packages' routers, constructed on the same manifest, hold
+    the same table before anything is loaded or bound (the unroutable
+    slots left out); started, the port router scatters to the replicas the
+    manifest names, its verdicts equal the single daemon's and its status
+    carries the ``supervision`` view; nothing is written under the root."""
+    from drep_tpu.serve.router import RouterConfig as JaxRouterConfig
+    from drep_tpu.serve.router import RouterServer as JaxRouterServer
+    from drep_tpu_torch.serve import supervisor as sup
+    from drep_tpu_torch.utils import durableio
+
+    loc, _paths, queries, oracle, jax_oracle = fleet_store
     before = lib.tree_digest(loc, exclude_dirs=())
-    with pytest.raises(NotImplementedError, match="item 11c"):
-        RouterServer(RouterConfig(index_loc=str(tmp_path / "missing"), fleet_manifest=str(tmp_path / "fleet.json"),
-                                  socket_path=str(tmp_path / "r.sock"), device=CPU))
-    assert not os.path.exists(tmp_path / "r.sock")
+    r1, a1, t1 = _start_replica(loc)
+    r2, a2, t2 = _start_replica(loc)
+    fleet_dir = str(tmp_path / "fleet")
+    os.makedirs(fleet_dir)
+    slot = {"pid": os.getpid(), "spawn_cmd": None, "restarts": 0, "escalations": 0, "deaths": [],
+            "last_death_reason": None, "next_retry_at": None, "backoff_s": 0.0, "quarantine_reason": None,
+            "placed_at": time.time(), "drain_started_at": None}
+    durableio.atomic_write_json(sup.manifest_path(fleet_dir), {
+        "version": 1, "generation": 3, "supervisor_pid": os.getpid(), "next_slot": 3, "slots": {
+            "s000": {**slot, "slot_id": "s000", "partitions": [0, 1], "address": a1, "state": "healthy"},
+            "s001": {**slot, "slot_id": "s001", "partitions": [2], "address": a2, "state": "healthy"},
+            "s002": {**slot, "slot_id": "s002", "partitions": [2], "address": None, "pid": None,
+                     "state": "backoff"}}})
+    tables = []
+    for cfg_cls, srv_cls, extra in ((RouterConfig, RouterServer, {"device": CPU}),
+                                    (JaxRouterConfig, JaxRouterServer, {})):
+        srv = srv_cls(cfg_cls(index_loc=loc, fleet_manifest=fleet_dir, socket_path=str(tmp_path / "r.sock"),
+                              **extra))
+        tables.append({a: (r["state"], r["assigned"]) for a, r in srv.table.health_map()["replicas"].items()})
+        assert not os.path.exists(tmp_path / "r.sock")
+    assert tables[0] == tables[1] == {a1: ("healthy", [0, 1]), a2: ("healthy", [2])}
+    rt, ra, trt = _start_router(loc, [], fleet_manifest=fleet_dir)
+    try:
+        with ServeClient(ra, timeout_s=600) as c:
+            resps = c.classify_many(queries)
+        for q, r in zip(queries, resps):
+            assert r.get("ok") and r["verdict"] == oracle[q], q
+        snap = rt.snapshot()
+        assert snap["router"]["scattered"] == len(queries) and snap["router"]["leg_failures"] == 0
+        assert sorted(snap["supervision"]["slots"]) == ["s000", "s001", "s002"]
+        assert snap["supervision"]["generation"] == 3 and snap["supervision"]["supervisor_alive"] is True
+    finally:
+        for srv, t in ((rt, trt), (r1, t1), (r2, t2)):
+            _stop(srv, t)
     assert lib.tree_digest(loc, exclude_dirs=()) == before
 
 
