@@ -63,8 +63,9 @@ Phases (any failure exits nonzero; nothing is caught):
    512-genome cluster at width 65 536 (wider than a block's shared memory;
    Mash and containment), timed beside its bound, its plain version and
    the unfused step (kernel, then ``copy_``), with that cluster's ring
-   bit-identical to one device's route; the primary ring over phase 5's
-   10 000 genomes, bit-identical to the single-device matrix (both timed);
+   bit-identical to one device's route (7b, the primary ring over phase
+   5's 10 000 genomes against the single-device matrix, is cut for the
+   time limit: 18c's pod ring and its rerun cover cluster C's 1024);
    where there are two cards or more, the kernel check with the copy
    landing on the second card;
    7c: phase 6's cluster C again with ``mesh_shape=4`` (A and B cut for
@@ -94,9 +95,8 @@ Phases (any failure exits nonzero; nothing is caught):
    version; 8b: on phase 5's 10 000 genomes, ``streaming_mash_edges`` at
    the average-linkage retention bound bit-identical to ``all_vs_all_mash``
    thresholded there, and the LSH-pruned walk bit-identical to the dense
-   walk (its skipped tiles logged); 8c: half the shards of 8b's store
-   deleted and the walk rerun: the same edges, and pairs computed equal to
-   the deleted stripes' pairs;
+   walk (its skipped tiles logged) (8c, a resume of a store with half its
+   shards deleted, is 18b's rerun on the pod's store);
 9. the options of ROADMAP queue 1 item 9a, each through d_cluster_wrapper
    with the launch counts zeroed just before it: 9a ``--primary_estimator
    matmul`` on phase 5's first 2 500 genomes (secondary skipped; cut from
@@ -274,7 +274,33 @@ Phases (any failure exits nonzero; nothing is caught):
    0 (this process is its descendants' subreaper, so the adopted
    replicas' exit codes are read here), their ``serve_drain`` and
    ``serve_stop`` instants, the manifest empty, the root's tree unchanged;
-18. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+18. the elastic pod (``parallel/mesh.py``, ``parallel/faulttol.py``,
+   ROADMAP queue 1 item 12b): pods of two ``python -m drep_tpu_torch``
+   members on the card, joined over gloo on a localhost port, each
+   member's CUDA context read from its /proc maps, each member's kernel
+   launches from its log (POD_HEARTBEAT_S 0.5); all three start after
+   phase 5 and run beside phase 6's d_cluster_wrapper, whose end waits
+   for their members' exits, so no kernel timing shares the card with a
+   pod; 18a phase 4's dereplicate argv as a pod,
+   the streaming primary forced: the sharded ingest (the members'
+   digests equal), one stripe, the replicated secondary, Cdb and the
+   winners equal to phase 4's; 18b phase 5's bottom
+   sketches, ``compare --streaming_primary --SkipSecondary``, its 10 stripes
+   of 1024 dealt over the members, member 1 SIGKILLed by
+   ``process_death:kill`` as it starts its second stripe: the survivor's
+   death verdict and re-deal (epoch-stamped shards, the store's meta
+   stamped), the store's edges in stripe order 8b's bit for bit, the
+   survivor's launches all stripes but the one member 1 published; then
+   every other shard is deleted and a rerun in this process recomputes
+   exactly those stripes' pairs (one launch each) and resumes the rest;
+   18c 7c's cluster C, ``compare --mesh_shape 4 --SkipSecondary`` (2 positions
+   a member), member 1 SIGKILLed by ``ring_step:kill`` at its second step:
+   the survivor recomputes the missing blocks (``.e01`` names), Mdb 7c's
+   byte for byte and the primary clusters 7c's; then the Mash ring rerun
+   in this process on
+   the pod's ``data/dense_ring`` store with no ring launch, its matrix one
+   device's;
+19. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -292,8 +318,11 @@ Phases (any failure exits nonzero; nothing is caught):
    ``subprocess_launches``; both phase 16a's launches and profiled kernel
    events under ``profiled``, the Mash kernel phase 16's seconds and event
    counts under ``trace``; both phase 17's launches a batch under
-   ``fleet_launches``, the Mash kernel phase 17's seconds under ``fleet``);
-19. the last line: ``{"ok": true, "device": {...}}``.
+   ``fleet_launches``, the Mash kernel phase 17's seconds under ``fleet``;
+   phase 18's under ``pod_launches`` (both ring steps' too), the Mash
+   kernel its seconds under ``pod`` and the ring step 18c's under
+   ``pod_ring``);
+20. the last line: ``{"ok": true, "device": {...}}``.
 
 Phase 5's and phase 8a's planted sketches are made in two spawned
 processes started before phase 2 (the same seeds, so the same sketches),
@@ -1167,9 +1196,10 @@ def run_beyond(wd, bdb, dev, what: str, choose: bool = True, **kw):
     return cdb, launches, paths, stages, t_cluster
 
 
-def phase_beyond(tmp: str, dev, gs, planted) -> dict:
+def phase_beyond(tmp: str, dev, gs, planted, after_cluster=None) -> dict:
     """The beyond-budget slice (phase 6): d_cluster over the three BEYOND
-    clusters, then each cluster's counts on both routes."""
+    clusters, then `after_cluster()` where given, then each cluster's
+    counts on both routes."""
     import pandas as pd
     import torch
 
@@ -1189,6 +1219,8 @@ def phase_beyond(tmp: str, dev, gs, planted) -> dict:
     log(f"beyond budget: {len(gs.names)} genomes in clusters "
         f"{ {k: int((planted == i).sum()) for i, k in enumerate(BEYOND)} }, workdir in {time.perf_counter() - t0:.1f} s")
     cdb, launches, paths, _, t_cluster = run_beyond(wd, bdb, dev, "beyond budget", choose=False, mesh_shape=1)
+    if after_cluster is not None:
+        after_cluster()
     require(paths == {"pallas_range": 2, "matmul_chunked": 1}, f"beyond-budget routes {paths}")
     launches = {k: v for k, v in launches.items() if k not in ("ring_step", "ring_step_mm", "indicator_mm_rect")}
     require(all(v > 0 for v in launches.values()), f"beyond-budget run skipped a kernel: {launches}")
@@ -1446,31 +1478,6 @@ def phase_ring_kernel(dev, packed, gs_beyond, planted_beyond) -> dict:
     return entries
 
 
-def phase_ring_primary(dev, packed, k: int) -> dict:
-    """Phase 7b: the primary over RING_POSITIONS positions of the card,
-    bit-identical to the single-device distance matrix."""
-    import torch
-
-    from drep_tpu_torch.ops.mash import all_vs_all_mash
-    from drep_tpu_torch.parallel.allpairs import sharded_mash_allpairs
-    from drep_tpu_torch.parallel.mesh import make_mesh
-
-    mesh = make_mesh(RING_POSITIONS, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    single = all_vs_all_mash(packed, k=k, device=dev)[0]
-    t_single = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ringed = sharded_mash_allpairs(packed, k=k, mesh=mesh)
-    t_ring = time.perf_counter() - t0
-    require(ringed.tobytes() == single.tobytes(),
-            f"{RING_POSITIONS}-position ring distance matrix != the single-device matrix")
-    log(f"ring primary: {packed.n} genomes over {RING_POSITIONS} positions on "
-        f"{sorted({str(d) for d in mesh.devices})}: sharded_mash_allpairs {t_ring:.2f} s, all_vs_all_mash "
-        f"{t_single:.2f} s, distance matrices bit-identical")
-    return {"ring_s": t_ring, "single_s": t_single}
-
-
 # the beyond-budget clusters phase 9c re-runs: B and C, cut from A, B and
 # C for the time limit (A's 2000 genomes hold ~4 M of phase 6's ~6.7 M Ndb
 # and Mdb rows, whose CSV sets those phases' pace)
@@ -1544,14 +1551,21 @@ def phase6_rows(root: str, names: list[str], cdb_only: bool = False) -> dict:
     return {"Cdb": cdb, "Ndb": ndb, "Mdb": mdb}
 
 
-def phase_ring_path(tmp: str, dev, gs, planted, beyond: dict) -> dict:
+def ring_path_workdir(tmp: str, gs, planted) -> tuple:
+    """7c's (sketches, WorkDirectory, Bdb): clusters RING_RERUN alone,
+    made ahead of phase 6 so that 18c's pod can start from it."""
+    sub, _ = beyond_subset(gs, planted, RING_RERUN)
+    return (sub, *beyond_workdir(tmp, "beyond_mesh_wd", sub))
+
+
+def phase_ring_path(dev, prepared: tuple, beyond: dict) -> dict:
     """Phase 7c: phase 6's d_cluster_wrapper again on clusters
-    RING_RERUN with mesh_shape=RING_POSITIONS (choose and evaluate read
-    only tables held equal here, so they are not run again)."""
+    RING_RERUN (`prepared`, from ring_path_workdir) with
+    mesh_shape=RING_POSITIONS (choose and evaluate read only tables held
+    equal here, so they are not run again)."""
     import pandas as pd
 
-    sub, _ = beyond_subset(gs, planted, RING_RERUN)
-    wd, bdb = beyond_workdir(tmp, "beyond_mesh_wd", sub)
+    sub, wd, bdb = prepared
     _, launches, paths, stages, t_cluster = run_beyond(
         wd, bdb, dev, f"ring path (mesh_shape={RING_POSITIONS}, clusters {RING_RERUN})", choose=False,
         mesh_shape=RING_POSITIONS)
@@ -1572,7 +1586,7 @@ def phase_ring_path(tmp: str, dev, gs, planted, beyond: dict) -> dict:
     log(f"ring path: Cdb and Ndb equal to phase 6's rows of clusters {RING_RERUN} (primary clusters renumbered), "
         f"Mdb max |diff| {err}; d_cluster_wrapper {t_cluster:.2f} s")
     return {"launches": launches, "stages": stages, "d_cluster_s": t_cluster, "mdb_max_abs_err": err,
-            "clusters": list(RING_RERUN)}
+            "clusters": list(RING_RERUN), "wd": wd.location}
 
 
 def mm_library_tile(a, b, v_pad: int):
@@ -1786,9 +1800,9 @@ def phase_streaming_auto(tmp: str, dev, plant: "Planting") -> dict:
 
 
 def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
-    """Phases 8b and 8c on phase 5's pack: the streaming edges against the
-    dense matrix, the pruned walk against the dense walk, then a resume
-    after deleting half the shards."""
+    """Phase 8b on phase 5's pack: the streaming edges against the dense
+    matrix, the pruned walk against the dense walk (8c's resume is 18b's
+    rerun since the pod came)."""
     import glob
 
     from drep_tpu_torch.ops.lsh import build_candidates
@@ -1831,22 +1845,9 @@ def phase_streaming_edges(tmp: str, dev, packed, k: int) -> dict:
 
     shards = sorted(glob.glob(os.path.join(ck, "row_*.npz")))
     require(len(shards) == st_dense["n_blocks"], f"{len(shards)} shards for {st_dense['n_blocks']} stripes")
-    block, n_blocks = st_dense["block"], st_dense["n_blocks"]
-    deleted = list(range(0, n_blocks, 2))
-    for bi in deleted:
-        os.remove(shards[bi])
-    want = sum(streaming._real_pairs_in_tile(bi * block, bj * block, block, n)
-               for bi in deleted for bj in range(bi, n_blocks))
-    t0 = time.perf_counter()
-    again = streaming.streaming_mash_edges(packed, k, keep, checkpoint_dir=ck, device=dev)
-    t_resume = time.perf_counter() - t0
-    require(all(x.tobytes() == y.tobytes() for x, y in zip(again[:3], dense[:3])), "resumed edges != the first run's")
-    require(again[3] == want, f"resume computed {again[3]} pairs, the deleted stripes hold {want}")
-    log(f"streaming resume: {len(deleted)} of {n_blocks} shards deleted; rerun {t_resume:.2f} s recomputed "
-        f"{again[3]} pairs (the deleted stripes' {want}), edges identical")
     return {"edges": len(ii), "walk_s": t_walk, "dense_s": t_dense, "candidates_s": t_cand,
             "pruned_walk_s": t_pruned, "tiles_computed": st_pruned["tiles_computed"],
-            "tiles_skipped": st_pruned["tiles_skipped"], "resume_s": t_resume, "resume_pairs": again[3],
+            "tiles_skipped": st_pruned["tiles_skipped"],
             "keep": keep, "edge_arrays": dense[:3]}
 
 
@@ -4424,6 +4425,321 @@ def _sub_cpu_twins(root: str, paths: list[str], fakes: str) -> None:
     os.replace(path + ".tmp", path)
 
 
+# phase 18: the elastic pod (parallel/mesh.py, parallel/faulttol.py). Each
+# pod is two `python -m drep_tpu_torch` members on the card, joined over
+# gloo on a localhost port, started beside earlier phases and finished
+# where their checks can be made. The heartbeat cadence is cut so that a
+# SIGKILLed member's death verdict comes ~3 s after its last beat.
+POD_HEARTBEAT_S = "0.5"
+POD_TIMEOUT_S = 600.0
+# every pod started, SIGKILLed on the way out when still alive
+PODS: list = []
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Pod:
+    """Two members of one pod: each `python -m drep_tpu_torch <argv>` with
+    the pod environment (WORLD_SIZE 2, its RANK and LOCAL_RANK, a free
+    MASTER_PORT), `faults` as DREP_TORCH_FAULTS, its output to
+    ``<name>.m<rank>.log`` beside `log_dir`. A thread reads each member's
+    /proc maps until it holds a CUDA context (maps /dev/nvidia-uvm)."""
+
+    def __init__(self, name: str, argv: list, log_dir: str, faults: str = ""):
+        import threading
+
+        self.name, self.argv, self.faults = name, argv, faults
+        port = str(free_port())
+        env = {k: v for k, v in os.environ.items() if not k.startswith("DREP_TORCH_")}
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, WORLD_SIZE="2", OMP_NUM_THREADS="1",
+                   DREP_TORCH_HEARTBEAT_S=POD_HEARTBEAT_S, DREP_TORCH_FAULTS=faults)
+        self.logs = [os.path.join(log_dir, f"{name}.m{r}.log") for r in range(2)]
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for r in range(2):
+            with open(self.logs[r], "w") as out:
+                self.procs.append(subprocess.Popen([sys.executable, "-m", "drep_tpu_torch", *argv], cwd=HERE,
+                                                   env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+                                                   stdout=out, stderr=subprocess.STDOUT))
+        PODS.append(self)
+        self.context = [False, False]
+        self.waited = 0.0
+        self.exited = [None, None]  # seconds from the start to each member's exit
+        self._watch = threading.Thread(target=self._watch_members, daemon=True)
+        self._watch.start()
+
+    def _watch_members(self) -> None:
+        while None in self.exited:
+            for r, p in enumerate(self.procs):
+                if self.exited[r] is not None:
+                    continue
+                if p.poll() is not None:
+                    self.exited[r] = time.perf_counter() - self.t0
+                elif not self.context[r] and context_pids([p.pid]):
+                    self.context[r] = True
+            time.sleep(0.1)
+
+    def wait_exit(self) -> None:
+        """Wait for both members to exit (both killed past POD_TIMEOUT_S),
+        adding the seconds waited to ``self.waited``."""
+        deadline = time.monotonic() + POD_TIMEOUT_S
+        t_wait = time.perf_counter()
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                self.stop()
+                raise AssertionError(f"pod {self.name}: a member outlived {POD_TIMEOUT_S:.0f} s")
+        self.waited += time.perf_counter() - t_wait
+
+    def finish(self, want_rcs: list) -> dict:
+        """Wait for both members: their exit codes (as `want_rcs`), seconds
+        from the start to the last exit, the seconds waited here, each
+        one's CUDA context, kernel launches (the last
+        ``kernel launches:`` line of a member that finished) and ingest
+        digest, and its log."""
+        self.wait_exit()
+        waited = self.waited
+        self._watch.join(timeout=5)
+        seconds = max(x if x is not None else time.perf_counter() - self.t0 for x in self.exited)
+        texts = []
+        for path in self.logs:
+            with open(path, errors="replace") as f:
+                texts.append(f.read())
+        rcs = [p.returncode for p in self.procs]
+        require(rcs == want_rcs, f"pod {self.name}: exit codes {rcs}, expected {want_rcs}: "
+                f"{[t[-2500:] for t in texts]}")
+        require(all(self.context), f"pod {self.name}: members without a CUDA context: {self.context}")
+        launches, digests = [], []
+        for r, t in enumerate(texts):
+            # the member's timeline: its log's stamped lines, the first and
+            # the last few (where its seconds went)
+            stamped = [ln for ln in t.splitlines() if ln[:2].isdigit() and ln[2:3] == ":"]
+            log(f"pod {self.name} member {r}: " + " | ".join(stamped[:3] + ["..."] + stamped[-6:]))
+            lines = [ln for ln in t.splitlines() if "kernel launches: " in ln]
+            launches.append(json.loads(lines[-1].split("kernel launches: ", 1)[1]) if lines else None)
+            digests.append([ln.rsplit("digest ", 1)[1] for ln in t.splitlines()
+                            if "ingest: pod member" in ln and "digest" in ln])
+        log(f"pod {self.name}: members exited {[round(x, 2) for x in self.exited]} s after their start, "
+            f"{waited:.2f} s waited here")
+        return {"rcs": rcs, "s": seconds, "wait_s": waited, "exited_s": list(self.exited), "launches": launches,
+                "digests": digests, "logs": texts}
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def stop_pods() -> None:
+    for pod in PODS:
+        pod.stop()
+
+
+def pod_workdir(tmp: str, name: str, bdb, gs=None, src: str | None = None) -> str:
+    """A workdir a pod's `compare` resumes from: `bdb` (its genome files
+    already placed by the phase it comes from) and a sketch cache, `gs`'s
+    written anew or `src`'s hard-linked (cache, Gdb, argument snapshot)."""
+    from drep_tpu_torch.ingest import save_sketch_cache
+    from drep_tpu_torch.workdir import WorkDirectory
+
+    wd = WorkDirectory(os.path.join(tmp, name))
+    wd.store_db(bdb, "Bdb")
+    if gs is not None:
+        save_sketch_cache(wd, gs)
+    else:
+        for rel in (("data", "arrays", "sketches.npz"), ("data_tables", "Gdb.csv"), ("log", "sketch_arguments.json")):
+            os.link(os.path.join(src, *rel), os.path.join(wd.location, *rel))
+    return wd.location
+
+
+def start_pod_fixture(tmp: str, cli: dict) -> Pod:
+    """18a's start, right after phase 4: phase 4's dereplicate argv as a
+    2-member pod on its own workdir, the streaming primary forced."""
+    argv = list(cli["argv"])
+    argv[1] = os.path.join(tmp, "pod_fixture_wd")
+    argv = argv[: argv.index("--device")] + ["--streaming_primary"]
+    return Pod("pod18a", argv, tmp)
+
+
+def finish_pod_fixture(pod: Pod, cli: dict) -> dict:
+    """18a: both members exit 0 with a CUDA context, one ingest digest, and
+    Cdb and the winners equal to phase 4's; the stripe's one Mash launch on
+    one member, the replicated secondary's launches on each."""
+    import pandas as pd
+
+    res = pod.finish([0, 0])
+    wd = pod.argv[1]
+    require(len(res["digests"][0]) == 1 and res["digests"][0] == res["digests"][1],
+            f"18a: the members' ingest digests {res['digests']}")
+    with open(os.path.join(wd, "data_tables", "Cdb.csv"), "rb") as f, \
+            open(os.path.join(cli["wd"], "data_tables", "Cdb.csv"), "rb") as g:
+        require(f.read() == g.read(), "18a: the pod's Cdb != phase 4's")
+    winners = sorted(pd.read_csv(os.path.join(wd, "data_tables", "Wdb.csv"))["genome"])
+    require(winners == cli["winners"], f"18a: winners {winners} != phase 4's {cli['winners']}")
+    ln = res["launches"]
+    require(sum(x["mash_shared"] for x in ln) == 1 and all(x["indicator_mm"] >= 1 for x in ln),
+            f"18a: member launches {ln}")
+    log(f"18a pod dereplicate: 2 members on the card in {res['s']:.2f} s, ingest digests equal, Cdb and winners "
+        f"{winners} equal to phase 4's; launches {ln}")
+    return {"s": res["s"], "wait_s": res["wait_s"], "launches": ln}
+
+
+def start_pod_stream(tmp: str, real: dict) -> Pod:
+    """18b's start, right after phase 5: a workdir resuming phase 5's
+    bottom sketches (its scaled ones cut to one hash a genome: nothing of
+    the run reads them under --SkipSecondary, and each member would load
+    all ~0.8 GB); `compare --streaming_primary --SkipSecondary` as a
+    2-member pod, member 1 SIGKILLed when it starts its second stripe."""
+    import dataclasses
+
+    gs = real["gs"]
+    wd = pod_workdir(tmp, "pod_stream_wd", real["bdb"], gs=dataclasses.replace(gs, scaled=[s[:1] for s in gs.scaled]))
+    argv = ["compare", wd, "--streaming_primary", "--SkipSecondary", "--skip_plots", "-p", "1",
+            "--max_dead_processes", "1"]
+    return Pod("pod18b", argv, tmp, faults="process_death:kill:proc=1:skip=1")
+
+
+def finish_pod_stream(pod: Pod, dev, real: dict, edges_8b, keep: float) -> dict:
+    """18b: member 1 dies after its first stripe, the survivor re-deals its
+    stripes (deal_stripes over the live member, epoch-stamped shards) and
+    finishes; the store's edges, in stripe order, are 8b's dense walk's bit
+    for bit. Then every other shard is deleted and a rerun in this process
+    recomputes exactly those stripes' pairs, one launch a deleted stripe,
+    and resumes the rest."""
+    import glob
+
+    import torch
+
+    from drep_tpu_torch.ops import mash
+    from drep_tpu_torch.parallel import streaming
+    from drep_tpu_torch.utils.durableio import read_json_checked
+
+    res = pod.finish([0, -9])
+    require("stopped heartbeating" in res["logs"][0] and "MEMBERSHIP CHURN" in res["logs"][0],
+            "18b: the survivor logged no death verdict")
+    require(len(res["digests"][0]) == 1 and res["digests"][0] == res["digests"][1],
+            f"18b: the members' ingest digests {res['digests']}")
+    store = os.path.join(pod.argv[1], "data", "streaming_primary")
+    meta = read_json_checked(os.path.join(store, "meta.json"))
+    n_blocks, block, n = int(meta["n_blocks"]), int(meta["block"]), real["packed"].n
+    require(meta.get("dead_processes") == [1] and meta.get("pod_epochs") == 2, f"18b: store meta {meta}")
+    owners = streaming.deal_stripes(n_blocks, [0, 1])
+    mine1 = [b for b in range(n_blocks) if owners[b] == 1]
+    names = sorted(os.path.basename(p) for p in glob.glob(os.path.join(store, "row_*.npz")))
+    paths = [streaming._find_shard(store, b) for b in range(n_blocks)]
+    # member 1's first stripe at epoch 0, its others re-dealt at epoch 1;
+    # member 0's at 0, or at 1 where the verdict came before it reached them
+    epochs = [streaming._shard_epoch(p) if p else None for p in paths]
+    require(len(names) == n_blocks and epochs[mine1[0]] == 0 and all(epochs[b] == 1 for b in mine1[1:])
+            and all(epochs[b] in (0, 1) for b in range(n_blocks)), f"18b: shards {names}")
+    # member 1's launches died with it; what it left is its published shards
+    member1_published = sum(epochs[b] == 0 for b in mine1)
+    parts = [streaming._load_shard(p) for p in paths]
+    got = [np.concatenate([p[c] for p in parts]) for c in range(3)]
+    require(all(x.tobytes() == y.tobytes() for x, y in zip(got, edges_8b)), "18b: the pod's edges != 8b's")
+    survivor = res["launches"][0]["mash_shared"]
+    require(survivor == n_blocks - member1_published,
+            f"18b: the survivor launched {survivor} stripes of {n_blocks}, member 1 published {member1_published}")
+    deleted = list(range(0, n_blocks, 2))
+    for b in deleted:
+        os.remove(paths[b])
+    want = sum(streaming._real_pairs_in_tile(bi * block, bj * block, block, n)
+               for bi in deleted for bj in range(bi, n_blocks))
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = streaming.streaming_mash_edges(real["packed"], real["k"], keep, checkpoint_dir=store, device=dev)
+    t_rerun = time.perf_counter() - t0
+    rerun_launches = mash.LAUNCHES["mash_shared"]
+    require(rerun_launches == len(deleted) and streaming.STATS["stripes_resumed"] == n_blocks - len(deleted),
+            f"18b rerun: {rerun_launches} launches for {len(deleted)} deleted shards, {streaming.STATS}")
+    require(again[3] == want, f"18b rerun computed {again[3]} pairs, the deleted stripes hold {want}")
+    require(all(x.tobytes() == y.tobytes() for x, y in zip(again[:3], edges_8b)), "18b rerun: edges != 8b's")
+    log(f"18b pod streaming primary: {n} genomes, {n_blocks} stripes dealt over 2 members, member 1 SIGKILLed "
+        f"after its first stripe (it published {member1_published}); the survivor re-dealt {len(mine1) - 1} and "
+        f"finished in {res['s']:.2f} s ({survivor} mash_shared launches there), edges bit-identical to 8b's; "
+        f"{len(deleted)} of the {n_blocks} shards deleted, a rerun in this process recomputed {again[3]} pairs "
+        f"(the deleted stripes' {want}) in {rerun_launches} launches and resumed the rest in {t_rerun:.2f} s")
+    return {"s": res["s"], "wait_s": res["wait_s"], "survivor_launches": survivor,
+            "member1_published_stripes": member1_published, "rerun_s": t_rerun, "rerun_launches": rerun_launches,
+            "rerun_pairs": again[3], "stripes": n_blocks}
+
+
+def start_pod_ring(tmp: str, prepared: tuple) -> Pod:
+    """18c's start: 7c's cluster C (its Bdb and sketch cache linked from
+    7c's workdir, `prepared` by ring_path_workdir); `compare --mesh_shape 4
+    --SkipSecondary` as a 2-member pod (2 positions a member), member 1
+    SIGKILLed at its second ring step."""
+    _, src, bdb = prepared
+    wd = pod_workdir(tmp, "pod_ring_wd", bdb, src=src.location)
+    argv = ["compare", wd, "--mesh_shape", str(RING_POSITIONS), "--SkipSecondary", "--skip_plots", "-p", "1",
+            "--max_dead_processes", "1"]
+    return Pod("pod18c", argv, tmp, faults="ring_step:kill:proc=1:skip=1")
+
+
+def finish_pod_ring(pod: Pod, dev, ring_path: dict, gs_beyond, planted_beyond) -> dict:
+    """18c: the survivor declares member 1 dead and recomputes its missing
+    blocks, and the pod's Mdb and primary clusters are 7c's byte for byte;
+    a rerun of the Mash ring in this process resumes the pod's block store
+    (data/dense_ring) with no ring launch, its matrix one device's."""
+    import glob
+
+    import torch
+
+    from drep_tpu_torch.ops import ring
+    from drep_tpu_torch.ops.mash import all_vs_all_mash
+    from drep_tpu_torch.ops.minhash import pack_sketches
+    from drep_tpu_torch.parallel.allpairs import ring_schedule, sharded_mash_allpairs
+    from drep_tpu_torch.parallel.mesh import make_mesh
+
+    res = pod.finish([0, -9])
+    log0 = res["logs"][0]
+    require("stopped heartbeating" in log0 and "dense ring: completed with MEMBERSHIP CHURN" in log0,
+            "18c: the survivor logged no death verdict or recovery")
+    import pandas as pd
+
+    wd = pod.argv[1]
+    with open(os.path.join(wd, "data_tables", "Mdb.csv"), "rb") as f, \
+            open(os.path.join(ring_path["wd"], "data_tables", "Mdb.csv"), "rb") as g:
+        require(f.read() == g.read(), "18c: the pod's Mdb != 7c's")
+    got, want = (pd.read_csv(os.path.join(w, "data_tables", "Cdb.csv"))[["genome", "primary_cluster"]]
+                 for w in (wd, ring_path["wd"]))
+    require(got.equals(want), "18c: the pod's primary clusters != 7c's")
+    (store,) = glob.glob(os.path.join(wd, "data", "dense_ring", "ring_mash_*"))
+    blocks = sorted(os.path.basename(p) for p in glob.glob(os.path.join(store, "blk_*.npz")))
+    n_sched = len(ring_schedule(RING_POSITIONS, True))
+    recovered = [b for b in blocks if ".e01." in b]
+    require(len(blocks) == n_sched and recovered, f"18c: blocks {blocks}")
+    survivor = res["launches"][0]
+    sub, _ = beyond_subset(gs_beyond, planted_beyond, RING_RERUN)
+    packed = pack_sketches(sub.bottom, sub.names, sub.sketch_size)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist = sharded_mash_allpairs(packed, k=sub.k, mesh=make_mesh(RING_POSITIONS, dev), checkpoint_dir=store)
+    t_rerun = time.perf_counter() - t0
+    rerun_launches = {name: ring.LAUNCHES[name] for name in ("ring_step", "ring_step_mm")}
+    require(not any(rerun_launches.values()), f"18c rerun: ring launches {rerun_launches}")
+    single = all_vs_all_mash(packed, k=sub.k, device=dev)[0]
+    np.fill_diagonal(single, 0.0)
+    require(dist.tobytes() == single.tobytes(), "18c rerun: the resumed ring's matrix != one device's")
+    log(f"18c pod ring: cluster C ({packed.n} genomes) over {RING_POSITIONS} positions on 2 members, member 1 "
+        f"SIGKILLed at its second step; the survivor recomputed {len(recovered)} blocks ({recovered}) and finished in "
+        f"{res['s']:.2f} s, launches {survivor}; Mdb and the primary clusters equal to 7c's; a rerun in this "
+        f"process resumed all "
+        f"{n_sched} blocks with no ring launch in {t_rerun:.2f} s, its matrix one device's")
+    return {"s": res["s"], "wait_s": res["wait_s"], "survivor_launches": survivor, "recovered_blocks": len(recovered),
+            "rerun_s": t_rerun, "rerun_launches": rerun_launches, "blocks": n_sched}
+
+
 # processes a phase starts ahead of itself, stopped by main on the way out
 CHILDREN: list = []
 
@@ -4796,6 +5112,7 @@ def main() -> int:
         stop_fleet()
         for p in plants:
             p.stop()
+        stop_pods()
         for proc in CHILDREN:
             if proc.is_alive():
                 proc.terminate()
@@ -4805,7 +5122,7 @@ def main() -> int:
 
 def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Planting,
                plant_stream: Planting) -> int:
-    """Phases 2-19 (main has printed phase 1 and started the plantings)."""
+    """Phases 2-20 (main has printed phase 1 and started the plantings)."""
     import torch
 
     from drep_tpu_torch.native import get_library
@@ -4827,14 +5144,31 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
                *phase_intersect(dev, gs_beyond, planted_beyond)]
     cli = phase_cli(tmp, dev)
     real = phase_real_size(tmp, dev, plant_real)
-    beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond)
+    # phase 18's three pods run beside phase 6's d_cluster_wrapper (host
+    # tables; no kernel of the {"kernels"} line is timed in it) and their
+    # members' exits are waited for before phase 6 times its routes, so no
+    # kernel timing shares the card with a pod; each pod is checked where
+    # its checks can be made
+    ring_prep = ring_path_workdir(tmp, gs_beyond, planted_beyond)
+    pods = [start_pod_fixture(tmp, cli), start_pod_stream(tmp, real), start_pod_ring(tmp, ring_prep)]
+
+    def pods_exited() -> None:
+        for pod in pods:
+            pod.wait_exit()
+        log(f"phase 18: every member exited, {sum(pod.waited for pod in pods):.2f} s waited after phase 6's "
+            f"d_cluster_wrapper")
+
+    beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond, after_cluster=pods_exited)
+    p18 = {"a": finish_pod_fixture(pods[0], cli)}
     ring_kernel = phase_ring_kernel(dev, real["packed"], gs_beyond, planted_beyond)
-    ring_primary = phase_ring_primary(dev, real["packed"], real["k"])
-    ring_path = phase_ring_path(tmp, dev, gs_beyond, planted_beyond, beyond)
+    ring_path = phase_ring_path(dev, ring_prep, beyond)
+    p18["c"] = finish_pod_ring(pods[2], dev, ring_path, gs_beyond, planted_beyond)
     ring_mm = phase_ring_matmul(dev, gs_beyond, planted_beyond, beyond)
     stream = phase_streaming_auto(tmp, dev, plant_stream)
     stream_edges = phase_streaming_edges(tmp, dev, real["packed"], real["k"])
     edges_8b = stream_edges.pop("edge_arrays")
+    p18["b"] = finish_pod_stream(pods[1], dev, real, edges_8b, stream_edges["keep"])
+    log(f"phase 18: {json.dumps(p18)}")
     sub_prep = start_subprocess_phase(tmp)
     t9 = time.perf_counter()
     p9a = phase_matmul_estimator(tmp, dev, real)
@@ -4875,7 +5209,7 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
         **{key: mash_entry[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "unfused_ms", "shape")},
         "library_ms": None, "containment": ring_kernel["containment"],
         "containment_wide": ring_kernel["containment_wide"],
-        "ring_primary": ring_primary, "ring_path_d_cluster_s": ring_path["d_cluster_s"],
+        "pod_ring": p18["c"], "ring_path_d_cluster_s": ring_path["d_cluster_s"],
         "ring_path_mdb_max_abs_err": ring_path["mdb_max_abs_err"],
     })
     mm_main = ring_mm["shapes"]["B"]
@@ -4963,6 +5297,20 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
                            "adopt_s": p17["d"]["adopt_s"], "drain_s": p17["f"]["s"],
                            **{f"{step}_s": p17[step]["s"] for step in ("b", "c", "e")},
                            "legs": {step: p17[step]["router"]["legs_total"] for step in ("b", "c", "e")}}
+    # phase 18, the pod: each finished member's launches (a SIGKILLed
+    # member's count dies with it: 18b gives the shards it published), the
+    # in-process reruns' (18b's the stripes of its deleted shards, 18c's none)
+    kernels[0]["pod_launches"] = {"18a": [x["mash_shared"] for x in p18["a"]["launches"]],
+                                  "18b_survivor": p18["b"]["survivor_launches"],
+                                  "18b_rerun": p18["b"]["rerun_launches"]}
+    kernels[0]["pod_18b_member1_published_stripes"] = p18["b"]["member1_published_stripes"]
+    kernels[1]["pod_launches"] = {"18a": [x["indicator_mm"] for x in p18["a"]["launches"]]}
+    kernels[0]["pod"] = {"18a_s": p18["a"]["s"], "18b_s": p18["b"]["s"], "18b_rerun_s": p18["b"]["rerun_s"],
+                         "18c_s": p18["c"]["s"], "18c_rerun_s": p18["c"]["rerun_s"]}
+    for k in kernels:
+        if k["name"] in ("ring_step", "ring_step_mm"):
+            k["pod_launches"] = {"18c_survivor": p18["c"]["survivor_launches"][k["name"]],
+                                 "18c_rerun": p18["c"]["rerun_launches"][k["name"]]}
     # phase 14, resilience: the launches of each faulted or resumed run
     kernels[0]["resilience_launches"] = {"14b_raise": p14["b"]["raise"]["launches"],
                                          "14b_hang": p14["b"]["hang"]["launches"],

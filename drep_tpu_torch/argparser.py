@@ -15,15 +15,15 @@ do --primary_estimator matmul, --multiround_primary_clustering,
 --greedy_secondary_clustering and --run_tertiary_clustering, the
 subprocess engines (--primary_algorithm mash, --S_algorithm
 fastANI|ANImf|ANIn|gANI|goANI) and dereplicate's taxonomy (--run_tax
---cent_index). The fault-tolerance and
-durable-I/O flags run as in the JAX package for one process
+--cent_index). The fault-tolerance,
+durable-I/O and elastic-pod flags run as in the JAX package
 (--fault_retries, --dispatch_timeout, --io_retries, --fsync,
---no_overlap_ingest; the `index` verbs take --io_retries and --fsync).
+--no_overlap_ingest, --max_dead_processes, --max_joins, --drain_grace_s;
+the `index` verbs take --io_retries and --fsync).
 Event tracing (--events, default DREP_TORCH_EVENTS) and --profile [DIR]
 (a torch.profiler Chrome trace of the cluster stage) run as in the JAX
-package (workflows.py). The flags in :data:`UNPORTED_FLAGS` (the elastic
-pod) parse with the JAX defaults, and a run that sets one otherwise
-raises NotImplementedError naming its ROADMAP item.
+package (workflows.py). Every flag of the JAX CLI's `compare` and
+`dereplicate` runs.
 `index build|update|classify|serve|route|split|merge|compact` take the
 JAX CLI's flags plus --device, the federated ones included (`index build
 --partitions/--fed_pods`, `index update --fed_pods/--params_file`,
@@ -40,24 +40,9 @@ import argparse
 from drep_tpu_torch import __version__
 
 
-# flag (its argparse dest) -> (the values the port runs, ROADMAP.md queue
-# 1 item that ports the others); the first value is the JAX default
-UNPORTED_FLAGS: dict[str, tuple[tuple, str]] = {
-    "max_dead_processes": ((1,), "12b"),
-    "max_joins": ((0,), "12b"),
-    "drain_grace_s": ((30.0,), "12b"),
-}
-
-def refuse_unported_flags(kwargs: dict) -> None:
-    """Raise NotImplementedError for the first flag of UNPORTED_FLAGS that
-    `kwargs` sets to a value the port does not run."""
-    for key, (runs, item) in UNPORTED_FLAGS.items():
-        if key in kwargs and kwargs[key] not in runs:
-            flag = "--no_overlap_ingest" if key == "overlap_ingest" else f"--{key}"
-            raise NotImplementedError(
-                f"{flag} {kwargs[key]!r}: not ported yet (ROADMAP.md queue 1, item {item}); "
-                f"the port runs {runs[0]!r}"
-            )
+# the elastic pod's flags: the cluster stage's, kept out of the index verbs'
+# parameters
+POD_FLAGS = ("max_dead_processes", "max_joins", "drain_grace_s")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,11 +139,24 @@ def build_parser() -> argparse.ArgumentParser:
                              "per durable read or write (default 3)")
         ex.add_argument("--fsync", action="store_true",
                         help="fsync every durable publish (the file, then its directory)")
-        # the JAX CLI's elastic-pod flags: the port runs their defaults
-        # (UNPORTED_FLAGS)
-        ex.add_argument("--max_dead_processes", type=int, default=1)
-        ex.add_argument("--max_joins", type=int, default=0)
-        ex.add_argument("--drain_grace_s", type=float, default=30.0)
+        # the elastic pod's (parallel/faulttol.py): a run launched as N
+        # processes (parallel/mesh.py)
+        ex.add_argument("--max_dead_processes", type=int, default=1,
+                        help="pod-member deaths the elastic pod tolerates a run (heartbeat staleness, then "
+                             "an ownership-epoch bump that re-deals the dead member's unfinished "
+                             "streaming stripes and dense-ring blocks over the survivors) before it "
+                             "aborts; heartbeat cadence via DREP_TORCH_HEARTBEAT_S (0 disables)")
+        ex.add_argument("--max_joins", type=int, default=0,
+                        help="mid-run join admissions the pod accepts a stage: a new process started "
+                             "against the same workdir with DREP_TORCH_POD_JOIN=auto (or an id) asks "
+                             "admission, the lowest live member admits it at a stripe or ring-step "
+                             "boundary, and the unfinished work re-deals over the grown set, with the "
+                             "same edges and matrices; 0 (default) refuses joins")
+        ex.add_argument("--drain_grace_s", type=float, default=30.0,
+                        help="on SIGTERM a member finishes its stripe or ring step, publishes a "
+                             "planned-departure note and exits 0 (its peers re-deal at once, no "
+                             "staleness wait); unconsumed after this many seconds, it publishes the "
+                             "note and exits 0 anyway")
         ex.add_argument("--events", default=None, choices=["off", "on"],
                         help="structured event tracing into <wd>/log/events.p0.jsonl "
                              "(default DREP_TORCH_EVENTS, off)")

@@ -1,7 +1,7 @@
 """Cluster-stage orchestration: Bdb -> Mdb -> Ndb -> Cdb.
 
-Counterpart of drep_tpu/cluster/controller.py, trimmed to one process
-(one device, or a mesh ring of --mesh_shape positions):
+Counterpart of drep_tpu/cluster/controller.py (one device, or a mesh
+ring of --mesh_shape positions, on one process or a pod):
 
 - resume: if the workdir already holds Cdb and the stored cluster
   arguments match, skip recompute entirely (with the JAX package's
@@ -32,7 +32,7 @@ Counterpart of drep_tpu/cluster/controller.py, trimmed to one process
   clusters' representatives (cluster/tertiary.py);
 - Cdb assembly and ``data/Clustering_files/clustering.pickle``.
 
-Failures, as in the JAX package for one process: ingest publishes sketch
+Failures, as in the JAX package: ingest publishes sketch
 shards as it goes (ingest.py); each primary cluster's secondary result is
 checkpointed the moment it finishes (cluster/secondary_ckpt.py), so a
 rerun of a killed run resumes at the first unfinished cluster; each
@@ -43,7 +43,17 @@ run's durable-I/O policy is --io_retries and --fsync. Spent retries raise
 FaultTolError: nothing recomputes on the CPU. With the device cuda and
 sketching to do, the kernels build and the CUDA context starts on a
 thread while ingest runs (--no_overlap_ingest turns it off). The dense
-ring's block store is ROADMAP item 12b: a failure there stops the run.
+ring publishes its blocks under ``data/dense_ring`` (parallel/allpairs.py:
+a rerun resumes them, a failed step's blocks are recomputed one by one).
+
+On a pod (``python -m drep_tpu_torch`` launched as N processes,
+parallel/mesh.py) every member runs this same control flow: ingest is
+sharded across the members, the streaming primary deals its stripes and
+the dense primary's ring spans the members, both elastic
+(--max_dead_processes deaths tolerated, --max_joins admissions, a drain
+on SIGTERM within --drain_grace_s; parallel/faulttol.py), and the
+secondary runs replicated on each member's own positions, so its calls
+retry on that member alone. Every member writes the same tables.
 
 The subprocess engines (cluster/external.py, cluster/anim.py) run
 exactly where the JAX package runs them: ``--primary_algorithm mash`` on
@@ -89,7 +99,15 @@ from drep_tpu_torch.ingest import (
 )
 from drep_tpu_torch.ops.kmers import DEFAULT_K
 from drep_tpu_torch.ops.linkage import cluster_hierarchical, single_linkage_device
-from drep_tpu_torch.parallel.faulttol import FaultTolConfig, configure_defaults, retrying_call
+from drep_tpu_torch.parallel.faulttol import (
+    FaultTolConfig,
+    configure_defaults,
+    install_drain_handler,
+    pod_dead,
+    pod_epoch,
+    pod_live,
+    retrying_call,
+)
 from drep_tpu_torch.utils import durableio, telemetry
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.utils.profiling import counters
@@ -130,6 +148,9 @@ CLUSTER_DEFAULTS: dict[str, Any] = {
     "dispatch_timeout": 0.0,
     "io_retries": None,
     "fsync": False,
+    "max_dead_processes": 1,
+    "max_joins": 0,
+    "drain_grace_s": 30.0,
 }
 
 _RESUME_KEYS = [
@@ -210,8 +231,14 @@ def _ft_config(kw: dict[str, Any]) -> FaultTolConfig:
         max_retries=int(kw["fault_retries"]),
         dispatch_timeout_s=max(0.0, timeout),
         auto_timeout=timeout == 0.0,
+        max_dead_processes=int(kw["max_dead_processes"]),
+        max_joins=int(kw["max_joins"]),
     )
     configure_defaults(cfg)
+    # SIGTERM -> a planned departure at the next stripe or ring-step
+    # boundary, a forced exit 0 past the grace (library embeddings off the
+    # main thread keep their own signal policy)
+    install_drain_handler(float(kw["drain_grace_s"]))
     return cfg
 
 
@@ -539,6 +566,14 @@ def _secondary_clusters(
                 ckpt.save_many([(pc, *results[pc]) for pc, _ in batch])
     finally:
         ckpt.close()  # what was handed to the writer is on disk, whether or not the stage failed
+    if pod_live() is not None and ckpt.dir is not None:
+        # the pod lost a member: the lowest live one stamps how the store
+        # was produced (extra provenance keys never invalidate a resume)
+        from drep_tpu_torch.parallel.mesh import process_index
+        from drep_tpu_torch.utils.ckptmeta import stamp_checkpoint_meta
+
+        if process_index() == min(pod_live()):
+            stamp_checkpoint_meta(ckpt.dir, {"pod_epochs": pod_epoch() + 1, "dead_processes": pod_dead()})
     STAGE_PAIRS["secondary_compare"] = pairs_done
     SECONDARY_RESUMED.update(resumed=ckpt.n_resumed, clusters=len(multi))
     ckpt.finish(n_primary)
@@ -550,7 +585,21 @@ def d_cluster_wrapper(
     wd: WorkDirectory, bdb: pd.DataFrame, device=None, **kwargs
 ) -> pd.DataFrame:
     """Run (or resume) the full clustering stage on `device` (default
-    cuda; a CUDA request without CUDA raises); returns Cdb."""
+    cuda; a CUDA request without CUDA raises); returns Cdb. The dense
+    ring's block stores live under ``<wd>/data/dense_ring`` for the
+    stage (a directory is made only when a ring runs): its rings resume,
+    and survive a pod member. Ring calls outside a stage keep their blocks
+    in memory."""
+    from drep_tpu_torch.parallel.allpairs import configure_ring
+
+    configure_ring(checkpoint_base=os.path.join(wd.location, "data", "dense_ring"))
+    try:
+        return _cluster_stage(wd, bdb, device, **kwargs)
+    finally:
+        configure_ring()
+
+
+def _cluster_stage(wd: WorkDirectory, bdb: pd.DataFrame, device, **kwargs) -> pd.DataFrame:
     logger = get_logger()
     kw = _fill_defaults(kwargs)
     kw["device"] = resolve_device(device)

@@ -21,7 +21,9 @@ are identical to the JAX package's; here they run the CUDA kernels
 A run with a mesh of D > 1 positions (`--mesh_shape D`; None is one
 position per card) and at least MESH_MIN_GENOMES genomes runs the dense
 primary, and every past-budget secondary cluster of that size, over the
-ring (parallel/allpairs.py).
+ring (parallel/allpairs.py). On a pod the primary's ring spans the
+members and the secondary's stays on each member's own positions,
+replicated (:func:`_mesh_or_none`).
 """
 
 from __future__ import annotations
@@ -57,11 +59,27 @@ from drep_tpu_torch.utils.logger import get_logger
 MESH_MIN_GENOMES = 64
 
 
-def _mesh_or_none(mesh_shape: int | None, n: int, device: torch.device) -> Mesh | None:
+def _mesh_or_none(mesh_shape: int | None, n: int, device: torch.device, local_only: bool = False) -> Mesh | None:
     """The ring's mesh for `n` genomes, or None for the single-device
     path: `mesh_shape` positions (None: one per card) when there are at
-    least two and n >= MESH_MIN_GENOMES."""
-    mesh = make_mesh(mesh_shape, device)
+    least two and n >= MESH_MIN_GENOMES.
+
+    On a pod the mesh spans the members, except in the two local regimes
+    of the JAX package, where it is this member's share of the positions
+    (parallel/mesh.py::make_local_mesh): a pod that lost a member (a mesh
+    over the dead member's positions would wait on it), and `local_only`
+    calls — the secondary engines', whose launches must stay process-local
+    so that a failed batch retries on its member alone
+    (faulttol.retrying_call). The work then runs replicated on every
+    member, with the same numbers."""
+    from drep_tpu_torch.parallel.faulttol import pod_live
+    from drep_tpu_torch.parallel.mesh import make_local_mesh, process_count
+
+    pc = process_count()
+    if pc > 1 and (local_only or pod_live() is not None):
+        mesh = make_local_mesh(device, None if mesh_shape is None else max(1, int(mesh_shape) // pc))
+    else:
+        mesh = make_mesh(mesh_shape, device)
     if mesh.size > 1 and n >= MESH_MIN_GENOMES:
         return mesh
     return None
@@ -158,13 +176,14 @@ def _count_path(path: str) -> None:
 def containment_matrices(packed, k: int, device: torch.device, mesh_shape: int | None = None):
     """(symmetric max-containment ani, directional cov): the one-shot
     indicator matmul when the pack fits its budget, else the mesh ring
-    when the run has one, else the route that
+    when the run has one (on a pod, this member's positions:
+    :func:`_mesh_or_none`), else the route that
     :func:`beyond_budget_secondary_path` picks."""
     v_pad = matmul_vocab_pad(packed)
     if one_shot_fits(packed.n, v_pad):
         _count_path("one_shot")
         return all_vs_all_containment_matmul(packed, k=k, device=device, v_pad=v_pad)
-    mesh = _mesh_or_none(mesh_shape, packed.n, device)
+    mesh = _mesh_or_none(mesh_shape, packed.n, device, local_only=True)
     if mesh is not None:
         _count_path("mesh_ring")
         return sharded_containment_allpairs(packed, k=k, mesh=mesh)

@@ -177,7 +177,8 @@ def greedy_secondary_cluster(
     packed = pack_scaled_sketches([gs.scaled[indices[t]] for t in order], [gs.names[indices[t]] for t in order])
     ids, counts = packed.ids, packed.counts
 
-    mesh = _mesh_or_none(kw.get("mesh_shape"), m, kw["device"])
+    # local_only: a secondary's launches stay on this pod member's positions
+    mesh = _mesh_or_none(kw.get("mesh_shape"), m, kw["device"], local_only=True)
     devices = mesh.devices if mesh is not None else (torch.device(kw["device"]),)
     # the rep side rides the unscaled block: under a mesh the candidate
     # block grows D-fold, the representatives (every position's) do not

@@ -101,8 +101,15 @@ def run(args: argparse.Namespace):
 
 
 def main(argv: list[str] | None = None) -> None:
+    from drep_tpu_torch.parallel.faulttol import PodDrained
+
     try:
         run(parse_args(argv))
+    except PodDrained as e:
+        # a pod member's planned departure: its note is published and its
+        # peers re-deal its work, so the exit is a clean one
+        get_logger().warning("drained cleanly: %s", e)
+        sys.exit(0)
     except UserInputError as e:
         # user-input errors end as one `!!!` line, not a traceback
         get_logger().error("!!! %s", e)

@@ -12,16 +12,27 @@ Mid-run, finished genomes flush every INGEST_SHARD genomes to sketch
 shards under ``data/sketch_shards/`` (the JAX package's shard and meta
 format), so a killed ingest resumes where it stopped, from either
 package's shards; the shards are removed once the whole-run cache is
-written. The JAX package's sharded ingest across the processes of a pod
-and its barrier are ROADMAP item 12b.
+written.
+
+On a pod (parallel/mesh.py) the ingest is sharded, as in the JAX
+package: each member sketches its stripe of the genomes (job i to member
+i mod N) into the shared shard store, then assembles the whole set by
+reading its peers' shards until every genome is covered. The barrier is
+data completeness, bounded by ``DREP_TORCH_INGEST_BARRIER_S`` of no new
+shard; a member with unparseable inputs leaves a poison note that fails
+its peers at once. Every member ends with the same sketch set; member 0
+writes the whole-run cache once its peers signal ``assembled_<id>.done``
+and removes the shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import multiprocessing
 import os
 import shutil
+import time
 import uuid
 from concurrent.futures import ProcessPoolExecutor
 from dataclasses import dataclass
@@ -33,6 +44,7 @@ import pandas as pd
 from drep_tpu_torch.errors import UserInputError
 from drep_tpu_torch.ops import kmers
 from drep_tpu_torch.sketch_worker import sketch_one as _sketch_one
+from drep_tpu_torch.utils.durableio import atomic_write_bytes
 from drep_tpu_torch.utils.logger import get_logger
 from drep_tpu_torch.workdir import WorkDirectory
 
@@ -267,6 +279,11 @@ def sketch_genomes(
         cached = _load(wd, k, sketch_size, scale)
         if not (cached.gdb["n_kmers"] == 0).any():
             logger.info("loading cached sketches from workdir")
+            from drep_tpu_torch.parallel.mesh import process_count, process_index
+
+            if process_count() > 1:
+                logger.info("ingest: pod member %d of %d loaded %d genomes from the cache, digest %s",
+                            process_index(), process_count(), len(cached.names), sketch_digest(cached))
             return cached
         logger.warning("ingest: cached sketches contain zero-kmer genomes — recomputing")
 
@@ -280,14 +297,34 @@ def sketch_genomes(
             if results:
                 logger.info("ingest: resumed %d/%d sketched genomes from shards", len(results), len(jobs))
 
+    resume_seen = set(glob.glob(os.path.join(shard_dir, "*.npz"))) if results else set()
+    from drep_tpu_torch.parallel.mesh import process_count, process_index
+
+    nproc, pid = (process_count(), process_index()) if shard_dir is not None else (1, 0)
+    if nproc > 1:
+        # ownership keys on the global job index, never on what this
+        # member's resume saw: members that saw different shard sets would
+        # otherwise leave some genome in nobody's stripe
+        todo = [j for i, j in enumerate(jobs) if i % nproc == pid and j[0] not in results]
+        if pid == 0:
+            # a killed run's assembly and poison notes must not satisfy or
+            # fail this run's waits (right after the synchronized open)
+            for pat in ("assembled_*.done", "ingest_error_*.json"):
+                for f in glob.glob(os.path.join(shard_dir, pat)):
+                    with contextlib.suppress(OSError):
+                        os.remove(f)
+    else:
+        todo = [j for j in jobs if j[0] not in results]
+    my_shards: set[str] = set()
     pending: dict[str, dict] = {}
 
     def flush() -> None:
         if shard_dir is not None and pending:
-            _save_sketch_shard(os.path.join(shard_dir, f"shard_{uuid.uuid4().hex}.npz"), pending)
+            path = os.path.join(shard_dir, f"shard_{uuid.uuid4().hex}.npz")
+            _save_sketch_shard(path, pending)
+            my_shards.add(path)
             pending.clear()
 
-    todo = [j for j in jobs if j[0] not in results]
     for name, res in _iter_sketches(todo, processes):
         results[name] = res
         # never checkpoint an unparseable result: resumed by name, it would
@@ -297,6 +334,11 @@ def sketch_genomes(
             if len(pending) >= INGEST_SHARD:
                 flush()
     flush()
+    if nproc > 1:
+        cached = _assemble_pod_shards(wd, shard_dir, jobs, results, my_shards | resume_seen, pid,
+                                      args_snapshot, k, sketch_size, scale)
+        if cached is not None:
+            return cached
 
     names = list(bdb["genome"])
     _refuse_unparsed(names, results, k)
@@ -318,11 +360,124 @@ def sketch_genomes(
         sketch_size=sketch_size,
         scale=scale,
     )
+    if nproc > 1:
+        logger.info("ingest: pod member %d of %d assembled %d genomes, digest %s", pid, nproc, len(names),
+                    sketch_digest(out))
     if wd is not None:
+        if nproc > 1 and pid != 0:
+            # member 0 writes the cache and reclaims the shards once every
+            # peer has assembled (a peer still reading them would stall)
+            with contextlib.suppress(OSError):
+                atomic_write_bytes(os.path.join(shard_dir, f"assembled_{pid}.done"), b"")
+            return out
+        peers_done = True
+        if nproc > 1:
+            deadline = _barrier_deadline()
+            marks = [os.path.join(shard_dir, f"assembled_{p}.done") for p in range(1, nproc)]
+            peers_done = all(os.path.exists(f) for f in marks)
+            while not peers_done and time.monotonic() < deadline:
+                time.sleep(_INGEST_BARRIER_POLL_S)
+                peers_done = all(os.path.exists(f) for f in marks)
         save_sketch_cache(wd, out, hash_name)
         # the whole-run cache supersedes the shards
-        shutil.rmtree(shard_dir, ignore_errors=True)
+        if peers_done:
+            shutil.rmtree(shard_dir, ignore_errors=True)
     return out
+
+
+def sketch_digest(gs: GenomeSketches) -> str:
+    """SHA-1 over the names and both sketches of every genome, in order:
+    the members of a pod log it, and must agree."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for name, bottom, scaled in zip(gs.names, gs.bottom, gs.scaled):
+        h.update(name.encode() + b"\0")
+        h.update(np.ascontiguousarray(bottom).tobytes() + b"\1")
+        h.update(np.ascontiguousarray(scaled).tobytes() + b"\2")
+    return h.hexdigest()
+
+
+_INGEST_BARRIER_ENV = "DREP_TORCH_INGEST_BARRIER_S"
+_INGEST_BARRIER_POLL_S = 0.2
+
+
+def _barrier_deadline() -> float:
+    """Monotonic deadline of the sharded ingest's waits (the assembly and
+    member 0's wait for the assembled notes)."""
+    from drep_tpu_torch.utils import envknobs
+
+    return time.monotonic() + envknobs.env_float(_INGEST_BARRIER_ENV)
+
+
+def _assemble_pod_shards(wd, shard_dir: str, jobs, results: dict, seen: set, pid: int, args_snapshot: dict,
+                         k: int, sketch_size: int, scale: int) -> GenomeSketches | None:
+    """A pod member's assembly of its peers' stripes into `results` (the
+    JAX package's barrier): poll the shard store until every genome is
+    covered. The timeout is progress-based (each new shard resets it). A
+    poison note from a peer raises its error; a whole-run cache a peer
+    already wrote is returned instead (None: `results` is complete).
+    Unparseable genomes of this member's own stripe publish the poison
+    note and raise."""
+    bad = sorted(g for g, r in results.items() if r["n_kmers"] == 0)
+    if bad:
+        from drep_tpu_torch.utils.durableio import atomic_write_json
+
+        with contextlib.suppress(OSError):
+            atomic_write_json(os.path.join(shard_dir, f"ingest_error_{pid}.json"),
+                              {"pid": pid, "genomes": bad[:10], "n": len(bad)})
+        _refuse_unparsed(bad, results, k)
+    logger = get_logger()
+    deadline = _barrier_deadline()
+    seen = set(seen)
+    need = {j[0] for j in jobs}
+    while need - set(results):
+        progressed = False
+        for f in sorted(glob.glob(os.path.join(shard_dir, "*.npz"))):
+            if f in seen:
+                continue
+            try:
+                shard = _load_sketch_shard(f)
+            except Exception:  # noqa: BLE001 — a peer's write in flight: next pass
+                continue
+            seen.add(f)
+            progressed = True
+            results.update({g: r for g, r in shard.items() if r["n_kmers"] > 0})
+        if progressed:
+            deadline = _barrier_deadline()
+        if not (need - set(results)):
+            break
+        for f in glob.glob(os.path.join(shard_dir, "ingest_error_*.json")):
+            from drep_tpu_torch.utils.durableio import read_json_checked
+
+            try:
+                info = read_json_checked(f, what="ingest poison marker")
+            except Exception:  # noqa: BLE001 — a torn note: the data barrier decides
+                continue
+            raise UserInputError(
+                f"ingest peer process {info.get('pid')} reported {info.get('n')} unparseable input "
+                f"file(s) (not FASTA, empty, or shorter than k): {', '.join(info.get('genomes', []))}"
+            )
+        if wd.has_arrays("sketches") and wd.arguments_match("sketch", args_snapshot):
+            cached = _load(wd, k, sketch_size, scale)
+            if not (cached.gdb["n_kmers"] == 0).any():
+                logger.info("ingest: a peer assembled the whole-run cache first — using it")
+                if pid != 0:
+                    with contextlib.suppress(OSError):
+                        atomic_write_bytes(os.path.join(shard_dir, f"assembled_{pid}.done"), b"")
+                return cached
+        if time.monotonic() > deadline:
+            from drep_tpu_torch.utils import envknobs
+
+            left = sorted(need - set(results))
+            raise RuntimeError(
+                f"sharded ingest barrier timed out: {len(left)} genomes never appeared in {shard_dir} for "
+                f"{envknobs.env_float(_INGEST_BARRIER_ENV):.0f}s with no new shards (first missing: "
+                f"{left[:10]}). A peer process likely died; raise the window via "
+                f"DREP_TORCH_INGEST_BARRIER_S if its gaps between shards are legitimately longer."
+            )
+        time.sleep(_INGEST_BARRIER_POLL_S)
+    return None
 
 
 def save_sketch_cache(wd: WorkDirectory, gs: GenomeSketches, hash_name: str = "splitmix64") -> None:

@@ -1,4 +1,4 @@
-"""The streaming primary: the 30 000+ genome path, one process.
+"""The streaming primary: the 30 000+ genome path, on one process or a pod.
 
 Counterpart of drep_tpu/parallel/streaming.py. The dense primary
 materialises the [N, N] distance matrix (40 GB at N = 100 000); this
@@ -39,11 +39,33 @@ With tracing on (utils/telemetry.py), each computed stripe is a
 ``shard_publish`` instant (``pruned`` where no tile held a candidate), and
 a resume a ``resume`` instant, as in the JAX package's single-process walk.
 
-Not ported here: the JAX package's multi-process stripe dealing, elastic
-pod and edge allgather (ROADMAP item 12b), their telemetry, and
-its compile warmup (nothing is compiled per run: the kernels build once
-into ``_build/``). Its per-tile readback budget does not apply: exactly
-the survivors are read back.
+On a pod (parallel/mesh.py) the stripes are dealt over the members
+(:func:`stripe_owner`: each stripe paired with its mirror, so every pair
+carries the same tiles). Each member holds the whole pack on its own
+device and computes its stripes; no device bytes cross processes:
+
+- with a checkpoint dir and heartbeats on (``DREP_TORCH_HEARTBEAT_S``,
+  default 5 s) the walk is ELASTIC (:func:`_elastic_stripe_loop`): every
+  stripe is durable in the shared store the moment it finishes, each
+  member deals the stripes still missing a shard over the CURRENT live
+  set (:func:`deal_stripes`, weighted by occupied tiles under pruning,
+  :func:`stripe_weights`), a membership change (a death verdict, a
+  drain, a join admission) bumps the ownership epoch and re-deals, a
+  stripe computed after a bump is stamped with the epoch in its shard's
+  name (:func:`_shard_name`), and completion is file-based (done notes);
+- without them each member computes its own stripes and the edges are
+  exchanged over gloo (:func:`_allgather_edges`).
+
+Either way every member ends with the edges in stripe order, bit for bit
+the single-process walk's (the JAX package's pod concatenates its
+members' stripes process-major instead; both hold the same edge set).
+The ``process_death`` site fires before every stripe, and with tracing on
+the pod's verdicts, ``re_deal`` and ``resume`` are instants, as in the
+JAX package.
+
+Not ported here: the JAX package's compile warmup (nothing is compiled
+per run: the kernels build once into ``_build/``). Its per-tile readback
+budget does not apply: exactly the survivors are read back.
 """
 
 from __future__ import annotations
@@ -85,16 +107,55 @@ def connected_components(n: int, ii: np.ndarray, jj: np.ndarray) -> np.ndarray:
 
 
 def stripe_owner(bi: int, n_blocks: int, pc: int) -> int:
-    """The process of `pc` that owns row stripe `bi` in the JAX package's
-    pods: stripes pair with their mirror (``n_blocks - 1 - bi``) so every
-    pair carries ``n_blocks + 1`` tiles, and pairs are dealt round-robin.
-    This port runs one process (pc = 1), which owns every stripe."""
+    """The process of `pc` that owns row stripe `bi` (the epoch-0 deal):
+    stripes pair with their mirror (``n_blocks - 1 - bi``) so every pair
+    carries ``n_blocks + 1`` tiles, and pairs are dealt round-robin."""
     return min(bi, n_blocks - 1 - bi) % pc
 
 
+def stripe_owner_live(bi: int, n_blocks: int, live: list[int]) -> int:
+    """:func:`stripe_owner` over an explicit live-member list: after an
+    ownership-epoch bump the dead and drained drop out of `live` and
+    joiners (ids >= the original process count) enter it. Pure
+    scheduling: shard names, contents and the assembly order never depend
+    on who computed a stripe."""
+    return live[min(bi, n_blocks - 1 - bi) % len(live)]
+
+
+def stripe_weights(occ: np.ndarray, first_col_block: int) -> np.ndarray:
+    """Per-stripe occupied-tile counts of a pruned schedule: the tiles
+    stripe `bi` will launch. :func:`deal_stripes` balances these under
+    ``--primary_prune lsh``, where the mirror pairing no longer does."""
+    n_blocks = occ.shape[0]
+    return np.array(
+        [int(occ[bi, max(bi, first_col_block):n_blocks].sum()) for bi in range(n_blocks)], dtype=np.int64
+    )
+
+
+def deal_stripes(n_blocks: int, live: list[int], weights: np.ndarray | None = None) -> list[int]:
+    """The owner of each stripe over the CURRENT live set: the mirror-paired
+    :func:`stripe_owner_live` deal without `weights`; with them greedy LPT
+    (stripes by descending weight, ties by index, each to the lightest
+    member, ties by id), so every member's launched tiles are within one
+    stripe's weight of the mean. Deterministic on inputs every member
+    holds, so the pod agrees on ownership with no exchange; callers deal
+    only the stripes still missing a shard."""
+    if weights is None:
+        return [stripe_owner_live(bi, n_blocks, live) for bi in range(n_blocks)]
+    members = sorted(live)
+    load = {p: 0 for p in members}
+    owners = [members[0]] * n_blocks
+    for b in sorted(range(n_blocks), key=lambda b: (-int(weights[b]), b)):
+        p = min(members, key=lambda m: (load[m], m))
+        owners[b] = p
+        load[p] += int(weights[b])
+    return owners
+
+
 def _shard_name(bi: int, epoch: int) -> str:
-    """Stripe `bi`'s shard file name; a nonzero epoch (the JAX package's
-    elastic pod after a member died) is stamped into it."""
+    """Stripe `bi`'s shard file name: ``row_XXXXX.npz``, with the ownership
+    epoch stamped in (``row_XXXXX.eNN.npz``) once a pod's membership
+    changed; the content is the same whoever computed it."""
     return f"row_{bi:05d}.npz" if epoch == 0 else f"row_{bi:05d}.e{epoch:02d}.npz"
 
 
@@ -259,9 +320,39 @@ def streaming_mash_edges(
     occ = prune.occupancy(block, n_blocks) if prune is not None else None
     width = ids.shape[1]
 
+    from drep_tpu_torch.parallel.mesh import process_count, process_index
+
+    pc, pid = process_count(), process_index()
+    ft_config = ft_config if ft_config is not None else faulttol.DEFAULT_CONFIG
+    # the elastic pod's liveness: heartbeat notes in the shared store,
+    # started BEFORE the store's open barrier so every member's cleanup of
+    # a previous incarnation's notes precedes every peer's monitoring (one
+    # process runs the beat writer too; monitoring needs peers)
+    hb = None
+    cadence = faulttol.heartbeat_cadence_s() if checkpoint_dir is not None else 0.0
+    joining = faulttol.join_requested() is not None
+    if joining and (checkpoint_dir is None or cadence <= 0):
+        # a joiner that cannot run the protocol would be an independent run
+        # against the pod's live store: refuse
+        from drep_tpu_torch.errors import UserInputError
+
+        raise UserInputError(
+            "DREP_TORCH_POD_JOIN is set but the elastic join protocol cannot run: "
+            + ("this streaming call has no shared checkpoint dir to join through" if checkpoint_dir is None
+               else "heartbeats are disabled (DREP_TORCH_HEARTBEAT_S=0) and admission rides the heartbeat "
+                    "protocol")
+            + ". Unset DREP_TORCH_POD_JOIN to run standalone, or point this process at the pod's "
+              "checkpoint dir with heartbeats enabled."
+        )
+    if checkpoint_dir is not None and cadence > 0 and not joining:
+        hb = faulttol.HeartbeatManager(checkpoint_dir, cadence, max_dead=ft_config.max_dead_processes,
+                                       max_joins=ft_config.max_joins, pc=pc, pid=pid)
+        hb.start()
+    elastic = hb is not None and pc > 1
+
     resume = False
     if checkpoint_dir is not None:
-        from drep_tpu_torch.utils.ckptmeta import content_fingerprint
+        from drep_tpu_torch.utils.ckptmeta import checkpoint_meta_matches, content_fingerprint
 
         meta = {
             "n": n,
@@ -276,7 +367,24 @@ def streaming_mash_edges(
             meta["min_col_block"] = first_col_block
         if prune is not None:
             meta.update(prune.params)
-        resume = _open_store(checkpoint_dir, meta)
+        if joining:
+            # the join note goes out first; the meta match is polled beside
+            # the admission wait, so a joiner never computes against a store
+            # built from other inputs
+            hb = faulttol.join_elastic_pod(
+                checkpoint_dir, cadence, config=ft_config, what="streaming primary (mid-run join)",
+                validate=lambda: checkpoint_meta_matches(checkpoint_dir, meta),
+            )
+            pc, pid = hb.pc, hb.pid
+            elastic = True
+            resume = True
+        else:
+            try:
+                resume = _open_store(checkpoint_dir, meta)
+            except BaseException:
+                if hb is not None:
+                    hb.close()  # a refused open must not leave a beat writer behind
+                raise
 
     # the pack, the keep table and the distance table, made when a stripe
     # first computes (a fully resumed run moves nothing to the device)
@@ -293,7 +401,6 @@ def streaming_mash_edges(
             )
         return res
 
-    ft_config = ft_config if ft_config is not None else faulttol.DEFAULT_CONFIG
     watchdog = AutoTimeout(ft_config)
     stats = {"stripes": 0, "stripes_resumed": 0, "launches": 0, "tiles_computed": 0,
              "tiles_total": 0, "tiles_skipped": 0}
@@ -337,34 +444,55 @@ def streaming_mash_edges(
         logger.debug("streaming primary: stripe %d, %d column tiles, %d edges", bi, len(cols), len(gi))
         return gi, gj, dd
 
-    all_ii: list[np.ndarray] = []
-    all_jj: list[np.ndarray] = []
-    all_dd: list[np.ndarray] = []
-    for bi in range(n_blocks):
-        found = _find_shard(checkpoint_dir, bi) if resume else None
-        loaded = _load_shard(found) if found is not None else None
-        if loaded is None:
-            epoch = _shard_epoch(found) if found is not None else 0
-            # an unclosed "B" is the crash evidence: the stripe in flight
-            with telemetry.span("stripe", bi=bi, epoch=epoch):
-                launches = stats["launches"]
-                loaded = _compute_stripe(bi)
-                if checkpoint_dir is not None:
-                    from drep_tpu_torch.utils.durableio import atomic_savez
+    def _stripe(bi: int, epoch: int = 0):
+        """One stripe computed and its shard published, inside a traced
+        span (an unclosed "B" is the crash evidence: the stripe in flight)."""
+        with telemetry.span("stripe", bi=bi, epoch=epoch):
+            # a pod member SIGKILLed here dies at a stripe boundary, its
+            # finished shards durable
+            faults.fire("process_death")
+            launches = stats["launches"]
+            out = _compute_stripe(bi)
+            if checkpoint_dir is not None:
+                from drep_tpu_torch.utils.durableio import atomic_savez
 
-                    name = _shard_name(bi, epoch)
-                    atomic_savez(os.path.join(checkpoint_dir, name), ii=loaded[0], jj=loaded[1], dist=loaded[2])
-                    if stats["launches"] == launches:  # no tile held a candidate: nothing launched
-                        telemetry.event("shard_publish", shard=name, edges=0, pruned=True)
-                    else:
-                        telemetry.event("shard_publish", shard=name, edges=len(loaded[0]))
+                name = _shard_name(bi, epoch)
+                atomic_savez(os.path.join(checkpoint_dir, name), ii=out[0], jj=out[1], dist=out[2])
+                if stats["launches"] == launches:  # no tile held a candidate: nothing launched
+                    telemetry.event("shard_publish", shard=name, edges=0, pruned=True)
+                else:
+                    telemetry.event("shard_publish", shard=name, edges=len(out[0]))
+        return out
+
+    parts: dict[int, tuple] = {}
+    n_owned = sum(1 for b in range(n_blocks) if stripe_owner(b, n_blocks, pc) == pid)
+    try:
+        if not elastic:
+            for bi in range(n_blocks):
+                if stripe_owner(bi, n_blocks, pc) != pid:
+                    continue  # another member's stripe
+                found = _find_shard(checkpoint_dir, bi) if resume else None
+                loaded = _load_shard(found) if found is not None else None
+                if loaded is None:
+                    loaded = _stripe(bi, _shard_epoch(found) if found is not None else 0)
+                else:
+                    stats["stripes_resumed"] += 1
+                parts[bi] = loaded
+            if stats["stripes_resumed"]:
+                telemetry.event("resume", stripes=stats["stripes_resumed"], owned=n_owned)
+            if pc > 1:
+                parts, pairs_computed = _allgather_edges(parts, pairs_computed)
         else:
-            stats["stripes_resumed"] += 1
-        all_ii.append(loaded[0])
-        all_jj.append(loaded[1])
-        all_dd.append(loaded[2])
-    if stats["stripes_resumed"]:
-        telemetry.event("resume", stripes=stats["stripes_resumed"], owned=n_blocks)
+            parts, pairs_computed = _elastic_stripe_loop(
+                hb, checkpoint_dir, n_blocks, pc, pid, n_owned, _stripe, lambda: pairs_computed, resume,
+                logger, stats, weights=stripe_weights(occ, first_col_block) if occ is not None else None,
+            )
+    finally:
+        if hb is not None:
+            hb.close()
+    all_ii = [parts[bi][0] for bi in sorted(parts)]
+    all_jj = [parts[bi][1] for bi in sorted(parts)]
+    all_dd = [parts[bi][2] for bi in sorted(parts)]
 
     derived = watchdog.derived()
     if derived is not None:
@@ -392,6 +520,215 @@ def streaming_mash_edges(
         stats["tiles_skipped"] / sched if sched else 0.0, pairs_computed, len(ii),
     )
     return ii, jj, dd, pairs_computed
+
+
+def _elastic_stripe_loop(
+    hb,
+    checkpoint_dir: str,
+    n_blocks: int,
+    pc: int,
+    pid: int,
+    n_owned: int,
+    compute_stripe,
+    own_pairs,
+    resume: bool,
+    logger,
+    stats: dict,
+    weights=None,
+) -> tuple[dict[int, tuple], int]:
+    """The elastic pod's stripe loop (the JAX package's, step for step):
+    ({stripe: (ii, jj, dist)} for every stripe, the member-set pair total —
+    this member's launched pairs plus every current done note's, and the
+    partial counts drained members left in their departure notes).
+
+    Every stripe is durable in the shared store the moment it finishes, so
+    completion needs no collective: each member (1) computes the missing
+    stripes it owns under the CURRENT live set (:func:`deal_stripes`),
+    re-dealing on every membership bump, (2) publishes a done note, (3)
+    waits until every stripe has a shard and every live peer is done, and
+    (4) reads the rest from the store. A shard that reads corrupt (or
+    vanishes while a peer heals it) is recomputed into its own path. A
+    drain request on this member is honoured at a stripe boundary: the
+    departure note goes out and :class:`faulttol.PodDrained` unwinds."""
+    from drep_tpu_torch.parallel.faulttol import (
+        DEFAULT_ALLGATHER_TIMEOUT_S,
+        CollectiveTimeout,
+        PodDrained,
+        collective_timeout_s,
+        drain_requested,
+    )
+
+    def _maybe_drain() -> None:
+        if not drain_requested():
+            return
+        hb.announce_drain(pairs=own_pairs())
+        raise PodDrained(
+            f"streaming primary: process {pid} drained at a stripe boundary (planned-departure note "
+            f"published; peers re-deal its unfinished stripes immediately)"
+        )
+
+    stall_budget = collective_timeout_s(DEFAULT_ALLGATHER_TIMEOUT_S)
+    done_written = False
+    last_progress = time.monotonic()
+    progress_sig = None
+    # stripes computed here stay in memory; finished stripes are cached so
+    # they are never stat'ed again, and the missing ones are probed once a
+    # tick
+    mem: dict[int, tuple] = {}
+    shard_of: dict[int, str] = {}
+
+    def _missing_stripes() -> list[int]:
+        out = []
+        for b in range(n_blocks):
+            if b in shard_of:
+                continue
+            p = _find_shard(checkpoint_dir, b)
+            if p is not None:
+                shard_of[b] = p
+            else:
+                out.append(b)
+        return out
+
+    if resume:
+        _missing_stripes()
+        n_resumed = sum(1 for b in shard_of if stripe_owner(b, n_blocks, pc) == pid)
+        if n_resumed:
+            stats["stripes_resumed"] += n_resumed
+            telemetry.event("resume", stripes=n_resumed, owned=n_owned)
+            logger.info("streaming primary: resumed %d/%d owned row-block shards (process %d/%d)",
+                        n_resumed, n_owned, pid, pc)
+
+    last_deal_epoch = -1
+    while True:
+        _maybe_drain()
+        live = list(hb.live)
+        owners = deal_stripes(n_blocks, live, weights)
+        missing = _missing_stripes()
+        if hb.epoch != last_deal_epoch:
+            if hb.epoch > 0:
+                telemetry.event("re_deal", unit="stripe", live=live, missing=len(missing))
+            last_deal_epoch = hb.epoch
+        computed = False
+        for bi in list(missing):
+            if owners[bi] != pid:
+                continue
+            computed = True
+            mem[bi] = compute_stripe(bi, epoch=hb.epoch)
+            shard_of[bi] = os.path.join(checkpoint_dir, _shard_name(bi, hb.epoch))
+            missing.remove(bi)
+            _maybe_drain()  # the stripe in flight is durable: a safe exit
+            if hb.maybe_check():
+                break  # the epoch bumped mid-pass: re-deal at once
+        if not missing and not done_written:
+            # completion before this member's beats can stop: a peer with a
+            # done note is never declared dead
+            hb.mark_done(own_pairs())
+            done_written = True
+        waiting = [] if missing else [p for p in hb.live if p != pid and not hb.peer_finished(p)]
+        sig = (len(missing), tuple(hb.live), len(waiting))
+        if computed or sig != progress_sig:
+            progress_sig = sig
+            last_progress = time.monotonic()
+        if not missing and not waiting:
+            break
+        if hb.maybe_check():
+            continue
+        if time.monotonic() - last_progress > stall_budget:
+            raise CollectiveTimeout(
+                f"streaming elastic completion stalled for {stall_budget:.0f}s: stripe(s) "
+                f"{missing[:8]}{'...' if len(missing) > 8 else ''} unfinished, waiting on process(es) "
+                f"{waiting} of live set {hb.live} whose heartbeats are still fresh — a peer is wedged, "
+                f"not dead. Restart the pod; shard-level checkpoints will resume finished work. (Timeout "
+                f"via DREP_TORCH_COLLECTIVE_TIMEOUT_S; heartbeat cadence via DREP_TORCH_HEARTBEAT_S.)"
+            )
+        if not computed:
+            time.sleep(min(5.0, max(0.05, hb.cadence)))
+
+    # assembly: own stripes from memory, the rest from the store; a corrupt
+    # or vanished shard is recomputed into its own path and the pass restarts
+    healed = False
+    while True:
+        parts: dict[int, tuple] = {}
+        bad = None
+        for bi in range(n_blocks):
+            if bi in mem:
+                parts[bi] = mem[bi]
+                continue
+            path = shard_of.get(bi) or _find_shard(checkpoint_dir, bi)
+            loaded = _load_shard(path) if path is not None else None
+            if loaded is None:
+                bad = (bi, path)
+                break
+            parts[bi] = loaded
+        if bad is None:
+            break
+        bi_bad, path_bad = bad
+        shard_of.pop(bi_bad, None)
+        heal_epoch = _shard_epoch(path_bad) if path_bad is not None else hb.epoch
+        mem[bi_bad] = compute_stripe(bi_bad, epoch=heal_epoch)
+        shard_of[bi_bad] = os.path.join(checkpoint_dir, _shard_name(bi_bad, heal_epoch))
+        healed = True
+    if healed:
+        hb.mark_done(own_pairs())  # the heal launched pairs after the done note
+
+    if hb.epoch > 0 and pid == min(hb.live):
+        # the lowest live member stamps how the store was produced (extra
+        # provenance keys never invalidate a resume)
+        from drep_tpu_torch.utils.ckptmeta import stamp_checkpoint_meta
+
+        stamp = {"pod_epochs": hb.epoch + 1, "dead_processes": hb.dead}
+        if hb.drained:
+            stamp["planned_departures"] = hb.drained
+        if hb.joined:
+            stamp["pod_joins"] = len(hb.joined)
+        stamp_checkpoint_meta(checkpoint_dir, stamp)
+    if hb.epoch > 0:
+        logger.warning(
+            "streaming primary: completed with MEMBERSHIP CHURN — dead %s, drained %s, joined %s; final "
+            "members %s finished the stripes across %d ownership epoch(s)",
+            hb.dead, hb.drained, hb.joined, hb.live, hb.epoch + 1,
+        )
+
+    def _peer_pairs(p: int) -> int:
+        note = hb.done_payload(p)
+        if note is None:
+            note = hb.drain_payload(p)
+        return int((note or {}).get("pairs", 0))
+
+    return parts, own_pairs() + sum(_peer_pairs(p) for p in hb.all_members() if p != pid)
+
+
+def _allgather_edges(parts: dict[int, tuple], pairs_computed: int) -> tuple[dict[int, tuple], int]:
+    """Every member's stripes over gloo (a pod with no shared store or no
+    heartbeats): ({stripe: (ii, jj, dist)} for every stripe, the pod's pair
+    total). A header (stripe ids, lengths, pairs) and the three edge arrays
+    are four gathers, each under the collective watchdog at the
+    ``allgather`` site, as the JAX package's four."""
+    from drep_tpu_torch.parallel.faulttol import DEFAULT_ALLGATHER_TIMEOUT_S, collective_timeout_s, run_with_timeout
+    from drep_tpu_torch.parallel.mesh import allgather_array
+
+    def _gather(arr: np.ndarray, what: str) -> list[np.ndarray]:
+        return run_with_timeout(
+            lambda: allgather_array(arr), what=f"streaming edge allgather ({what})", site="allgather",
+            timeout_s=collective_timeout_s(DEFAULT_ALLGATHER_TIMEOUT_S),
+        )
+
+    mine = sorted(parts)
+    header = np.array([pairs_computed] + [x for bi in mine for x in (bi, len(parts[bi][0]))], np.int64)
+    cat = [np.concatenate([parts[bi][c] for bi in mine]) if mine else e
+           for c, e in enumerate((np.empty(0, np.int64), np.empty(0, np.int64), np.empty(0, np.float32)))]
+    heads = _gather(header, "header")
+    g_ii, g_jj, g_dd = (_gather(a.astype(dt), what) for a, dt, what in
+                        ((cat[0], np.int64, "ii"), (cat[1], np.int64, "jj"), (cat[2], np.float32, "dist")))
+    out: dict[int, tuple] = {}
+    total = 0
+    for h, ii, jj, dd in zip(heads, g_ii, g_jj, g_dd):
+        total += int(h[0])
+        off = 0
+        for bi, ln in h[1:].reshape(-1, 2):
+            out[int(bi)] = (ii[off : off + ln], jj[off : off + ln], dd[off : off + ln])
+            off += int(ln)
+    return out, total
 
 
 def streaming_primary_clusters(

@@ -93,7 +93,8 @@ KEEP_GENERATIONS = 2
 # the router's own health machine routes around it meanwhile)
 PROBE_STRIKES = 3
 # set in each spawned replica's environment, as the JAX supervisor sets
-# its twin; only the elastic pod's members read it (item 12b)
+# its twin; only the elastic pod's members read it (the autoscale stamp
+# of their join and drain notes, parallel/faulttol.py)
 SPAWNED_ENV = "DREP_TORCH_AUTOSCALE_SPAWNED"
 
 

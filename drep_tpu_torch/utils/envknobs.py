@@ -35,12 +35,8 @@ Knobs of the JAX package the port does not declare, and why:
   compiler is present, and the two paths are equal;
 - ``WIRE_CRC``: the port's receivers accept frames without a CRC (a JAX
   daemon's with its CRC off), so interoperation needs no switch;
-- the elastic pod, ROADMAP queue 1 item 12b: ``HEARTBEAT_S``,
-  ``POD_JOIN``, ``COLLECTIVE_TIMEOUT_S``, ``INGEST_BARRIER_S``,
-  ``AUTOSCALE_SPAWNED`` (the fleet supervisor sets
-  ``DREP_TORCH_AUTOSCALE_SPAWNED=1`` in each replica's environment, as
-  the JAX supervisor sets its twin; only the pod's members read it) and
-  the chaos harness's ``TEST_*``.
+- the chaos harness's ``TEST_*``, which configure the JAX package's
+  test workers only.
 
 Stdlib only: durable I/O, the serve tier and the autoscale tools read
 knobs with no torch around.
@@ -95,6 +91,23 @@ _declare("DREP_TORCH_EVENTS", "bool", False,
          "the CLI --events overrides.")
 _declare("DREP_TORCH_METRICS_FLUSH_S", "float", 0.0,
          "Prometheus textfile flush cadence (s) for <log>/metrics.prom; 0 = off.")
+# -- the elastic pod ---------------------------------------------------------
+_declare("DREP_TORCH_HEARTBEAT_S", "float", 5.0,
+         "Per-process heartbeat cadence (s) of the elastic pod "
+         "(parallel/faulttol.py); 0 disables heartbeats and epoch re-dealing.")
+_declare("DREP_TORCH_COLLECTIVE_TIMEOUT_S", "float", 900.0,
+         "Watchdog (s) of the pod's collective waits; call sites override the "
+         "default where healthy skew differs (6 h at the allgather). <=0 disables.")
+_declare("DREP_TORCH_POD_JOIN", "str", "",
+         "Mid-run join request on a NEW process: 'auto' derives an id from the "
+         "pod's notes, an integer pins one. Empty = not a joiner.")
+_declare("DREP_TORCH_INGEST_BARRIER_S", "float", 600.0,
+         "Sharded ingest across a pod (ingest.py): max wait (s) with no new sketch "
+         "shard appearing before declaring a peer dead.")
+_declare("DREP_TORCH_AUTOSCALE_SPAWNED", "bool", False,
+         "Set by a controller on the processes it spawns (the fleet supervisor "
+         "sets it in each replica): the join and drain notes such a pod member "
+         "publishes carry an `autoscale` stamp. Never set by hand.")
 # -- federated index ---------------------------------------------------------
 _declare("DREP_TORCH_FED_PODS", "int", 0,
          "Federated `index update`: run per-partition updates as up to this many "

@@ -1,6 +1,6 @@
 """Deterministic fault injection for the port's device and storage paths.
 
-Counterpart of drep_tpu/utils/faults.py for one process. The pipeline's
+Counterpart of drep_tpu/utils/faults.py. The pipeline's
 crash story (atomic shard checkpoints, per-cluster secondary
 checkpoints, the ingest shard store) is testable because kills are
 external; its live-failure story (a launch that raises, a launch that
@@ -16,7 +16,7 @@ package's grammar unchanged::
 
     DREP_TORCH_FAULTS="streaming_tile:raise:0.05:seed=7,shard_write:torn"
 
-- ``site``: the injection point. The port threads sixteen of the JAX
+- ``site``: the injection point. The port threads twenty-one of the JAX
   package's sites at the JAX package's fire points: ``streaming_tile``
   (each streaming stripe's launch, parallel/streaming.py),
   ``secondary_batch`` (each secondary engine call, cluster/controller.py),
@@ -33,10 +33,14 @@ package's grammar unchanged::
   serve/wirechaos.py, polled by :func:`wire_fault`), and
   ``supervisor_spawn`` / ``supervisor_tick`` (a spawn after the manifest
   records its intent and before the fork, and the top of each
-  supervision tick, serve/supervisor.py). The elastic pod's sites
-  (``ring_dispatch``, ``ring_step``, ``allgather``, ``barrier``,
-  ``process_death``, ``autoscale_decide``) parse and raise
-  NotImplementedError naming ROADMAP.md queue 1 item 12b.
+  supervision tick, serve/supervisor.py), and the elastic pod's:
+  ``ring_dispatch`` (each dense-ring step's wait and each per-block
+  recovery launch, parallel/allpairs.py), ``ring_step`` (each ring step
+  boundary), ``allgather`` (the pod's edge and row exchanges),
+  ``barrier`` (each pod barrier, utils/ckptmeta.py) and
+  ``process_death`` (each streaming stripe, before its launch).
+  ``autoscale_decide`` (the pod's autoscaling controller) parses and
+  raises NotImplementedError naming ROADMAP.md queue 1 item 12b.
 - ``mode``: ``raise`` (InjectedFault), ``hang`` (sleep ``secs``, default
   3600, then raise: trips the watchdog), ``sleep`` (sleep ``secs``, then
   go on), ``kill`` (SIGKILL the calling process: no cleanup, as an
@@ -49,13 +53,15 @@ package's grammar unchanged::
   mid-reply), ``stall`` (hold it ``secs``, default 3600), ``slow``
   (delay it ``secs``, default 0.05), ``short_read`` (half the line, then
   EOF), ``garble`` (flip bytes inside the frame's body: the CRC must
-  catch it) and ``dup`` (the line twice). ``drain`` (the elastic pod,
-  item 12b) raises NotImplementedError.
+  catch it) and ``dup`` (the line twice). ``drain`` (``process_death``
+  and ``ring_step`` only) asks this process for a planned departure, as
+  SIGTERM does (parallel/faulttol.py::request_drain), honoured at that
+  very boundary.
 - ``prob``: per-call probability (default 1.0), drawn from the rule's
   own ``random.Random(seed)`` stream.
 - ``key=value``: ``seed=N`` (default 0), ``secs=F``, ``device=N`` (fire
   only for that device slot), ``max=N`` (stop after N fires),
-  ``proc=N`` (fire only in process N of a pod; the port is process 0),
+  ``proc=N`` (fire only in process N of a pod),
   ``skip=N`` (let the first N matching calls pass), ``path=S`` (fire
   only where the target path contains S; io and shard_write sites, and
   on the wire site the proxy's peer label, so one spec damages one hop).
@@ -86,14 +92,12 @@ SITES = (
     "partition_load", "partition_classify", "autoscale_decide", "router_leg", "replica_health",
     "partition_split", "compaction", "wire", "supervisor_spawn", "supervisor_tick",
 )
-# autoscale_decide fires only in the elastic pod's controller
-UNPORTED_SITES: dict[str, str] = dict.fromkeys(
-    ("ring_dispatch", "ring_step", "allgather", "barrier", "process_death", "autoscale_decide"), "12b")
+# autoscale_decide fires only in the elastic pod's autoscaling controller
+UNPORTED_SITES: dict[str, str] = {"autoscale_decide": "12b"}
 
 IO_MODES = ("io_error", "stale_read", "enospc", "corrupt")
 WIRE_MODES = ("reset", "stall", "slow", "short_read", "garble", "dup")
 MODES = ("raise", "hang", "sleep", "torn", "kill", "drain") + IO_MODES + WIRE_MODES
-UNPORTED_MODES: dict[str, str] = {"drain": "12b"}
 
 
 class InjectedFault(RuntimeError):
@@ -131,8 +135,11 @@ class _Rule:
             return False
         if self.path_sub is not None and (path is None or self.path_sub not in path):
             return False
-        if self.proc is not None and self.proc != 0:
-            return False  # one process: the port is process 0
+        if self.proc is not None:
+            from drep_tpu_torch.parallel.mesh import process_index
+
+            if process_index() != self.proc:
+                return False
         self.seen += 1
         if self.seen <= self.skip:
             return False
@@ -156,8 +163,6 @@ def _parse(spec: str) -> dict[str, list[_Rule]]:
             raise FaultSpecError(f"unknown fault site {site!r} (known: {', '.join(SITES)})")
         if mode not in MODES:
             raise FaultSpecError(f"unknown fault mode {mode!r} (known: {', '.join(MODES)})")
-        if mode in UNPORTED_MODES:
-            _refuse_unported(f"mode {mode!r}", UNPORTED_MODES[mode])
         if site in UNPORTED_SITES:
             _refuse_unported(f"site {site!r}", UNPORTED_SITES[site])
         # a rule its site never acts on would claim coverage and inject
@@ -167,6 +172,11 @@ def _parse(spec: str) -> dict[str, list[_Rule]]:
         if site == "io" and mode in ("torn", "kill"):
             raise FaultSpecError(f"mode {mode!r} has no 'io' site semantics — use shard_write:torn for torn "
                                  f"publishes, or another site's kill for deaths")
+        if mode == "drain" and site not in ("process_death", "ring_step"):
+            # consumed at the elastic loops' safe boundaries, which are
+            # exactly these sites' fire points
+            raise FaultSpecError(f"mode 'drain' fires only at the safe-boundary sites process_death/ring_step "
+                                 f"(got site {site!r})")
         if mode in WIRE_MODES and site != "wire":
             raise FaultSpecError(f"mode {mode!r} is wire-site-only (got site {site!r})")
         if site == "wire" and mode not in WIRE_MODES:
@@ -263,6 +273,12 @@ def fire(site: str, device: int | None = None) -> None:
             # an external SIGKILL's stand-in: no cleanup, no atexit; the
             # counters die with the process
             os.kill(os.getpid(), signal.SIGKILL)
+        if rule.mode == "drain":
+            # SIGTERM's stand-in, minus the signal: consumed at this very
+            # boundary (the elastic loops check right after their fire)
+            from drep_tpu_torch.parallel.faulttol import request_drain
+
+            request_drain()
 
 
 def torn_write(site: str = "shard_write", path: str | None = None) -> bool:

@@ -94,8 +94,8 @@ class Counters:
     stages: dict[str, _Stage] = field(default_factory=dict)
     faults: dict[str, int] = field(default_factory=dict)
     gauges: dict[str, float] = field(default_factory=dict)
-    # ownership-epoch bumps in order (with their reasons); a single
-    # process records none until the elastic pod (item 12b) bumps them
+    # ownership-epoch bumps in order (with their reasons): the elastic
+    # pod's membership changes (parallel/faulttol.py); a healthy run has none
     epoch_history: list = field(default_factory=list)
     hists: dict[str, Histogram] = field(default_factory=dict)
 

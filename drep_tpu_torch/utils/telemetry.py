@@ -100,6 +100,19 @@ def set_epoch(epoch: int) -> None:
     _STATE["epoch"] = int(epoch)
 
 
+def set_pid(pid: int) -> None:
+    """Re-home the stream to a new process id: close the current sink so
+    later lines land in ``events.p<pid>.jsonl``. A pod joiner configures
+    tracing as process 0 and learns its admitted id only from the leader's
+    admit note (parallel/faulttol.py::join_elastic_pod); lines written
+    before stay under the old id."""
+    if int(pid) == _STATE["pid"]:
+        return
+    close()
+    with _LOCK:
+        _STATE["pid"] = int(pid)
+
+
 def _load_run_id(log_dir: str) -> str:
     """The workdir-stable run id, kept beside the event logs so a resume
     keeps it. The first writer wins through O_EXCL; a loser reads the

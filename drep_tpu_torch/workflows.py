@@ -8,10 +8,13 @@ index build|update|classify|split|merge|compact = drep_tpu_torch/index;
 index serve|route|supervise = drep_tpu_torch/serve.
 
 All run on `device` (default cuda); a CUDA request on a machine without
-CUDA, or a JAX CLI flag set to a value the port does not run
-(argparser.UNPORTED_FLAGS), raises before any work is done. Each
+CUDA raises before any work is done. Each
 installs the run's durable-I/O policy (--io_retries, --fsync) before its
-first write.
+first write. `compare` and `dereplicate` launched as N processes with
+the standard pod environment (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``,
+``MASTER_PORT``, ``LOCAL_RANK``, as torchrun sets them) run as one
+elastic pod (parallel/mesh.py), each member tracing into
+``events.p<rank>.jsonl``; a member asked to drain exits 0 (controller.py).
 
 Observability, as in the JAX package: ``--events on`` (or
 ``DREP_TORCH_EVENTS``) traces the run into ``<wd>/log/events.p0.jsonl``
@@ -28,9 +31,11 @@ supervise` uses no device (its replicas run where its --spawn says).
 
 from __future__ import annotations
 
+import json
+
 import pandas as pd
 
-from drep_tpu_torch.argparser import UNPORTED_FLAGS, refuse_unported_flags
+from drep_tpu_torch.argparser import POD_FLAGS
 from drep_tpu_torch.bonus import d_bonus_wrapper, validate_bonus_args
 from drep_tpu_torch.choose import d_choose_wrapper
 from drep_tpu_torch.cluster.anim import reset_run_state
@@ -58,11 +63,16 @@ def _configure_io(kwargs: dict) -> None:
 
 
 def _init(wd_loc: str, genomes: list[str], events=None) -> tuple[WorkDirectory, pd.DataFrame]:
+    from drep_tpu_torch.parallel.mesh import initialize_distributed, process_index
+
     wd = WorkDirectory(wd_loc)
     setup_logger(wd.get_dir("log"))
-    # the event sink (--events / DREP_TORCH_EVENTS; off: no file) and the
-    # periodic metrics flush (DREP_TORCH_METRICS_FLUSH_S; 0: no thread)
-    telemetry.configure(log_dir=wd.get_dir("log"), enabled=events, pid=0)
+    # a pod member joins its pod before any stage runs (a no-op without one)
+    initialize_distributed()
+    # the event sink (--events / DREP_TORCH_EVENTS; off: no file), one a
+    # pod member, and the periodic metrics flush (DREP_TORCH_METRICS_FLUSH_S;
+    # 0: no thread)
+    telemetry.configure(log_dir=wd.get_dir("log"), enabled=events, pid=process_index())
     start_metrics_flush(wd.get_dir("log"))
     counters.reset()  # fresh per run: library users may run several workflows in one process
     reset_run_state()  # a second run in this process warns again, as a second CLI run would
@@ -97,13 +107,18 @@ def _finish_counters(wd: WorkDirectory) -> None:
         "perf: %d pairs in %.2fs = %s pairs/sec/chip (%d chip(s)) -> %s",
         total["pairs"], total["seconds"], total["pairs_per_sec_per_chip"], rep["n_chips"], path,
     )
+    # this process's kernel launches (a pod member's, too: perf_counters.json
+    # is one file a workdir)
+    from drep_tpu_torch.ops import indicator, intersect, mash, ring
+
+    launches = {**mash.LAUNCHES, **indicator.LAUNCHES, **intersect.LAUNCHES, **ring.LAUNCHES}
+    get_logger().info("kernel launches: %s", json.dumps(launches, sort_keys=True))
 
 
 def compare_wrapper(
     wd_loc: str, genomes: list[str] | None = None, device=None, **kwargs
 ) -> pd.DataFrame:
     """`compare`: cluster + evaluate + analyze. Returns Cdb."""
-    refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
     events, profile = kwargs.pop("events", None), kwargs.pop("profile", None)
@@ -129,7 +144,6 @@ def dereplicate_wrapper(
 ) -> pd.DataFrame:
     """`dereplicate`: filter + cluster + choose (+ taxonomy under
     --run_tax) + evaluate + analyze. Returns Wdb (the winners)."""
-    refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     validate_bonus_args(kwargs)  # centrifuge and its index, before any table is written
     _configure_io(kwargs)
@@ -164,7 +178,6 @@ def _init_index(index_loc: str, device, kwargs: dict, write_logs: bool = True):
     device."""
     import os
 
-    refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
     log_dir = None
@@ -217,7 +230,7 @@ def index_build_wrapper(
         return build_from_workdir(index_loc, work_directory)
     if genomes:
         processes = kwargs.get("processes", 1) or 1
-        params = {k: v for k, v in kwargs.items() if k not in ("processes", *UNPORTED_FLAGS)}
+        params = {k: v for k, v in kwargs.items() if k not in ("processes", *POD_FLAGS)}
         if partitions:
             return build_federated(index_loc, genomes, partitions, processes=processes, fed_pods=fed_pods,
                                    device=dev, **params)
@@ -280,7 +293,6 @@ def _serve_front_door(index_loc: str, kwargs: dict, what: str, device):
     does not run refuses first, then the device resolves, the durable-I/O
     policy is installed and the logs are set up (:func:`_reader_logs`).
     Returns (the absolute log_dir or None, the device)."""
-    refuse_unported_flags(kwargs)
     dev = resolve_device(device)
     _configure_io(kwargs)
     contract = f"the {'daemon' if what == 'serve' else 'router'} is read-only by contract"

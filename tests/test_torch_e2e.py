@@ -467,11 +467,12 @@ def test_streaming_argvs_equal_jax_bytes(tmp_path, genome_paths, operation, flag
     _assert_mdb_close(wd, jwd)
 
 
-# the JAX CLI's flags that the port parses and runs only at their JAX
-# defaults: a value to refuse, and the ROADMAP item that ports it; None
-# where the port now runs the value (the fault-tolerance and durable-I/O
-# flags, item 5): it reaches the cluster stage's _ft_config; the tracing
-# flags (item 13) the workflow runs itself, around the cluster stage
+# the JAX CLI's flags that the port once ran only at their JAX defaults: a
+# value to refuse, and the ROADMAP item that ports it; None where the port
+# now runs the value (the fault-tolerance and durable-I/O flags, item 5,
+# and the elastic pod's, item 12b): it reaches the cluster stage's
+# _ft_config; the tracing flags (item 13) the workflow runs itself, around
+# the cluster stage
 _UNPORTED_FLAG_VALUES = [
     (["--events", "on"], None),
     (["--fsync"], None),
@@ -479,13 +480,15 @@ _UNPORTED_FLAG_VALUES = [
     (["--profile"], None),
     (["--fault_retries", "0"], None),
     (["--dispatch_timeout", "10"], None),
-    (["--max_dead_processes", "0"], "item 12b"),
+    (["--max_dead_processes", "0"], None),
     (["--no_overlap_ingest"], None),
-    (["--max_joins", "1"], "item 12b"),
-    (["--drain_grace_s", "5"], "item 12b"),
+    (["--max_joins", "1"], None),
+    (["--drain_grace_s", "5"], None),
 ]
 _FLAG_KW = {"--fsync": ("fsync", True), "--io_retries": ("io_retries", 5), "--fault_retries": ("fault_retries", 0),
-            "--dispatch_timeout": ("dispatch_timeout", 10.0), "--no_overlap_ingest": ("overlap_ingest", False)}
+            "--dispatch_timeout": ("dispatch_timeout", 10.0), "--no_overlap_ingest": ("overlap_ingest", False),
+            "--max_dead_processes": ("max_dead_processes", 0), "--max_joins": ("max_joins", 1),
+            "--drain_grace_s": ("drain_grace_s", 5.0)}
 
 
 class _ReachedFtConfig(Exception):

@@ -300,11 +300,34 @@ def test_replica_health_site_ejects_as_jax(fed):
 
 @pytest.mark.parametrize("spec", ["process_death:kill", "ring_step:drain", "autoscale_decide:raise"])
 def test_pod_modes_and_sites_stay_refused(spec):
-    """The elastic pod's sites, its drain mode and its controller's site
-    are item 12b's; the JAX package runs them."""
-    jax_faults._parse(spec)
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        faults.configure(spec)
+    """The pod's autoscaling controller's site stays item 12b's; the
+    elastic pod's sites and its drain mode, ported, parse into the JAX
+    package's rules, and a ``drain`` fire asks this process for a planned
+    departure in both packages (a ``kill`` is held in
+    tests/test_torch_pod.py's pods)."""
+    from drep_tpu.parallel import faulttol as jax_faulttol
+    from drep_tpu_torch.parallel import faulttol
+
+    jax_rules = jax_faults._parse(spec)
+    if spec.startswith("autoscale_decide"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            faults.configure(spec)
+        return
+    fields = ("site", "mode", "prob", "seed", "secs", "device", "proc", "skip", "max_fires", "path_sub")
+    assert ({k: [tuple(getattr(r, f) for f in fields) for r in v] for k, v in faults._parse(spec).items()}
+            == {k: [tuple(getattr(r, f) for f in fields) for r in v] for k, v in jax_rules.items()})
+    if ":drain" not in spec:
+        return
+    try:
+        for mod, ft in ((faults, faulttol), (jax_faults, jax_faulttol)):
+            mod.configure(spec)
+            assert not ft.drain_requested()
+            mod.fire(spec.split(":")[0])
+            assert ft.drain_requested()
+    finally:
+        for mod, ft in ((faults, faulttol), (jax_faults, jax_faulttol)):
+            mod.configure(None)
+            ft.clear_drain()
 
 
 @pytest.mark.parametrize("spec,site", [("index_update:kill", "index_update"), ("compaction:kill:skip=1", "compaction")])

@@ -163,20 +163,25 @@ def test_spec_parses_and_fires_as_jax(spec, poll):
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("process_death:kill", "12b"),
-    ("ring_step:drain", "12b"),
-    ("process_death:drain", "12b"),
-    ("ring_dispatch:raise", "12b"),
+    ("process_death:kill", None),
+    ("ring_step:drain", None),
+    ("process_death:drain", None),
+    ("ring_dispatch:raise", None),
     ("autoscale_decide:raise", "12b"),
-    ("barrier:sleep", "12b"),
-    ("allgather:hang", "12b"),
+    ("barrier:sleep", None),
+    ("allgather:hang", None),
 ])
 def test_unported_modes_and_sites_refused(spec, item):
-    """The elastic pod's sites and its drain mode (item 12b) refuse; the
-    JAX package runs them."""
-    jax_faults._parse(spec)  # the JAX package runs it
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
-        faults.configure(spec)
+    """The pod's autoscaling controller's site (item 12b) still refuses;
+    the elastic pod's sites and its drain mode, ported, parse into the
+    JAX package's rules."""
+    want = {site: [_rule_fields(r) for r in rules] for site, rules in jax_faults._parse(spec).items()}
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
+            faults.configure(spec)
+        return
+    got = {site: [_rule_fields(r) for r in rules] for site, rules in faults._parse(spec).items()}
+    assert got == want and got
 
 
 @pytest.mark.parametrize("spec", [
@@ -495,15 +500,42 @@ def test_cli_flags_reach_ft_config(tmp_path, genome_paths, monkeypatch, flags, w
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--max_dead_processes", "2"], "12b"), (["--max_joins", "1"], "12b"), (["--drain_grace_s", "5"], "12b"),
+    (["--max_dead_processes", "2"], ("max_dead_processes", 2)), (["--max_joins", "1"], ("max_joins", 1)),
+    (["--drain_grace_s", "5"], ("drain_grace_s", 5.0)),
 ])
-def test_cli_pod_and_tracing_flags_still_raise(tmp_path, genome_paths, flag, item):
+def test_cli_pod_and_tracing_flags_still_raise(tmp_path, genome_paths, monkeypatch, flag, item):
+    """The elastic pod's flags, once refused, now run: each reaches
+    _ft_config with its value, which builds the JAX package's config
+    (--drain_grace_s arms the drain handler instead)."""
+    import dataclasses
+
+    from drep_tpu.parallel.faulttol import FaultTolConfig as JaxFaultTolConfig
+    from drep_tpu_torch.cluster import controller
     from drep_tpu_torch.controller import main as torch_main
 
-    wd = tmp_path / "wd"
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        torch_main(["compare", str(wd), "-g", *genome_paths, "--device", "cpu", *flag])
-    assert not wd.exists()
+    got = {}
+    real = controller._ft_config
+    graces = []
+    monkeypatch.setattr(controller, "install_drain_handler", graces.append)
+
+    def spy(kw):
+        got["kw"], got["cfg"] = kw, real(kw)
+        raise _Stop
+
+    monkeypatch.setattr(controller, "_ft_config", spy)
+    try:
+        with pytest.raises(_Stop):
+            torch_main(["compare", str(tmp_path / "wd"), "-g", *genome_paths, "--device", "cpu", *flag])
+    finally:
+        faulttol.configure_defaults(FaultTolConfig())
+    key, value = item
+    assert got["kw"][key] == value
+    mine = dataclasses.asdict(got["cfg"])
+    want = dataclasses.asdict(JaxFaultTolConfig(
+        max_retries=2, dispatch_timeout_s=0.0, auto_timeout=True,
+        **({key: value} if key != "drain_grace_s" else {})))
+    assert mine == want
+    assert graces == [value if key == "drain_grace_s" else 30.0]
 
 
 def test_kernel_warmup_starts_only_where_it_helps_and_raises_its_error(tmp_path, genome_paths, monkeypatch):
@@ -545,7 +577,7 @@ def test_cli_refuses_an_unported_env_spec_before_writing(tmp_path, genome_paths,
     workdir is made, naming its item."""
     from drep_tpu_torch.controller import main as torch_main
 
-    monkeypatch.setenv(faults.ENV, "process_death:kill:skip=2")
+    monkeypatch.setenv(faults.ENV, "autoscale_decide:kill:skip=2")
     faults.reset()
     wd = tmp_path / "wd"
     with pytest.raises(NotImplementedError, match="item 12b"):

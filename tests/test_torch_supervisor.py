@@ -191,11 +191,33 @@ def test_pid_alive_and_ready_line_as_jax():
 # ---- one scenario, both packages ---------------------------------------------------
 
 
+class _Clock:
+    """The supervisor module's `time` during a scenario: its wall clock
+    (the manifest's instants: retry times, deaths, drain starts) moves only
+    when the scenario says, so every tick of both packages sees the same
+    instants however loaded the machine is; `monotonic` and `sleep` (the
+    startup waits) stay real."""
+
+    monotonic = staticmethod(time.monotonic)
+    sleep = staticmethod(time.sleep)
+
+    def __init__(self) -> None:
+        self.now = time.time()
+
+    def time(self) -> float:
+        return self.now
+
+    def advance(self, s: float) -> None:
+        self.now += s
+
+
 def _scenario(pkg: str, root, make_children) -> tuple[list, list]:
     """place 2, a pid death and respawn, K deaths -> quarantined,
     unquarantine, a drain escalated to SIGKILL. Returns the normalised
     manifest after each step and the event records."""
     mod, dio, tel = PKG[pkg]
+    clock = _Clock()
+    real_time, mod.time = mod.time, clock
     kids = make_children()
     log_dir = str(root / f"log_{pkg}")
     tel.configure(log_dir=log_dir, enabled=True)
@@ -211,7 +233,7 @@ def _scenario(pkg: str, root, make_children) -> tuple[list, list]:
         steps.append((what, _norm(s.doc)))
 
     def tick_due() -> None:
-        time.sleep(0.06)  # past the longest backoff
+        clock.advance(0.06)  # past the longest backoff
         s.tick()
 
     try:
@@ -241,7 +263,8 @@ def _scenario(pkg: str, root, make_children) -> tuple[list, list]:
         (victim,) = s.drain(partitions=[0, 1], count=1)
         assert victim["slot_id"] == stubborn["slot_id"]
         snap("draining")
-        time.sleep(0.3)
+        clock.advance(0.3)  # past the drain deadline
+        time.sleep(0.05)
         s.tick()
         assert s.doc["slots"][victim["slot_id"]]["escalations"] == 1
         snap("escalated")
@@ -251,6 +274,7 @@ def _scenario(pkg: str, root, make_children) -> tuple[list, list]:
         assert all(e[sup.SPAWNED_ENV if pkg == "torch" else "DREP_TPU_" + "AUTOSCALE_SPAWNED"] == "1"
                    for e in kids.envs)
     finally:
+        mod.time = real_time
         tel.close()
         kids.kill_all()
     return steps, telemetry.read_events(log_dir)
@@ -564,13 +588,22 @@ def test_supervise_refusals_before_anything_is_written(tmp_path, flags, what, ca
     index and a malformed --replica refuse with the one `!!!` line, and
     nothing is written."""
     from drep_tpu_torch.controller import main as torch_main
+    from drep_tpu_torch.utils.logger import get_logger
 
     root = tmp_path / "root"
     root.mkdir()
     argv = ["index", "supervise", str(root), "--fleet_dir", str(tmp_path / "fleet"),
             *[f.replace("ROOT", str(root)) for f in flags]]
-    with pytest.raises(SystemExit):
-        torch_main(argv)
+    # read the `!!!` line from the port's own logger: once any workflow of
+    # the process ran setup_logger, that logger no longer propagates to the
+    # root logger caplog listens on
+    logger = get_logger()
+    logger.addHandler(caplog.handler)
+    try:
+        with pytest.raises(SystemExit):
+            torch_main(argv)
+    finally:
+        logger.removeHandler(caplog.handler)
     assert what in caplog.text
     assert not os.listdir(root) and not os.path.exists(tmp_path / "fleet")
 
