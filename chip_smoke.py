@@ -300,7 +300,25 @@ Phases (any failure exits nonzero; nothing is caught):
    in this process on
    the pod's ``data/dense_ring`` store with no ring launch, its matrix one
    device's;
-19. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
+19. the elastic pod's operator tools (``autoscale/controller.py``,
+   ``utils/hosttools.py``, the daemon's ``update_pod``), started after
+   phase 5 beside phase 18's pods, and waited for with them: 19a a
+   2-member pod of 18b's workdir (its cache hard-linked), ``compare
+   --streaming_primary --SkipSecondary --max_joins 1``, each stripe paced
+   by ``process_death:sleep``, governed by ``python -m
+   drep_tpu_torch.autoscale <store> --deadline 1 --max_procs 3
+   --max_spawn 1 --spawn <the members' argv>``: its first scale-up (the
+   deadline passed) spawns one joiner, which holds a CUDA context, is
+   admitted and launches ``mash_shared``; every process books
+   ``autoscale_churn``, the store's meta a join, the edges are 8b's bit
+   for bit, the controller exits 0 once the pod has finished, wrote
+   nothing into the store and traced an ``autoscale_decision`` instant a
+   record; 19b a throwaway index of 130 small genomes whose ``index
+   update`` of 10 more is SIGKILLed at its second stripe
+   (``process_death:kill:skip=1``): an in-process daemon's ``status``
+   carries ``update_pod``, the pending store's snapshot cut to its eight
+   keys, with stripes left;
+20. one ``{"kernels": [...]}`` JSON line (launch counts from phase 5 for the
    Mash and fused indicator kernels, from phase 6 for the merge kernels, from
    7c for both ring steps, from 9c for the rectangular entry; the Mash and
    merge kernels also carry their time and bound on the main path's own
@@ -321,8 +339,10 @@ Phases (any failure exits nonzero; nothing is caught):
    ``fleet_launches``, the Mash kernel phase 17's seconds under ``fleet``;
    phase 18's under ``pod_launches`` (both ring steps' too), the Mash
    kernel its seconds under ``pod`` and the ring step 18c's under
-   ``pod_ring``);
-20. the last line: ``{"ok": true, "device": {...}}``.
+   ``pod_ring``; the Mash kernel phase 19a's members' and joiner's
+   launches under ``pod_autoscale_launches`` and phase 19's seconds under
+   ``pod_autoscale``);
+21. the last line: ``{"ok": true, "device": {...}}``.
 
 Phase 5's and phase 8a's planted sketches are made in two spawned
 processes started before phase 2 (the same seeds, so the same sketches),
@@ -4444,6 +4464,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def timeline(text: str) -> str:
+    """A process's log as its first three and last six stamped lines."""
+    stamped = [ln for ln in text.splitlines() if ln[:2].isdigit() and ln[2:3] == ":"]
+    return " | ".join(stamped[:3] + ["..."] + stamped[-6:])
+
+
 class Pod:
     """Two members of one pod: each `python -m drep_tpu_torch <argv>` with
     the pod environment (WORLD_SIZE 2, its RANK and LOCAL_RANK, a free
@@ -4518,10 +4544,8 @@ class Pod:
         require(all(self.context), f"pod {self.name}: members without a CUDA context: {self.context}")
         launches, digests = [], []
         for r, t in enumerate(texts):
-            # the member's timeline: its log's stamped lines, the first and
-            # the last few (where its seconds went)
-            stamped = [ln for ln in t.splitlines() if ln[:2].isdigit() and ln[2:3] == ":"]
-            log(f"pod {self.name} member {r}: " + " | ".join(stamped[:3] + ["..."] + stamped[-6:]))
+            # the member's timeline (where its seconds went)
+            log(f"pod {self.name} member {r}: {timeline(t)}")
             lines = [ln for ln in t.splitlines() if "kernel launches: " in ln]
             launches.append(json.loads(lines[-1].split("kernel launches: ", 1)[1]) if lines else None)
             digests.append([ln.rsplit("digest ", 1)[1] for ln in t.splitlines()
@@ -4738,6 +4762,317 @@ def finish_pod_ring(pod: Pod, dev, ring_path: dict, gs_beyond, planted_beyond) -
         f"{n_sched} blocks with no ring launch in {t_rerun:.2f} s, its matrix one device's")
     return {"s": res["s"], "wait_s": res["wait_s"], "survivor_launches": survivor, "recovered_blocks": len(recovered),
             "rerun_s": t_rerun, "rerun_launches": rerun_launches, "blocks": n_sched}
+
+
+# phase 19: the elastic pod's operator tools (autoscale/controller.py,
+# utils/hosttools.py, serve/daemon.py's update_pod). 19a is a 2-member pod
+# of phase 5's bottom sketches, its stripes paced, governed by `python -m
+# drep_tpu_torch.autoscale`, which spawns a joiner on the card; 19b an
+# `index update` SIGKILLed mid-walk under a small throwaway root, read by
+# an in-process daemon. Both start after phase 5 and run beside phase 6's
+# d_cluster_wrapper, whose end waits for their processes' exits.
+# Each member sleeps this long before each of its stripes, so that stripes
+# are left when the joiner (a process start on the card, ~8-20 s) asks to
+# join; the controller ticks every AUTOSCALE_INTERVAL_S.
+AUTOSCALE_STRIPE_S = 8.0
+AUTOSCALE_INTERVAL_S = "1"
+# the joiner's admission wait, bounded so that a late joiner fails the
+# phase rather than waits out the default collective timeout
+AUTOSCALE_JOIN_TIMEOUT_S = "300"
+# 19b's root: genomes of UPDATE_LENGTH bases in groups of 4, UPDATE_OLD of
+# them built into the index and the rest the killed update's (its walk
+# has a stripe a 128 genomes, the smallest block: two here)
+UPDATE_GENOMES = 140
+UPDATE_OLD = 130
+UPDATE_LENGTH = 3000
+# the controller, the joiner and 19b's chain, killed on the way out
+AUTOSCALE_PROCS: list = []
+
+
+def write_update_genomes(gdir: str, n: int, seed: int) -> list[str]:
+    """`n` FASTAs in groups of 4 (a random base and three 1%-mutated copies)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    os.makedirs(gdir)
+    paths = []
+    for i in range(n):
+        if i % 4 == 0:
+            base = rng.integers(0, 4, UPDATE_LENGTH)
+        seq = base.copy()
+        if i % 4:
+            pos = rng.random(UPDATE_LENGTH) < 0.01
+            seq[pos] = (seq[pos] + rng.integers(1, 4, int(pos.sum()))) % 4
+        path = os.path.join(gdir, f"u{i:03d}.fasta")
+        with open(path, "w") as f:
+            f.write(f">u{i:03d}\n{bases[seq].tobytes().decode()}\n")
+        paths.append(path)
+    return paths
+
+
+def spawned_pids(decision_log: str) -> list:
+    """The joiner pids the controller's actuations name."""
+    import re
+
+    if not os.path.exists(decision_log):
+        return []
+    with open(decision_log) as f:
+        return [int(p) for line in f for m in re.findall(r"pids \[([0-9, ]*)\]", line) for p in m.split(",")
+                if p.strip()]
+
+
+def start_pod_autoscale(tmp: str, real: dict) -> dict:
+    """19a's start, right after 18b's: a workdir on 18b's sketch cache (its
+    files hard-linked), `compare --streaming_primary --SkipSecondary
+    --max_joins 1` as a 2-member pod, each stripe paced by
+    process_death:sleep, and beside it the controller with --deadline 1
+    (missed at its first snapshot), --spawn the members' argv (its output to
+    a log of its own) and --log_dir the workdir's log under
+    DREP_TORCH_EVENTS=on. A thread finds the joiner's pid in the decision
+    log and reads its /proc maps until it holds a CUDA context."""
+    import shlex
+    import threading
+
+    wd = pod_workdir(tmp, "pod_autoscale_wd", real["bdb"], src=os.path.join(tmp, "pod_stream_wd"))
+    argv = ["compare", wd, "--streaming_primary", "--SkipSecondary", "--skip_plots", "-p", "1", "--max_joins", "1"]
+    gov = {"wd": wd, "store": os.path.join(wd, "data", "streaming_primary"),
+           "decision_log": os.path.join(tmp, "autoscale19a.jsonl"), "ctl_log": os.path.join(tmp, "autoscale19a.log"),
+           "joiner_log": os.path.join(tmp, "pod19a.joiner.log"), "joiner": None, "joiner_context": False,
+           "joiner_gone_s": None}
+    gov["pod"] = Pod("pod19a", argv, tmp, faults=f"process_death:sleep:secs={AUTOSCALE_STRIPE_S}")
+    joiner = shlex.join([sys.executable, "-m", "drep_tpu_torch", *argv])
+    spawn = shlex.join(["sh", "-c", f"exec {joiner} > {shlex.quote(gov['joiner_log'])} 2>&1"])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DREP_TORCH_")}
+    env.update(DREP_TORCH_HEARTBEAT_S=POD_HEARTBEAT_S, DREP_TORCH_EVENTS="on", OMP_NUM_THREADS="1",
+               DREP_TORCH_COLLECTIVE_TIMEOUT_S=AUTOSCALE_JOIN_TIMEOUT_S)
+    gov["t0"] = time.perf_counter()
+    gov["wall0"] = time.time()
+    with open(gov["ctl_log"], "w") as out:
+        gov["ctl"] = subprocess.Popen(
+            [sys.executable, "-m", "drep_tpu_torch.autoscale", gov["store"], "--deadline", "1", "--min_procs", "2",
+             "--max_procs", "3", "--max_spawn", "1", "--cooldown", "600", "--interval", AUTOSCALE_INTERVAL_S,
+             "--spawn", spawn, "--decision_log", gov["decision_log"], "--log_dir", os.path.join(wd, "log")],
+            cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT)
+    AUTOSCALE_PROCS.append(gov)
+
+    def running(pid: int) -> bool:
+        """Neither gone nor a zombie its parent has not reaped yet."""
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return ") Z " not in f.read()
+        except OSError:
+            return False
+
+    def watch() -> None:
+        while not gov["joiner"]:
+            done = gov["ctl"].poll() is not None
+            gov["joiner"] = (spawned_pids(gov["decision_log"]) or [None])[0]
+            if done:
+                break
+            time.sleep(0.1)
+        pid = gov["joiner"]
+        while pid is not None and running(pid):
+            if not gov["joiner_context"] and context_pids([pid]):
+                gov["joiner_context"] = True
+            time.sleep(0.1)
+        gov["joiner_gone_s"] = time.perf_counter() - gov["t0"]
+
+    gov["watch"] = threading.Thread(target=watch, daemon=True)
+    gov["watch"].start()
+    return gov
+
+
+def start_update_pod(tmp: str, dev) -> dict:
+    """19b's start: UPDATE_GENOMES small genomes; a subprocess chain builds a
+    throwaway index of the first UPDATE_OLD (streaming block 128) and runs
+    `index update` of the rest under process_death:kill:skip=1, which
+    SIGKILLs it as its walk starts its second stripe."""
+    import shlex
+    import threading
+
+    root = os.path.join(tmp, "update19")
+    paths = write_update_genomes(os.path.join(root, "genomes"), UPDATE_GENOMES, seed=19)
+    loc = os.path.join(root, "index")
+    cli = [sys.executable, "-m", "drep_tpu_torch", "index"]
+    # a CPU rehearsal asks for the CPU; on the card no device is named
+    device = [] if dev.type == "cuda" else ["--device", "cpu"]
+    build = shlex.join([*cli, "build", loc, "-g", *paths[:UPDATE_OLD], "-l", "0", "--streaming_block", "128",
+                        "-p", "1", *device])
+    update = shlex.join([*cli, "update", loc, "-g", *paths[UPDATE_OLD:], "-p", "1", *device])
+    env = {k: v for k, v in os.environ.items() if not k.startswith("DREP_TORCH_")}
+    env["OMP_NUM_THREADS"] = "1"
+    upd = {"loc": loc, "log": os.path.join(root, "chain.log"), "t0": time.perf_counter()}
+    with open(upd["log"], "w") as out:
+        upd["proc"] = subprocess.Popen(
+            ["sh", "-c", f"date +'%T build starts'; {build} && date +'%T update starts' && "
+             f"DREP_TORCH_FAULTS=process_death:kill:skip=1 exec {update}"], cwd=HERE,
+            env=env, stdout=out, stderr=subprocess.STDOUT)
+    AUTOSCALE_PROCS.append(upd)
+
+    def ended() -> None:  # the chain's own seconds, not the wait's
+        upd["proc"].wait()
+        upd["s"] = time.perf_counter() - upd["t0"]
+
+    threading.Thread(target=ended, daemon=True).start()
+    return upd
+
+
+def wait_autoscale(gov: dict, upd: dict) -> None:
+    """Wait for 19a's members, its controller (which exits once the pod has
+    finished) and its joiner, and for 19b's chain; the seconds waited."""
+    t_wait = time.perf_counter()
+    gov["pod"].wait_exit()
+    deadline = time.monotonic() + POD_TIMEOUT_S
+    for proc, what in ((gov["ctl"], "19a's controller"), (upd["proc"], "19b's index build and update")):
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"{what} outlived {POD_TIMEOUT_S:.0f} s") from None
+    gov["watch"].join(timeout=max(1.0, deadline - time.monotonic()))
+    require(not gov["watch"].is_alive(), f"19a: the joiner (pid {gov['joiner']}) outlived {POD_TIMEOUT_S:.0f} s")
+    gov["waited"] = time.perf_counter() - t_wait
+
+
+def stop_autoscale() -> None:
+    """Kill what phase 19 started and is still alive (on a failure)."""
+    for item in AUTOSCALE_PROCS:
+        for key in ("ctl", "proc"):
+            p = item.get(key)
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        pid = item.get("joiner")
+        if pid:
+            with contextlib.suppress(OSError):
+                os.kill(pid, 9)
+
+
+def member_counters(text: str) -> dict:
+    """A process's fault counters (the last ``fault counters:`` line of its log)."""
+    lines = [ln for ln in text.splitlines() if "fault counters: " in ln]
+    return json.loads(lines[-1].split("fault counters: ", 1)[1]) if lines else {}
+
+
+def finish_pod_autoscale(gov: dict, real: dict, edges_8b) -> dict:
+    """19a: both members exit 0 with a CUDA context; the controller exits 0
+    on its own once the pod has finished, its first scale_up (deadline
+    passed or ETA past it) spawned one joiner, which held a CUDA context,
+    was admitted (pod_join_accepted 1) and launched mash_shared; every
+    process booked autoscale_churn, the store's meta a join; the store's
+    edges in stripe order are 8b's bit for bit, and its file set is the
+    members' and the joiner's alone (notes, barriers, shards, meta);
+    events.p999.jsonl holds the controller's autoscale_decision instants,
+    one a record."""
+    import re
+
+    from drep_tpu_torch.parallel import streaming
+    from drep_tpu_torch.utils import telemetry
+    from drep_tpu_torch.utils.durableio import read_json_checked
+
+    res = gov["pod"].finish([0, 0])
+    require(gov["ctl"].returncode == 0, f"19a: the controller exited {gov['ctl'].returncode}")
+    with open(gov["decision_log"]) as f:
+        records = [json.loads(line) for line in f]
+    ups = [r for r in records if r["verdict"] == "scale_up"]
+    require(len(ups) == 1 and ups[0]["reason"] in ("deadline-passed", "eta-misses-deadline")
+            and "spawned 1 joiner" in ups[0]["actuation"], f"19a: scale-ups {ups}")
+    require(records[-1]["reason"] in ("finished", "no-live-members")
+            and records[-1]["inputs"]["shards_published"] == records[-1]["inputs"]["shards_total"],
+            f"19a: the controller's last record {records[-1]}")
+    with open(gov["joiner_log"], errors="replace") as f:
+        jtext = f.read()
+    jl = [ln for ln in jtext.splitlines() if "kernel launches: " in ln]
+    require(bool(jl), f"19a: the joiner (pid {gov['joiner']}) did not finish: {jtext[-2500:]}")
+    j_launches = json.loads(jl[-1].split("kernel launches: ", 1)[1])
+    log(f"pod pod19a joiner: {timeline(jtext)}")
+    j_counters = member_counters(jtext)
+    require(gov["joiner_context"], f"19a: the joiner (pid {gov['joiner']}) held no CUDA context")
+    require(j_counters.get("pod_join_accepted") == 1 and j_counters.get("autoscale_churn", 0) >= 1
+            and j_launches["mash_shared"] >= 1, f"19a: the joiner's counters {j_counters}, launches {j_launches}")
+    m_counters = [member_counters(t) for t in res["logs"]]
+    require(all(c.get("pod_joins", 0) >= 1 and c.get("autoscale_churn", 0) >= 1 for c in m_counters),
+            f"19a: the members' counters {m_counters}")
+    store = gov["store"]
+    meta = read_json_checked(os.path.join(store, "meta.json"))
+    n_blocks = int(meta["n_blocks"])
+    require(meta.get("pod_joins", 0) >= 1, f"19a: store meta {meta}")
+    paths = [streaming._find_shard(store, b) for b in range(n_blocks)]
+    require(all(paths), f"19a: stripes without a shard: {[b for b, p in enumerate(paths) if not p]}")
+    parts = [streaming._load_shard(p) for p in paths]
+    got = [np.concatenate([p[c] for p in parts]) for c in range(3)]
+    require(all(x.tobytes() == y.tobytes() for x, y in zip(got, edges_8b)), "19a: the governed pod's edges != 8b's")
+    ours = re.compile(r"^(\.pod-(hb|done|dead|drain|join|admit)\.p\d+|\.barrier-[0-9a-f]+\.p\d+|row_\d+(\.e\d+)?\.npz"
+                      r"|meta\.json)$")
+    names = sorted(os.listdir(store))
+    require(all(ours.match(n) for n in names), f"19a: files in the store no member wrote: {names}")
+    decisions = [r for r in telemetry.read_events(os.path.join(gov["wd"], "log"))
+                 if r["ev"] == "autoscale_decision" and r["pid"] == 999]
+    require(len(decisions) == len(records) and any(r["args"]["verdict"] == "scale_up" for r in decisions),
+            f"19a: {len(decisions)} autoscale_decision instants for {len(records)} records")
+    # the timeline: the controller's start to its scale-up (wall clock, as
+    # its records), the scale-up to the joiner's admission (the admit
+    # note's mtime), the stripes each process launched
+    admits = [n for n in names if n.startswith(".pod-admit.p")]
+    require(len(admits) == 1, f"19a: admit notes {admits}")
+    up_s = ups[0]["at"] - gov["wall0"]
+    admitted_s = os.stat(os.path.join(store, admits[0])).st_mtime - ups[0]["at"]
+    out = {"s": res["s"], "wait_s": gov["waited"], "stripes": n_blocks,
+           "member_launches": [x["mash_shared"] for x in res["launches"]], "joiner_launches": j_launches["mash_shared"],
+           "decisions": len(records), "scale_up_after_s": round(up_s, 3),
+           "ticks_to_scale_up": records.index(ups[0]) + 1,
+           "admitted_after_spawn_s": round(admitted_s, 3),
+           "joiner_gone_s": gov["joiner_gone_s"], "pod_exited_s": res["exited_s"],
+           "shards": [n for n in names if n.startswith("row_")]}
+    log(f"19a governed pod: {real['packed'].n} genomes, {n_blocks} stripes on 2 members paced "
+        f"{AUTOSCALE_STRIPE_S} s a stripe; the controller scaled up after {up_s:.2f} s ({ups[0]['reason']}, tick "
+        f"{out['ticks_to_scale_up']}), the joiner (pid {gov['joiner']}) was admitted {out['admitted_after_spawn_s']} s "
+        f"after its spawn and launched {j_launches['mash_shared']} stripes (members {out['member_launches']}); "
+        f"edges bit-identical to 8b's; the members exited {[round(x, 2) for x in res['exited_s']]} s after their "
+        f"start, the joiner {gov['joiner_gone_s']:.2f} s; {len(records)} decisions, the store holds only the pod's "
+        f"files (shards {out['shards']})")
+    return out
+
+
+def finish_update_pod(upd: dict, dev) -> dict:
+    """19b: the update died by SIGKILL with stripes left; the daemon, started
+    in this process on the root, carries ``update_pod`` in its status, equal
+    to collect() of the pending store cut to its eight keys."""
+    import threading
+
+    from drep_tpu_torch.serve import IndexServer, ServeClient, ServeConfig
+    from drep_tpu_torch.serve.daemon import UPDATE_POD_KEYS
+    from drep_tpu_torch.utils.hosttools import collect
+
+    rc = upd["proc"].returncode
+    with open(upd["log"], errors="replace") as f:
+        text = f.read()
+    require(rc == -9, f"19b: the index build and killed update exited {rc}: {text[-2500:]}")
+    log(f"19b build and update: {timeline(text)}")
+    pending = os.path.join(upd["loc"], "pending")
+    gens = sorted(os.listdir(pending)) if os.path.isdir(pending) else []
+    require(len(gens) == 1, f"19b: pending stores {gens}")
+    ckpt = os.path.join(pending, gens[0])
+    t0 = time.perf_counter()
+    srv = IndexServer(ServeConfig(index_loc=upd["loc"], poll_generation_s=60.0, device=dev))
+    addr = srv.start()
+    loop = threading.Thread(target=srv.serve_batches, daemon=True)
+    loop.start()
+    try:
+        with ServeClient(addr) as c:
+            status = c.status()
+    finally:
+        srv.request_drain()
+        loop.join(timeout=60)
+        srv.close()
+    t_daemon = time.perf_counter() - t0
+    snap = collect(ckpt)
+    want = {"checkpoint_dir": os.path.abspath(ckpt), **{k: snap[k] for k in UPDATE_POD_KEYS}}
+    pod = status.get("update_pod")
+    require(pod == want, f"19b: update_pod {pod} != the pending store's snapshot {want}")
+    require(0 < pod["shards_published"] < pod["shards_total"], f"19b: update_pod {pod}")
+    log(f"19b update_pod: an `index update` of {UPDATE_GENOMES - UPDATE_OLD} genomes into {UPDATE_OLD} SIGKILLed at "
+        f"its second stripe ({upd['s']:.2f} s for the build and the killed update); the daemon's status carries "
+        f"update_pod {json.dumps(pod)} (its start, status and drain {t_daemon:.2f} s)")
+    return {"s": upd["s"], "daemon_s": t_daemon, "update_pod": {k: pod[k] for k in UPDATE_POD_KEYS}}
 
 
 # processes a phase starts ahead of itself, stopped by main on the way out
@@ -5113,6 +5448,7 @@ def main() -> int:
         for p in plants:
             p.stop()
         stop_pods()
+        stop_autoscale()
         for proc in CHILDREN:
             if proc.is_alive():
                 proc.terminate()
@@ -5122,7 +5458,7 @@ def main() -> int:
 
 def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Planting,
                plant_stream: Planting) -> int:
-    """Phases 2-20 (main has printed phase 1 and started the plantings)."""
+    """Phases 2-21 (main has printed phase 1 and started the plantings)."""
     import torch
 
     from drep_tpu_torch.native import get_library
@@ -5151,12 +5487,16 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     # its checks can be made
     ring_prep = ring_path_workdir(tmp, gs_beyond, planted_beyond)
     pods = [start_pod_fixture(tmp, cli), start_pod_stream(tmp, real), start_pod_ring(tmp, ring_prep)]
+    # phase 19's governed pod and killed update start beside them
+    gov, upd = start_pod_autoscale(tmp, real), start_update_pod(tmp, dev)
 
     def pods_exited() -> None:
         for pod in pods:
             pod.wait_exit()
         log(f"phase 18: every member exited, {sum(pod.waited for pod in pods):.2f} s waited after phase 6's "
             f"d_cluster_wrapper")
+        wait_autoscale(gov, upd)
+        log(f"phase 19: every process exited, {gov['waited']:.2f} s waited after phase 18's")
 
     beyond = phase_beyond(tmp, dev, gs_beyond, planted_beyond, after_cluster=pods_exited)
     p18 = {"a": finish_pod_fixture(pods[0], cli)}
@@ -5169,6 +5509,8 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
     edges_8b = stream_edges.pop("edge_arrays")
     p18["b"] = finish_pod_stream(pods[1], dev, real, edges_8b, stream_edges["keep"])
     log(f"phase 18: {json.dumps(p18)}")
+    p19 = {"a": finish_pod_autoscale(gov, real, edges_8b), "b": finish_update_pod(upd, dev)}
+    log(f"phase 19: {json.dumps(p19)}")
     sub_prep = start_subprocess_phase(tmp)
     t9 = time.perf_counter()
     p9a = phase_matmul_estimator(tmp, dev, real)
@@ -5305,6 +5647,13 @@ def run_phases(dev, card: str, tmp: str, plant_beyond_: Planting, plant_real: Pl
                                   "18b_rerun": p18["b"]["rerun_launches"]}
     kernels[0]["pod_18b_member1_published_stripes"] = p18["b"]["member1_published_stripes"]
     kernels[1]["pod_launches"] = {"18a": [x["indicator_mm"] for x in p18["a"]["launches"]]}
+    # phase 19, the governed pod: the members' and the controller-spawned
+    # joiner's Mash launches (each its own log's), and the timeline
+    kernels[0]["pod_autoscale_launches"] = {"19a_members": p19["a"]["member_launches"],
+                                            "19a_joiner": p19["a"]["joiner_launches"]}
+    kernels[0]["pod_autoscale"] = {k: p19["a"][k] for k in (
+        "s", "wait_s", "stripes", "decisions", "scale_up_after_s", "ticks_to_scale_up", "admitted_after_spawn_s",
+        "joiner_gone_s")} | {"19b_s": p19["b"]["s"], "19b_daemon_s": p19["b"]["daemon_s"]}
     kernels[0]["pod"] = {"18a_s": p18["a"]["s"], "18b_s": p18["b"]["s"], "18b_rerun_s": p18["b"]["rerun_s"],
                          "18c_s": p18["c"]["s"], "18c_rerun_s": p18["c"]["rerun_s"]}
     for k in kernels:

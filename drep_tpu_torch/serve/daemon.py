@@ -49,8 +49,11 @@ timeline: a ``serve_load`` span, ``serve_start``, a ``serve_batch`` span a
 batch, ``generation_load`` / ``generation_swap`` on a hot swap, and
 ``serve_drain`` / ``serve_stop``. The default budget of a request that
 carries no ``deadline_ms`` is ``DREP_TORCH_SERVE_DEADLINE_DEFAULT_MS``.
-Not ported: the snapshot's ``update_pod`` field, which the JAX daemon
-also omits when its pod-status tool is unreachable (item 12b).
+While an `index update` is in flight under the root (a ``pending/g*``
+store, under a federated root's ``part_*/pending`` too) the snapshot
+carries ``update_pod``: the pod-status snapshot
+(utils/hosttools.py::collect) of the newest such store, cut to its
+operational keys, the update whose publish the daemon will hot-swap to.
 
 The server is equally usable as a library (tests and chip_smoke.py run it
 in-process): ``IndexServer(cfg).start()`` binds and returns the address;
@@ -93,6 +96,45 @@ _RETRY_AFTER_FLOOR_S = 0.05
 # and this fallback where it is unset; <= 0 disables the default
 DEADLINE_ENV = "DREP_TORCH_SERVE_DEADLINE_DEFAULT_MS"
 DEADLINE_DEFAULT_MS = envknobs.knob(DEADLINE_ENV).default
+
+
+# the pod-status keys the snapshot's update_pod keeps (the JAX daemon's)
+UPDATE_POD_KEYS = ("epoch", "live", "dead", "draining", "shards_published", "shards_total", "progress", "eta_s")
+
+
+def pending_update_status(index_loc: str) -> dict | None:
+    """The pod-status snapshot of the newest in-flight update under
+    `index_loc` (by the mtime of its ``pending/g*`` store, the root's or a
+    partition's), cut to ``checkpoint_dir`` and :data:`UPDATE_POD_KEYS`;
+    None when no update is in flight, or on any error (health never
+    crashes on a racing update)."""
+    from drep_tpu_torch.utils.hosttools import collect
+
+    root = os.path.abspath(index_loc)
+    pending_dirs = [os.path.join(root, "pending")]
+    with contextlib.suppress(OSError):
+        pending_dirs += sorted(os.path.join(root, d, "pending") for d in os.listdir(root)
+                               if d.startswith("part_") and os.path.isdir(os.path.join(root, d)))
+    candidates: list[tuple[float, str]] = []
+    for pending in pending_dirs:
+        try:
+            gens = [d for d in os.listdir(pending) if d.startswith("g") and os.path.isdir(os.path.join(pending, d))]
+        except OSError:
+            continue
+        for d in gens:
+            path = os.path.join(pending, d)
+            with contextlib.suppress(OSError):
+                candidates.append((os.stat(path).st_mtime, path))
+    if not candidates:
+        return None
+    # several concurrent partition updates leave several: the most
+    # recently active one, not the highest-numbered
+    ckpt = max(candidates)[1]
+    try:
+        status = collect(ckpt)
+        return {"checkpoint_dir": ckpt, **{k: status[k] for k in UPDATE_POD_KEYS if k in status}}
+    except Exception:  # noqa: BLE001 — health must never crash on a racing update
+        return None
 
 
 @dataclass
@@ -453,6 +495,9 @@ class IndexServer:
         # the same snapshot /healthz serves
         if hasattr(resident, "health_map"):
             out["partitions"] = resident.health_map()
+        pod = pending_update_status(self.cfg.index_loc)
+        if pod is not None:
+            out["update_pod"] = pod
         return out
 
     def _partial_retry_hint(self) -> float:

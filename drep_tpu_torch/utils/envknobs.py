@@ -173,7 +173,8 @@ _declare("DREP_TORCH_AUTOSCALE_COOLDOWN_S", "float", 30.0,
          "Autoscale controller: minimum seconds between two scaling decisions; "
          "--cooldown overrides.")
 _declare("DREP_TORCH_AUTOSCALE_MAX_SPAWN", "int", 1,
-         "Autoscale controller: max replicas placed per scale-up decision; "
+         "Autoscale controller: max joiners spawned (a pod) or replicas placed (a fleet) "
+         "per scale-up decision; "
          "--max_spawn overrides.")
 # -- fleet supervisor --------------------------------------------------------
 _declare("DREP_TORCH_SUP_HEARTBEAT_S", "float", 1.0,

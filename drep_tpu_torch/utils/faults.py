@@ -16,8 +16,8 @@ package's grammar unchanged::
 
     DREP_TORCH_FAULTS="streaming_tile:raise:0.05:seed=7,shard_write:torn"
 
-- ``site``: the injection point. The port threads twenty-one of the JAX
-  package's sites at the JAX package's fire points: ``streaming_tile``
+- ``site``: the injection point. The port threads all twenty-two of the
+  JAX package's sites at the JAX package's fire points: ``streaming_tile``
   (each streaming stripe's launch, parallel/streaming.py),
   ``secondary_batch`` (each secondary engine call, cluster/controller.py),
   ``shard_write`` (each npz shard publish, utils/durableio.py), ``io``
@@ -38,9 +38,9 @@ package's grammar unchanged::
   recovery launch, parallel/allpairs.py), ``ring_step`` (each ring step
   boundary), ``allgather`` (the pod's edge and row exchanges),
   ``barrier`` (each pod barrier, utils/ckptmeta.py) and
-  ``process_death`` (each streaming stripe, before its launch).
-  ``autoscale_decide`` (the pod's autoscaling controller) parses and
-  raises NotImplementedError naming ROADMAP.md queue 1 item 12b.
+  ``process_death`` (each streaming stripe, before its launch); and
+  ``autoscale_decide`` (the top of each tick of the pod's autoscaling
+  controller, autoscale/controller.py).
 - ``mode``: ``raise`` (InjectedFault), ``hang`` (sleep ``secs``, default
   3600, then raise: trips the watchdog), ``sleep`` (sleep ``secs``, then
   go on), ``kill`` (SIGKILL the calling process: no cleanup, as an
@@ -83,18 +83,14 @@ from drep_tpu_torch.utils import envknobs
 
 ENV = "DREP_TORCH_FAULTS"
 
-# every site of the JAX package's registry, so that its specs parse the
-# same way; the ones no port path polls name the ROADMAP item that
-# threads them (a rule on them would inject nothing)
+# every site of the JAX package's registry, each polled where the JAX
+# package polls it, so that its specs parse and fire the same way
 SITES = (
     "streaming_tile", "ring_dispatch", "ring_step", "secondary_batch", "shard_write", "allgather",
     "barrier", "process_death", "io", "index_update", "partition_update", "meta_publish",
     "partition_load", "partition_classify", "autoscale_decide", "router_leg", "replica_health",
     "partition_split", "compaction", "wire", "supervisor_spawn", "supervisor_tick",
 )
-# autoscale_decide fires only in the elastic pod's autoscaling controller
-UNPORTED_SITES: dict[str, str] = {"autoscale_decide": "12b"}
-
 IO_MODES = ("io_error", "stale_read", "enospc", "corrupt")
 WIRE_MODES = ("reset", "stall", "slow", "short_read", "garble", "dup")
 MODES = ("raise", "hang", "sleep", "torn", "kill", "drain") + IO_MODES + WIRE_MODES
@@ -148,10 +144,6 @@ class _Rule:
         return self.rng.random() < self.prob
 
 
-def _refuse_unported(what: str, item: str) -> None:
-    raise NotImplementedError(f"fault {what}: not ported yet (ROADMAP.md queue 1, item {item})")
-
-
 def _parse(spec: str) -> dict[str, list[_Rule]]:
     rules: dict[str, list[_Rule]] = {}
     for entry in filter(None, (e.strip() for e in spec.split(","))):
@@ -163,8 +155,6 @@ def _parse(spec: str) -> dict[str, list[_Rule]]:
             raise FaultSpecError(f"unknown fault site {site!r} (known: {', '.join(SITES)})")
         if mode not in MODES:
             raise FaultSpecError(f"unknown fault mode {mode!r} (known: {', '.join(MODES)})")
-        if site in UNPORTED_SITES:
-            _refuse_unported(f"site {site!r}", UNPORTED_SITES[site])
         # a rule its site never acts on would claim coverage and inject
         # nothing: each mode belongs to the sites that poll it
         if mode in IO_MODES and site != "io":

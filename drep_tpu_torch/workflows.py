@@ -113,6 +113,9 @@ def _finish_counters(wd: WorkDirectory) -> None:
 
     launches = {**mash.LAUNCHES, **indicator.LAUNCHES, **intersect.LAUNCHES, **ring.LAUNCHES}
     get_logger().info("kernel launches: %s", json.dumps(launches, sort_keys=True))
+    # and its fault and membership counters (a pod's joins and churn are
+    # booked by each member)
+    get_logger().info("fault counters: %s", json.dumps(rep.get("fault_tolerance", {}), sort_keys=True))
 
 
 def compare_wrapper(

@@ -1,17 +1,21 @@
 """A process of tests/test_torch_pod.py's library-level pod: run through
 subprocess, not collected by pytest.
 
-    python tests/_torch_pod_worker.py OUT_NPZ CHECKPOINT_DIR
+    python tests/_torch_pod_worker.py OUT_NPZ CHECKPOINT_DIR [--no_ring] [--log_dir DIR]
 
 A pod member when the pod environment is set (WORLD_SIZE, RANK,
 MASTER_ADDR, MASTER_PORT), a mid-run joiner when DREP_TORCH_POD_JOIN is.
 It walks the streaming primary over the seeded planted pack of
 :func:`planted_pack` on the CPU with --max_joins 1 and writes its edges
-to OUT_NPZ, or ``drained`` beside it when it was asked to drain. A pod
-member first runs a store-less pod ring over the pack's first
-RING_GENOMES genomes (4 positions, 2 a member) into ``OUT_NPZ.ring.npy``.
+to OUT_NPZ, or ``drained`` beside it when it was asked to drain, and its
+fault counters (joins, churn) to ``OUT_NPZ.counters.json``. A pod member
+first runs a store-less pod ring over the pack's first RING_GENOMES
+genomes (4 positions, 2 a member) into ``OUT_NPZ.ring.npy``, unless
+``--no_ring``. With ``--log_dir`` and DREP_TORCH_EVENTS=on it traces into
+DIR.
 """
 
+import json
 import os
 import sys
 
@@ -49,12 +53,17 @@ def ring_pack():
 
 
 def main() -> None:
-    out, ckpt = sys.argv[1], sys.argv[2]
+    out, ckpt, opts = sys.argv[1], sys.argv[2], sys.argv[3:]
     from drep_tpu_torch.parallel import faulttol
-    from drep_tpu_torch.parallel.mesh import initialize_distributed
+    from drep_tpu_torch.parallel.mesh import initialize_distributed, process_index
     from drep_tpu_torch.parallel.streaming import streaming_mash_edges
+    from drep_tpu_torch.utils import telemetry
+    from drep_tpu_torch.utils.profiling import counters
 
-    if initialize_distributed():
+    pod = initialize_distributed()
+    if "--log_dir" in opts:
+        telemetry.configure(log_dir=opts[opts.index("--log_dir") + 1], pid=process_index())
+    if pod and "--no_ring" not in opts:
         # a store-less pod ring first: each member's rows over gloo
         from drep_tpu_torch.parallel.allpairs import sharded_mash_allpairs
         from drep_tpu_torch.parallel.mesh import make_mesh
@@ -69,6 +78,10 @@ def main() -> None:
         with open(out + ".drained", "w") as f:
             f.write("drained")
         return
+    finally:
+        telemetry.close()
+        with open(out + ".counters.json", "w") as f:
+            json.dump(counters.faults, f)
     np.savez(out, ii=ii, jj=jj, dist=dd, pairs=np.int64(pairs))
 
 

@@ -12,8 +12,9 @@ maintenance scheduler's inputs against the JAX package's, on the CPU.
 - actuation arguments (``spawn_cmd``, ``fleet_dir``, ``supervisor``,
   ``--spawn``, ``--fleet_dir``) behave as the JAX controller's and
   ``tools/pod_autoscale.py``'s (tests/test_torch_supervisor.py holds the
-  actuation itself); batch mode (a checkpoint dir) refuses naming item
-  12b, before anything is read.
+  actuation itself); batch mode (a checkpoint dir) writes the decision
+  records ``tools/pod_autoscale.py`` writes (the pod controller itself is
+  tests/test_torch_pod_autoscale.py's).
 """
 
 import dataclasses
@@ -22,6 +23,7 @@ import os
 import random
 import sys
 import threading
+import time
 
 import pytest
 import torch
@@ -256,7 +258,7 @@ def test_controller_tick_against_a_dead_router_records_snapshot_error(tmp_path):
 
 
 @pytest.mark.parametrize("arg", ["spawn_cmd", "fleet_dir", "supervisor"])
-def test_controller_actuation_refused_naming_11c(arg, tmp_path):
+def test_controller_actuation_arguments_act_as_jax(arg, tmp_path):
     """Actuation since item 11c, each argument alone, as in the JAX
     controller: a spawn command without a manifest home refuses with
     nothing written; a fleet_dir embeds a supervisor, recovered at once
@@ -284,30 +286,64 @@ def test_controller_actuation_refused_naming_11c(arg, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--router", "ADDR", "--spawn", "python -m drep_tpu_torch index serve IDX"], "11c"),
     (["--router", "ADDR", "--fleet_dir", "FLEET"], "11c"),
-    (["CKPT", "--deadline", "600"], "12b"),
+    (["CKPT", "--deadline", "600", "--count", "2", "--interval", "0.01"], "batch"),
 ])
-def test_cli_refusals_name_their_item(tmp_path, argv, item):
-    """`python -m drep_tpu_torch.autoscale` refuses batch mode naming item
-    12b; its actuation flags (item 11c) act as ``tools/pod_autoscale.py``'s:
-    --spawn without --fleet_dir is a usage error, and a router that is not
-    there fails the start. Nothing is read or written (no decision log,
-    no manifest, no socket)."""
-    sub = {"ADDR": str(tmp_path / "r.sock"), "FLEET": str(tmp_path / "fleet"), "CKPT": str(tmp_path / "ckpt")}
-    log = tmp_path / "d.jsonl"
-    full = [sub.get(a, a) for a in argv] + ["--decision_log", str(log)]
-    if item == "12b":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            autoscale_main(full)
-    else:
-        from tools.pod_autoscale import main as jax_autoscale_main
+def test_cli_refusals_name_their_item(tmp_path, monkeypatch, argv, item):
+    """`python -m drep_tpu_torch.autoscale` acts as ``tools/pod_autoscale.py``
+    on the same argv. Its fleet actuation flags (item 11c): --spawn
+    without --fleet_dir is a usage error, and a router that is not there
+    fails the start, with nothing read or written (no decision log, no
+    manifest, no socket). Batch mode on a pod's checkpoint dir, both
+    controllers at one clock: the same decision records, and nothing
+    written into the dir."""
+    import functools
+    import types
 
+    from tools.pod_autoscale import main as jax_autoscale_main
+
+    sub = {"ADDR": str(tmp_path / "r.sock"), "FLEET": str(tmp_path / "fleet"), "CKPT": str(tmp_path / "ckpt")}
+    if item != "batch":
+        full = [sub.get(a, a) for a in argv] + ["--decision_log", str(tmp_path / "d.jsonl")]
         seen = []
         for main in (autoscale_main, jax_autoscale_main):
             with pytest.raises((SystemExit, OSError)) as ei:
                 main(full)
             seen.append(type(ei.value).__name__)
         assert seen[0] == seen[1] == ("SystemExit" if "--spawn" in argv else "FileNotFoundError")
-    assert not os.listdir(tmp_path)
+        assert not os.listdir(tmp_path)
+        return
+    from drep_tpu.utils import hosttools as jax_hosttools
+    from drep_tpu_torch.autoscale import __main__ as cli
+    from drep_tpu_torch.autoscale import controller
+    from drep_tpu_torch.utils import hosttools
+    from tools import pod_autoscale
+    from tools import pod_status as jax_pod_status
+
+    now = time.time()
+    ckpt = sub["CKPT"]
+    os.makedirs(ckpt)
+    with open(os.path.join(ckpt, "meta.json"), "w") as f:
+        json.dump({"n": 72, "block": 8, "n_blocks": 9}, f)
+    for pid in (0, 1):
+        with open(os.path.join(ckpt, f".pod-hb.p{pid}"), "wb") as f:
+            f.write(b"1")
+    files = sorted(os.listdir(ckpt))
+    # one wall clock for both: the deadline (start + 600) and the snapshots
+    clock = types.SimpleNamespace(time=lambda: now, sleep=time.sleep, monotonic=time.monotonic)
+    monkeypatch.setattr(cli, "time", clock)
+    monkeypatch.setattr(pod_autoscale, "time", clock)
+    monkeypatch.setattr(controller, "collect", functools.partial(hosttools.collect, now=now))
+    monkeypatch.setattr(jax_hosttools, "_POD_STATUS", [functools.partial(jax_pod_status.collect, now=now)])
+    records = []
+    for name, main in (("torch", autoscale_main), ("jax", jax_autoscale_main)):
+        log = str(tmp_path / f"{name}.jsonl")
+        assert main([sub.get(a, a) for a in argv] + ["--decision_log", log]) == 0
+        with open(log) as f:
+            records.append([json.loads(line) for line in f])
+    assert records[0] == records[1] and len(records[0]) == 2
+    assert [r["reason"] for r in records[0]] == ["warming", "warming"]
+    assert records[0][0]["inputs"]["remaining_s"] == 600.0 and records[0][0]["at"] == round(now, 3)
+    assert sorted(os.listdir(ckpt)) == files
 
 
 def test_cli_recommend_only_run(feds, tmp_path, monkeypatch):

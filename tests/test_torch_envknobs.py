@@ -50,9 +50,8 @@ def test_knob_matches_jax_twin(name):
 
 @pytest.mark.parametrize("suffix", UNPORTED)
 def test_unported_jax_knob_is_listed_with_its_reason(suffix):
-    """The rest of the JAX registry is TPU-only, the pod's (item 12b) or
-    has nothing to choose in the port: each is named in the port
-    registry's docstring."""
+    """The rest of the JAX registry is TPU-only or has nothing to choose
+    in the port: each is named in the port registry's docstring."""
     doc = envknobs.__doc__
     assert f"``{suffix}``" in doc or (suffix.startswith("TEST_") and "``TEST_*``" in doc), suffix
 

@@ -6,7 +6,9 @@ compaction, router_leg, replica_health), each injected with ``raise`` in
 the port and the same spec in the JAX package, on the CPU: each leaves
 the store, the partition health or the routed verdict the JAX package
 leaves; ``kill`` at these sites SIGKILLs the caller in both packages. The
-pod's sites and its drain mode stay refused (item 12b).
+elastic pod's sites, its drain mode and the pod autoscaling controller's
+``autoscale_decide`` parse into the JAX package's rules and fire as
+theirs.
 """
 
 import json
@@ -299,23 +301,41 @@ def test_replica_health_site_ejects_as_jax(fed):
 
 
 @pytest.mark.parametrize("spec", ["process_death:kill", "ring_step:drain", "autoscale_decide:raise"])
-def test_pod_modes_and_sites_stay_refused(spec):
-    """The pod's autoscaling controller's site stays item 12b's; the
-    elastic pod's sites and its drain mode, ported, parse into the JAX
-    package's rules, and a ``drain`` fire asks this process for a planned
-    departure in both packages (a ``kill`` is held in
-    tests/test_torch_pod.py's pods)."""
+def test_pod_modes_and_sites_parse_and_fire_as_jax(spec, tmp_path):
+    """The elastic pod's sites and its drain mode and the pod autoscaling
+    controller's site parse into the JAX package's rules; a ``drain`` fire
+    asks this process for a planned departure in both packages (a ``kill``
+    is held in tests/test_torch_pod.py's pods), and ``autoscale_decide``
+    ends a controller's tick with InjectedFault in both, before the
+    snapshot, counted once."""
+    from drep_tpu.autoscale.controller import AutoscaleController as JaxAutoscaleController
+    from drep_tpu.autoscale.policy import Targets as JaxTargets
     from drep_tpu.parallel import faulttol as jax_faulttol
+    from drep_tpu.utils.profiling import counters as jax_counters
+    from drep_tpu_torch.autoscale import AutoscaleController, Targets
     from drep_tpu_torch.parallel import faulttol
+    from drep_tpu_torch.utils.profiling import counters
 
     jax_rules = jax_faults._parse(spec)
-    if spec.startswith("autoscale_decide"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            faults.configure(spec)
-        return
     fields = ("site", "mode", "prob", "seed", "secs", "device", "proc", "skip", "max_fires", "path_sub")
     assert ({k: [tuple(getattr(r, f) for f in fields) for r in v] for k, v in faults._parse(spec).items()}
             == {k: [tuple(getattr(r, f) for f in fields) for r in v] for k, v in jax_rules.items()})
+    if spec.startswith("autoscale_decide"):
+        try:
+            for mod, ctl_cls, targets, ctr in ((faults, AutoscaleController, Targets, counters),
+                                               (jax_faults, JaxAutoscaleController, JaxTargets, jax_counters)):
+                ctr.reset()
+                mod.configure(spec)
+                log = tmp_path / f"{mod.__name__}.jsonl"
+                ctl = ctl_cls(str(tmp_path / "ckpt"), targets(), decision_log=str(log))
+                with pytest.raises(mod.InjectedFault):
+                    ctl.poll_once()
+                assert ctr.faults.get("injected_autoscale_decide_raise") == 1
+                assert ctl.decisions == 0 and not log.exists()
+        finally:
+            for mod in (faults, jax_faults):
+                mod.configure(None)
+        return
     if ":drain" not in spec:
         return
     try:

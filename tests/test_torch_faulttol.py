@@ -20,6 +20,7 @@ single-process cases of tests/test_chaos.py on the port's streaming walk.
 """
 
 import errno
+import json
 import logging
 import os
 from contextlib import contextmanager
@@ -162,26 +163,57 @@ def test_spec_parses_and_fires_as_jax(spec, poll):
     assert bool(fired) == ("proc=7" not in spec)
 
 
-@pytest.mark.parametrize("spec,item", [
-    ("process_death:kill", None),
-    ("ring_step:drain", None),
-    ("process_death:drain", None),
-    ("ring_dispatch:raise", None),
-    ("autoscale_decide:raise", "12b"),
-    ("barrier:sleep", None),
-    ("allgather:hang", None),
+@pytest.mark.parametrize("spec", [
+    "process_death:kill",
+    "ring_step:drain",
+    "process_death:drain",
+    "ring_dispatch:raise",
+    "autoscale_decide:raise",
+    "barrier:sleep",
+    "allgather:hang",
 ])
-def test_unported_modes_and_sites_refused(spec, item):
-    """The pod's autoscaling controller's site (item 12b) still refuses;
-    the elastic pod's sites and its drain mode, ported, parse into the
-    JAX package's rules."""
+def test_pod_modes_and_sites_parse_as_jax(spec):
+    """The elastic pod's sites and its drain mode, and the pod autoscaling
+    controller's site, parse into the JAX package's rules."""
     want = {site: [_rule_fields(r) for r in rules] for site, rules in jax_faults._parse(spec).items()}
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, item {item}"):
-            faults.configure(spec)
-        return
     got = {site: [_rule_fields(r) for r in rules] for site, rules in faults._parse(spec).items()}
     assert got == want and got
+
+
+@pytest.mark.parametrize("spec", ["autoscale_decide:drain", "autoscale_decide:torn", "autoscale_decide:io_error",
+                                  "autoscale_decide:raise:path=x"])
+def test_autoscale_decide_refuses_modes_without_semantics_as_jax(spec):
+    """A mode the controller's site never acts on is refused at parse time,
+    in both packages."""
+    for mod in (faults, jax_faults):
+        with pytest.raises(mod.FaultSpecError):
+            mod._parse(spec)
+
+
+def test_autoscale_decide_kill_ends_the_controller_on_its_third_tick(tmp_path):
+    """``autoscale_decide:kill:skip=2`` SIGKILLs the controller as its third
+    tick starts, in both packages' CLIs: two decision records, no third."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    seen = []
+    for name, argv, env_name in (
+            ("torch", [sys.executable, "-m", "drep_tpu_torch.autoscale"], "DREP_TORCH_FAULTS"),
+            ("jax", [sys.executable, os.path.join(root, "tools", "pod_autoscale.py")], "DREP_TPU_FAULTS")):
+        log = tmp_path / f"{name}.jsonl"
+        env = {k: v for k, v in os.environ.items() if not k.startswith(("DREP_TORCH_", "DREP_TPU_"))}
+        env.update({env_name: "autoscale_decide:kill:skip=2", "JAX_PLATFORMS": "cpu",
+                    "PYTHONPATH": root + os.pathsep + env.get("PYTHONPATH", "")})
+        res = subprocess.run([*argv, str(ckpt), "--deadline", "60", "--interval", "0.05", "--count", "5",
+                              "--decision_log", str(log)], env=env, cwd=root, capture_output=True, text=True,
+                             timeout=120)
+        with open(log) as f:
+            seen.append((res.returncode, [json.loads(line)["reason"] for line in f]))
+    assert seen[0] == seen[1] == (-9, ["no-live-members", "no-live-members"]), seen
+    assert not os.listdir(ckpt)
 
 
 @pytest.mark.parametrize("spec", [
@@ -572,14 +604,33 @@ def test_kernel_warmup_starts_only_where_it_helps_and_raises_its_error(tmp_path,
     assert controller._start_kernel_warmup({**kw, "device": cuda}, wd, bdb) is None
 
 
-def test_cli_refuses_an_unported_env_spec_before_writing(tmp_path, genome_paths, monkeypatch):
-    """A DREP_TORCH_FAULTS spec the port cannot run raises before the
-    workdir is made, naming its item."""
+def test_cli_refuses_a_malformed_env_spec_before_writing(tmp_path, genome_paths, monkeypatch):
+    """A DREP_TORCH_FAULTS spec the port cannot run raises FaultSpecError
+    before the workdir is made, naming what it cannot parse."""
+    from drep_tpu_torch.controller import main as torch_main
+
+    # the unknown mode built by concatenation, as above
+    monkeypatch.setenv(faults.ENV, "autoscale_decide:" + "bogus_mode")
+    faults.reset()
+    wd = tmp_path / "wd"
+    try:
+        with pytest.raises(faults.FaultSpecError, match="bogus_mode"):
+            torch_main(["compare", str(wd), "-g", *genome_paths, "--device", "cpu", "--skip_plots"])
+    finally:
+        faults.reset()
+    assert not wd.exists()
+
+
+def test_cli_runs_under_an_autoscale_decide_spec(tmp_path, genome_paths, monkeypatch):
+    """An ``autoscale_decide`` spec no longer stops a run: `compare` parses
+    it, fires it nowhere and writes its tables."""
     from drep_tpu_torch.controller import main as torch_main
 
     monkeypatch.setenv(faults.ENV, "autoscale_decide:kill:skip=2")
     faults.reset()
     wd = tmp_path / "wd"
-    with pytest.raises(NotImplementedError, match="item 12b"):
+    try:
         torch_main(["compare", str(wd), "-g", *genome_paths, "--device", "cpu", "--skip_plots"])
-    assert not wd.exists()
+    finally:
+        faults.reset()
+    assert (wd / "data_tables" / "Cdb.csv").exists()
